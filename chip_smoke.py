@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with one CUDA card and the CUDA
-toolkit.  It builds the three RMW kernels from `src/repro_torch/kernels/rmw/
-csrc/rmw.cu`, holds each against its plain PyTorch version, drives the
-port's main path — `atomics.execute` on CUDA tables and Graph500 BFS at
-scale 20, edgefactor 16 — with the launch counters reset just before and
-read just after, and times each kernel beside its byte bound, its plain
-version and the PyTorch library call that computes the same function.
+toolkit.  It builds the port's kernel libraries in parallel (the three RMW
+kernels from `src/repro_torch/kernels/rmw/csrc/rmw.cu`, the Mamba-2 SSD
+chunk kernel from `src/repro_torch/kernels/ssd/csrc/ssd.cu`), holds each
+kernel against its plain PyTorch version, drives the port's two main paths
+with the launch counters reset just before each and read just after —
+`atomics.execute` on CUDA tables plus Graph500 BFS at scale 20, edgefactor
+16; and `BatchServer` serving mamba2_780m at full width and depth in bf16 —
+and times each kernel beside its bound, its plain version and the PyTorch
+library call that computes the same function, where there is one.
 
 Phases print one JSON line each (`{"phase": ...}`); every phase raises on a
 failure.  The line before the last is the per-kernel record, and the last
@@ -17,12 +20,14 @@ line is ``{"ok": true, "device": {...}}``.  Without a card the script exits
 non-zero before printing any result.
 """
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -33,18 +38,40 @@ import torch  # noqa: E402
 from repro_torch import atomics  # noqa: E402
 from repro_torch.atomics.stats import stats_from_occupancy  # noqa: E402
 from repro_torch.core import bfs as bfs_mod  # noqa: E402
-from repro_torch.kernels.rmw import build  # noqa: E402
 from repro_torch.kernels.rmw import kernel as K  # noqa: E402
 from repro_torch.kernels.rmw import ref  # noqa: E402
+from repro_torch.kernels.ssd import kernel as SK  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
+from repro_torch.launch.serve import BatchServer, Request  # noqa: E402
+from repro_torch.models.model import LM  # noqa: E402
 
 OPS = ("faa", "swp", "min", "max", "cas")
 HBM_BPS = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 PEAK_OPS = 67e12         # H100 SXM fp32 outside the tensor cores
 SCALE, EDGEFACTOR = 20, 16
 SOURCE = "src/repro_torch/kernels/rmw/csrc/rmw.cu"
+SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
 REPLACES = {"rmw_table": "src/repro/kernels/rmw/kernel.py:107",
             "rmw_table_fetched": "src/repro/kernels/rmw/kernel.py:306",
-            "slot_counts": "src/repro/kernels/rmw/kernel.py:169"}
+            "slot_counts": "src/repro/kernels/rmw/kernel.py:169",
+            "ssd_chunk": "src/repro/kernels/ssd/kernel.py:57"}
+# SSD: mamba2_780m's widths (configs/mamba2_780m.py): 48 heads of P = 64,
+# N = 128, chunk Q = 256; the reference tests' rtol = atol (f32 sums in
+# another order, tests/test_kernels_ssd.py:32)
+ARCH, SSD_H, SSD_P, SSD_N, SSD_Q = "mamba2_780m", 48, 64, 128, 256
+SSD_TOL = 3e-4
+# serve: prefill logits, kernel path against the plain path on the same
+# weights.  In bf16 a change of f32 summation order anywhere in the SSD
+# flips roundings that then grow through 48 random-weight layers: the plain
+# path itself at chunk 128 instead of 256 (the same function, sums in
+# another order) moves these logits (std about 0.8) by about 0.2, measured
+# as `bf16_floor` below.  The bf16 gate allows 0.5.  The strict check is the
+# same comparison in f32 at full width and depth, where rounding stays near
+# 1e-4 (the f32 floor is measured the same way): gate 1e-3.
+SERVE_LOGIT_ATOL = 0.5
+SERVE_F32_LOGIT_ATOL = 1e-3
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_NEW = 8, 4, 16
 
 
 def emit(phase, **fields):
@@ -78,13 +105,23 @@ def phase_device():
 # 2. build
 # ---------------------------------------------------------------------------
 
-def phase_build():
+def _build_one(library):
     t0 = time.perf_counter()
-    built = build.load()
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
-    emit("build", seconds=time.perf_counter() - t0, library=built.path.name,
-         ptxas=ptxas)
+    built = library.load()
+    return built, time.perf_counter() - t0
+
+
+def phase_build():
+    """One nvcc per source, all started together."""
+    t0 = time.perf_counter()
+    libraries = (K.LIBRARY, SK.LIBRARY)
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        done = list(pool.map(_build_one, libraries))
+    for built, secs in done:
+        ptxas = [ln.strip() for ln in built.log.splitlines()
+                 if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+        emit("build", seconds=secs, library=built.path.name, ptxas=ptxas)
+    emit("build", total_seconds=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +300,261 @@ def phase_bfs():
 
 
 # ---------------------------------------------------------------------------
-# 6. timing
+# 6. the SSD chunk kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(gen, b, s, h):
+    """The reference tests' distributions (tests/test_kernels_ssd.py:14-20):
+    x, B, C standard normal, dt in [0.01, 0.2], A in -[0.5, 2]."""
+    dev = "cuda"
+    x = torch.randn((b, s, h, SSD_P), generator=gen, device=dev)
+    dt = torch.rand((b, s, h), generator=gen, device=dev) * 0.19 + 0.01
+    A = -(torch.rand((h,), generator=gen, device=dev) * 1.5 + 0.5)
+    B = torch.randn((b, s, h, SSD_N), generator=gen, device=dev)
+    C = torch.randn((b, s, h, SSD_N), generator=gen, device=dev)
+    return x, dt, A, B, C
+
+
+def _chunk_inputs(gen, bh, s):
+    """ssd_chunk's operands, made as `ops.ssd` makes them: (BH, S, ·) f32."""
+    x, dt, A, B, C = _ssd_inputs(gen, 1, s, bh)
+
+    def flat(t):
+        return t.transpose(1, 2).reshape(bh, s, *t.shape[3:]).contiguous()
+
+    return (flat(x * dt[..., None]), flat(dt * A), flat(B), flat(C))
+
+
+def _check_close(got, want, what):
+    err = _max_err(got, want)
+    if not torch.allclose(got, want, rtol=SSD_TOL, atol=SSD_TOL):
+        raise AssertionError(f"{what}: off by {err} (rtol = atol = "
+                             f"{SSD_TOL})")
+    return err
+
+
+def phase_ssd_kernel(gen):
+    errs = {}
+    for name, bh in (("serving", SSD_H), ("batch4", 4 * SSD_H)):
+        args = _chunk_inputs(gen, bh, 4096)
+        y, st = SK.ssd_chunk(*args, chunk=SSD_Q)
+        y_p, st_p = SK.ssd_chunk_plain(*args, chunk=SSD_Q)
+        sync()
+        if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"ssd_chunk {name}: non-finite output")
+        errs[name] = {"y_intra": _check_close(y, y_p, f"ssd_chunk {name} y"),
+                      "states": _check_close(st, st_p,
+                                             f"ssd_chunk {name} states")}
+        emit("ssd_kernel", shape=name, bh=bh, s=4096, p=SSD_P, n=SSD_N,
+             chunk=SSD_Q, rtol=SSD_TOL, atol=SSD_TOL,
+             max_abs_err=errs[name], launches=dict(SK.LAUNCHES))
+    # a short prompt, 1000 = 3 * 256 + 232 steps, through the composition
+    # (padding, flattening, cross-chunk recurrence) and the sequential oracle
+    s = 1000
+    args = _ssd_inputs(gen, 1, s, SSD_H)
+    y, hf = ssd_ops.ssd(*args, chunk=SSD_Q, use_kernel=True,
+                        return_final_state=True)
+    y_p, hf_p = ssd_ops.ssd_chunked(*args, chunk=SSD_Q,
+                                    return_final_state=True)
+    y_o = ssd_ref.ssd_ref(*args)
+    sync()
+    errs["ops_ssd"] = {
+        "y": _check_close(y, y_p, "ops.ssd y vs ssd_chunked"),
+        "h_final": _check_close(hf, hf_p, "ops.ssd h_final vs ssd_chunked"),
+        "y_vs_sequential_oracle": _check_close(y, y_o, "ops.ssd vs ssd_ref")}
+    emit("ssd_kernel", shape="ops_ssd_short", b=1, s=s, h=SSD_H, p=SSD_P,
+         n=SSD_N, chunk=SSD_Q, rtol=SSD_TOL, atol=SSD_TOL,
+         max_abs_err=errs["ops_ssd"], launches=dict(SK.LAUNCHES))
+    return max(v for e in errs.values() for v in e.values())
+
+
+# ---------------------------------------------------------------------------
+# 7. serving mamba2_780m at full width and depth (main path)
+# ---------------------------------------------------------------------------
+
+def _requests(prompts):
+    return [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
+            for i, p in enumerate(prompts)]
+
+
+def _prefill_logits(model, prompt):
+    toks = torch.tensor([prompt], device="cuda")
+    return model.prefill({"tokens": toks}, len(prompt))[1][0]
+
+
+def _f32_and_floor_checks(cfg, prompts, plain_logits):
+    """Full width and depth in f32: prefill logits of the first two prompts
+    through the kernel and the plain path, same weights (seed 0).  And the
+    floors: the plain path at chunk 128 against chunk 256, in bf16 (against
+    the served plain logits) and in f32."""
+    q128 = dataclasses.replace(cfg.ssm, chunk=128)
+    floor_bf16 = LM(cfg.replace(ssm=q128), seed=0, use_kernel=False)
+    bf16_floor = max(_max_err(_prefill_logits(floor_bf16, p), want)
+                     for p, want in zip(prompts[:2], plain_logits))
+    del floor_bf16
+    cfg32 = cfg.replace(dtype="float32")
+    m32 = LM(cfg32, seed=0)
+    kern = [_prefill_logits(m32, p) for p in prompts[:2]]
+    m32.use_kernel = False
+    plain = [_prefill_logits(m32, p) for p in prompts[:2]]
+    del m32
+    floor32 = LM(cfg32.replace(ssm=q128), seed=0, use_kernel=False)
+    f32_floor = max(_max_err(_prefill_logits(floor32, p), want)
+                    for p, want in zip(prompts[:2], plain))
+    del floor32
+    torch.cuda.empty_cache()
+    f32_err = max(_max_err(a, b) for a, b in zip(kern, plain))
+    if f32_err > SERVE_F32_LOGIT_ATOL:
+        raise AssertionError(f"f32 prefill logits: kernel path off the "
+                             f"plain path by {f32_err} > "
+                             f"{SERVE_F32_LOGIT_ATOL}")
+    return dict(f32_logit_max_abs_err=f32_err,
+                f32_logit_atol=SERVE_F32_LOGIT_ATOL, f32_floor=f32_floor,
+                bf16_floor=bf16_floor)
+
+
+def _device_trace(fn, steps=1):
+    """Kernels the card ran during ``fn()`` (torch.profiler's CUPTI trace):
+    count, busy time, the span from the first kernel's start to the last's
+    end, the idle share of that span, and the SSD kernel's busy time; per
+    step.  All None where the trace holds no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return dict(kernels=None, busy_ms=None, span_ms=None,
+                    idle_share=None, ssd_ms=None)
+    busy = sum(e.duration_ns() for e in dev) / 1e6
+    span = (max(e.end_ns() for e in dev) - min(e.start_ns() for e in dev)) \
+        / 1e6
+    ssd = sum(e.duration_ns() for e in dev
+              if "ssd_chunk_kernel" in e.name()) / 1e6
+    return dict(kernels=len(dev) / steps, busy_ms=busy / steps,
+                span_ms=span / steps, idle_share=1 - busy / span,
+                ssd_ms=ssd / steps)
+
+
+def phase_serve():
+    t0 = time.perf_counter()
+    server = BatchServer(ARCH, reduced=False, slots=SERVE_SLOTS, s_max=4096,
+                         seed=0, device="cuda")
+    sync()
+    init_s = time.perf_counter() - t0
+    cfg = server.cfg
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in server.model.parameters())
+    rng = np.random.default_rng(0)
+    lengths = [int(v) for v in rng.integers(256, 4097, SERVE_REQUESTS)]
+    if all(v % SSD_Q == 0 for v in lengths):
+        raise AssertionError(f"every prompt length is a multiple of the "
+                             f"chunk: {lengths}")
+    prompts = [rng.integers(0, cfg.vocab_size, v).tolist() for v in lengths]
+    # warm-up (cuBLAS handles, allocator): one short prefill, not counted
+    server.model.prefill({"tokens": torch.tensor([prompts[0][:300]],
+                                                 device="cuda")}, 4096)
+    sync()
+
+    reqs = _requests(prompts)
+    SK.reset_launches()                  # the serving path starts here
+    stats = server.run(reqs)
+    launches = dict(SK.LAUNCHES)         # ... and ends here
+    timing = dict(server.timing)
+    want = cfg.n_layers * SERVE_REQUESTS
+    if launches["ssd_chunk"] != want:
+        raise AssertionError(f"ssd_chunk launched {launches['ssd_chunk']} "
+                             f"times, want {cfg.n_layers} x "
+                             f"{SERVE_REQUESTS} = {want}")
+    if stats["completed"] != SERVE_REQUESTS or \
+            stats["tokens"] != SERVE_REQUESTS * (SERVE_MAX_NEW - 1):
+        raise AssertionError(f"serve stats {stats}")
+    for r in reqs:
+        lg = r.prefill_logits
+        if lg.shape != (cfg.vocab_size,) or not torch.isfinite(lg).all():
+            raise AssertionError(f"request {r.rid}: bad prefill logits")
+        if len(r.out) != SERVE_MAX_NEW or \
+                not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"request {r.rid}: bad tokens {r.out}")
+
+    # the same requests on the same weights through the plain SSD path
+    server.model.use_kernel = False
+    server.timing = {k: type(v)() for k, v in server.timing.items()}
+    plain = _requests(prompts)
+    plain_stats = server.run(plain)
+    if SK.LAUNCHES["ssd_chunk"] != want:
+        raise AssertionError("the plain path launched the kernel")
+    server.model.use_kernel = None
+    logit_err = max(_max_err(a.prefill_logits, b.prefill_logits)
+                    for a, b in zip(reqs, plain))
+    if logit_err > SERVE_LOGIT_ATOL:
+        raise AssertionError(f"prefill logits: kernel path off the plain "
+                             f"path by {logit_err} > {SERVE_LOGIT_ATOL}")
+    logit_rms = max(float((a.prefill_logits - b.prefill_logits).pow(2)
+                          .mean().sqrt()) for a, b in zip(reqs, plain))
+    logit_std = float(plain[0].prefill_logits.std())
+    checks = _f32_and_floor_checks(cfg, prompts,
+                                   [r.prefill_logits for r in plain[:2]])
+    same_tok = sum(x == y for a, b in zip(reqs, plain)
+                   for x, y in zip(a.out, b.out))
+    first_same = sum(a.out[0] == b.out[0] for a, b in zip(reqs, plain))
+
+    # where the time goes: one prefill of the longest prompt, then eight
+    # decode steps from its cache, on the kernel path, traced on the card
+    longest = torch.tensor([prompts[0]], device="cuda")
+    box = {}
+
+    def prefill():
+        box["cache"] = server.model.prefill({"tokens": longest}, 4096)[0]
+
+    def decode(steps=8):
+        tok = longest[:, -1:]
+        for _ in range(steps):
+            server.model.decode_step(box["cache"], {"tokens": tok})
+
+    prefill_trace = _device_trace(prefill)
+    decode_trace = _device_trace(decode, steps=8)
+
+    # the SSD kernel's share of prefill: its time at each request's padded
+    # length (CUDA events) x 48 layers, over the prefills' host time
+    ssd_ms = 0.0
+    for v in lengths:
+        sp = -(-v // SSD_Q) * SSD_Q
+        args = _chunk_inputs(torch.Generator(device="cuda").manual_seed(v),
+                             SSD_H, sp)
+        ssd_ms += cfg.n_layers * time_ms(
+            lambda: SK.ssd_chunk(*args, chunk=SSD_Q))
+    prefill_ms = 1e3 * timing["prefill_s"]
+    emit("serve", arch=ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, dtype=cfg.dtype, weight_bytes=weight_bytes,
+         init_s=init_s, prompt_lengths=lengths, slots=SERVE_SLOTS,
+         max_new=SERVE_MAX_NEW, stats=stats, plain_stats=plain_stats,
+         launches=launches,
+         prefill_ms_per_request=prefill_ms / timing["prefills"],
+         decode_ms_per_token=1e3 * timing["decode_s"]
+         / timing["decode_steps"],
+         plain_prefill_ms_per_request=1e3 * server.timing["prefill_s"]
+         / server.timing["prefills"],
+         plain_decode_ms_per_token=1e3 * server.timing["decode_s"]
+         / server.timing["decode_steps"],
+         prefill_s=timing["prefill_s"], decode_s=timing["decode_s"],
+         ssd_kernel_ms_in_prefill=ssd_ms,
+         ssd_share_of_prefill=ssd_ms / prefill_ms,
+         prefill_trace=dict(prompt=lengths[0], **prefill_trace),
+         decode_trace_per_token=decode_trace,
+         prefill_logit_max_abs_err=logit_err,
+         logit_atol=SERVE_LOGIT_ATOL, prefill_logit_max_rms_err=logit_rms,
+         plain_logit_std=logit_std, **checks,
+         greedy_tokens_equal=f"{same_tok}/{SERVE_REQUESTS * SERVE_MAX_NEW}",
+         first_token_equal=f"{first_same}/{SERVE_REQUESTS}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 8. timing
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, reps=5):
@@ -322,6 +613,22 @@ def phase_timing(gen, bfs_n, bfs_m):
             plain_ms=time_ms(lambda: K.slot_counts_plain(idx, m)),
             library_ms=time_ms(lambda: torch.bincount(idx_long, minlength=m)),
             bound_ms=b, bound_by=by))
+    for bh in (SSD_H, 4 * SSD_H):
+        s, q, n, p = 4096, SSD_Q, SSD_N, SSD_P
+        args = _chunk_inputs(gen, bh, s)
+        nc = bh * s // q
+        tri = q * (q + 1) // 2          # (t, s) pairs with s <= t
+        nbytes = 4 * (bh * s * (p + 1 + 2 * n)          # xdt, adt, B, C in
+                      + bh * s * p + nc * n * p)        # y, states out
+        nops = nc * (tri * (2 * n + 2 * p + 1) + 2 * q * n * p)
+        b, by = bound(nbytes, nops)
+        rows.append(dict(
+            kernel="ssd_chunk", op="serving" if bh == SSD_H else "batch4",
+            shape=f"BH={bh} S={s} P={p} N={n} Q={q}", bytes=nbytes,
+            ops=nops,
+            ms=time_ms(lambda: SK.ssd_chunk(*args, chunk=q), 20),
+            plain_ms=time_ms(lambda: SK.ssd_chunk_plain(*args, chunk=q), 5),
+            library_ms=None, bound_ms=b, bound_by=by))
     for row in rows:
         emit("timing", **row)
     return rows
@@ -330,6 +637,9 @@ def phase_timing(gen, bfs_n, bfs_m):
 # ---------------------------------------------------------------------------
 
 def main():
+    # f32 products in full f32 on the card (the plain versions' matmuls)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     phase_device()
     phase_build()
     gen = torch.Generator(device="cuda")
@@ -337,6 +647,7 @@ def main():
     errs = {"rmw_table": 0.0, "rmw_table_fetched": 0.0, "slot_counts": 0.0,
             "fetched_normal_faa": 0.0}
     phase_kernels(gen, errs)
+    errs["ssd_chunk"] = phase_ssd_kernel(gen)
 
     K.reset_launches()                   # the main path starts here
     phase_atomics(gen)
@@ -347,15 +658,21 @@ def main():
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
 
+    launches.update(phase_serve())       # resets and reads its own count
+
     rows = phase_timing(gen, bfs_n, bfs_m)
-    headline = {"rmw_table": "faa", "rmw_table_fetched": "cas",
-                "slot_counts": "count"}
+    headline = {"rmw_table": ("faa", "bfs"),
+                "rmw_table_fetched": ("cas", "bfs"),
+                "slot_counts": ("count", "bfs"),
+                "ssd_chunk": ("serving", None)}
     kernels = []
-    for name, op in headline.items():
+    for name, (op, shape) in headline.items():
         row = next(r for r in rows if r["kernel"] == name
-                   and r["op"] == op and r["shape"] == "bfs")
+                   and r["op"] == op and shape in (None, r["shape"]))
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+            name=name, route="cuda",
+            source=SSD_SOURCE if name == "ssd_chunk" else SOURCE,
+            replaces=REPLACES[name],
             launches=launches[name], max_abs_err=errs[name], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))

@@ -3,7 +3,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o librmw.so rmw.cu
 // Bound to PyTorch through the plain C entries at the bottom (ctypes, see
-// ../build.py and ../kernel.py).  Every entry takes device pointers, sizes,
+// ../kernel.py and ../../build.py).  Every entry takes device pointers, sizes,
 // an op code and a dtype code plus the caller's CUDA stream, launches on that
 // stream, never synchronises, allocates nothing, and returns
 // cudaGetLastError().  Tables are int32 or float32; indices int32.  An index

@@ -11,11 +11,14 @@ fallback from the kernel to the plain version.
 
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
 from typing import Tuple
 
 import torch
 
 from repro_torch.core.rmw import rmw_combining
+from repro_torch.kernels.build import NvccLibrary
 from repro_torch.kernels.rmw import ref as _ref
 
 Tensor = torch.Tensor
@@ -28,6 +31,20 @@ DTYPE_CODES = {torch.int32: 0, torch.float32: 1}
 #: ops per CTA of the fetched kernel (FB in csrc/rmw.cu): one ordered step
 FETCHED_BLOCK = 1024
 _MAX_N = (1 << 31) - 1
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+#: `csrc/rmw.cu`, built by nvcc at first launch
+LIBRARY = NvccLibrary("rmw", Path(__file__).resolve().parent / "csrc"
+                      / "rmw.cu", {
+    # table, idx, vals, last_pos, n, m, op, dtype, stream
+    "rmw_table_launch": (_P, _P, _P, _P, _LL, _LL, _I, _I, _P),
+    # table, idx, vals, fetched, success, counters, n, m, op, dtype,
+    # expected, stream
+    "rmw_table_fetched_launch": (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I,
+                                 ctypes.c_double, _P),
+    # idx, counts, n, m, stream
+    "slot_counts_launch": (_P, _P, _LL, _LL, _P),
+})
 
 
 def reset_launches() -> None:
@@ -49,13 +66,6 @@ def _check(table_like: Tensor, indices: Tensor, *more: Tensor) -> None:
         raise TypeError(f"indices must be int32, got {indices.dtype}")
     if indices.shape[0] > _MAX_N or table_like.shape[0] > _MAX_N:
         raise ValueError("batch and table must hold fewer than 2**31 entries")
-
-
-def _launch(name: str, *args) -> None:
-    from repro_torch.kernels.rmw import build
-    rc = getattr(build.load().lib, name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name} failed with CUDA error {rc}")
 
 
 def _dtype_code(table: Tensor, values: Tensor) -> int:
@@ -93,10 +103,11 @@ def rmw_table(table: Tensor, indices: Tensor, values: Tensor,
     last = (torch.full(table.shape, -1, dtype=torch.int32, device=table.device)
             if op == "swp" else None)
     with torch.cuda.device(table.device):
-        _launch("rmw_table_launch", out.data_ptr(), indices.data_ptr(),
-                values.data_ptr(), None if last is None else last.data_ptr(),
-                indices.shape[0], table.shape[0], OP_CODES[op], dt,
-                _stream(table))
+        LIBRARY.launch("rmw_table_launch", out.data_ptr(),
+                       indices.data_ptr(), values.data_ptr(),
+                       None if last is None else last.data_ptr(),
+                       indices.shape[0], table.shape[0], OP_CODES[op], dt,
+                       _stream(table))
     LAUNCHES["rmw_table"] += 1
     return out
 
@@ -146,10 +157,11 @@ def rmw_table_fetched(table: Tensor, indices: Tensor, values: Tensor,
     exp = 0.0 if expected is None else float(
         expected.item() if isinstance(expected, Tensor) else expected)
     with torch.cuda.device(table.device):
-        _launch("rmw_table_fetched_launch", out.data_ptr(),
-                indices.data_ptr(), values.data_ptr(), fetched.data_ptr(),
-                success.data_ptr(), counters.data_ptr(), n, table.shape[0],
-                OP_CODES[op], dt, exp, _stream(table))
+        LIBRARY.launch("rmw_table_fetched_launch", out.data_ptr(),
+                       indices.data_ptr(), values.data_ptr(),
+                       fetched.data_ptr(), success.data_ptr(),
+                       counters.data_ptr(), n, table.shape[0], OP_CODES[op],
+                       dt, exp, _stream(table))
     LAUNCHES["rmw_table_fetched"] += 1
     return out, fetched, success
 
@@ -171,7 +183,8 @@ def slot_counts(indices: Tensor, m: int) -> Tensor:
     counts = torch.zeros((m,), dtype=torch.int32, device=indices.device)
     _check(counts, indices)
     with torch.cuda.device(indices.device):
-        _launch("slot_counts_launch", indices.data_ptr(), counts.data_ptr(),
-                indices.shape[0], m, _stream(indices))
+        LIBRARY.launch("slot_counts_launch", indices.data_ptr(),
+                       counts.data_ptr(), indices.shape[0], m,
+                       _stream(indices))
     LAUNCHES["slot_counts"] += 1
     return counts

@@ -1,0 +1,120 @@
+"""Unified LM API: init / prefill / decode_step.
+
+Port of `repro.models.model`, as an ``nn.Module`` that holds its weights
+(the reference passes an explicit parameter pytree).  This slice serves the
+SSM family (mamba2_780m): token embedding, the block loop, the final norm
+and the tied (or separate) head, with f32 logits.  The encoder, learned
+positions, embedding inputs and the training loss port with their slices
+and raise here.  Batches hold ``tokens`` (B, S) integer ids.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import embed_init, norm, norm_init
+from repro_torch.models.mamba import make_ssm_cache
+from repro_torch.models.transformer import Block, layer_sigs, plan_stages
+
+Tensor = torch.Tensor
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class LM(nn.Module):
+    """The model of one config, its weights drawn from a seeded generator.
+
+    ``use_kernel`` goes to every SSM mixer (`ops.ssd`): None = the Hopper
+    kernel on CUDA, the plain path on the CPU; False = the plain path."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
+                 use_kernel: Optional[bool] = None):
+        super().__init__()
+        if cfg.encoder is not None:
+            raise NotImplementedError("encoder-decoder models port with the "
+                                      "attention slice")
+        if cfg.pos_emb == "learned" or cfg.embeds_input:
+            raise NotImplementedError("learned positions and embedding "
+                                      "inputs port with their models' "
+                                      "slices")
+        self.cfg = cfg
+        self.use_kernel = use_kernel
+        self.stages = plan_stages(cfg)
+        self.dtype = DTYPES[cfg.dtype]
+        gen = torch.Generator(device=device).manual_seed(seed)
+        dt = self.dtype
+        self.embed = nn.Parameter(embed_init(gen, cfg.vocab_size,
+                                             cfg.d_model, dt))
+        self.final_norm = norm_init(cfg.d_model, cfg.norm, dt, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(embed_init(gen, cfg.vocab_size,
+                                                   cfg.d_model, dt))
+        self.blocks = nn.ModuleList(Block(cfg, sig, gen, dt)
+                                    for sig in layer_sigs(cfg))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # ----------------------------------------------------------------- embed
+    def _embed_in(self, batch: Dict[str, Tensor]) -> Tensor:
+        x = self.embed[batch["tokens"]]
+        if self.cfg.scale_embeddings:
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
+        return x
+
+    # --------------------------------------------------------------- forward
+    def _backbone(self, x: Tensor, *, caches: Optional[List[dict]]
+                  ) -> Tuple[Tensor, Optional[List[dict]]]:
+        new_caches = [] if caches is not None else None
+        for i, block in enumerate(self.blocks):
+            x, nc = block(x, caches[i] if caches is not None else None,
+                          use_kernel=self.use_kernel)
+            if new_caches is not None:
+                new_caches.append(nc)
+        x = norm(x, self.final_norm, self.cfg.norm, self.cfg.norm_eps)
+        return x, new_caches
+
+    def _head(self) -> Tensor:
+        w = self.embed if self.cfg.tie_embeddings else self.lm_head
+        return w.T  # (d, vocab)
+
+    def _logits(self, h: Tensor) -> Tensor:
+        return h[:, -1].float() @ self._head().float()
+
+    # --------------------------------------------------------------- serving
+    def init_cache(self, batch_size: int, s_max: int) -> Dict[str, Any]:
+        """One cache per layer (``s_max`` sizes the KV caches of attention
+        layers, which this slice does not have)."""
+        return {"layers": [make_ssm_cache(self.cfg, batch_size, self.dtype,
+                                          self.device)
+                           for _ in self.blocks]}
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, Tensor], s_max: int
+                ) -> Tuple[Dict[str, Any], Tensor]:
+        """Run the full prompt, fill caches, return (cache, last logits)."""
+        cache = self.init_cache(batch["tokens"].shape[0], s_max)
+        h, cache["layers"] = self._backbone(self._embed_in(batch),
+                                            caches=cache["layers"])
+        return cache, self._logits(h)
+
+    @torch.no_grad()
+    def decode_step(self, cache: Dict[str, Any], batch: Dict[str, Tensor]
+                    ) -> Tuple[Dict[str, Any], Tensor]:
+        """One token: batch['tokens'] (B, 1)."""
+        h, cache["layers"] = self._backbone(self._embed_in(batch),
+                                            caches=cache["layers"])
+        logits = self._logits(h)
+        if self.cfg.logit_softcap > 0:
+            c = self.cfg.logit_softcap
+            logits = c * torch.tanh(logits / c)
+        return cache, logits
+
+
+def build_model(cfg: ModelConfig, **kw) -> LM:
+    return LM(cfg, **kw)
