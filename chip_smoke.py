@@ -6,13 +6,16 @@
 Run from the repository root on a machine with one CUDA card and the CUDA
 toolkit.  It builds the port's kernel libraries in parallel (the three RMW
 kernels from `src/repro_torch/kernels/rmw/csrc/rmw.cu`, the Mamba-2 SSD
-chunk kernel from `src/repro_torch/kernels/ssd/csrc/ssd.cu`), holds each
-kernel against its plain PyTorch version, drives the port's two main paths
-with the launch counters reset just before each and read just after —
-`atomics.execute` on CUDA tables plus Graph500 BFS at scale 20, edgefactor
-16; and `BatchServer` serving mamba2_780m at full width and depth in bf16 —
-and times each kernel beside its bound, its plain version and the PyTorch
-library call that computes the same function, where there is one.
+chunk kernel from `src/repro_torch/kernels/ssd/csrc/ssd.cu`, the flash
+attention kernel from
+`src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`), holds
+each kernel against its plain PyTorch version, drives the port's three main
+paths with the launch counters reset just before each and read just after
+— `atomics.execute` on CUDA tables plus Graph500 BFS at scale 20,
+edgefactor 16; `BatchServer` serving mamba2_780m; and `BatchServer`
+serving gemma_2b, both at full width and depth in bf16 — and times each
+kernel beside its bound, its plain version and the PyTorch library call
+that computes the same function, where there is one.
 
 Phases print one JSON line each (`{"phase": ...}`); every phase raises on a
 failure.  The line before the last is the per-kernel record, and the last
@@ -20,6 +23,7 @@ line is ``{"ok": true, "device": {...}}``.  Without a card the script exits
 non-zero before printing any result.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -34,10 +38,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import atomics  # noqa: E402
 from repro_torch.atomics.stats import stats_from_occupancy  # noqa: E402
 from repro_torch.core import bfs as bfs_mod  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.rmw import kernel as K  # noqa: E402
 from repro_torch.kernels.rmw import ref  # noqa: E402
 from repro_torch.kernels.ssd import kernel as SK  # noqa: E402
@@ -49,13 +56,18 @@ from repro_torch.models.model import LM  # noqa: E402
 OPS = ("faa", "swp", "min", "max", "cas")
 HBM_BPS = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 PEAK_OPS = 67e12         # H100 SXM fp32 outside the tensor cores
+PEAK_BF16 = 989e12       # H100 SXM bf16 tensor cores, dense
 SCALE, EDGEFACTOR = 20, 16
 SOURCE = "src/repro_torch/kernels/rmw/csrc/rmw.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
+FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SOURCES = {"ssd_chunk": SSD_SOURCE, "flash_attention": FA_SOURCE}
 REPLACES = {"rmw_table": "src/repro/kernels/rmw/kernel.py:107",
             "rmw_table_fetched": "src/repro/kernels/rmw/kernel.py:306",
             "slot_counts": "src/repro/kernels/rmw/kernel.py:169",
-            "ssd_chunk": "src/repro/kernels/ssd/kernel.py:57"}
+            "ssd_chunk": "src/repro/kernels/ssd/kernel.py:57",
+            "flash_attention":
+                "src/repro/kernels/flash_attention/kernel.py:84"}
 # SSD: mamba2_780m's widths (configs/mamba2_780m.py): 48 heads of P = 64,
 # N = 128, chunk Q = 256; the reference tests' rtol = atol (f32 sums in
 # another order, tests/test_kernels_ssd.py:32)
@@ -72,6 +84,24 @@ SSD_TOL = 3e-4
 SERVE_LOGIT_ATOL = 0.5
 SERVE_F32_LOGIT_ATOL = 1e-3
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_NEW = 8, 4, 16
+# flash attention: the reference tests' tolerances
+# (tests/test_kernels_attention.py:31,41), f32 sums in another order and one
+# bf16 rounding of the output
+FA_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+# ... and at gemma's shapes, where the outputs are averages over up to 4,096
+# keys (typically 0.03-0.05, so 2e-2 would let a dropped tile pass), bf16 is
+# held to what one rounding of two f32 results that differ only in the order
+# of their sums can give: one bf16 ulp (2^-7 of the value), plus 1e-5 for
+# outputs near zero, whose f32 sums cancel
+FA_GEMMA_BF16 = dict(rtol=2.0 ** -7, atol=1e-5)
+# gemma_2b's attention (configs/gemma_2b.py): 8 query heads over one KV
+# head of 256; caches of 4096 + 16 rows; decode at 1,600 valid rows
+GEMMA, G_HQ, G_HKV, G_D = "gemma_2b", 8, 1, 256
+G_S_MAX, G_DECODE_VALID = 4096 + SERVE_MAX_NEW, 1600
+# serve gemma: the bf16 gate is a multiple of the floor measured in the same
+# run (attention through the kernel's own f32 function, against `_sdpa`,
+# which rounds p to bf16); f32 at full depth within 1e-3
+GEMMA_FLOOR_FACTOR = 2.0
 
 
 def emit(phase, **fields):
@@ -114,7 +144,7 @@ def _build_one(library):
 def phase_build():
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    libraries = (K.LIBRARY, SK.LIBRARY)
+    libraries = (K.LIBRARY, SK.LIBRARY, FK.LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:
         done = list(pool.map(_build_one, libraries))
     for built, secs in done:
@@ -369,7 +399,82 @@ def phase_ssd_kernel(gen):
 
 
 # ---------------------------------------------------------------------------
-# 7. serving mamba2_780m at full width and depth (main path)
+# 7. the flash-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, Sq, Skv, D, causal): tests/test_kernels_attention.py:12-21
+FA_CASES = [(2, 4, 2, 128, 128, 64, True), (1, 8, 1, 100, 100, 32, True),
+            (2, 4, 4, 64, 192, 64, True), (1, 2, 2, 50, 70, 16, True),
+            (1, 4, 2, 96, 96, 64, False), (1, 3, 3, 33, 47, 8, False),
+            (1, 1, 1, 1, 64, 32, True)]
+
+
+def _gemma_attention_args(gen, s, cached=0, dtype=torch.bfloat16):
+    """One gemma_2b attention call as the model makes it: q (1, s, 8, 256)
+    and a (1, 4112, 1, 256) KV cache, handed to the kernel as transposed
+    views, ``cached`` rows before the ``s`` new ones; rows past them hold
+    NaN, which the kernel must never read."""
+    q = torch.randn((1, s, G_HQ, G_D), generator=gen, device="cuda")
+    kc, vc = (torch.randn((1, G_S_MAX, G_HKV, G_D), generator=gen,
+                          device="cuda") for _ in range(2))
+    kc[:, cached + s:] = float("nan")
+    vc[:, cached + s:] = float("nan")
+    args = tuple(t.to(dtype).transpose(1, 2) for t in (q, kc, vc))
+    return args, dict(causal=True, kv_valid=cached + s, kv_offset=cached)
+
+
+def _check_fa(got, want, what, rtol, atol):
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention {what}: non-finite output")
+    err = _max_err(got, want)
+    if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
+        raise AssertionError(f"flash_attention {what}: off by {err} "
+                             f"(rtol {rtol}, atol {atol})")
+    return err
+
+
+def phase_flash_kernel(gen):
+    """The reference tests' seven cases through `ops.attention` (the two
+    with D = 8 and 16 padded to 32), and gemma_2b's prefill, cached-prefill
+    and decode calls; each in f32 and bf16 against the plain version."""
+    errs, want_max = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        case_err = 0.0
+        for b, hq, hkv, sq, skv, d, causal in FA_CASES:
+            q = torch.randn((b, hq, sq, d), generator=gen, device="cuda")
+            k, v = (torch.randn((b, hkv, skv, d), generator=gen,
+                                device="cuda") for _ in range(2))
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            got = fa_ops.attention(q, k, v, causal=causal)
+            want = FK.flash_attention_plain(q, k, v, causal=causal)
+            tol = FA_TOL[dtype]
+            case_err = max(case_err, _check_fa(
+                got, want, f"case {(b, hq, hkv, sq, skv, d)} {name}",
+                rtol=tol, atol=tol))
+        errs[f"reference_cases_{name}"] = case_err
+        gemma_tol = FA_GEMMA_BF16 if dtype == torch.bfloat16 else \
+            dict(rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
+        for shape, s, cached in (("prefill", 4096, 0),
+                                 ("cached_prefill", 600, 1000),
+                                 ("decode", 1, G_DECODE_VALID - 1)):
+            args, kw = _gemma_attention_args(gen, s, cached, dtype)
+            got = FK.flash_attention(*args, **kw)
+            want = FK.flash_attention_plain(*args, **kw)
+            errs[f"{shape}_{name}"] = _check_fa(got, want, f"{shape} {name}",
+                                                **gemma_tol)
+            want_max[f"{shape}_{name}"] = float(want.abs().max())
+    sync()
+    emit("flash_kernel", tol={"f32": FA_TOL[torch.float32],
+                              "bf16": FA_TOL[torch.bfloat16],
+                              "gemma_bf16": FA_GEMMA_BF16},
+         cases=len(FA_CASES), max_abs_err=errs, max_abs_want=want_max,
+         launches=dict(FK.LAUNCHES))
+    return max(errs.values())
+
+
+# ---------------------------------------------------------------------------
+# 8. serving mamba2_780m at full width and depth (main path)
 # ---------------------------------------------------------------------------
 
 def _requests(prompts):
@@ -377,9 +482,9 @@ def _requests(prompts):
             for i, p in enumerate(prompts)]
 
 
-def _prefill_logits(model, prompt):
+def _prefill_logits(model, prompt, s_max=None):
     toks = torch.tensor([prompt], device="cuda")
-    return model.prefill({"tokens": toks}, len(prompt))[1][0]
+    return model.prefill({"tokens": toks}, s_max or len(prompt))[1][0]
 
 
 def _f32_and_floor_checks(cfg, prompts, plain_logits):
@@ -413,11 +518,12 @@ def _f32_and_floor_checks(cfg, prompts, plain_logits):
                 bf16_floor=bf16_floor)
 
 
-def _device_trace(fn, steps=1):
+def _device_trace(fn, kernel, steps=1):
     """Kernels the card ran during ``fn()`` (torch.profiler's CUPTI trace):
     count, busy time, the span from the first kernel's start to the last's
-    end, the idle share of that span, and the SSD kernel's busy time; per
-    step.  All None where the trace holds no device events."""
+    end, the idle share of that span, and the busy time of the kernels
+    whose name holds ``kernel``; per step.  All None where the trace holds
+    no device events."""
     from torch.profiler import ProfilerActivity, profile
     sync()
     with profile(activities=[ProfilerActivity.CPU,
@@ -428,15 +534,14 @@ def _device_trace(fn, steps=1):
            if e.device_type() == torch.autograd.DeviceType.CUDA]
     if not dev:
         return dict(kernels=None, busy_ms=None, span_ms=None,
-                    idle_share=None, ssd_ms=None)
+                    idle_share=None, kernel_ms=None)
     busy = sum(e.duration_ns() for e in dev) / 1e6
     span = (max(e.end_ns() for e in dev) - min(e.start_ns() for e in dev)) \
         / 1e6
-    ssd = sum(e.duration_ns() for e in dev
-              if "ssd_chunk_kernel" in e.name()) / 1e6
+    mine = sum(e.duration_ns() for e in dev if kernel in e.name()) / 1e6
     return dict(kernels=len(dev) / steps, busy_ms=busy / steps,
                 span_ms=span / steps, idle_share=1 - busy / span,
-                ssd_ms=ssd / steps)
+                kernel_ms=mine / steps)
 
 
 def phase_serve():
@@ -515,8 +620,8 @@ def phase_serve():
         for _ in range(steps):
             server.model.decode_step(box["cache"], {"tokens": tok})
 
-    prefill_trace = _device_trace(prefill)
-    decode_trace = _device_trace(decode, steps=8)
+    prefill_trace = _device_trace(prefill, "ssd_chunk_kernel")
+    decode_trace = _device_trace(decode, "ssd_chunk_kernel", steps=8)
 
     # the SSD kernel's share of prefill: its time at each request's padded
     # length (CUDA events) x 48 layers, over the prefills' host time
@@ -554,7 +659,185 @@ def phase_serve():
 
 
 # ---------------------------------------------------------------------------
-# 8. timing
+# 9. serving gemma_2b at full width and depth (main path)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _attention_through_plain_version():
+    """The model's attention runs `flash_attention_plain`, the kernel's own
+    f32 function, where it would launch the kernel."""
+    launch = FK.flash_attention
+    FK.flash_attention = FK.flash_attention_plain
+    try:
+        yield
+    finally:
+        FK.flash_attention = launch
+
+
+def _gemma_f32_checks(cfg, prompts):
+    """Full width and depth in f32 (about 10 GB): prefill logits of the
+    first two prompts through the kernel and the plain path (`_sdpa`), same
+    weights (seed 0), within 1e-3; and the f32 floor, the kernel's f32
+    function in the model against `_sdpa`."""
+    m32 = LM(cfg.replace(dtype="float32"), seed=0, attn_impl="ref")
+    kern = [_prefill_logits(m32, p, G_S_MAX) for p in prompts[:2]]
+    with _attention_through_plain_version():
+        fplain = [_prefill_logits(m32, p, G_S_MAX) for p in prompts[:2]]
+    m32.use_kernel = False
+    plain = [_prefill_logits(m32, p, G_S_MAX) for p in prompts[:2]]
+    del m32
+    torch.cuda.empty_cache()
+    f32_err = max(_max_err(a, b) for a, b in zip(kern, plain))
+    if f32_err > SERVE_F32_LOGIT_ATOL:
+        raise AssertionError(f"gemma f32 prefill logits: kernel path off the "
+                             f"plain path by {f32_err} > "
+                             f"{SERVE_F32_LOGIT_ATOL}")
+    return dict(f32_logit_max_abs_err=f32_err,
+                f32_logit_atol=SERVE_F32_LOGIT_ATOL,
+                f32_floor=max(_max_err(a, b) for a, b in zip(fplain, plain)),
+                f32_kernel_vs_its_function=max(
+                    _max_err(a, b) for a, b in zip(kern, fplain)))
+
+
+def phase_serve_gemma():
+    t0 = time.perf_counter()
+    server = BatchServer(GEMMA, reduced=False, slots=SERVE_SLOTS,
+                         s_max=G_S_MAX, seed=0, device="cuda")
+    sync()
+    init_s = time.perf_counter() - t0
+    cfg = server.cfg
+    if (cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim, cfg.dtype) != \
+            (18, 2048, 256_000, G_HQ, G_HKV, G_D, "bfloat16"):
+        raise AssertionError(f"not gemma_2b at full width: {cfg}")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in server.model.parameters())
+    rng = np.random.default_rng(0)
+    lengths = [int(v) for v in rng.integers(256, 4097, SERVE_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab_size, v).tolist() for v in lengths]
+    # warm-up (cuBLAS handles, allocator): one short prefill, not counted
+    _prefill_logits(server.model, prompts[0][:300], G_S_MAX)
+    sync()
+
+    reqs = _requests(prompts)
+    FK.reset_launches()                  # the serving path starts here
+    stats = server.run(reqs)
+    launches = dict(FK.LAUNCHES)         # ... and ends here
+    timing = dict(server.timing)
+    decode_tokens = SERVE_REQUESTS * (SERVE_MAX_NEW - 1)
+    want = cfg.n_layers * (SERVE_REQUESTS + decode_tokens)
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times, want "
+                             f"{cfg.n_layers} x ({SERVE_REQUESTS} + "
+                             f"{decode_tokens}) = {want}")
+    if stats["completed"] != SERVE_REQUESTS or stats["tokens"] != \
+            decode_tokens:
+        raise AssertionError(f"serve stats {stats}")
+    for r in reqs:
+        lg = r.prefill_logits
+        if lg.shape != (cfg.vocab_size,) or not torch.isfinite(lg).all():
+            raise AssertionError(f"request {r.rid}: bad prefill logits")
+        if len(r.out) != SERVE_MAX_NEW or \
+                not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"request {r.rid}: bad tokens {r.out}")
+
+    # the same requests on the same weights through the plain attention
+    server.model.use_kernel = False
+    server.timing = {k: type(v)() for k, v in server.timing.items()}
+    plain = _requests(prompts)
+    plain_stats = server.run(plain)
+    if FK.LAUNCHES["flash_attention"] != want:
+        raise AssertionError("the plain path launched the kernel")
+    server.model.use_kernel = None
+    # the bf16 floor: the kernel's own f32 function in the model's place
+    with _attention_through_plain_version():
+        fplain = [_prefill_logits(server.model, p, G_S_MAX) for p in prompts]
+    if FK.LAUNCHES["flash_attention"] != want:
+        raise AssertionError("the floor's run launched the kernel")
+    logit_err = max(_max_err(a.prefill_logits, b.prefill_logits)
+                    for a, b in zip(reqs, plain))
+    bf16_floor = max(_max_err(a, b.prefill_logits)
+                     for a, b in zip(fplain, plain))
+    if logit_err > GEMMA_FLOOR_FACTOR * bf16_floor:
+        raise AssertionError(f"gemma bf16 prefill logits: kernel path off "
+                             f"the plain path by {logit_err} > "
+                             f"{GEMMA_FLOOR_FACTOR} x floor {bf16_floor}")
+    kernel_vs_fn = max(_max_err(a.prefill_logits, b)
+                       for a, b in zip(reqs, fplain))
+    logit_std = float(plain[0].prefill_logits.std())
+    checks = _gemma_f32_checks(cfg, prompts)
+    same_tok = sum(x == y for a, b in zip(reqs, plain)
+                   for x, y in zip(a.out, b.out))
+    first_same = sum(a.out[0] == b.out[0] for a, b in zip(reqs, plain))
+
+    # where the time goes: one prefill of the first prompt, then eight
+    # decode steps from its cache, on the kernel path, traced on the card
+    first = torch.tensor([prompts[0]], device="cuda")
+    box = {}
+
+    def prefill():
+        box["cache"] = server.model.prefill({"tokens": first}, G_S_MAX)[0]
+
+    def decode(steps=8):
+        tok = first[:, -1:]
+        for _ in range(steps):
+            server.model.decode_step(box["cache"], {"tokens": tok})
+
+    prefill_trace = _device_trace(prefill, "flash_attention_kernel")
+    decode_trace = _device_trace(decode, "flash_attention_kernel", steps=8)
+
+    # the kernel's share of prefill: its time at each request's length in
+    # the serving layout (CUDA events) x 18 layers, over the prefills'
+    # host time
+    fa_ms = 0.0
+    for v in lengths:
+        args, kw = _gemma_attention_args(
+            torch.Generator(device="cuda").manual_seed(v), v)
+        fa_ms += cfg.n_layers * time_ms(lambda: FK.flash_attention(*args,
+                                                                   **kw))
+    # ... and of decode at the served mix: request i decodes its tokens
+    # over lengths[i] + 1 ... lengths[i] + 15 cached rows, timed at the
+    # middle one
+    fa_decode_ms = 0.0
+    for v in lengths:
+        args, kw = _gemma_attention_args(
+            torch.Generator(device="cuda").manual_seed(v), 1,
+            cached=v + SERVE_MAX_NEW // 2 - 1)
+        fa_decode_ms += (SERVE_MAX_NEW - 1) * cfg.n_layers * time_ms(
+            lambda: FK.flash_attention(*args, **kw), 20)
+    prefill_ms = 1e3 * timing["prefill_s"]
+    decode_ms = 1e3 * timing["decode_s"]
+    emit("serve_gemma", arch=GEMMA, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
+         weight_bytes=weight_bytes, init_s=init_s, prompt_lengths=lengths,
+         slots=SERVE_SLOTS, max_new=SERVE_MAX_NEW, s_max=G_S_MAX,
+         stats=stats, plain_stats=plain_stats, launches=launches,
+         prefill_ms_per_request=prefill_ms / timing["prefills"],
+         decode_ms_per_token=1e3 * timing["decode_s"]
+         / timing["decode_steps"],
+         plain_prefill_ms_per_request=1e3 * server.timing["prefill_s"]
+         / server.timing["prefills"],
+         plain_decode_ms_per_token=1e3 * server.timing["decode_s"]
+         / server.timing["decode_steps"],
+         prefill_s=timing["prefill_s"], decode_s=timing["decode_s"],
+         fa_kernel_ms_in_prefill=fa_ms,
+         fa_share_of_prefill=fa_ms / prefill_ms,
+         fa_kernel_ms_in_decode=fa_decode_ms,
+         fa_share_of_decode=fa_decode_ms / decode_ms,
+         prefill_trace=dict(prompt=lengths[0], **prefill_trace),
+         decode_trace_per_token=decode_trace,
+         prefill_logit_max_abs_err=logit_err, bf16_floor=bf16_floor,
+         logit_gate=GEMMA_FLOOR_FACTOR * bf16_floor,
+         bf16_kernel_vs_its_function=kernel_vs_fn,
+         plain_logit_std=logit_std, **checks,
+         greedy_tokens_equal=f"{same_tok}/{SERVE_REQUESTS * SERVE_MAX_NEW}",
+         first_token_equal=f"{first_same}/{SERVE_REQUESTS}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 10. timing
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, reps=5):
@@ -570,9 +853,12 @@ def time_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, nops_bf16=0):
+    """The least time for the work: bytes over the memory rate, or the
+    operations over the peak for their operands' type (``nops`` at f32's,
+    ``nops_bf16`` at bf16's tensor-core rate), whichever is longer."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = nops / PEAK_OPS * 1e3
+    t_ops = (nops / PEAK_OPS + nops_bf16 / PEAK_BF16) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -629,8 +915,48 @@ def phase_timing(gen, bfs_n, bfs_m):
             ms=time_ms(lambda: SK.ssd_chunk(*args, chunk=q), 20),
             plain_ms=time_ms(lambda: SK.ssd_chunk_plain(*args, chunk=q), 5),
             library_ms=None, bound_ms=b, bound_by=by))
+    rows += flash_timing(gen)
     for row in rows:
         emit("timing", **row)
+    return rows
+
+
+def flash_timing(gen):
+    """flash_attention at gemma_2b's prefill and decode calls, beside its
+    bound, its plain version and SDPA."""
+    rows = []
+    for shape, s, cached in (("prefill", 4096, 0),
+                             ("decode", 1, G_DECODE_VALID - 1)):
+        args, kw = _gemma_attention_args(gen, s, cached)
+        valid = kw["kv_valid"]
+        pairs = sum(min(i + cached + 1, valid) for i in range(s))
+        # q k^T and p v, 2 operations per multiply-add each.  q k^T has
+        # bf16 operands, and a bf16 product is exact in f32: the bf16 rate.
+        # p v takes p in f32, as the TPU kernel keeps it: the f32 rate.
+        ops_qk = ops_pv = 2 * G_HQ * G_D * pairs
+        nbytes = 2 * G_D * (2 * G_HQ * s + 2 * G_HKV * valid)  # bf16
+        b, by = bound(nbytes, ops_pv, nops_bf16=ops_qk)
+        # the yardstick: SDPA on contiguous (B, H, S, D) copies of the
+        # valid rows; top-left causal alignment is ours only when square
+        lq, lk, lv = (t[:, :, :valid].contiguous() for t in args)
+        lib = lambda: F.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=shape == "prefill", enable_gqa=True)
+        reps = 5 if shape == "prefill" else 50
+        rows.append(dict(
+            kernel="flash_attention", op=shape,
+            shape=f"B=1 Hq={G_HQ} Hkv={G_HKV} Sq={s} kv_valid={valid} "
+                  f"D={G_D} bf16 causal", bytes=nbytes, ops=ops_qk + ops_pv,
+            ops_bf16_qk=ops_qk, ops_f32_pv=ops_pv,
+            bound_qk_ms=ops_qk / PEAK_BF16 * 1e3,
+            bound_pv_ms=ops_pv / PEAK_OPS * 1e3,
+            bound_bytes_ms=nbytes / HBM_BPS * 1e3,
+            ms=time_ms(lambda: FK.flash_attention(*args, **kw), reps),
+            plain_ms=time_ms(lambda: FK.flash_attention_plain(*args, **kw),
+                             reps),
+            library_ms=time_ms(lib, reps),
+            library_max_abs_err=_max_err(lib(), FK.flash_attention(*args,
+                                                                   **kw)),
+            bound_ms=b, bound_by=by))
     return rows
 
 
@@ -648,6 +974,7 @@ def main():
             "fetched_normal_faa": 0.0}
     phase_kernels(gen, errs)
     errs["ssd_chunk"] = phase_ssd_kernel(gen)
+    errs["flash_attention"] = phase_flash_kernel(gen)
 
     K.reset_launches()                   # the main path starts here
     phase_atomics(gen)
@@ -659,19 +986,21 @@ def main():
                              f"{missing}")
 
     launches.update(phase_serve())       # resets and reads its own count
+    launches.update(phase_serve_gemma())  # the same
 
     rows = phase_timing(gen, bfs_n, bfs_m)
     headline = {"rmw_table": ("faa", "bfs"),
                 "rmw_table_fetched": ("cas", "bfs"),
                 "slot_counts": ("count", "bfs"),
-                "ssd_chunk": ("serving", None)}
+                "ssd_chunk": ("serving", None),
+                "flash_attention": ("prefill", None)}
     kernels = []
     for name, (op, shape) in headline.items():
         row = next(r for r in rows if r["kernel"] == name
                    and r["op"] == op and shape in (None, r["shape"]))
         kernels.append(dict(
             name=name, route="cuda",
-            source=SSD_SOURCE if name == "ssd_chunk" else SOURCE,
+            source=SOURCES.get(name, SOURCE),
             replaces=REPLACES[name],
             launches=launches[name], max_abs_err=errs[name], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

@@ -7,6 +7,7 @@ keeps per-request cache lengths exact, as in the reference.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --full   # on a card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_780m
 
 Besides the reference's stats dict, the server keeps host-clock totals of
 its prefill and decode calls in `BatchServer.timing` (each call ends in a
@@ -45,7 +46,8 @@ class BatchServer:
     def __init__(self, arch: str, *, reduced: bool = True, slots: int = 4,
                  s_max: int = 128, seed: int = 0, device="cuda"):
         self.cfg = get_reduced(arch) if reduced else get_config(arch)
-        self.model = build_model(self.cfg, device=device, seed=seed)
+        self.model = build_model(self.cfg, device=device, seed=seed,
+                                 attn_impl="ref")
         self.device = torch.device(device)
         self.slots = slots
         self.s_max = s_max
@@ -113,7 +115,7 @@ class BatchServer:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2_780m")
+    ap.add_argument("--arch", default="gemma_2b")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--full", action="store_true",

@@ -1,11 +1,13 @@
 """Unified LM API: init / prefill / decode_step.
 
 Port of `repro.models.model`, as an ``nn.Module`` that holds its weights
-(the reference passes an explicit parameter pytree).  This slice serves the
+(the reference passes an explicit parameter pytree).  It serves the dense
+attention family (gemma_2b and the other GQA/MQA configs with RoPE) and the
 SSM family (mamba2_780m): token embedding, the block loop, the final norm
-and the tied (or separate) head, with f32 logits.  The encoder, learned
-positions, embedding inputs and the training loss port with their slices
-and raise here.  Batches hold ``tokens`` (B, S) integer ids.
+and the tied (or separate) head, with f32 logits.  MLA, M-RoPE, MoE, the
+encoder, learned positions, embedding inputs and the training loss port
+with their slices and raise here.  Batches hold ``tokens`` (B, S) integer
+ids.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.models.attention import make_kv_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_init, norm, norm_init
 from repro_torch.models.mamba import make_ssm_cache
@@ -28,21 +31,26 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class LM(nn.Module):
     """The model of one config, its weights drawn from a seeded generator.
 
-    ``use_kernel`` goes to every SSM mixer (`ops.ssd`): None = the Hopper
-    kernel on CUDA, the plain path on the CPU; False = the plain path."""
+    ``use_kernel`` goes to every mixer (`ops.ssd`, the attention's
+    `_sdpa`): None = the Hopper kernels on CUDA, the plain paths on the CPU;
+    True = the kernels' wrappers (their plain versions on the CPU); False =
+    the plain paths.  ``attn_impl`` is the reference's: the attention math
+    without the kernel, "ref" (full scores) or "chunked" (query blocks)."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
-                 use_kernel: Optional[bool] = None):
+                 use_kernel: Optional[bool] = None,
+                 attn_impl: str = "chunked"):
         super().__init__()
         if cfg.encoder is not None:
-            raise NotImplementedError("encoder-decoder models port with the "
-                                      "attention slice")
-        if cfg.pos_emb == "learned" or cfg.embeds_input:
-            raise NotImplementedError("learned positions and embedding "
-                                      "inputs port with their models' "
-                                      "slices")
+            raise NotImplementedError("encoder-decoder models port with "
+                                      "their slice")
+        if cfg.pos_emb in ("learned", "mrope") or cfg.embeds_input:
+            raise NotImplementedError("learned positions, M-RoPE and "
+                                      "embedding inputs port with their "
+                                      "models' slices")
         self.cfg = cfg
         self.use_kernel = use_kernel
+        self.attn_impl = attn_impl
         self.stages = plan_stages(cfg)
         self.dtype = DTYPES[cfg.dtype]
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -73,7 +81,7 @@ class LM(nn.Module):
         new_caches = [] if caches is not None else None
         for i, block in enumerate(self.blocks):
             x, nc = block(x, caches[i] if caches is not None else None,
-                          use_kernel=self.use_kernel)
+                          use_kernel=self.use_kernel, impl=self.attn_impl)
             if new_caches is not None:
                 new_caches.append(nc)
         x = norm(x, self.final_norm, self.cfg.norm, self.cfg.norm_eps)
@@ -88,11 +96,14 @@ class LM(nn.Module):
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, s_max: int) -> Dict[str, Any]:
-        """One cache per layer (``s_max`` sizes the KV caches of attention
-        layers, which this slice does not have)."""
-        return {"layers": [make_ssm_cache(self.cfg, batch_size, self.dtype,
-                                          self.device)
-                           for _ in self.blocks]}
+        """One cache per layer: a KV cache of ``s_max`` rows for each
+        attention layer, the conv window and SSM state for each SSM
+        layer."""
+        return {"layers": [
+            make_kv_cache(self.cfg, batch_size, s_max, self.dtype,
+                          self.device) if block.kind == "attn" else
+            make_ssm_cache(self.cfg, batch_size, self.dtype, self.device)
+            for block in self.blocks]}
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, Tensor], s_max: int

@@ -6,9 +6,10 @@ stacked parameters, while the port keeps one :class:`Block` per layer in a
 ``ModuleList`` (in layer order: stage by stage, repeat by repeat, sub-layer
 by sub-layer) and loops over it, since torch has no scan.
 
-Block = token mixer + channel mixer with pre-norm residuals.  This slice
-ports the Mamba-2 mixer with no channel mixer (mamba2_780m); attention,
-MoE, dense MLPs and cross-attention raise until their slices port them.
+Block = token mixer (GQA/MQA attention | Mamba-2 SSD) + channel mixer
+(dense MLP | none) with pre-norm residuals, or the parallel residual
+(command-r).  MoE channels and cross-attention raise until their slices
+port them.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import norm, norm_init
+from repro_torch.models.layers import mlp_apply, mlp_init, norm, norm_init
 from repro_torch.models.mamba import Mamba2
 
 Tensor = torch.Tensor
@@ -55,27 +57,53 @@ def layer_sigs(cfg: ModelConfig) -> List[Sig]:
 
 
 class Block(nn.Module):
-    """Pre-norm residual block: x + mixer(norm(x))."""
+    """Pre-norm residual block (`block_init` + `block_forward` of the
+    reference): x + mixer(norm(x)), then + mlp(norm(x)) where the config
+    has a dense MLP; or x + mixer(h) + mlp(h) on the same h = norm(x) with
+    the parallel residual."""
 
     def __init__(self, cfg: ModelConfig, sig: Sig, gen: torch.Generator,
                  dtype):
         super().__init__()
         kind, is_moe = sig
-        if kind != "ssm":
-            raise NotImplementedError("attention blocks port with the "
-                                      "flash_attention slice")
         if is_moe:
             raise NotImplementedError("MoE blocks port with the MoE slice")
-        if cfg.d_ff > 0:
-            raise NotImplementedError("dense MLP blocks port with the "
-                                      "attention slice")
         self.cfg = cfg
-        self.ln1 = norm_init(cfg.d_model, cfg.norm, dtype, gen.device)
-        self.ssm = Mamba2(cfg, gen, dtype)
+        self.kind = kind
+        dev = gen.device
+        self.ln1 = norm_init(cfg.d_model, cfg.norm, dtype, dev)
+        if kind == "attn":
+            self.attn = attn_mod.attn_init(gen, cfg, dtype)
+        else:
+            self.ssm = Mamba2(cfg, gen, dtype)
+        self.has_mlp = cfg.d_ff > 0
+        if self.has_mlp:
+            self.ln2 = norm_init(cfg.d_model, cfg.norm, dtype, dev)
+            self.mlp = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
+                                dtype, bias=cfg.mlp_bias)
+
+    def _channel(self, h: Tensor) -> Tensor:
+        if self.has_mlp:
+            return mlp_apply(h, self.mlp, self.cfg.mlp_act)
+        return torch.zeros_like(h)
 
     def forward(self, x: Tensor, cache: Optional[dict] = None, *,
-                use_kernel: Optional[bool] = None
+                use_kernel: Optional[bool] = None, impl: str = "chunked"
                 ) -> Tuple[Tensor, Optional[dict]]:
-        h = norm(x, self.ln1, self.cfg.norm, self.cfg.norm_eps)
-        mix, new_cache = self.ssm(h, cache, use_kernel=use_kernel)
-        return x + mix, new_cache
+        """``use_kernel`` goes to the mixer (None: its kernel on CUDA);
+        ``impl`` is the attention path without the kernel ("ref" or
+        "chunked")."""
+        cfg = self.cfg
+        h = norm(x, self.ln1, cfg.norm, cfg.norm_eps)
+        if self.kind == "attn":
+            mix, new_cache = attn_mod.attn_forward(
+                self.attn, h, cfg, causal=True, cache=cache, impl=impl,
+                use_kernel=use_kernel)
+        else:
+            mix, new_cache = self.ssm(h, cache, use_kernel=use_kernel)
+        if cfg.parallel_residual:
+            return x + mix + self._channel(h), new_cache
+        x = x + mix
+        if self.has_mlp:
+            x = x + self._channel(norm(x, self.ln2, cfg.norm, cfg.norm_eps))
+        return x, new_cache

@@ -3,8 +3,10 @@
 Each kernel is held against its plain PyTorch version on the same device
 tensors; BFS on the kernels against BFS on the plain sort backend; the SSD
 kernel's composition and a full-width two-layer mamba2_780m prefill against
-the plain SSD path.  This file imports no JAX, so it runs where only the
-port is installed:
+the plain SSD path; the flash-attention kernel (f32 at rtol = atol = 3e-5,
+bf16 at 2e-2, as the reference's attention tests) and a full-width
+two-layer gemma_2b prefill and decode against the plain attention path.
+This file imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \
         tests/test_torch_gpu.py
@@ -20,6 +22,8 @@ from _torch_gpu import cuda_device  # noqa: F401
 from repro_torch import atomics
 from repro_torch.configs import get_config
 from repro_torch.core import bfs as tbfs
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.rmw import kernel as K
 from repro_torch.kernels.rmw import ref as tref
 from repro_torch.kernels.ssd import kernel as SK
@@ -183,3 +187,130 @@ def test_full_width_prefill_on_the_kernel_matches_plain_path(cuda_device):
     _, plain = model.prefill({"tokens": toks}, 512)
     assert torch.isfinite(logits).all()
     assert (logits - plain).abs().max() <= 0.05
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+FA_TOL = {torch.float32: dict(rtol=3e-5, atol=3e-5),
+          torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _qkv(dev, b, hq, hkv, sq, skv, d, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                               (b, hkv, skv, d)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", [
+    (2, 4, 2, 128, 128, 64, True),       # GQA
+    (1, 8, 1, 100, 100, 32, True),       # MQA, ragged tiles
+    (2, 4, 4, 64, 192, 64, True),        # kv longer than q: offset 128
+    (1, 4, 2, 96, 96, 64, False),
+    (1, 8, 1, 1, 300, 256, True),        # decode, gemma's heads
+    (1, 1, 1, 1, 64, 32, True),          # single-query decode
+    (2, 8, 2, 77, 77, 128, True),        # phi3 / command-r head width
+    (1, 4, 1, 70, 90, 160, False),       # stablelm head width
+    (1, 8, 1, 200, 200, 256, True),      # gemma head width
+])
+def test_flash_attention_matches_plain_version(cuda_device, b, hq, hkv, sq,
+                                               skv, d, causal, dtype):
+    q, k, v = _qkv(cuda_device, b, hq, hkv, sq, skv, d, dtype, seed=sq + d)
+    FK.reset_launches()
+    got = FK.flash_attention(q, k, v, causal=causal)
+    assert FK.LAUNCHES == {"flash_attention": 1}
+    want = FK.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got, want, **FA_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_valid_prefix_offset_and_strides(cuda_device, dtype):
+    """A cached prefill as the model makes it: q (B, S, H, D) and a
+    (B, S_max, Hkv, D) cache handed over as transposed views, 40 new rows
+    after 60 cached ones in a 160-row cache whose unwritten rows hold NaN."""
+    b, hq, hkv, d, cached, s, s_max = 2, 8, 2, 128, 60, 40, 160
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((b, s, hq, d), generator=g, device=cuda_device).to(dtype)
+    kc, vc = (torch.randn((b, s_max, hkv, d), generator=g,
+                          device=cuda_device).to(dtype) for _ in range(2))
+    kc[:, cached + s:] = float("nan")
+    vc[:, cached + s:] = float("nan")
+    args = (q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2))
+    kw = dict(causal=True, kv_valid=cached + s, kv_offset=cached)
+    got = FK.flash_attention(*args, **kw)
+    want = FK.flash_attention_plain(*args, **kw)
+    assert got.transpose(1, 2).is_contiguous()       # laid out as q is
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **FA_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_flash_attention_ops_pad_narrow_heads(cuda_device):
+    """`ops.attention` pads D = 8 and 16 (the reference tests' narrow
+    heads, the reduced configs') to the kernel's 32."""
+    for d in (8, 16):
+        q, k, v = _qkv(cuda_device, 1, 3, 3, 33, 47, d, torch.float32)
+        FK.reset_launches()
+        got = fops.attention(q, k, v, causal=True)
+        assert FK.LAUNCHES == {"flash_attention": 1}
+        want = FK.flash_attention_plain(q, k, v, causal=True)
+        torch.testing.assert_close(got, want, **FA_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_what_it_cannot_take(cuda_device):
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 8, 8, 48, torch.float32)
+    with pytest.raises(ValueError, match="D % 32"):
+        FK.flash_attention(q, k, v)
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 8, 8, 288, torch.float32)
+    with pytest.raises(ValueError, match="D <= 256"):
+        FK.flash_attention(q, k, v)
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 8, 8, 64, torch.float16)
+    with pytest.raises(TypeError):
+        FK.flash_attention(q, k, v)
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 8, 8, 64, torch.float32)
+    with pytest.raises(TypeError):
+        FK.flash_attention(q, k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="contiguous D"):
+        FK.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
+                           v)
+    FK.reset_launches()
+    with pytest.raises(ValueError):
+        FK.flash_attention(q[..., :60], k[..., :60], v[..., :60])
+    assert FK.LAUNCHES == {"flash_attention": 0}
+
+
+@pytest.mark.gpu
+def test_gemma_two_layers_on_the_kernel_match_plain_path(cuda_device):
+    """gemma_2b at full width, cut to two layers, bf16: a 300-token prefill
+    and four decode steps through the kernel (one launch per layer and
+    call) against the plain attention path, logits within 0.05.  Two
+    layers leave bf16 rounding flips little room to grow; chip_smoke.py
+    measures the 18-layer floor."""
+    cfg = get_config("gemma_2b").replace(n_layers=2)
+    model = LM(cfg, device=cuda_device, seed=0)
+    toks = torch.randint(0, cfg.vocab_size, (1, 304), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device)
+                         .manual_seed(0))
+    out = {}
+    for use_kernel in (None, False):
+        model.use_kernel = use_kernel
+        FK.reset_launches()
+        cache, logits = model.prefill({"tokens": toks[:, :300]}, 512)
+        steps = [logits]
+        for t in range(300, 304):
+            cache, logits = model.decode_step(cache,
+                                              {"tokens": toks[:, t:t + 1]})
+            steps.append(logits)
+        out[use_kernel] = torch.stack(steps)
+        assert FK.LAUNCHES == {"flash_attention":
+                               2 * 5 if use_kernel is None else 0}
+    assert torch.isfinite(out[None]).all()
+    assert (out[None] - out[False]).abs().max() <= 0.05

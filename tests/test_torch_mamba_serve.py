@@ -177,8 +177,8 @@ def test_weights_carry_over_exactly_and_mismatches_raise():
 
 
 def test_unported_layer_kinds_raise():
-    for arch in ("gemma_2b", "dbrx_132b", "jamba_1_5_large_398b",
-                 "whisper_small"):
+    for arch in ("deepseek_v3_671b", "qwen2_vl_2b", "dbrx_132b",
+                 "jamba_1_5_large_398b", "whisper_small"):
         with pytest.raises(NotImplementedError):
             LM(get_reduced(arch), device="cpu")
 
