@@ -95,9 +95,13 @@ FA_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 # outputs near zero, whose f32 sums cancel
 FA_GEMMA_BF16 = dict(rtol=2.0 ** -7, atol=1e-5)
 # gemma_2b's attention (configs/gemma_2b.py): 8 query heads over one KV
-# head of 256; caches of 4096 + 16 rows; decode at 1,600 valid rows
+# head of 256; caches of 4096 + 16 rows; decode at 1,600 valid rows (about
+# the served mix's mean context) and at 3,600 (its longest prompt)
 GEMMA, G_HQ, G_HKV, G_D = "gemma_2b", 8, 1, 256
-G_S_MAX, G_DECODE_VALID = 4096 + SERVE_MAX_NEW, 1600
+G_S_MAX, G_DECODE_VALID, G_DECODE_LONG = 4096 + SERVE_MAX_NEW, 1600, 3600
+# the kernel's three bodies (decode, bf16 tensor-core prefill, f32 prefill),
+# as the device trace names them
+FA_KERNELS = ("flash_decode_kernel", "flash_tc_kernel", "flash_fma_kernel")
 # serve gemma: the bf16 gate is a multiple of the floor measured in the same
 # run (attention through the kernel's own f32 function, against `_sdpa`,
 # which rounds p to bf16); f32 at full depth within 1e-3
@@ -436,7 +440,8 @@ def _check_fa(got, want, what, rtol, atol):
 def phase_flash_kernel(gen):
     """The reference tests' seven cases through `ops.attention` (the two
     with D = 8 and 16 padded to 32), and gemma_2b's prefill, cached-prefill
-    and decode calls; each in f32 and bf16 against the plain version."""
+    and decode calls (at 1,600 and 3,600 rows, split across CTAs, and at 65,
+    one row past a tile); each in f32 and bf16 against the plain version."""
     errs, want_max = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
@@ -457,7 +462,9 @@ def phase_flash_kernel(gen):
             dict(rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
         for shape, s, cached in (("prefill", 4096, 0),
                                  ("cached_prefill", 600, 1000),
-                                 ("decode", 1, G_DECODE_VALID - 1)):
+                                 ("decode", 1, G_DECODE_VALID - 1),
+                                 ("decode_3600", 1, G_DECODE_LONG - 1),
+                                 ("decode_65", 1, 64)):
             args, kw = _gemma_attention_args(gen, s, cached, dtype)
             got = FK.flash_attention(*args, **kw)
             want = FK.flash_attention_plain(*args, **kw)
@@ -522,8 +529,8 @@ def _device_trace(fn, kernel, steps=1):
     """Kernels the card ran during ``fn()`` (torch.profiler's CUPTI trace):
     count, busy time, the span from the first kernel's start to the last's
     end, the idle share of that span, and the busy time of the kernels
-    whose name holds ``kernel``; per step.  All None where the trace holds
-    no device events."""
+    whose name holds ``kernel`` (a name, or a tuple of names); per step.
+    All None where the trace holds no device events."""
     from torch.profiler import ProfilerActivity, profile
     sync()
     with profile(activities=[ProfilerActivity.CPU,
@@ -538,7 +545,9 @@ def _device_trace(fn, kernel, steps=1):
     busy = sum(e.duration_ns() for e in dev) / 1e6
     span = (max(e.end_ns() for e in dev) - min(e.start_ns() for e in dev)) \
         / 1e6
-    mine = sum(e.duration_ns() for e in dev if kernel in e.name()) / 1e6
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    mine = sum(e.duration_ns() for e in dev
+               if any(k in e.name() for k in names)) / 1e6
     return dict(kernels=len(dev) / steps, busy_ms=busy / steps,
                 span_ms=span / steps, idle_share=1 - busy / span,
                 kernel_ms=mine / steps)
@@ -784,18 +793,18 @@ def phase_serve_gemma():
         for _ in range(steps):
             server.model.decode_step(box["cache"], {"tokens": tok})
 
-    prefill_trace = _device_trace(prefill, "flash_attention_kernel")
-    decode_trace = _device_trace(decode, "flash_attention_kernel", steps=8)
+    prefill_trace = _device_trace(prefill, FA_KERNELS)
+    decode_trace = _device_trace(decode, FA_KERNELS, steps=8)
 
-    # the kernel's share of prefill: its time at each request's length in
-    # the serving layout (CUDA events) x 18 layers, over the prefills'
-    # host time
+    # the kernel's share of prefill: its device time at each request's
+    # length in the serving layout (`graph_ms`) x 18 layers, over the
+    # prefills' host time
     fa_ms = 0.0
     for v in lengths:
         args, kw = _gemma_attention_args(
             torch.Generator(device="cuda").manual_seed(v), v)
-        fa_ms += cfg.n_layers * time_ms(lambda: FK.flash_attention(*args,
-                                                                   **kw))
+        fa_ms += cfg.n_layers * graph_ms(lambda: FK.flash_attention(*args,
+                                                                    **kw))
     # ... and of decode at the served mix: request i decodes its tokens
     # over lengths[i] + 1 ... lengths[i] + 15 cached rows, timed at the
     # middle one
@@ -804,8 +813,8 @@ def phase_serve_gemma():
         args, kw = _gemma_attention_args(
             torch.Generator(device="cuda").manual_seed(v), 1,
             cached=v + SERVE_MAX_NEW // 2 - 1)
-        fa_decode_ms += (SERVE_MAX_NEW - 1) * cfg.n_layers * time_ms(
-            lambda: FK.flash_attention(*args, **kw), 20)
+        fa_decode_ms += (SERVE_MAX_NEW - 1) * cfg.n_layers * graph_ms(
+            lambda: FK.flash_attention(*args, **kw), 50)
     prefill_ms = 1e3 * timing["prefill_s"]
     decode_ms = 1e3 * timing["decode_s"]
     emit("serve_gemma", arch=GEMMA, n_layers=cfg.n_layers,
@@ -851,6 +860,33 @@ def time_ms(fn, reps=5):
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20):
+    """Device time per call with the host out of the way: ``reps`` calls
+    captured into one CUDA graph, replayed between CUDA events.  A call
+    shorter than its own Python and launch overhead (a decode step's
+    attention) is host-bound under `time_ms`; here it is not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                             # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    sync()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
 
 
 def bound(nbytes, nops, nops_bf16=0):
@@ -922,20 +958,27 @@ def phase_timing(gen, bfs_n, bfs_m):
 
 
 def flash_timing(gen):
-    """flash_attention at gemma_2b's prefill and decode calls, beside its
-    bound, its plain version and SDPA."""
+    """flash_attention at gemma_2b's prefill call and its decode calls at
+    1,600 and 3,600 rows, beside its bound, its plain version and SDPA.
+    Times are device times (`graph_ms`); ``eager_ms`` adds the wrapper's
+    host time per call as the model pays it (`time_ms`)."""
     rows = []
     for shape, s, cached in (("prefill", 4096, 0),
-                             ("decode", 1, G_DECODE_VALID - 1)):
+                             ("decode", 1, G_DECODE_VALID - 1),
+                             ("decode_3600", 1, G_DECODE_LONG - 1)):
         args, kw = _gemma_attention_args(gen, s, cached)
         valid = kw["kv_valid"]
         pairs = sum(min(i + cached + 1, valid) for i in range(s))
         # q k^T and p v, 2 operations per multiply-add each.  q k^T has
         # bf16 operands, and a bf16 product is exact in f32: the bf16 rate.
-        # p v takes p in f32, as the TPU kernel keeps it: the f32 rate.
+        # p v takes p in f32, as the TPU kernel keeps it.  p splits exactly
+        # into three bf16 parts (hi = bf16(p), mid = bf16(p - hi), lo =
+        # bf16(p - hi - mid)) whose products with bf16 v are exact in f32,
+        # so the same function costs three bf16 products: 3 x ops_pv at the
+        # bf16 rate.
         ops_qk = ops_pv = 2 * G_HQ * G_D * pairs
         nbytes = 2 * G_D * (2 * G_HQ * s + 2 * G_HKV * valid)  # bf16
-        b, by = bound(nbytes, ops_pv, nops_bf16=ops_qk)
+        b, by = bound(nbytes, 0, nops_bf16=ops_qk + 3 * ops_pv)
         # the yardstick: SDPA on contiguous (B, H, S, D) copies of the
         # valid rows; top-left causal alignment is ours only when square
         lq, lk, lv = (t[:, :, :valid].contiguous() for t in args)
@@ -946,14 +989,15 @@ def flash_timing(gen):
             kernel="flash_attention", op=shape,
             shape=f"B=1 Hq={G_HQ} Hkv={G_HKV} Sq={s} kv_valid={valid} "
                   f"D={G_D} bf16 causal", bytes=nbytes, ops=ops_qk + ops_pv,
-            ops_bf16_qk=ops_qk, ops_f32_pv=ops_pv,
+            ops_qk=ops_qk, ops_pv=ops_pv,
             bound_qk_ms=ops_qk / PEAK_BF16 * 1e3,
-            bound_pv_ms=ops_pv / PEAK_OPS * 1e3,
+            bound_pv_ms=3 * ops_pv / PEAK_BF16 * 1e3,
             bound_bytes_ms=nbytes / HBM_BPS * 1e3,
-            ms=time_ms(lambda: FK.flash_attention(*args, **kw), reps),
-            plain_ms=time_ms(lambda: FK.flash_attention_plain(*args, **kw),
-                             reps),
-            library_ms=time_ms(lib, reps),
+            ms=graph_ms(lambda: FK.flash_attention(*args, **kw), reps),
+            eager_ms=time_ms(lambda: FK.flash_attention(*args, **kw), reps),
+            plain_ms=graph_ms(lambda: FK.flash_attention_plain(*args, **kw),
+                              reps),
+            library_ms=graph_ms(lib, reps),
             library_max_abs_err=_max_err(lib(), FK.flash_attention(*args,
                                                                    **kw)),
             bound_ms=b, bound_by=by))
@@ -1005,6 +1049,13 @@ def main():
             launches=launches[name], max_abs_err=errs[name], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    # flash_attention's headline is the prefill call; its decode call at
+    # 1,600 rows goes beside it
+    dec = next(r for r in rows if r["kernel"] == "flash_attention"
+               and r["op"] == "decode")
+    fa = next(k for k in kernels if k["name"] == "flash_attention")
+    fa["decode"] = {k: dec[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,13 +14,21 @@ There is no fallback from the kernel to the plain version.  The kernel reads
 its operands through their strides, so the model hands it transposed views
 of its (B, S, H, D) tensors and KV caches without a copy.  `LAUNCHES` counts
 kernel launches, one per call that launched.
+
+A call with at most 16 rows per (batch, KV head), Sq * Hq / Hkv <= 16 (a
+decode step), splits its KV walk across `decode_splits` CTAs and combines
+their partials in split order inside the same launch;
+`flash_attention_split_plain` is that algorithm in plain torch.  Longer
+calls in bf16 run both products on tensor cores, p·v as the three bf16
+parts of the f32 p that `bf16_parts` computes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -32,6 +40,9 @@ Tensor = torch.Tensor
 KERNEL_D_MULTIPLE, KERNEL_D_MAX = 32, 256
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
+#: keys per KV tile, the most rows per (batch, KV head) of a decode call,
+#: and the most CTAs per row group that a decode call may split into
+BN, DECODE_ROWS, DECODE_MAX_SPLITS = 64, 16, 128
 
 #: kernel launches per wrapper since the last `reset_launches()`
 LAUNCHES = {"flash_attention": 0}
@@ -41,10 +52,16 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIBRARY = NvccLibrary("flash_attention", Path(__file__).resolve().parent
                       / "csrc" / "flash_attention.cu", {
     # q, k, v, out, dtype, b, hq, hkv, sq, d, kv_valid, kv_offset, causal,
-    # scale, (batch, head, seq) strides of q, k, v, out, stream
+    # scale, (batch, head, seq) strides of q, k, v, out, decode splits,
+    # decode scratch, decode tickets, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, ctypes.c_float) + (_LL,) * 12 + (_P,),
+                               _I, _I, ctypes.c_float) + (_LL,) * 12
+                              + (_I, _P, _P, _P),
 })
+#: per device, the decode calls' ticket counters: zero between calls (the
+#: combining CTA of each row group resets its own), so calls on one stream
+#: share them
+_TICKETS: Dict[torch.device, Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -74,6 +91,34 @@ def _resolve(q: Tensor, k: Tensor, v: Tensor, scale: Optional[float],
     return (d ** -0.5 if scale is None else float(scale)), kv_valid, kv_offset
 
 
+def _kv_end(sq: int, kv_valid: int, kv_offset: int, causal: bool) -> int:
+    """One past the last key any row may see: the kernel walks [0, kv_end)."""
+    return min(kv_valid, sq + kv_offset) if causal else kv_valid
+
+
+def decode_splits(kv_end: int, groups: int, sms: int) -> int:
+    """CTAs per row group of a decode call: one per 64-key tile, as long as
+    all ``groups`` (B * Hkv) row groups together take no more CTAs than
+    there are SMs, and at most `DECODE_MAX_SPLITS`; then as few as leave no
+    split empty.  A CTA's walk is latency-bound, so the call takes about
+    one tile's time plus the combine."""
+    tiles = max(-(-kv_end // BN), 1)
+    splits = min(tiles, max(sms // groups, 1), DECODE_MAX_SPLITS)
+    per = -(-tiles // splits)
+    return -(-tiles // per)
+
+
+def bf16_parts(p: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """f32 p as three bf16 tensors hi, mid, lo with hi + mid + lo == p: each
+    subtraction is exact in f32, and the three 8-bit significands cover p's
+    24 bits.  Each part times a bf16 value is exact in f32, so the kernel's
+    p·v on bf16 tensor cores is hi·v + mid·v + lo·v with p kept in f32."""
+    hi = p.to(torch.bfloat16)
+    r = p - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
                           causal: bool = True, scale: Optional[float] = None,
                           kv_valid: Optional[int] = None,
@@ -101,6 +146,66 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
+def flash_attention_split_plain(q: Tensor, k: Tensor, v: Tensor, *,
+                                splits: int, causal: bool = True,
+                                scale: Optional[float] = None,
+                                kv_valid: Optional[int] = None,
+                                kv_offset: Optional[int] = None) -> Tensor:
+    """The decode kernel's algorithm in plain torch: the walk [0, kv_end) cut
+    into ``splits`` ranges of whole 64-key tiles, each giving an f32 partial
+    (m, l, acc) in which masked keys weigh 0 (a range that a row cannot see
+    leaves m = -1e30, l = 0), then combined in split order:
+    out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30)."""
+    scale, kv_valid, kv_offset = _resolve(q, k, v, scale, kv_valid,
+                                          kv_offset)
+    if splits < 1:
+        raise ValueError(f"splits={splits} < 1")
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    qf = q.float().reshape(b, hkv, hq // hkv, sq, d) * scale
+    kv_end = max(_kv_end(sq, kv_valid, kv_offset, causal), 0)
+    tiles = -(-kv_end // BN)
+    per = -(-tiles // splits) * BN                  # keys per split
+    qpos = torch.arange(sq, device=q.device) + kv_offset
+    m_all, l_all, acc_all = [], [], []
+    for s in range(splits):
+        lo, hi = min(s * per, kv_end), min((s + 1) * per, kv_end)
+        kpos = torch.arange(lo, hi, device=q.device)
+        ok = (kpos[None, :] <= qpos[:, None]) if causal else \
+            torch.ones((sq, hi - lo), dtype=torch.bool, device=q.device)
+        sc = torch.einsum("bhgqd,bhkd->bhgqk", qf, k[:, :, lo:hi].float())
+        sc = torch.where(ok, sc, _NEG)
+        m = torch.cat([sc, sc.new_full(sc.shape[:-1] + (1,), _NEG)],
+                      dim=-1).amax(dim=-1, keepdim=True)
+        p = torch.where(ok, torch.exp(sc - m), 0.0)
+        m_all.append(m)
+        l_all.append(p.sum(dim=-1, keepdim=True))
+        acc_all.append(torch.einsum("bhgqk,bhkd->bhgqd", p,
+                                    v[:, :, lo:hi].float()))
+    mx = torch.stack(m_all).amax(dim=0)
+    den = torch.zeros_like(mx)
+    out = torch.zeros_like(qf)
+    for m, l, acc in zip(m_all, l_all, acc_all):
+        w = torch.exp(m - mx)
+        den = den + w * l
+        out = out + w * acc
+    out = out / torch.clamp(den, min=1e-30)
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _tickets(device: torch.device, n: int) -> Tensor:
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = _TICKETS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return t
+
+
 def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
     """Validate what the kernel takes; raise on anything else."""
     d = q.shape[-1]
@@ -119,12 +224,13 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
     if q.shape[0] > 65535 or k.shape[1] > 65535:
         raise ValueError("flash_attention kernel takes B, Hkv <= 65535")
     for t in (q, k, v):
-        if t.stride(-1) != 1 or t.data_ptr() % (4 * t.element_size()) \
-                or any(s % 4 for s, n in zip(t.stride()[:3], t.shape[:3])
+        e = 16 // t.element_size()          # elements in 16 bytes
+        if t.stride(-1) != 1 or t.data_ptr() % 16 \
+                or any(s % e for s, n in zip(t.stride()[:3], t.shape[:3])
                        if n > 1):
             raise ValueError("flash_attention kernel takes tensors with a "
                              "contiguous D axis, strides that are multiples "
-                             "of 4 elements, and 4-element-aligned data")
+                             "of 16 bytes, and 16-byte-aligned data")
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
@@ -143,12 +249,22 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     b, hq, sq, d = q.shape
     if out.numel() == 0:
         return out
+    hkv = k.shape[1]
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    splits, scratch, tickets = 0, None, None
+    if sq * (hq // hkv) <= DECODE_ROWS:
+        splits = decode_splits(_kv_end(sq, kv_valid, kv_offset, causal),
+                               b * hkv, _sm_count(q.device))
+        scratch = torch.empty(b * hkv * splits * DECODE_ROWS * (d + 2),
+                              dtype=torch.float32, device=q.device)
+        tickets = _tickets(q.device, b * hkv)
     with torch.cuda.device(q.device):
         LIBRARY.launch("flash_attention_launch", q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype], b,
-                       hq, k.shape[1], sq, d, kv_valid, kv_offset,
-                       int(causal), scale, *strides,
+                       hq, hkv, sq, d, kv_valid, kv_offset, int(causal),
+                       scale, *strides, splits,
+                       None if scratch is None else scratch.data_ptr(),
+                       None if tickets is None else tickets.data_ptr(),
                        torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES["flash_attention"] += 1
     return out

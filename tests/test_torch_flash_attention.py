@@ -164,3 +164,125 @@ def test_shapes_are_checked_on_every_device():
         K.flash_attention(q, k, v, kv_valid=9)
     with pytest.raises(ValueError, match="kv_valid"):
         K.flash_attention(q, k, v, kv_valid=0)
+
+
+# ---------------------------------------------------------------------------
+# decode: the KV walk split across CTAs (`flash_attention_split_plain` is the
+# kernel's algorithm), and the three-part bf16 p of the tensor-core prefill
+# ---------------------------------------------------------------------------
+
+def _decode_args(seed, b, hq, hkv, sq, skv, d, valid):
+    """q of ``sq`` rows after ``valid - sq`` cached ones; the cache rows past
+    ``valid`` hold NaN, which no version may read."""
+    q, k, v = _qkv(seed, b, hq, hkv, sq, skv, d)
+    k[:, :, valid:] = np.nan
+    v[:, :, valid:] = np.nan
+    return (q, k, v), dict(causal=True, kv_valid=valid,
+                           kv_offset=valid - sq)
+
+
+def _reference_kernel(q, k, v, kw):
+    """The reference's Pallas kernel in interpret mode, Sq padded to its
+    block of 32 rows.  It multiplies the rows past kv_valid in its last
+    block of keys by p = 0, so it is given them as zeros, not NaN."""
+    sq = q.shape[2]
+    qp = np.pad(q, ((0, 0), (0, 0), (0, 32 - sq), (0, 0)))
+    k, v = np.nan_to_num(k), np.nan_to_num(v)
+    return np.asarray(jk.flash_attention(*_j((qp, k, v)), block_q=32,
+                                         block_k=32, interpret=True,
+                                         **kw))[:, :, :sq]
+
+
+@pytest.mark.parametrize("kv_valid", [1, 63, 64, 65, 300])
+@pytest.mark.parametrize("splits", [1, 2, 7, "tiles"])
+def test_split_plain_matches_plain_and_reference_kernel(splits, kv_valid):
+    """A decode step (2 batches, 2 KV heads of 2 query heads) split into
+    1, 2, 7 or one split per 64-key tile: against `flash_attention_plain`
+    and the reference's kernel.  7 splits of at most 5 tiles leave splits
+    that hold no key at all, which must weigh nothing."""
+    (q, k, v), kw = _decode_args(kv_valid, 2, 4, 2, 1, 320, 32, kv_valid)
+    if splits == "tiles":
+        splits = -(-kv_valid // K.BN)
+    got = K.flash_attention_split_plain(*_t((q, k, v)), splits=splits, **kw)
+    assert torch.isfinite(got).all()
+    plain = K.flash_attention_plain(*_t((q, k, v)), **kw)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **F32)
+    np.testing.assert_allclose(got.numpy(), _reference_kernel(q, k, v, kw),
+                               **F32)
+
+
+@pytest.mark.parametrize("splits", [2, 3])
+def test_split_plain_with_a_split_some_rows_cannot_see(splits):
+    """Two positions of 8 query heads (16 rows, the most a decode call
+    takes) after 127 cached rows: the walk is 129 keys, 3 tiles, and the
+    last split holds key 128 only, which position 0 may not see: its
+    partial for those rows is m = -1e30, l = 0."""
+    (q, k, v), kw = _decode_args(9, 1, 8, 1, 2, 192, 64, 129)
+    got = K.flash_attention_split_plain(*_t((q, k, v)), splits=splits, **kw)
+    assert torch.isfinite(got).all()
+    plain = K.flash_attention_plain(*_t((q, k, v)), **kw)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **F32)
+    np.testing.assert_allclose(got.numpy(), _reference_kernel(q, k, v, kw),
+                               **F32)
+
+
+def test_split_plain_non_causal_and_bf16():
+    """Without the causal mask, and in bf16 (inputs rounded, f32 inside,
+    one rounding of the output)."""
+    (q, k, v), kw = _decode_args(10, 1, 4, 1, 3, 256, 64, 200)
+    kw["causal"] = False
+    got = K.flash_attention_split_plain(*_t((q, k, v)), splits=3, **kw)
+    want = jref.attention_ref(*_j((q, k[:, :, :200], v[:, :, :200])),
+                              causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    got16 = K.flash_attention_split_plain(
+        *_t((q, k, v), torch.bfloat16), splits=3, **kw)
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_allclose(got16.float().numpy(), np.asarray(want),
+                               **BF16)
+
+
+@pytest.mark.parametrize("kv_end,groups,want", [
+    (1600, 1, 25),       # gemma's decode at the served mix: 25 tiles
+    (3600, 1, 57),       # and at its longest prompt: 57 tiles
+    (4112, 1, 65),       # the whole cache: 65 tiles
+    (64, 1, 1), (65, 1, 2), (1, 1, 1),
+    (1600, 4, 25),       # 4 row groups of 25 still fit 132 SMs
+    (4112, 16, 8),       # 16 row groups: 132 // 16 = 8 CTAs each
+    (4112, 200, 1),      # more row groups than SMs: one CTA each
+    (200 * 64, 1, 100),  # 200 tiles over at most 128 CTAs: 2 tiles each
+])
+def test_decode_splits(kv_end, groups, want):
+    """A split per 64-key tile, no more CTAs than SMs (132 on the H100)
+    over all row groups, at most 128 a group, and no split empty."""
+    splits = K.decode_splits(kv_end, groups, 132)
+    assert splits == want
+    tiles = -(-kv_end // K.BN)
+    per = -(-tiles // splits)
+    assert (splits - 1) * per < tiles <= splits * per
+
+
+def test_bf16_parts_sum_back_to_p_exactly():
+    """The tensor-core prefill's split of f32 p: hi + mid + lo == p for
+    random p in [0, 1] (and at 0, 1 and the smallest normal), each part a
+    bf16; the three-part p·v agrees with the f32 p·v within f32 rounding,
+    where p rounded to bf16 (SDPA's p) does not."""
+    rng = np.random.default_rng(11)
+    p = np.concatenate([rng.random(1 << 16), [0.0, 1.0, 2.0 ** -126]]
+                       ).astype(np.float32)
+    parts = K.bf16_parts(torch.from_numpy(p))
+    assert all(t.dtype == torch.bfloat16 for t in parts)
+    total = sum(t.double() for t in parts)
+    np.testing.assert_array_equal(total.numpy(), p.astype(np.float64))
+
+    pm = torch.from_numpy(rng.random((64, 64)).astype(np.float32))
+    vm = torch.from_numpy(rng.normal(size=(64, 256)).astype(np.float32)
+                          ).to(torch.bfloat16).float()
+    exact = pm.double() @ vm.double()
+    three = sum(t.float() @ vm for t in K.bf16_parts(pm))
+    # f32 sums of 64 terms, three times over: a few f32 ulps of |p| @ |v|
+    tol = 8 * 64 * 2.0 ** -24 * (pm.double().abs() @ vm.double().abs())
+    assert ((three.double() - exact).abs() <= tol).all()
+    assert ((pm @ vm).double() - exact).abs().le(tol).all()
+    rounded = pm.to(torch.bfloat16).float() @ vm
+    assert ((rounded.double() - exact).abs() > tol).any()

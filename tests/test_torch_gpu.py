@@ -4,8 +4,10 @@ Each kernel is held against its plain PyTorch version on the same device
 tensors; BFS on the kernels against BFS on the plain sort backend; the SSD
 kernel's composition and a full-width two-layer mamba2_780m prefill against
 the plain SSD path; the flash-attention kernel (f32 at rtol = atol = 3e-5,
-bf16 at 2e-2, as the reference's attention tests) and a full-width
-two-layer gemma_2b prefill and decode against the plain attention path.
+bf16 at 2e-2, as the reference's attention tests, and at one bf16 ulp at
+gemma_2b's shapes; decode split across CTAs, prefill on tensor cores) and
+a full-width two-layer gemma_2b prefill and decode against the plain
+attention path.
 This file imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \
@@ -249,6 +251,94 @@ def test_flash_attention_valid_prefix_offset_and_strides(cuda_device, dtype):
     assert got.transpose(1, 2).is_contiguous()       # laid out as q is
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **FA_TOL[dtype])
+
+
+# gemma_2b's attention: 8 query heads over one KV head of 256, caches of
+# 4,096 + 16 rows.  At these shapes bf16 is held to one bf16 ulp (rtol 2^-7,
+# atol 1e-5): the outputs average up to 4,096 keys and are small, where
+# 2e-2 would let a dropped tile pass.
+GEMMA_BF16 = dict(rtol=2.0 ** -7, atol=1e-5)
+G_S_MAX = 4096 + 16
+
+
+def _gemma_call(dev, s, cached, dtype, seed=0, b=1, hq=8, hkv=1, d=256,
+                s_max=G_S_MAX):
+    """q (B, s, Hq, D) and a (B, s_max, Hkv, D) cache as the model hands
+    them over (transposed views), ``cached`` rows before the ``s`` new ones;
+    the rows past them hold NaN."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, s, hq, d), generator=g, device=dev)
+    kc, vc = (torch.randn((b, s_max, hkv, d), generator=g, device=dev)
+              for _ in range(2))
+    kc[:, cached + s:] = float("nan")
+    vc[:, cached + s:] = float("nan")
+    args = tuple(t.to(dtype).transpose(1, 2) for t in (q, kc, vc))
+    return args, dict(causal=True, kv_valid=cached + s, kv_offset=cached)
+
+
+def _gemma_tol(dtype):
+    return GEMMA_BF16 if dtype == torch.bfloat16 else FA_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_valid", [1, 63, 64, 65, 1600, 4112])
+def test_flash_attention_decode_splits_match_plain_version(cuda_device,
+                                                           kv_valid, dtype):
+    """A gemma decode step over ``kv_valid`` cached rows (NaN past them):
+    the KV walk split across CTAs and combined in split order, in one
+    launch, against the plain version; the same bits on a second call."""
+    args, kw = _gemma_call(cuda_device, 1, kv_valid - 1, dtype,
+                           seed=kv_valid)
+    FK.reset_launches()
+    got = FK.flash_attention(*args, **kw)
+    assert FK.LAUNCHES == {"flash_attention": 1}
+    want = FK.flash_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **_gemma_tol(dtype))
+    assert torch.equal(FK.flash_attention(*args, **kw), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,cached,d", [
+    (2, 8, 2, 1, 300, 128),      # B 2, Hkv 2: four row groups of 4 rows
+    (1, 8, 1, 2, 127, 256),      # 16 rows in 2 splits; the second holds
+                                 # only key 128, which position 0 cannot see
+    (2, 4, 2, 3, 1000, 64),      # 6 rows over 16 tiles
+])
+def test_flash_attention_decode_groups_match_plain_version(
+        cuda_device, b, hq, hkv, s, cached, d, dtype):
+    """Decode calls of several row groups, and of more than one position,
+    where a split can hold no key that some of its rows may see."""
+    args, kw = _gemma_call(cuda_device, s, cached, dtype, seed=cached, b=b,
+                           hq=hq, hkv=hkv, d=d, s_max=cached + s + 40)
+    FK.reset_launches()
+    got = FK.flash_attention(*args, **kw)
+    assert FK.LAUNCHES == {"flash_attention": 1}
+    want = FK.flash_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **FA_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,cached", [(17, 0), (600, 1000), (4096, 0)])
+def test_flash_attention_gemma_prefill_matches_plain_version(cuda_device, s,
+                                                             cached, dtype):
+    """gemma prefill calls (bf16: q k^T and the three-part p v on tensor
+    cores) into a cache whose rows past the prompt hold NaN, one launch
+    each, against the plain version."""
+    args, kw = _gemma_call(cuda_device, s, cached, dtype, seed=s)
+    FK.reset_launches()
+    got = FK.flash_attention(*args, **kw)
+    assert FK.LAUNCHES == {"flash_attention": 1}
+    want = FK.flash_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **_gemma_tol(dtype))
 
 
 @pytest.mark.gpu
