@@ -94,6 +94,12 @@ FA_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 # of their sums can give: one bf16 ulp (2^-7 of the value), plus 1e-5 for
 # outputs near zero, whose f32 sums cancel
 FA_GEMMA_BF16 = dict(rtol=2.0 ** -7, atol=1e-5)
+# ... and the bf16 prefill keeps p in f32 (p·v as three bf16 parts of p):
+# at most this share of its bf16 outputs may differ from the plain
+# version's, where f32 sums in another order flip a rounding now and then.
+# The control, the plain version with p rounded to bf16 (SDPA's function),
+# must exceed it and fail the one-ulp check, or the check tells nothing.
+FA_P_F32_MISMATCH = 0.01
 # gemma_2b's attention (configs/gemma_2b.py): 8 query heads over one KV
 # head of 256; caches of 4096 + 16 rows; decode at 1,600 valid rows (about
 # the served mix's mean context) and at 3,600 (its longest prompt)
@@ -437,12 +443,46 @@ def _check_fa(got, want, what, rtol, atol):
     return err
 
 
+def _p_in_f32(got, want, control, what):
+    """The share of bf16 outputs that differ from the plain version's, for
+    the kernel and for the control (p rounded to bf16); raise unless the
+    kernel is within `FA_P_F32_MISMATCH` and the control is not, nor within
+    one bf16 ulp."""
+    share = float((got != want).float().mean())
+    control_share = float((control != want).float().mean())
+    if share > FA_P_F32_MISMATCH:
+        raise AssertionError(f"flash_attention {what}: {share} of the bf16 "
+                             f"outputs differ from the plain version's > "
+                             f"{FA_P_F32_MISMATCH}: is p rounded to bf16?")
+    if control_share <= FA_P_F32_MISMATCH or torch.allclose(
+            control.float(), want.float(), **FA_GEMMA_BF16):
+        raise AssertionError(f"flash_attention {what}: the check does not "
+                             f"fail p rounded to bf16 ({control_share})")
+    return dict(kernel=share, p_to_bf16=control_share)
+
+
+def _split3_check(gen):
+    """The prefill's device split of f32 p (``split3``) against
+    `bf16_parts`, bit for bit, over p in [0, 1] and e^-x down to e^-60."""
+    p = torch.cat([torch.rand(1 << 20, generator=gen, device="cuda"),
+                   torch.exp(-60 * torch.rand(1 << 20, generator=gen,
+                                              device="cuda"))])
+    for a, b in zip(FK.kernel_bf16_parts(p), FK.bf16_parts(p)):
+        if not torch.equal(a, b):
+            raise AssertionError("flash_attention: the kernel's split of p "
+                                 "into bf16 parts is not bf16_parts")
+    return p.numel()
+
+
 def phase_flash_kernel(gen):
     """The reference tests' seven cases through `ops.attention` (the two
-    with D = 8 and 16 padded to 32), and gemma_2b's prefill, cached-prefill
-    and decode calls (at 1,600 and 3,600 rows, split across CTAs, and at 65,
-    one row past a tile); each in f32 and bf16 against the plain version."""
-    errs, want_max = {}, {}
+    with D = 8 and 16 padded to 32), and gemma_2b's prefill (of 4,096 and
+    17 tokens), cached-prefill and decode calls (at 1,600 and 3,600 rows,
+    split across CTAs, and at 65, one row past a tile); each in f32 and
+    bf16 against the plain version.  The bf16 prefill of 17 tokens and the
+    cached prefill are also held to `FA_P_F32_MISMATCH` beside their
+    control, and the kernel's split of p to `bf16_parts`."""
+    errs, want_max, p_f32 = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
         case_err = 0.0
@@ -461,6 +501,7 @@ def phase_flash_kernel(gen):
         gemma_tol = FA_GEMMA_BF16 if dtype == torch.bfloat16 else \
             dict(rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
         for shape, s, cached in (("prefill", 4096, 0),
+                                 ("prefill_17", 17, 0),
                                  ("cached_prefill", 600, 1000),
                                  ("decode", 1, G_DECODE_VALID - 1),
                                  ("decode_3600", 1, G_DECODE_LONG - 1),
@@ -471,11 +512,19 @@ def phase_flash_kernel(gen):
             errs[f"{shape}_{name}"] = _check_fa(got, want, f"{shape} {name}",
                                                 **gemma_tol)
             want_max[f"{shape}_{name}"] = float(want.abs().max())
+            if dtype == torch.bfloat16 and shape in ("prefill_17",
+                                                     "cached_prefill"):
+                p_f32[shape] = _p_in_f32(
+                    got, want, FK.flash_attention_plain(*args, p_to_bf16=True,
+                                                        **kw), shape)
+    split3_n = _split3_check(gen)
     sync()
     emit("flash_kernel", tol={"f32": FA_TOL[torch.float32],
                               "bf16": FA_TOL[torch.bfloat16],
-                              "gemma_bf16": FA_GEMMA_BF16},
+                              "gemma_bf16": FA_GEMMA_BF16,
+                              "p_f32_mismatch": FA_P_F32_MISMATCH},
          cases=len(FA_CASES), max_abs_err=errs, max_abs_want=want_max,
+         bf16_mismatch_share=p_f32, split3_equal_to_bf16_parts=split3_n,
          launches=dict(FK.LAUNCHES))
     return max(errs.values())
 
@@ -889,6 +938,20 @@ def graph_ms(fn, reps=20):
     return ms
 
 
+def host_us(fn, reps=200):
+    """Host wall time per call, in µs, of ``reps`` calls issued back to back
+    with no synchronisation between them: what the caller's thread pays per
+    call while the card keeps up (a decode call's device time is shorter)."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    sync()
+    return us
+
+
 def bound(nbytes, nops, nops_bf16=0):
     """The least time for the work: bytes over the memory rate, or the
     operations over the peak for their operands' type (``nops`` at f32's,
@@ -961,7 +1024,10 @@ def flash_timing(gen):
     """flash_attention at gemma_2b's prefill call and its decode calls at
     1,600 and 3,600 rows, beside its bound, its plain version and SDPA.
     Times are device times (`graph_ms`); ``eager_ms`` adds the wrapper's
-    host time per call as the model pays it (`time_ms`)."""
+    host time per call as the model pays it (`time_ms`).  Decode rows also
+    give the wrapper's host time per call (``host_us``) and, of it, what
+    allocating the split partials' scratch takes (``scratch_alloc_us``: a
+    cached buffer would save at most that)."""
     rows = []
     for shape, s, cached in (("prefill", 4096, 0),
                              ("decode", 1, G_DECODE_VALID - 1),
@@ -1001,6 +1067,16 @@ def flash_timing(gen):
             library_max_abs_err=_max_err(lib(), FK.flash_attention(*args,
                                                                    **kw)),
             bound_ms=b, bound_by=by))
+        if s == 1:
+            rows_max, max_splits = FK.decode_limits()
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            splits = FK.decode_splits(valid, G_HKV, sms, max_splits)
+            floats = G_HKV * splits * rows_max * (G_D + 2)
+            rows[-1].update(
+                splits=splits,
+                host_us=host_us(lambda: FK.flash_attention(*args, **kw)),
+                scratch_alloc_us=host_us(lambda: torch.empty(
+                    floats, dtype=torch.float32, device="cuda")))
     return rows
 
 
@@ -1055,7 +1131,8 @@ def main():
                and r["op"] == "decode")
     fa = next(k for k in kernels if k["name"] == "flash_attention")
     fa["decode"] = {k: dec[k] for k in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        "ms", "eager_ms", "host_us", "scratch_alloc_us", "plain_ms",
+        "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

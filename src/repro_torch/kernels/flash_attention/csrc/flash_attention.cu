@@ -2,11 +2,13 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
-// Bound to PyTorch through the plain C entry at the bottom (ctypes, see
-// ../kernel.py and ../../build.py).  The entry takes device pointers, sizes,
-// element strides, the decode scratch and the caller's CUDA stream, launches
-// on that stream, never synchronises, allocates nothing, and returns
-// cudaGetLastError().
+// Bound to PyTorch through the plain C entries at the bottom (ctypes, see
+// ../kernel.py and ../../build.py).  The launch entry takes device
+// pointers, sizes, element strides, the decode scratch and the caller's
+// CUDA stream, launches on that stream, never synchronises, allocates
+// nothing, and returns cudaGetLastError().  Two more report the decode
+// body's limits (rows per KV head, splits), which the wrapper reads once,
+// and launch the prefill's p split alone, for the checks.
 //
 // ---------------------------------------------------------------------------
 // flash_attention  (replaces src/repro/kernels/flash_attention/kernel.py::
@@ -545,6 +547,18 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
   lo = bits(__floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m)));
 }
 
+// split3 over an f32 array, for the checks that hold it against the
+// wrapper's `bf16_parts` bit for bit (the prefill never launches this):
+// thread i splits p[2i], p[2i + 1] (0 past n) into pairs i of hi, mid, lo
+__global__ void split3_kernel(const float* __restrict__ p,
+                              uint32_t* __restrict__ hi,
+                              uint32_t* __restrict__ mid,
+                              uint32_t* __restrict__ lo, long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (2 * i >= n) return;
+  split3(p[2 * i], 2 * i + 1 < n ? p[2 * i + 1] : 0.f, hi[i], mid[i], lo[i]);
+}
+
 // acc (64 x D, this thread's D / 2) += P V for one 16-key slice of V: 64
 // columns (8 chunks) per wgmma, and 32 for the last when D % 64 == 32
 template <int NJ, size_t... I>
@@ -612,7 +626,7 @@ flash_tc_kernel(const bf16* __restrict__ q, bf16* __restrict__ o,
   bf16* Qs = reinterpret_cast<bf16*>(             // [TC_BM / 8][CH][8][8]
       (reinterpret_cast<uintptr_t>(smem4) + 127) & ~uintptr_t(127));
   bf16* ring = Qs + TC_BM * D;                    // [2][K, V][CH][BN][8]
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + 2 * 2 * BN * D);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(ring + 2 * 2 * BN * D);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3, wg = warp >> 2;
@@ -623,8 +637,8 @@ flash_tc_kernel(const bf16* __restrict__ q, bf16* __restrict__ o,
   const int gi = blockIdx.x % groups, b = gi / hkv, kvh = gi % hkv;
   const int row0 = blk * TC_BM, n_rows = sq * group;
   if (tid == 0) {
-    mbar_init(full, 1);
-    mbar_init(full + 1, 1);
+    mbar_init(kv_full, 1);
+    mbar_init(kv_full + 1, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
@@ -651,13 +665,13 @@ flash_tc_kernel(const bf16* __restrict__ q, bf16* __restrict__ o,
   // kv_valid, so keys past it land as zeros
   auto load_kv = [&](int k0, int stage) {
     if (warp != 0) return;
-    if (lane == 0) mbar_expect_tx(full + stage, 2 * BN * D * 2);
+    if (lane == 0) mbar_expect_tx(kv_full + stage, 2 * BN * D * 2);
     __syncwarp();
     bf16* ks = ring + stage * 2 * BN * D;
     bf16* vs = ks + BN * D;
     for (int c = lane; c < CH; c += 32) {
-      tma_load(ks + c * BN * 8, &tmk, c * 8, k0, kvh, b, full + stage);
-      tma_load(vs + c * BN * 8, &tmv, c * 8, k0, kvh, b, full + stage);
+      tma_load(ks + c * BN * 8, &tmk, c * 8, k0, kvh, b, kv_full + stage);
+      tma_load(vs + c * BN * 8, &tmv, c * 8, k0, kvh, b, kv_full + stage);
     }
   };
   __syncthreads();                    // the barriers are initialised
@@ -679,7 +693,7 @@ flash_tc_kernel(const bf16* __restrict__ q, bf16* __restrict__ o,
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BN, stage = j & 1;
     if (j + 1 < n_tiles) load_kv(k0 + BN, stage ^ 1);
-    mbar_wait(full + stage, (j >> 1) & 1);       // tile j has landed
+    mbar_wait(kv_full + stage, (j >> 1) & 1);    // tile j has landed
     const bf16* ks = ring + stage * 2 * BN * D;
     const bf16* vs = ks + BN * D;
 
@@ -697,14 +711,14 @@ flash_tc_kernel(const bf16* __restrict__ q, bf16* __restrict__ o,
 
     // scale, mask (only tiles that cross kv_valid or a diagonal), online
     // softmax; the 4 threads of a quad share a row
-    const bool full = k0 + BN <= kv_valid &&
-                      (!causal || k0 + BN - 1 <= first_pos + kv_offset);
+    const bool unmasked = k0 + BN <= kv_valid &&
+                          (!causal || k0 + BN - 1 <= first_pos + kv_offset);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int rr = (i >> 1) & 1, key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
       float x = s[i] * scale;
-      if (!full && !(key < kv_valid &&
+      if (!unmasked && !(key < kv_valid &&
                      (!causal || key <= qpos[rr] + kv_offset)))
         x = NEG;
       s[i] = x;
@@ -1074,12 +1088,21 @@ int with_nj(int d, F f) {
 
 }  // namespace
 
+// The decode body's limits, which the wrapper reads once: the most rows per
+// (batch, KV head) of a call that it takes, and the most CTAs (splits) per
+// row group.
+extern "C" int flash_attention_decode_limits(int* rows, int* max_splits) {
+  *rows = DEC_ROWS;
+  *max_splits = MAX_SPLITS;
+  return 0;
+}
+
 // dtype: 0 = f32, 1 = bf16.  Strides in elements, (batch, head, seq) of
-// each tensor; the D axis of each is contiguous.  A call with at most 16
-// rows per (batch, KV head) (Sq * Hq / Hkv <= 16) is a decode call: it needs
-// `splits` >= 1, `scratch` of B * Hkv * splits * 16 * (D + 2) floats and
-// `tickets`, B * Hkv ints that are zero (each call leaves them zero).  Other
-// calls ignore the three.
+// each tensor; the D axis of each is contiguous.  A call with at most `rows`
+// rows per (batch, KV head) (Sq * Hq / Hkv <= rows, the decode limits above)
+// is a decode call: it needs 1 <= `splits` <= `max_splits`, `scratch` of
+// B * Hkv * splits * rows * (D + 2) floats and `tickets`, B * Hkv ints that
+// are zero (each call leaves them zero).  Other calls ignore the three.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int b,
     int hq, int hkv, int sq, int d, int kv_valid, int kv_offset, int causal,
@@ -1110,4 +1133,17 @@ extern "C" int flash_attention_launch(
     return dtype == 0 ? launch_fma<decltype(nj)::value>(a)
                       : launch_tc<decltype(nj)::value>(a);
   });
+}
+
+// p (n f32) into hi, mid and lo (n bf16 each, rounded up to an even count)
+// with the prefill's split3; a check entry, no path of the wrapper's
+// launches it.
+extern "C" int flash_split3_launch(const void* p, void* hi, void* mid,
+                                   void* lo, long long n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const long long pairs = (n + 1) / 2;
+  split3_kernel<<<(unsigned)((pairs + THREADS - 1) / THREADS), THREADS, 0,
+                  (cudaStream_t)stream>>>((const float*)p, (uint32_t*)hi,
+                                          (uint32_t*)mid, (uint32_t*)lo, n);
+  return (int)cudaGetLastError();
 }

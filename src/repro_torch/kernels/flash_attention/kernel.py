@@ -16,11 +16,12 @@ of its (B, S, H, D) tensors and KV caches without a copy.  `LAUNCHES` counts
 kernel launches, one per call that launched.
 
 A call with at most 16 rows per (batch, KV head), Sq * Hq / Hkv <= 16 (a
-decode step), splits its KV walk across `decode_splits` CTAs and combines
-their partials in split order inside the same launch;
-`flash_attention_split_plain` is that algorithm in plain torch.  Longer
-calls in bf16 run both products on tensor cores, p·v as the three bf16
-parts of the f32 p that `bf16_parts` computes.
+decode step; the library reports the limit), splits its KV walk across
+`decode_splits` CTAs and combines their partials in split order inside the
+same launch; `flash_attention_split_plain` is that algorithm in plain
+torch.  Longer calls in bf16 run both products on tensor cores, p·v as the
+three bf16 parts of the f32 p that `bf16_parts` computes
+(`kernel_bf16_parts` runs the kernel's own split, for the checks).
 """
 
 from __future__ import annotations
@@ -40,9 +41,8 @@ Tensor = torch.Tensor
 KERNEL_D_MULTIPLE, KERNEL_D_MAX = 32, 256
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
-#: keys per KV tile, the most rows per (batch, KV head) of a decode call,
-#: and the most CTAs per row group that a decode call may split into
-BN, DECODE_ROWS, DECODE_MAX_SPLITS = 64, 16, 128
+#: keys per KV tile
+BN = 64
 
 #: kernel launches per wrapper since the last `reset_launches()`
 LAUNCHES = {"flash_attention": 0}
@@ -57,6 +57,10 @@ LIBRARY = NvccLibrary("flash_attention", Path(__file__).resolve().parent
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, ctypes.c_float) + (_LL,) * 12
                               + (_I, _P, _P, _P),
+    # rows, max_splits: the decode body's limits
+    "flash_attention_decode_limits": (ctypes.POINTER(_I),) * 2,
+    # p, hi, mid, lo, n, stream
+    "flash_split3_launch": (_P, _P, _P, _P, _LL, _P),
 })
 #: per device, the decode calls' ticket counters: zero between calls (the
 #: combining CTA of each row group resets its own), so calls on one stream
@@ -96,14 +100,15 @@ def _kv_end(sq: int, kv_valid: int, kv_offset: int, causal: bool) -> int:
     return min(kv_valid, sq + kv_offset) if causal else kv_valid
 
 
-def decode_splits(kv_end: int, groups: int, sms: int) -> int:
+def decode_splits(kv_end: int, groups: int, sms: int,
+                  max_splits: int) -> int:
     """CTAs per row group of a decode call: one per 64-key tile, as long as
     all ``groups`` (B * Hkv) row groups together take no more CTAs than
-    there are SMs, and at most `DECODE_MAX_SPLITS`; then as few as leave no
-    split empty.  A CTA's walk is latency-bound, so the call takes about
-    one tile's time plus the combine."""
+    there are SMs, and at most ``max_splits`` (the decode body's limit);
+    then as few as leave no split empty.  A CTA's walk is latency-bound, so
+    the call takes about one tile's time plus the combine."""
     tiles = max(-(-kv_end // BN), 1)
-    splits = min(tiles, max(sms // groups, 1), DECODE_MAX_SPLITS)
+    splits = min(tiles, max(sms // groups, 1), max_splits)
     per = -(-tiles // splits)
     return -(-tiles // per)
 
@@ -122,11 +127,15 @@ def bf16_parts(p: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
                           causal: bool = True, scale: Optional[float] = None,
                           kv_valid: Optional[int] = None,
-                          kv_offset: Optional[int] = None) -> Tensor:
+                          kv_offset: Optional[int] = None,
+                          p_to_bf16: bool = False) -> Tensor:
     """The kernel's function in plain torch: q, k and v upcast to f32, q
     scaled, the mask selected to -1e30, an f32 softmax, the output in q's
     dtype.  Keys at or past ``kv_valid`` are left out, as the kernel never
-    loads them."""
+    loads them.  ``p_to_bf16`` rounds p to bf16 before p·v (the
+    normalizer stays f32): SDPA's function, not the kernel's, the control
+    that shows a check can tell a kernel that keeps p in f32 from one that
+    does not."""
     scale, kv_valid, kv_offset = _resolve(q, k, v, scale, kv_valid,
                                           kv_offset)
     b, hq, sq, d = q.shape
@@ -142,6 +151,8 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    if p_to_bf16:
+        p = p.to(torch.bfloat16).float()
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, vf) / torch.clamp(l, min=1e-30)
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
@@ -198,6 +209,39 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def decode_limits() -> Tuple[int, int]:
+    """The decode body's limits, as the library reports them: the most rows
+    per (batch, KV head) of a decode call, and the most CTAs per row
+    group.  Builds the library."""
+    rows, max_splits = ctypes.c_int(), ctypes.c_int()
+    LIBRARY.launch("flash_attention_decode_limits", ctypes.byref(rows),
+                   ctypes.byref(max_splits))
+    return rows.value, max_splits.value
+
+
+def kernel_bf16_parts(p: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """`bf16_parts` as the tensor-core prefill computes it: on a CUDA f32
+    tensor, the kernel's own split (``split3``), launched alone so checks
+    can hold it against `bf16_parts` bit for bit; on a CPU tensor,
+    `bf16_parts`.  No path of the model calls it, and `LAUNCHES` does not
+    count it."""
+    if p.device.type == "cpu":
+        return bf16_parts(p)
+    if p.dtype != torch.float32:
+        raise TypeError(f"kernel_bf16_parts takes float32, got {p.dtype}")
+    flat = p.contiguous().reshape(-1)
+    n = flat.numel()
+    parts = torch.empty((3, n + n % 2), dtype=torch.bfloat16, device=p.device)
+    if n:
+        with torch.cuda.device(p.device):
+            LIBRARY.launch("flash_split3_launch", flat.data_ptr(),
+                           parts[0].data_ptr(), parts[1].data_ptr(),
+                           parts[2].data_ptr(), n,
+                           torch.cuda.current_stream(p.device).cuda_stream)
+    return tuple(t[:n].reshape(p.shape) for t in parts)
+
+
 def _tickets(device: torch.device, n: int) -> Tensor:
     t = _TICKETS.get(device)
     if t is None or t.numel() < n:
@@ -252,10 +296,11 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     hkv = k.shape[1]
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     splits, scratch, tickets = 0, None, None
-    if sq * (hq // hkv) <= DECODE_ROWS:
+    rows, max_splits = decode_limits()
+    if sq * (hq // hkv) <= rows:
         splits = decode_splits(_kv_end(sq, kv_valid, kv_offset, causal),
-                               b * hkv, _sm_count(q.device))
-        scratch = torch.empty(b * hkv * splits * DECODE_ROWS * (d + 2),
+                               b * hkv, _sm_count(q.device), max_splits)
+        scratch = torch.empty(b * hkv * splits * rows * (d + 2),
                               dtype=torch.float32, device=q.device)
         tickets = _tickets(q.device, b * hkv)
     with torch.cuda.device(q.device):

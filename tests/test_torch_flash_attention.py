@@ -255,7 +255,7 @@ def test_split_plain_non_causal_and_bf16():
 def test_decode_splits(kv_end, groups, want):
     """A split per 64-key tile, no more CTAs than SMs (132 on the H100)
     over all row groups, at most 128 a group, and no split empty."""
-    splits = K.decode_splits(kv_end, groups, 132)
+    splits = K.decode_splits(kv_end, groups, 132, 128)
     assert splits == want
     tiles = -(-kv_end // K.BN)
     per = -(-tiles // splits)
@@ -286,3 +286,41 @@ def test_bf16_parts_sum_back_to_p_exactly():
     assert ((pm @ vm).double() - exact).abs().le(tol).all()
     rounded = pm.to(torch.bfloat16).float() @ vm
     assert ((rounded.double() - exact).abs() > tol).any()
+
+
+# the card's check that the bf16 prefill keeps p in f32: at most this share
+# of its bf16 outputs may differ from the plain version's (f32 sums in
+# another order flip a rounding now and then), while p rounded to bf16
+# before p·v (SDPA's function) flips far more
+P_F32_MISMATCH = 0.01
+
+
+@pytest.mark.parametrize("s,cached", [(17, 0), (64, 200)])
+def test_p_in_f32_check_tells_p_rounded_to_bf16_apart(s, cached):
+    """The check chip_smoke.py and tests/test_torch_gpu.py apply to the
+    tensor-core prefill, here on functions of the CPU: with gemma's heads
+    (8 over 1 KV head of 256) and bf16 inputs, a function that keeps p in
+    f32 and sums in another order (the split decode algorithm) differs from
+    the reference's bf16 output on at most `P_F32_MISMATCH` of the outputs
+    and within one bf16 ulp; p rounded to bf16 (the control) fails both."""
+    n = cached + s
+    args = _qkv(s + cached, 1, 8, 1, s, n, 256)
+    q, k, v = _t(args, torch.bfloat16)
+    want = torch.from_numpy(np.array(jref.attention_ref(
+        *_j(args, jnp.bfloat16), causal=True).astype(jnp.float32)))
+    kw = dict(causal=True, kv_valid=n, kv_offset=cached)
+    f32_p = K.flash_attention_split_plain(q, k, v, splits=-(-n // K.BN),
+                                          **kw).float()
+    control = K.flash_attention_plain(q, k, v, p_to_bf16=True, **kw).float()
+    ulp = dict(rtol=2.0 ** -7, atol=1e-5)
+    assert (f32_p != want).float().mean() <= P_F32_MISMATCH
+    assert torch.allclose(f32_p, want, **ulp)
+    assert (control != want).float().mean() > P_F32_MISMATCH
+    assert not torch.allclose(control, want, **ulp)
+
+
+def test_kernel_bf16_parts_on_the_cpu_is_bf16_parts():
+    p = torch.from_numpy(np.random.default_rng(3).random(101).astype(
+        np.float32))
+    for a, b in zip(K.kernel_bf16_parts(p), K.bf16_parts(p)):
+        assert torch.equal(a, b)

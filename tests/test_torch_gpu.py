@@ -341,6 +341,48 @@ def test_flash_attention_gemma_prefill_matches_plain_version(cuda_device, s,
     torch.testing.assert_close(got, want, **_gemma_tol(dtype))
 
 
+# at most this share of the bf16 prefill's outputs may differ from the
+# plain version's bf16 outputs: p kept in f32, sums in another order
+P_F32_MISMATCH = 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,cached", [(17, 0), (600, 1000)])
+def test_flash_attention_prefill_keeps_p_in_f32(cuda_device, s, cached):
+    """The tensor-core prefill's p·v uses all three bf16 parts of p: its
+    bf16 outputs differ from the plain version's on at most
+    `P_F32_MISMATCH` of them and within one bf16 ulp, while the control,
+    the plain version with p rounded to bf16 (SDPA's function), fails both
+    through the same comparison."""
+    args, kw = _gemma_call(cuda_device, s, cached, torch.bfloat16, seed=s)
+    got = FK.flash_attention(*args, **kw)
+    want = FK.flash_attention_plain(*args, **kw)
+    control = FK.flash_attention_plain(*args, p_to_bf16=True, **kw)
+    torch.cuda.synchronize()
+    assert (got != want).float().mean() <= P_F32_MISMATCH
+    torch.testing.assert_close(got, want, **GEMMA_BF16)
+    assert (control != want).float().mean() > P_F32_MISMATCH
+    assert not torch.allclose(control, want, **GEMMA_BF16)
+
+
+@pytest.mark.gpu
+def test_flash_split3_matches_bf16_parts(cuda_device):
+    """The prefill's device split of f32 p into three bf16 parts is
+    `bf16_parts` bit for bit, on p in [0, 1], on p = e^-x down to e^-60
+    (a walk's small weights), at 0 and 1, and for an odd count."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    p = torch.cat([torch.rand(1 << 20, generator=g, device=cuda_device),
+                   torch.exp(-60 * torch.rand(1 << 20, generator=g,
+                                              device=cuda_device)),
+                   torch.tensor([0.0, 1.0, 0.5], device=cuda_device)])
+    for x in (p, p[:-1]):
+        got = FK.kernel_bf16_parts(x)
+        want = FK.bf16_parts(x)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_flash_attention_ops_pad_narrow_heads(cuda_device):
     """`ops.attention` pads D = 8 and 16 (the reference tests' narrow
