@@ -9,13 +9,15 @@ kernels from `src/repro_torch/kernels/rmw/csrc/rmw.cu`, the Mamba-2 SSD
 chunk kernel from `src/repro_torch/kernels/ssd/csrc/ssd.cu`, the flash
 attention kernel from
 `src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`), holds
-each kernel against its plain PyTorch version, drives the port's three main
+each kernel against its plain PyTorch version (the fetched RMW kernel also
+at its edge shapes, twice), drives the port's three main
 paths with the launch counters reset just before each and read just after
 — `atomics.execute` on CUDA tables plus Graph500 BFS at scale 20,
 edgefactor 16; `BatchServer` serving mamba2_780m; and `BatchServer`
-serving gemma_2b, both at full width and depth in bf16 — and times each
-kernel beside its bound, its plain version and the PyTorch library call
-that computes the same function, where there is one.
+serving gemma_2b, both at full width and depth in bf16 — times BFS's
+search alone with the edges already on the card, and times each kernel
+beside its bound, its plain version and the PyTorch library call that
+computes the same function, where there is one.
 
 Phases print one JSON line each (`{"phase": ...}`); every phase raises on a
 failure.  The line before the last is the per-kernel record, and the last
@@ -62,6 +64,9 @@ SOURCE = "src/repro_torch/kernels/rmw/csrc/rmw.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SOURCES = {"ssd_chunk": SSD_SOURCE, "flash_attention": FA_SOURCE}
+# the RMW kernels as the device trace names them
+RMW_KERNELS = ("rmw_table_kernel", "swp_write_kernel", "fetched_",
+               "cas_success_kernel", "slot_counts")
 REPLACES = {"rmw_table": "src/repro/kernels/rmw/kernel.py:107",
             "rmw_table_fetched": "src/repro/kernels/rmw/kernel.py:306",
             "slot_counts": "src/repro/kernels/rmw/kernel.py:169",
@@ -187,7 +192,88 @@ def _max_err(a, b):
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def _kronecker_idx(gen, scale, n):
+    """Graph500 RMAT destinations (A = 0.57, B = 0.19, C = 0.19, the rule of
+    `core.bfs.kronecker_graph`), drawn on the card: BFS's slot skew."""
+    a, b, c = 0.57, 0.19, 0.19
+    idx = torch.zeros((n,), dtype=torch.int64, device="cuda")
+    for level in range(scale):
+        r = torch.rand((n,), generator=gen, device="cuda")
+        bit = ((r >= a) & (r < a + b)) | (r >= a + b + c)
+        idx |= bit.long() << level
+    perm = torch.randperm(1 << scale, generator=gen, device="cuda")
+    return perm[idx].int()
+
+
+def _fetched_cases(gen, bfs_n):
+    """The fetched kernel's edge shapes, int32 (name, table, idx, vals)."""
+    cases = []
+    for name, n, m in (("m1", 1 << 22, 1), ("bfs_90pct_dropped", bfs_n,
+                                             1 << SCALE),
+                       ("all_dropped", 1 << 22, 1 << 20),
+                       ("m_2pow25_plus1", 1 << 24, (1 << 25) + 1),
+                       ("kronecker", 1 << 22, 1 << SCALE)):
+        tab, idx, val = _inputs(gen, n, m, torch.int32, drops=False)
+        if name == "bfs_90pct_dropped":
+            drop = torch.rand((n,), generator=gen, device="cuda") < 0.9
+            idx = torch.where(drop, m, idx)
+        elif name == "all_dropped":
+            idx = torch.where(idx % 2 == 0, m, -1 - idx)
+        elif name == "kronecker":
+            idx = _kronecker_idx(gen, SCALE, n)
+        cases.append((name, tab, idx, val))
+    return cases
+
+
+def _check_fetched_cases(gen, bfs_n):
+    """Every op, int32, bit-equal to the plain version and to a second run
+    of the kernel, at m = 1, the BFS shape with 90% of ops dropped, every op
+    dropped, m = 2^25 + 1 (four radix passes) and Kronecker skew."""
+    done = []
+    for name, tab, idx, val in _fetched_cases(gen, bfs_n):
+        for op in OPS:
+            exp = 0 if op == "cas" else None
+            got = K.rmw_table_fetched(tab, idx, val, op, expected=exp)
+            again = K.rmw_table_fetched(tab, idx, val, op, expected=exp)
+            want = K.rmw_table_fetched_plain(tab, idx, val, op, exp)
+            sync()
+            for g, a, w, what in zip(got, again, want,
+                                     ("table", "fetched", "success")):
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"rmw_table_fetched {op} {name}: {what} differs "
+                        f"from the plain version in {int((g != w).sum())} "
+                        f"places")
+                if not torch.equal(g, a):
+                    raise AssertionError(
+                        f"rmw_table_fetched {op} {name}: {what} differs "
+                        f"between two runs")
+        done.append(dict(case=name, n=int(idx.shape[0]), m=int(tab.shape[0]),
+                         kept=int(((idx >= 0) & (idx < tab.shape[0])).sum())))
+    return done
+
+
+def _fp32_faa_run_to_run(gen):
+    """Whether fp32 FAA on normal values gives the same bits twice, for the
+    kernel and for the plain version (`index_add_` and a sort), at the
+    contended shape, where segments span tiles.  Reported, not gated."""
+    tab, idx, val = _inputs(gen, 1 << 22, 1024, torch.float32, normal=True)
+    out = {}
+    for name, fn in (("kernel", lambda: K.rmw_table_fetched(tab, idx, val)),
+                     ("plain", lambda: K.rmw_table_fetched_plain(
+                         tab, idx, val, "faa"))):
+        runs = [fn() for _ in range(3)]
+        sync()
+        out[name] = {what: all(torch.equal(r[i], runs[0][i])
+                               for r in runs[1:])
+                     for i, what in ((0, "table"), (1, "fetched"))}
+    return out
+
+
 def phase_kernels(gen, errs):
+    if K.fetched_layout(1)[1] != K.RADIX_BITS:
+        raise AssertionError("rmw_table_fetched: the library's radix digit "
+                             "is not the cost model's RADIX_BITS")
     shapes = {"uniform": (1 << 24, 1 << 24), "contended": (1 << 22, 1024)}
     checked = 0
     for shape, (n, m) in shapes.items():
@@ -239,6 +325,9 @@ def phase_kernels(gen, errs):
              normal_faa_rtol=1e-5, normal_faa_atol=atol, max_occupancy=occ,
              max_abs_err={k: v for k, v in errs.items()},
              launches=dict(K.LAUNCHES))
+    emit("kernels", fetched_int32_bit_equal_twice=_check_fetched_cases(
+        gen, 2 * EDGEFACTOR << SCALE),
+         fp32_normal_faa_same_bits_run_to_run=_fp32_faa_run_to_run(gen))
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +399,7 @@ def phase_bfs():
     n = 1 << SCALE
     root = int(s[0])
     gen_s = time.perf_counter() - t0
-    reached, runs = None, {}
+    reached, runs, parents = None, {}, {}
     for op in ("cas", "swp", "faa"):
         before = dict(K.LAUNCHES)
         sync()
@@ -333,10 +422,47 @@ def phase_bfs():
         runs[op] = dict(levels=res.levels, reached=r,
                         edges=res.edges_traversed, seconds=secs,
                         teps=res.edges_traversed / secs, launches=launches)
+        parents[op] = res.parent
     emit("bfs", scale=SCALE, edgefactor=EDGEFACTOR, vertices=n,
          directed_edges=int(s.shape[0]), root=root, generator_s=gen_s,
          runs=runs)
-    return int(s.shape[0]), n
+    return s, d, root, parents
+
+
+def phase_bfs_search(s, d, root, parents):
+    """The search alone, as Graph500 times it (its kernel 2): the edges
+    already on the card.  Host time of one call per op, and the device
+    trace of another (busy time, the RMW kernels' share, idle share).
+    Beside it, `bfs()` with the edges narrowed to int32 on the host first
+    (`host_narrowed_s`), as it was given them before it narrowed them on
+    the card: the host pass's share of `bfs()` on host arrays."""
+    n = 1 << SCALE
+    s_dev, d_dev = (torch.as_tensor(x).cuda().int() for x in (s, d))
+    runs = {}
+    for op in ("cas", "swp", "faa"):
+        sync()
+        t0 = time.perf_counter()
+        narrowed = bfs_mod.bfs(s.astype(np.int32), d.astype(np.int32), n,
+                               root=root, op=op)
+        sync()
+        host_narrowed_s = time.perf_counter() - t0
+        if not torch.equal(narrowed.parent, parents[op]):
+            raise AssertionError(f"bfs {op}: parents differ with the edges "
+                                 f"narrowed on the host")
+        sync()
+        t0 = time.perf_counter()
+        res = bfs_mod.bfs(s_dev, d_dev, n, root=root, op=op)
+        sync()
+        secs = time.perf_counter() - t0
+        if not torch.equal(res.parent, parents[op]):
+            raise AssertionError(f"bfs {op}: parents differ with the edges "
+                                 f"on the card")
+        runs[op] = dict(seconds=secs, teps=res.edges_traversed / secs,
+                        host_narrowed_s=host_narrowed_s,
+                        trace=_device_trace(
+                            lambda: bfs_mod.bfs(s_dev, d_dev, n, root=root,
+                                                op=op), RMW_KERNELS))
+    emit("bfs_search", runs=runs)
 
 
 # ---------------------------------------------------------------------------
@@ -961,6 +1087,48 @@ def bound(nbytes, nops, nops_bf16=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def stage_ms(fn, reps=5):
+    """Device time per call of each kernel ``fn`` launches, by name, from
+    torch.profiler's CUPTI trace (None where it holds no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            name = e.name().split("(")[0].split("<")[0].replace("void ", "")
+            out[name] = out.get(name, 0.0) + e.duration_ns() / 1e6 / reps
+    return out or None
+
+
+def fetched_design_bytes(idx, m, op):
+    """`K.fetched_design_bytes` for this batch, and the ops it keeps."""
+    live = idx[(idx >= 0) & (idx < m)]
+    k, slots = live.shape[0], torch.unique(live).shape[0]
+    return K.fetched_design_bytes(idx.shape[0], k, m, slots, op), k
+
+
+def _fetched_row(shape, tab, idx, val, op):
+    n, m = idx.shape[0], tab.shape[0]
+    exp = 0 if op == "cas" else None
+    b, by = bound(13 * n + 8 * m, n)
+    design, k = fetched_design_bytes(idx, m, op)
+    fn = lambda: K.rmw_table_fetched(tab, idx, val, op, expected=exp)
+    row = dict(kernel="rmw_table_fetched", op=op, shape=shape, n=n, m=m,
+               kept=k, design_bytes=design,
+               design_bytes_ms=design / HBM_BPS * 1e3, ms=time_ms(fn, 20),
+               plain_ms=time_ms(lambda: K.rmw_table_fetched_plain(
+                   tab, idx, val, op, exp), 3),
+               library_ms=None, bound_ms=b, bound_by=by)
+    if op == "cas":
+        row["stages_ms"] = stage_ms(fn)
+    return row
+
+
 def phase_timing(gen, bfs_n, bfs_m):
     rows = []
     for shape, (n, m) in {"bfs": (bfs_n, bfs_m),
@@ -982,15 +1150,7 @@ def phase_timing(gen, bfs_n, bfs_m):
                 library_ms=None if lib is None else time_ms(lib),
                 bound_ms=b, bound_by=by))
         for op in OPS:
-            exp = 0 if op == "cas" else None
-            b, by = bound(13 * n + 8 * m, n)
-            rows.append(dict(
-                kernel="rmw_table_fetched", op=op, shape=shape, n=n, m=m,
-                ms=time_ms(lambda: K.rmw_table_fetched(tab, idx, val, op,
-                                                       expected=exp), 3),
-                plain_ms=time_ms(lambda: K.rmw_table_fetched_plain(
-                    tab, idx, val, op, exp), 3),
-                library_ms=None, bound_ms=b, bound_by=by))
+            rows.append(_fetched_row(shape, tab, idx, val, op))
         b, by = bound(4 * n + 4 * m, n)
         rows.append(dict(
             kernel="slot_counts", op="count", shape=shape, n=n, m=m,
@@ -998,6 +1158,12 @@ def phase_timing(gen, bfs_n, bfs_m):
             plain_ms=time_ms(lambda: K.slot_counts_plain(idx, m)),
             library_ms=time_ms(lambda: torch.bincount(idx_long, minlength=m)),
             bound_ms=b, bound_by=by))
+    # ... and at the BFS shape with 90% of ops dropped, as BFS's levels run
+    tab, idx, val = _inputs(gen, bfs_n, bfs_m, torch.int32, drops=False)
+    drop = torch.rand((bfs_n,), generator=gen, device="cuda") < 0.9
+    idx = torch.where(drop, bfs_m, idx)
+    for op in OPS:
+        rows.append(_fetched_row("bfs_90pct_dropped", tab, idx, val, op))
     for bh in (SSD_H, 4 * SSD_H):
         s, q, n, p = 4096, SSD_Q, SSD_N, SSD_P
         args = _chunk_inputs(gen, bh, s)
@@ -1098,12 +1264,14 @@ def main():
 
     K.reset_launches()                   # the main path starts here
     phase_atomics(gen)
-    bfs_n, bfs_m = phase_bfs()
+    bfs_graph = phase_bfs()
     launches = dict(K.LAUNCHES)          # ... and ends here
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    phase_bfs_search(*bfs_graph)
+    bfs_n, bfs_m = bfs_graph[0].shape[0], 1 << SCALE
 
     launches.update(phase_serve())       # resets and reads its own count
     launches.update(phase_serve_gemma())  # the same
@@ -1133,6 +1301,13 @@ def main():
     fa["decode"] = {k: dec[k] for k in (
         "ms", "eager_ms", "host_us", "scratch_alloc_us", "plain_ms",
         "bound_ms", "bound_by", "library_ms")}
+    # rmw_table_fetched: the same call with 90% of ops dropped, as BFS's
+    # levels run it (the bytes its stages move are in the timing rows)
+    dropped = next(r for r in rows if r["kernel"] == "rmw_table_fetched"
+                   and r["op"] == "cas" and r["shape"] == "bfs_90pct_dropped")
+    rf = next(k for k in kernels if k["name"] == "rmw_table_fetched")
+    rf["bfs_90pct_dropped"] = {k: dropped[k] for k in (
+        "ms", "plain_ms", "bound_ms")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

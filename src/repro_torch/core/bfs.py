@@ -54,16 +54,24 @@ class BfsResult:
     edges_traversed: int
 
 
+def _edges(x, dev) -> Tensor:
+    """int32 edge endpoints on ``dev``.  A host array goes over as it is and
+    is narrowed there: a host pass over every edge costs more than the
+    wider copy."""
+    return torch.as_tensor(x).to(dev).to(torch.int32)
+
+
 def bfs(src, dst, n: int, root: int = 0, op: str = "cas",
         backend: str = "auto", *, device="cuda",
         max_levels: int = 64) -> BfsResult:
     """Level-synchronous BFS; op ∈ {cas, swp, faa} picks the combiner and
-    ``backend`` the RMW engine implementation ("auto" = cost-model pick)."""
+    ``backend`` the RMW engine implementation ("auto" = cost-model pick).
+    ``src``/``dst`` are host arrays or tensors (on ``device`` they are used
+    as they are)."""
     if op not in ("cas", "swp", "faa"):
         raise ValueError(f"bfs op must be cas, swp or faa, got {op!r}")
     dev = torch.device(device)
-    s = torch.as_tensor(np.asarray(src, np.int32), device=dev)
-    d = torch.as_tensor(np.asarray(dst, np.int32), device=dev)
+    s, d = _edges(src, dev), _edges(dst, dev)
     s_long = s.long()
     parent = torch.full((n,), -1, dtype=torch.int32, device=dev)
     parent[root] = root
@@ -115,25 +123,24 @@ def bfs(src, dst, n: int, root: int = 0, op: str = "cas",
 def validate_parents(src, dst, parent, root: int) -> bool:
     """Every reached vertex's parent edge must exist; root is its own parent.
 
-    Vectorised: each edge becomes one int64 key ``src * base + dst``, and
-    the parent edges are looked up in the sorted keys.
+    Vectorised on the parent array's device: each edge becomes one int64
+    key ``src * base + dst``, and the parent edges are looked up in the
+    sorted keys.
     """
-    if isinstance(parent, Tensor):
-        parent = parent.cpu().numpy()
-    parent = np.asarray(parent).astype(np.int64)
-    src = np.asarray(src).astype(np.int64)
-    dst = np.asarray(dst).astype(np.int64)
-    if parent[root] != root:
+    dev = parent.device if isinstance(parent, Tensor) else torch.device("cpu")
+    parent, src, dst = (torch.as_tensor(x).to(dev, torch.int64)
+                        for x in (parent, src, dst))
+    if int(parent[root]) != root:
         return False
-    v = np.nonzero(parent >= 0)[0]
+    v = torch.nonzero(parent >= 0).flatten()
     v = v[v != root]
-    if v.size == 0:
+    if v.numel() == 0:
         return True
-    if src.size == 0:
+    if src.numel() == 0:
         return False
     base = max(int(src.max()), int(dst.max()), int(parent.max()),
                parent.shape[0] - 1) + 1
-    keys = np.unique(src * base + dst)
+    keys = torch.unique(src * base + dst)
     want = parent[v] * base + v
-    at = np.minimum(np.searchsorted(keys, want), keys.size - 1)
-    return bool(np.all(keys[at] == want))
+    at = torch.searchsorted(keys, want).clamp(max=keys.numel() - 1)
+    return bool((keys[at] == want).all())

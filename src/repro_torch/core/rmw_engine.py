@@ -13,7 +13,10 @@ Port of `repro.core.rmw_engine`.  Backends:
     same-key mask.  ``need_fetched=False`` is one scatter pass.
 ``cuda``
     The hand-written Hopper kernels (`kernels.rmw.ops`), in the place the
-    reference gives its Pallas kernel.  int32 and fp32 tables.
+    reference gives its Pallas kernel.  int32 and fp32 tables.  Table-only
+    batches combine with hardware atomics in one pass; fetched values come
+    from a stable radix sort of the kept ops by slot and a segmented scan,
+    with no ordered chain across the batch.
 
 Every backend produces results equal to ``rmw_serialized`` for every op it
 supports (integer dtypes bit for bit; float FAA up to reassociation).
@@ -37,7 +40,7 @@ from repro_torch.core import perf_model
 from repro_torch.core.placement import PlacementState, Tier
 from repro_torch.core.rmw import (OPS, RmwResult, _identity, rmw_combining,
                                   rmw_serialized)
-from repro_torch.kernels.rmw.kernel import FETCHED_BLOCK
+from repro_torch.kernels.rmw.kernel import fetched_design_bytes, radix_passes
 
 Tensor = torch.Tensor
 
@@ -271,9 +274,13 @@ def cost_onehot(spec: perf_model.HardwareSpec, op: str, n: int, m: int,
 
 def cost_cuda(spec: perf_model.HardwareSpec, op: str, n: int, m: int,
               need_fetched: bool = True, device_type: str = "cpu") -> float:
-    """The Hopper kernels: their bytes over HBM bandwidth, plus for the
-    fetched kernel one ordered chain step per block of `FETCHED_BLOCK` ops
-    (publish a flag, observe it, gather: about two HBM latencies).
+    """The Hopper kernels: their bytes over HBM bandwidth, plus one HBM
+    latency per kernel of the fetched kernel.
+
+    Table-only (FAA/MIN/MAX/SWP without fetched values): one atomic pass.
+    Fetched (and every CAS): sort and scan, its stages' bytes
+    (`fetched_design_bytes`) priced with every op kept, and its
+    `radix_passes(m) + 4` kernels (one more for CAS).
 
     Off CUDA the kernels do not run (the wrappers take their plain versions),
     so the backend is priced out of selection there.
@@ -283,8 +290,10 @@ def cost_cuda(spec: perf_model.HardwareSpec, op: str, n: int, m: int,
     if not need_fetched and op != "cas":
         nbytes = 8.0 * n + 8.0 * m + (8.0 * m if op == "swp" else 0.0)
         return nbytes / max(spec.hbm_Bps, 1.0)
-    chain = -(-n // FETCHED_BLOCK) * 2.0 * spec.tier_latency_s[Tier.HBM_LOCAL]
-    return (13.0 * n + 8.0 * m) / max(spec.hbm_Bps, 1.0) + chain
+    nbytes = fetched_design_bytes(n, n, m, 0, op)
+    kernels = radix_passes(m) + 4 + (op == "cas")
+    return (nbytes / max(spec.hbm_Bps, 1.0)
+            + kernels * spec.tier_latency_s[Tier.HBM_LOCAL])
 
 
 # ---------------------------------------------------------------------------

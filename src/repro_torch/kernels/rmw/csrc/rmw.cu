@@ -31,20 +31,63 @@
 //             index blocks with a strict-lower-triangular one-hot prefix)
 //   Computes (table, fetched, success) in serialized batch order for
 //   faa/min/max/swp and uniform-expected CAS.
-//   Bound: bytes, (8 n in + 5 n out + 8 m) / 3.35 TB/s; in practice the
-//   ordered chain below (one dependent step per block of 1024 ops).
-//   Design: one CTA per block of FB ops, in batch order by a dynamic ticket
-//   (so a block's predecessor is always resident: no deadlock).  Phase 1,
-//   unordered and overlapped across resident CTAs: the block's idx/vals go
-//   to shared memory and each thread scans the block for its slot's
-//   exclusive prefix (FAA sum, MIN/MAX reduce, SWP previous collider, CAS
-//   first value != expected) and whether it is its slot's last op in the
-//   block — the strict-lower-triangular mask of the TPU kernel as a loop
-//   over shared memory.  Phase 2, ordered: spin on the predecessor's flag,
-//   gather base = table[idx] past L1 (__ldcg), derive fetched/success, let
-//   each slot's last op write the slot's new value, __threadfence(), publish.
-//   The chain of n/FB steps is what bounds this kernel; a decoupled
-//   look-back or a sort-based design is later work.
+//   Bound: bytes, (8 n in + 5 n out + 8 m) / 3.35 TB/s.
+//   Design: a stable sort of the kept ops by slot, then a segmented scan;
+//   nothing is ordered across the batch but the look-back below.  Five
+//   stages of kernels over tiles of TILE = 4096 ops (256 threads x 16); a
+//   kernel with a look-back takes its tiles in order by a dynamic ticket
+//   (atomicAdd), so every tile a CTA waits on is resident or done and the
+//   look-back cannot deadlock:
+//   1. Compact: keep the ops with 0 <= idx < m as (slot, position) pairs in
+//      batch order (warp ballots, a block scan, the tile's offset by
+//      decoupled look-back); write fetched 0 and success 0 at the dropped
+//      positions and success 1 at the kept ones (CAS: 0, see 5); build
+//      the digit histograms of every radix pass, 4's too (shared bins, one
+//      global atomicAdd per non-zero bin).  The last tile writes k, the number
+//      kept: the later kernels size themselves by it on the device, and
+//      their tiles past k exit at once.
+//   2. Sort: ceil(bit_length(m - 1) / 8) stable LSD passes of 8-bit digits
+//      (3 at m = 2^20 and 2^24, 4 at 2^25 + 1, none at m = 1).  A pass
+//      ranks each warp's keys by digit (__match_any_sync), takes each
+//      digit's offset among earlier tiles by decoupled look-back (one status
+//      word per tile and digit), stages the tile digit-major in shared
+//      memory and writes each digit's run out contiguously.
+//   3. Scan: a segment is a run of one slot.  Each op gathers vals[pos], a
+//      segment head also table[slot]; an inclusive segmented scan of
+//      (head, value) under the op's combiner (wrapping int32 or fp32 add,
+//      min, max; CAS: the first value other than `expected`) gives the
+//      slot's value after each op, and the value before it is the fetched
+//      one.  SWP needs no scan: fetched is the previous op's value.  The
+//      carry across tiles is the same look-back; a tile that holds a head
+//      publishes its inclusive value at once.  The last op of each segment
+//      writes the slot's final value into the output table (the input
+//      table is only read).  The fetched values go out in slot order,
+//      beside their positions.
+//   4. Bucket: one more pass of 2's kernel sorts the (position, fetched)
+//      pairs by the top 8 bits of the position.
+//   5. Scatter fetched to the positions, a tile per CTA.  A random 4-byte
+//      write into an array larger than L2 costs far more than a streamed
+//      one; bucketed, the writes in flight fall in a few windows of n / 256
+//      positions that stay in L2.  CAS then streams success = kept and
+//      fetched == expected over the batch (random 1-byte writes of it cost
+//      more still).
+//   Status words are 64-bit, flag and value in one load: flag in bits
+//   56-63, value in bits 0-31.  Each stage has its own flags (2s + 1
+//   aggregate, 2s + 2 inclusive), so a word left by an earlier stage reads
+//   as not ready and the status words are zeroed once per call.  Hardware
+//   atomics serve only tickets and histogram bins.
+//   Moves 9 n + (52 + 16 P) k bytes for k kept ops and P passes, plus 8 per
+//   slot touched (CAS: 9 n more), all of it streamed but the vals/table
+//   gathers of 3 and the windowed scatter of 5.
+//   fp32 FAA sums in tile order within the block, but the look-back may
+//   stop at any published inclusive value, so its association across tiles
+//   (and the rounding of a segment that spans tiles) can vary from run to
+//   run.
+//   Scratch (one buffer from the caller, sized by rmw_table_fetched_layout;
+//   fetched_layout below): 16 counters,
+//   MAX_PASSES + 1 rows of 256 histogram bins, ceil(n / TILE) x 256 status
+//   words, two pair buffers of 2 n int32, every part 256-byte aligned.  The
+//   counters, bins and status words are zeroed by cudaMemsetAsync.
 //
 // slot_counts  (replaces kernel.py::slot_counts, body _slot_count_kernel:
 //             column sums of the one-hot matrix)
@@ -62,7 +105,6 @@
 enum { OP_FAA = 0, OP_SWP = 1, OP_MIN = 2, OP_MAX = 3, OP_CAS = 4 };
 enum { DT_INT32 = 0, DT_FLOAT32 = 1 };
 
-static const int FB = 1024;            // ops per block of the fetched kernel
 static const int THREADS = 256;        // threads per block of the others
 static const int MAX_BLOCKS = 132 * 32;
 static const int SMEM_HIST_SLOTS = 48 * 1024;
@@ -129,103 +171,453 @@ __global__ void swp_write_kernel(T* __restrict__ table,
 
 // --- rmw_table_fetched -----------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(FB)
-rmw_fetched_kernel(T* __restrict__ table, const int* __restrict__ idx,
-                   const T* __restrict__ vals, T* __restrict__ fetched,
-                   uint8_t* __restrict__ success, int* counters, long long n,
-                   int m, int op, T expected) {
-  __shared__ int s_idx[FB];
-  __shared__ T s_val[FB];
-  __shared__ int s_ticket;
-  const int tid = threadIdx.x;
+static const int FT = 256;                  // threads per CTA of the stages
+static const int FW = FT / 32;              // warps per CTA
+static const int FI = 16;                   // ops per thread
+static const int TILE = FT * FI;            // ops per tile
+static const int WCHUNK = TILE / FW;        // ops per warp in stages 1-2
+static const int DBITS = 8;                 // radix digit
+static const int DIGITS = 1 << DBITS;       // == FT: a thread per digit
+static const int MAX_PASSES = 4;            // slots below 2^31
+// histogram rows: one per slot pass, then the positions' top digit
+static const int HIST_ROWS = MAX_PASSES + 1;
+// counters[]: one ticket per look-back kernel (compact, the slot passes,
+// scan, the position pass), then k, the number of ops kept
+enum { C_KEPT = 8, N_COUNTERS = 16 };
 
-  // counters[0]: next ticket; counters[1]: number of blocks published.
+typedef unsigned long long u64;
+
+__device__ __forceinline__ u64 status_word(unsigned flag, unsigned value) {
+  return ((u64)flag << 56) | value;
+}
+__device__ __forceinline__ unsigned status_flag(u64 w) {
+  return (unsigned)(w >> 56);
+}
+__device__ __forceinline__ void publish(u64* s, u64 w) {
+  *(volatile u64*)s = w;      // one 64-bit store: flag and value together
+}
+// Spin until the word carries this stage's aggregate (`flag`) or inclusive
+// (`flag + 1`) flag.  The tile that writes it holds an earlier ticket, so it
+// is resident or done.
+__device__ __forceinline__ u64 wait_status(const u64* s, unsigned flag) {
+  u64 w;
+  do {
+    w = *(const volatile u64*)s;
+  } while (status_flag(w) < flag);
+  return w;
+}
+
+// Tile t's exclusive prefix of `own` over tiles 0..t-1, by decoupled
+// look-back over the status words status[j * stride], j < t.  (Reading
+// several predecessors' words at once was slower in a radix pass.)
+__device__ unsigned look_back_sum(u64* status, int t, int stride,
+                                  unsigned own, unsigned flag) {
+  u64* mine = status + (long long)t * stride;
+  if (t == 0) {
+    publish(mine, status_word(flag + 1, own));
+    return 0;
+  }
+  publish(mine, status_word(flag, own));
+  unsigned excl = 0;
+  for (int j = t - 1;; --j) {
+    const u64 w = wait_status(status + (long long)j * stride, flag);
+    excl += (unsigned)w;
+    if (status_flag(w) == flag + 1) break;
+  }
+  publish(mine, status_word(flag + 1, excl + own));
+  return excl;
+}
+
+// Exclusive sum of one int per thread over the CTA (FT threads).
+__device__ int block_exclusive_sum(int x, int* s_warp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  int off = 0;
+  for (int w = 0; w < warp; ++w) off += s_warp[w];
+  __syncthreads();
+  return off + incl - x;
+}
+
+// Stage 1: compact the kept ops into (slot, position) pairs in batch order.
+// `kept_success` is what a kept op's success is (1, or for CAS 0 until the
+// last stage writes it).
+template <typename T>
+__global__ void __launch_bounds__(FT)
+fetched_compact_kernel(const int* __restrict__ idx, T* __restrict__ fetched,
+                       uint8_t* __restrict__ success, int* __restrict__ keys,
+                       int* __restrict__ pos, u64* status, int* counters,
+                       int* hist, long long n, int m, int passes,
+                       int pos_shift, uint8_t kept_success) {
+  __shared__ int s_hist[HIST_ROWS * DIGITS];
+  __shared__ int s_warp[FW];
+  __shared__ int s_ticket, s_base;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < HIST_ROWS * DIGITS; i += FT) s_hist[i] = 0;
   if (tid == 0) s_ticket = atomicAdd(&counters[0], 1);
   __syncthreads();
   const int t = s_ticket;
-  const long long g = (long long)t * FB + tid;
-  const bool in_batch = g < n;
-
-  int my = -1;
-  T v = T(0);
-  if (in_batch) {
-    my = idx[g];
-    v = vals[g];
-    if (my < 0 || my >= m) my = -1;   // dropped: matches no valid op
-  }
-  s_idx[tid] = my;
-  s_val[tid] = v;
-  __syncthreads();
-
-  // Phase 1 (unordered): exclusive same-slot prefix over earlier positions.
-  bool has_prev = false, is_last = true;
-  T prefix = T(0);
-  int prev = -1, first_ne = -1;
-  if (my >= 0) {
-    for (int j = 0; j < FB; ++j) {
-      if (s_idx[j] != my) continue;
-      if (j > tid) { is_last = false; continue; }
-      if (j == tid) continue;
-      const T sv = s_val[j];
-      if (op == OP_FAA) prefix = has_prev ? add_wrap(prefix, sv) : sv;
-      else if (op == OP_MIN) prefix = has_prev ? min_of(prefix, sv) : sv;
-      else if (op == OP_MAX) prefix = has_prev ? max_of(prefix, sv) : sv;
-      else if (op == OP_SWP) prev = j;
-      else if (first_ne < 0 && sv != expected) first_ne = j;   // OP_CAS
-      has_prev = true;
+  const long long first = (long long)t * TILE + warp * WCHUNK + lane;
+  const unsigned below = (1u << lane) - 1;
+  int slot[FI], rank[FI];
+#pragma unroll
+  for (int r = 0; r < FI; ++r)      // every load in flight before any use
+    slot[r] = first + r * 32 < n ? idx[first + r * 32] : -1;
+  int count = 0;
+#pragma unroll
+  for (int r = 0; r < FI; ++r) {
+    const long long i = first + r * 32;
+    int s = slot[r];
+    if (i < n) {
+      if (s < 0 || s >= m) {                     // dropped
+        fetched[i] = T(0);
+        s = -1;
+      }
+      success[i] = s >= 0 ? kept_success : 0;
+    }
+    const unsigned kept = __ballot_sync(0xffffffffu, s >= 0);
+    slot[r] = s;
+    rank[r] = count + __popc(kept & below);
+    count += __popc(kept);
+    if (s >= 0) {
+      for (int p = 0; p < passes; ++p)
+        atomicAdd(&s_hist[p * DIGITS + ((s >> (p * DBITS)) & (DIGITS - 1))],
+                  1);
+      atomicAdd(&s_hist[MAX_PASSES * DIGITS + (int)(i >> pos_shift)], 1);
     }
   }
-
-  // Phase 2 (ordered): wait for the predecessor block to publish.
-  if (tid == 0 && t > 0) {
-    volatile int* done = counters + 1;
-    while (*done < t) {
+  if (lane == 0) s_warp[warp] = count;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+    for (int w = 0; w < FW; ++w) {
+      const int c = s_warp[w];
+      s_warp[w] = total;
+      total += c;
     }
-    __threadfence();
+    s_base = (int)look_back_sum(status, t, 1, (unsigned)total, 1);
+    if (t == (int)gridDim.x - 1) counters[C_KEPT] = s_base + total;
   }
   __syncthreads();
-  T base = T(0);
-  if (my >= 0) base = __ldcg(&table[my]);
-  __syncthreads();   // every read of the block precedes its writes
-
-  if (my >= 0) {
-    T f = base, after;
-    bool ok = true;
-    switch (op) {
-      case OP_FAA:
-        if (has_prev) f = add_wrap(base, prefix);
-        after = add_wrap(f, v);
-        break;
-      case OP_MIN:
-        if (has_prev) f = min_of(base, prefix);
-        after = min_of(f, v);
-        break;
-      case OP_MAX:
-        if (has_prev) f = max_of(base, prefix);
-        after = max_of(f, v);
-        break;
-      case OP_SWP:
-        if (prev >= 0) f = s_val[prev];
-        after = v;
-        break;
-      default:   // OP_CAS, uniform expected: the slot holds `expected` until
-                 // the first op writing another value, then that value
-        if (base == expected && first_ne >= 0) f = s_val[first_ne];
-        ok = f == expected;
-        after = ok ? v : f;
-        break;
+  const int base = s_base + s_warp[warp];
+#pragma unroll
+  for (int r = 0; r < FI; ++r) {
+    if (slot[r] >= 0) {
+      keys[base + rank[r]] = slot[r];
+      pos[base + rank[r]] = (int)(first + r * 32);
     }
-    fetched[g] = f;
-    success[g] = ok ? 1 : 0;
-    if (is_last) __stcg(&table[my], after);
-  } else if (in_batch) {
-    fetched[g] = T(0);
-    success[g] = 0;
   }
-  __threadfence();
+  for (int i = tid; i < HIST_ROWS * DIGITS; i += FT) {
+    const int c = s_hist[i];
+    if (c) atomicAdd(&hist[i], c);
+  }
+}
+
+// One stable LSD pass of (key, payload) pairs on the digit of the keys at
+// `shift`, whose histogram is `hist` (DIGITS bins).  Stage 2 runs it on the
+// slots with the positions as payload; stage 4 on the positions' top digit
+// with the fetched values.
+__global__ void __launch_bounds__(FT)
+fetched_radix_kernel(const int* __restrict__ keys_in,
+                     const int* __restrict__ pos_in,
+                     int* __restrict__ keys_out, int* __restrict__ pos_out,
+                     u64* status, int* counters, const int* hist, int shift,
+                     int ticket, unsigned flag) {
+  __shared__ int s_key[TILE], s_pos[TILE];
+  __shared__ int s_wcnt[FW][DIGITS];   // per-warp counts, then warp offsets
+  __shared__ int s_start[DIGITS];      // digit's first place in the tile
+  __shared__ int s_dst[DIGITS];        // digit's first place in the output
+  __shared__ int s_warp[FW];
+  __shared__ int s_ticket;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < FW * DIGITS; i += FT) (&s_wcnt[0][0])[i] = 0;
+  if (tid == 0) s_ticket = atomicAdd(&counters[ticket], 1);
   __syncthreads();
-  if (tid == 0) atomicExch(&counters[1], t + 1);
+  const int t = s_ticket;
+  const long long k = counters[C_KEPT];
+  const long long t0 = (long long)t * TILE;
+  if (t0 >= k) return;
+  const long long first = t0 + warp * WCHUNK + lane;
+  const unsigned below = (1u << lane) - 1;
+  int key[FI], ps[FI], rank[FI];
+#pragma unroll
+  for (int r = 0; r < FI; ++r) {    // every load in flight before any use
+    const long long j = first + r * 32;
+    key[r] = j < k ? keys_in[j] : -1;
+    ps[r] = j < k ? pos_in[j] : 0;
+  }
+#pragma unroll
+  for (int r = 0; r < FI; ++r) {
+    const bool valid = key[r] >= 0;
+    const int d = valid ? (key[r] >> shift) & (DIGITS - 1) : DIGITS;
+    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    const int before = valid ? s_wcnt[warp][d] : 0;
+    __syncwarp();
+    if (valid && lane == __ffs(peers) - 1)
+      s_wcnt[warp][d] = before + __popc(peers);
+    __syncwarp();
+    rank[r] = before + __popc(peers & below);
+  }
+  __syncthreads();
+  // thread `tid` owns digit `tid`: warp offsets and the tile's count
+  int count = 0;
+  for (int w = 0; w < FW; ++w) {
+    const int c = s_wcnt[w][tid];
+    s_wcnt[w][tid] = count;
+    count += c;
+  }
+  const int start = block_exclusive_sum(count, s_warp);
+  const int digit_base = block_exclusive_sum(hist[tid], s_warp);
+  const unsigned earlier = look_back_sum(status + tid, t, DIGITS,
+                                         (unsigned)count, flag);
+  s_start[tid] = start;
+  s_dst[tid] = digit_base + (int)earlier;
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < FI; ++r) {
+    if (key[r] >= 0) {
+      const int d = (key[r] >> shift) & (DIGITS - 1);
+      const int at = s_start[d] + s_wcnt[warp][d] + rank[r];
+      s_key[at] = key[r];
+      s_pos[at] = ps[r];
+    }
+  }
+  __syncthreads();
+  const int in_tile = (int)(k - t0 < TILE ? k - t0 : TILE);
+  for (int i = tid; i < in_tile; i += FT) {
+    const int kk = s_key[i];
+    const int d = (kk >> shift) & (DIGITS - 1);
+    const int dst = s_dst[d] + i - s_start[d];
+    keys_out[dst] = kk;
+    pos_out[dst] = s_pos[i];
+  }
+}
+
+// Stage 3's combiners: the slot's value after `b` applied to `a`.
+template <typename T, int OP>
+__device__ __forceinline__ T combine(T a, T b, T e) {
+  if constexpr (OP == OP_FAA) return add_wrap(a, b);
+  else if constexpr (OP == OP_MIN) return min_of(a, b);
+  else if constexpr (OP == OP_MAX) return max_of(a, b);
+  else return (a != e || b == e) ? a : b;   // CAS: first value other than e
+}
+
+__device__ __forceinline__ unsigned to_bits(int v) { return (unsigned)v; }
+__device__ __forceinline__ unsigned to_bits(float v) {
+  return __float_as_uint(v);
+}
+template <typename T> __device__ __forceinline__ T from_bits(unsigned b);
+template <> __device__ __forceinline__ int from_bits<int>(unsigned b) {
+  return (int)b;
+}
+template <> __device__ __forceinline__ float from_bits<float>(unsigned b) {
+  return __uint_as_float(b);
+}
+
+// (head seen, value) of a run of ops; `b` after `a`.  Associative.
+template <typename T>
+struct Seg {
+  bool h;
+  T v;
+};
+template <typename T, int OP>
+__device__ __forceinline__ Seg<T> seg_combine(Seg<T> a, Seg<T> b, T e) {
+  return b.h ? b : Seg<T>{a.h, combine<T, OP>(a.v, b.v, e)};
+}
+
+#define SPAD(i) ((i) + ((i) >> 5))   // shared index padded past bank conflicts
+
+// Stage 3: each op's fetched value, in slot order beside its position, and
+// the final table.
+template <typename T, int OP>
+__global__ void __launch_bounds__(FT)
+fetched_scan_kernel(const T* __restrict__ table, T* __restrict__ out,
+                    const int* __restrict__ keys, const int* __restrict__ pos,
+                    const T* __restrict__ vals, int* __restrict__ f_pos,
+                    unsigned* __restrict__ f_val, u64* status,
+                    int* counters, int ticket, unsigned flag, T e) {
+  __shared__ int s_key[SPAD(TILE)], s_pos[SPAD(TILE)];
+  __shared__ T s_last[FT];
+  __shared__ bool s_wh[FW];
+  __shared__ T s_wv[FW];
+  __shared__ int s_ticket, s_prev_key, s_next_key;
+  __shared__ T s_carry;    // value before the tile (SWP: the previous op's)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) s_ticket = atomicAdd(&counters[ticket], 1);
+  __syncthreads();
+  const int t = s_ticket;
+  const long long k = counters[C_KEPT];
+  const long long t0 = (long long)t * TILE;
+  if (t0 >= k) return;
+  const int in_tile = (int)(k - t0 < TILE ? k - t0 : TILE);
+#pragma unroll
+  for (int r = 0; r < FI; ++r) {
+    const int l = r * FT + tid;
+    if (l < in_tile) {
+      s_key[SPAD(l)] = keys[t0 + l];
+      s_pos[SPAD(l)] = pos[t0 + l];
+    }
+  }
+  if (tid == 0) {
+    s_prev_key = t > 0 ? keys[t0 - 1] : -1;
+    s_next_key = t0 + TILE < k ? keys[t0 + TILE] : -1;
+    if (OP == OP_SWP && t > 0) s_carry = vals[pos[t0 - 1]];
+  }
+  __syncthreads();
+
+  // this thread's FI consecutive ops
+  const int l0 = tid * FI;
+  int key[FI], ps[FI];
+  T v[FI], base[FI];
+  unsigned head = 0, last = 0;
+#pragma unroll
+  for (int i = 0; i < FI; ++i) {
+    const bool valid = l0 + i < in_tile;
+    key[i] = valid ? s_key[SPAD(l0 + i)] : -1;
+    ps[i] = valid ? s_pos[SPAD(l0 + i)] : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < FI; ++i) {
+    if (key[i] < 0) continue;
+    const int prev = i > 0 ? key[i - 1]
+                           : (tid > 0 ? s_key[SPAD(l0 - 1)] : s_prev_key);
+    const int next = i < FI - 1 ? key[i + 1]
+                                : (l0 + FI < in_tile ? s_key[SPAD(l0 + FI)]
+                                                     : s_next_key);
+    if (key[i] != prev) head |= 1u << i;
+    if (key[i] != next) last |= 1u << i;
+  }
+#pragma unroll
+  for (int i = 0; i < FI; ++i) {
+    v[i] = key[i] >= 0 ? vals[ps[i]] : T(0);
+    base[i] = (head >> i) & 1 ? table[key[i]] : T(0);
+  }
+
+  if constexpr (OP == OP_SWP) {
+    s_last[tid] = v[FI - 1];
+    __syncthreads();
+    T prev = tid > 0 ? s_last[tid - 1] : s_carry;
+#pragma unroll
+    for (int i = 0; i < FI; ++i) {
+      if (key[i] < 0) continue;
+      f_pos[t0 + l0 + i] = ps[i];
+      f_val[t0 + l0 + i] = to_bits((head >> i) & 1 ? base[i] : prev);
+      if ((last >> i) & 1) out[key[i]] = v[i];
+      prev = v[i];
+    }
+  } else {
+    // the thread's aggregate; ops past k count as heads and are never read
+    Seg<T> agg;
+#pragma unroll
+    for (int i = 0; i < FI; ++i) {
+      const bool h = key[i] < 0 || ((head >> i) & 1);
+      const Seg<T> x{h, h && key[i] >= 0 ? combine<T, OP>(base[i], v[i], e)
+                                         : v[i]};
+      agg = i == 0 ? x : seg_combine<T, OP>(agg, x, e);
+    }
+    // inclusive over the warp, then the previous thread's (exclusive)
+    Seg<T> s = agg;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Seg<T> o{(bool)__shfl_up_sync(0xffffffffu, (int)s.h, d),
+                     __shfl_up_sync(0xffffffffu, s.v, d)};
+      if (lane >= d) s = seg_combine<T, OP>(o, s, e);
+    }
+    if (lane == 31) {
+      s_wh[warp] = s.h;
+      s_wv[warp] = s.v;
+    }
+    Seg<T> ex{(bool)__shfl_up_sync(0xffffffffu, (int)s.h, 1),
+              __shfl_up_sync(0xffffffffu, s.v, 1)};
+    bool has_ex = lane > 0;
+    __syncthreads();
+    if (warp > 0) {
+      Seg<T> wp{s_wh[0], s_wv[0]};
+      for (int w = 1; w < warp; ++w)
+        wp = seg_combine<T, OP>(wp, Seg<T>{s_wh[w], s_wv[w]}, e);
+      ex = has_ex ? seg_combine<T, OP>(wp, ex, e) : wp;
+      has_ex = true;
+    }
+    if (tid == 0) {
+      Seg<T> tile{s_wh[0], s_wv[0]};
+      for (int w = 1; w < FW; ++w)
+        tile = seg_combine<T, OP>(tile, Seg<T>{s_wh[w], s_wv[w]}, e);
+      u64* mine = status + t;
+      // a tile holding a head knows its inclusive value already
+      publish(mine, status_word(tile.h ? flag + 1 : flag, to_bits(tile.v)));
+      if (!(head & 1)) {              // the tile continues a segment
+        T acc = T(0);
+        bool any = false;
+        for (int j = t - 1;; --j) {
+          const u64 w = wait_status(status + j, flag);
+          const T wv = from_bits<T>((unsigned)w);
+          acc = any ? combine<T, OP>(wv, acc, e) : wv;
+          any = true;
+          if (status_flag(w) == flag + 1) break;
+        }
+        s_carry = acc;
+        if (!tile.h)
+          publish(mine, status_word(
+              flag + 1, to_bits(combine<T, OP>(acc, tile.v, e))));
+      }
+    }
+    __syncthreads();
+    // the slot's value before this thread's first op
+    T prev = has_ex ? (ex.h ? ex.v : combine<T, OP>(s_carry, ex.v, e))
+                    : s_carry;
+#pragma unroll
+    for (int i = 0; i < FI; ++i) {
+      if (key[i] < 0) continue;
+      const bool h = (head >> i) & 1;
+      const T f = h ? base[i] : prev;
+      prev = combine<T, OP>(f, v[i], e);
+      f_pos[t0 + l0 + i] = ps[i];
+      f_val[t0 + l0 + i] = to_bits(f);
+      if ((last >> i) & 1) out[key[i]] = prev;
+    }
+  }
+}
+
+// Stage 5: fetched[pos] from the (position, value) pairs, now bucketed by
+// the positions' top digit.  A CTA per tile, loads before stores: the writes
+// of the CTAs in flight fall in a few windows of n / 256 positions, which
+// stay in L2.
+__global__ void __launch_bounds__(FT)
+fetched_scatter_kernel(const int* __restrict__ f_pos,
+                       const unsigned* __restrict__ f_val,
+                       unsigned* __restrict__ fetched, const int* counters) {
+  const long long k = counters[C_KEPT];
+  const long long t0 = (long long)blockIdx.x * TILE;
+  if (t0 >= k) return;
+  int p[FI];
+  unsigned v[FI];
+#pragma unroll
+  for (int u = 0; u < FI; ++u) {
+    const long long j = t0 + u * FT + threadIdx.x;
+    p[u] = j < k ? f_pos[j] : -1;
+    v[u] = j < k ? f_val[j] : 0;
+  }
+#pragma unroll
+  for (int u = 0; u < FI; ++u)
+    if (p[u] >= 0) fetched[p[u]] = v[u];
+}
+
+// CAS: success = kept and fetched == expected, streamed over the batch.
+template <typename T>
+__global__ void cas_success_kernel(const int* __restrict__ idx,
+                                   const T* __restrict__ fetched,
+                                   uint8_t* __restrict__ success, long long n,
+                                   int m, T e) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    success[i] = idx[i] >= 0 && idx[i] < m && fetched[i] == e;
 }
 
 // --- slot_counts -----------------------------------------------------------
@@ -297,26 +689,125 @@ extern "C" int rmw_table_launch(void* table, const void* idx, const void* vals,
   return (int)cudaGetLastError();
 }
 
-extern "C" int rmw_table_fetched_launch(void* table, const void* idx,
-                                        const void* vals, void* fetched,
-                                        void* success, void* counters,
+// Scratch layout of rmw_table_fetched for a batch of n ops (bytes); the
+// wrapper asks rmw_table_fetched_layout below for its size.
+struct FetchedLayout {
+  long long counters, hist, status, keys[2], pos[2], zeroed, total;
+};
+
+static long long align256(long long b) { return (b + 255) & ~255LL; }
+
+static FetchedLayout fetched_layout(long long n) {
+  FetchedLayout L;
+  const long long tiles = (n + TILE - 1) / TILE;
+  const long long pairs = align256(4 * n);
+  L.counters = 0;
+  L.hist = align256(N_COUNTERS * 4);
+  L.status = L.hist + align256(HIST_ROWS * DIGITS * 4);
+  L.zeroed = L.status + align256(tiles * DIGITS * 8);
+  L.keys[0] = L.zeroed;
+  L.pos[0] = L.keys[0] + pairs;
+  L.keys[1] = L.pos[0] + pairs;
+  L.pos[1] = L.keys[1] + pairs;
+  L.total = L.pos[1] + pairs;
+  return L;
+}
+
+static int bit_length(long long x) {
+  int bits = 0;
+  while (bits < 62 && (x >> bits) > 0) ++bits;
+  return bits;
+}
+
+// The kernels in order.  Look-back stage s (compact 0, slot pass p 1 + p,
+// scan 1 + P, position pass 2 + P) takes tickets from counters[s] and
+// flags 2s + 1 (aggregate) and 2s + 2 (inclusive).
+template <typename T>
+static void launch_fetched(const T* table, T* out, const int* idx,
+                           const T* vals, T* fetched, uint8_t* success,
+                           char* scratch, const FetchedLayout& L, long long n,
+                           int m, int op, T expected, cudaStream_t st) {
+  int* counters = (int*)(scratch + L.counters);
+  int* hist = (int*)(scratch + L.hist);
+  u64* status = (u64*)(scratch + L.status);
+  int* keys[2] = {(int*)(scratch + L.keys[0]), (int*)(scratch + L.keys[1])};
+  int* pos[2] = {(int*)(scratch + L.pos[0]), (int*)(scratch + L.pos[1])};
+  const int tiles = (int)((n + TILE - 1) / TILE);
+  // slots 0..m-1 in ceil(bit_length(m - 1) / DBITS) passes
+  const int passes = (bit_length(m - 1) + DBITS - 1) / DBITS;
+  const int bits_n = bit_length(n - 1);
+  const int pos_shift = bits_n > DBITS ? bits_n - DBITS : 0;
+  fetched_compact_kernel<T><<<tiles, FT, 0, st>>>(
+      idx, fetched, success, keys[0], pos[0], status, counters, hist, n, m,
+      passes, pos_shift, op == OP_CAS ? 0 : 1);
+  for (int p = 0; p < passes; ++p)
+    fetched_radix_kernel<<<tiles, FT, 0, st>>>(
+        keys[p & 1], pos[p & 1], keys[(p + 1) & 1], pos[(p + 1) & 1], status,
+        counters, hist + p * DIGITS, p * DBITS, 1 + p, 2 * (1 + p) + 1);
+  const int f = passes & 1;            // the buffer the last pass wrote
+#define FETCHED_SCAN(OP)                                                  \
+  fetched_scan_kernel<T, OP><<<tiles, FT, 0, st>>>(                       \
+      table, out, keys[f], pos[f], vals, pos[1 - f],                      \
+      (unsigned*)keys[1 - f], status, counters, 1 + passes,               \
+      2 * (1 + passes) + 1, expected)
+  switch (op) {
+    case OP_FAA: FETCHED_SCAN(OP_FAA); break;
+    case OP_SWP: FETCHED_SCAN(OP_SWP); break;
+    case OP_MIN: FETCHED_SCAN(OP_MIN); break;
+    case OP_MAX: FETCHED_SCAN(OP_MAX); break;
+    default: FETCHED_SCAN(OP_CAS); break;
+  }
+#undef FETCHED_SCAN
+  // (position, fetched) pairs bucketed by the positions' top digit
+  fetched_radix_kernel<<<tiles, FT, 0, st>>>(
+      pos[1 - f], keys[1 - f], pos[f], keys[f], status, counters,
+      hist + MAX_PASSES * DIGITS, pos_shift, 2 + passes,
+      2 * (2 + passes) + 1);
+  fetched_scatter_kernel<<<tiles, FT, 0, st>>>(
+      pos[f], (const unsigned*)keys[f], (unsigned*)fetched, counters);
+  if (op == OP_CAS)
+    cas_success_kernel<T><<<grid_for(n), THREADS, 0, st>>>(
+        idx, fetched, success, n, m, expected);
+}
+
+// The scratch bytes rmw_table_fetched_launch needs for n ops, and the bits
+// of its radix digit (the passes for m slots: ceil(bit_length(m - 1) /
+// digit_bits)).
+extern "C" int rmw_table_fetched_layout(long long n, long long* scratch_bytes,
+                                        int* digit_bits) {
+  if (n < 0 || n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  *scratch_bytes = n > 0 ? fetched_layout(n).total : 0;
+  *digit_bits = DBITS;
+  return 0;
+}
+
+// `table` is only read; `out` (a copy of it) receives the final values.
+extern "C" int rmw_table_fetched_launch(const void* table, void* out,
+                                        const void* idx, const void* vals,
+                                        void* fetched, void* success,
+                                        void* scratch, long long scratch_bytes,
                                         long long n, long long m, int op,
                                         int dtype, double expected,
                                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (op < OP_FAA || op > OP_CAS || (dtype != DT_INT32 && dtype != DT_FLOAT32))
+  if (op < OP_FAA || op > OP_CAS || (dtype != DT_INT32 && dtype != DT_FLOAT32)
+      || n < 0 || n > 0x7fffffffLL || m < 0 || m > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int blocks = (int)((n + FB - 1) / FB);
+    const FetchedLayout L = fetched_layout(n);
+    if (scratch_bytes < L.total) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaMemsetAsync(scratch, 0, L.zeroed, st);
+    if (err != cudaSuccess) return (int)err;
     if (dtype == DT_INT32)
-      rmw_fetched_kernel<int><<<blocks, FB, 0, st>>>(
-          (int*)table, (const int*)idx, (const int*)vals, (int*)fetched,
-          (uint8_t*)success, (int*)counters, n, (int)m, op, (int)expected);
+      launch_fetched<int>((const int*)table, (int*)out, (const int*)idx,
+                          (const int*)vals, (int*)fetched, (uint8_t*)success,
+                          (char*)scratch, L, n, (int)m, op, (int)expected, st);
     else
-      rmw_fetched_kernel<float><<<blocks, FB, 0, st>>>(
-          (float*)table, (const int*)idx, (const float*)vals,
-          (float*)fetched, (uint8_t*)success, (int*)counters, n, (int)m, op,
-          (float)expected);
+      launch_fetched<float>((const float*)table, (float*)out,
+                            (const int*)idx, (const float*)vals,
+                            (float*)fetched, (uint8_t*)success,
+                            (char*)scratch, L, n, (int)m, op,
+                            (float)expected, st);
   }
   return (int)cudaGetLastError();
 }

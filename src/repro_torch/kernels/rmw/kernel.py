@@ -12,6 +12,7 @@ fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Tuple
 
@@ -28,8 +29,9 @@ LAUNCHES = {"rmw_table": 0, "rmw_table_fetched": 0, "slot_counts": 0}
 
 OP_CODES = {"faa": 0, "swp": 1, "min": 2, "max": 3, "cas": 4}
 DTYPE_CODES = {torch.int32: 0, torch.float32: 1}
-#: ops per CTA of the fetched kernel (FB in csrc/rmw.cu): one ordered step
-FETCHED_BLOCK = 1024
+#: the bits of the fetched kernel's radix digit (DBITS in csrc/rmw.cu, which
+#: `fetched_layout` reports), for the cost model and the CPU tests
+RADIX_BITS = 8
 _MAX_N = (1 << 31) - 1
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -38,10 +40,13 @@ LIBRARY = NvccLibrary("rmw", Path(__file__).resolve().parent / "csrc"
                       / "rmw.cu", {
     # table, idx, vals, last_pos, n, m, op, dtype, stream
     "rmw_table_launch": (_P, _P, _P, _P, _LL, _LL, _I, _I, _P),
-    # table, idx, vals, fetched, success, counters, n, m, op, dtype,
-    # expected, stream
-    "rmw_table_fetched_launch": (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I,
-                                 ctypes.c_double, _P),
+    # table, out, idx, vals, fetched, success, scratch, scratch_bytes, n, m,
+    # op, dtype, expected, stream
+    "rmw_table_fetched_launch": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
+                                 _I, _I, ctypes.c_double, _P),
+    # n, scratch_bytes, digit_bits
+    "rmw_table_fetched_layout": (_LL, ctypes.POINTER(_LL),
+                                 ctypes.POINTER(_I)),
     # idx, counts, n, m, stream
     "slot_counts_launch": (_P, _P, _LL, _LL, _P),
 })
@@ -132,6 +137,36 @@ def rmw_table_fetched_plain(table: Tensor, indices: Tensor, values: Tensor,
     return res.table[:m], fetched, valid & res.success
 
 
+def radix_passes(m: int) -> int:
+    """Radix passes the fetched kernel sorts slots 0..m-1 with:
+    ceil(bit_length(m - 1) / RADIX_BITS) (3 at m = 2**20 and 2**24, 4 at
+    2**25 + 1, none at m = 1)."""
+    return -(-max(m - 1, 0).bit_length() // RADIX_BITS)
+
+
+def fetched_design_bytes(n: int, k: int, m: int, slots: int,
+                         op: str) -> int:
+    """Bytes the fetched kernel's stages move (csrc/rmw.cu) for n ops of
+    which k are kept, touching ``slots`` slots of m, with P =
+    `radix_passes(m)`: compaction 9n + 4k, P passes of 16k, the scan 20k
+    and 8 per slot, the position pass 16k, the scatter 12k, the table's
+    copy 8m, and CAS's success pass 9n."""
+    passes = radix_passes(m)
+    return (9 * n + (52 + 16 * passes) * k + 8 * slots + 8 * m
+            + (9 * n if op == "cas" else 0))
+
+
+@functools.lru_cache(maxsize=64)
+def fetched_layout(n: int) -> Tuple[int, int]:
+    """The fetched kernel's scratch bytes for a batch of n ops and the bits
+    of its radix digit, as the library reports them
+    (`rmw_table_fetched_layout` in csrc/rmw.cu).  Builds the library."""
+    nbytes, bits = ctypes.c_longlong(), ctypes.c_int()
+    LIBRARY.launch("rmw_table_fetched_layout", n, ctypes.byref(nbytes),
+                   ctypes.byref(bits))
+    return nbytes.value, bits.value
+
+
 def rmw_table_fetched(table: Tensor, indices: Tensor, values: Tensor,
                       op: str = "faa", *, expected=None
                       ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -139,7 +174,10 @@ def rmw_table_fetched(table: Tensor, indices: Tensor, values: Tensor,
 
     Semantics match `core.rmw.rmw_serialized` per-op fetch results; CAS
     takes one uniform ``expected`` value.  Out-of-range indices are
-    dropped: fetched = 0, success = False for those ops.
+    dropped: fetched = 0, success = False for those ops.  On the card: a
+    stable radix sort of the kept ops by slot and a segmented scan, with a
+    scratch buffer from the caching allocator, of the size
+    `fetched_layout(n)` reports.
     """
     if op not in OP_CODES:
         raise ValueError(f"unknown op {op!r}")
@@ -153,15 +191,16 @@ def rmw_table_fetched(table: Tensor, indices: Tensor, values: Tensor,
     out = table.clone()
     fetched = torch.empty((n,), dtype=table.dtype, device=table.device)
     success = torch.empty((n,), dtype=torch.bool, device=table.device)
-    counters = torch.zeros((2,), dtype=torch.int32, device=table.device)
+    nbytes, _ = fetched_layout(n)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=table.device)
     exp = 0.0 if expected is None else float(
         expected.item() if isinstance(expected, Tensor) else expected)
     with torch.cuda.device(table.device):
-        LIBRARY.launch("rmw_table_fetched_launch", out.data_ptr(),
-                       indices.data_ptr(), values.data_ptr(),
+        LIBRARY.launch("rmw_table_fetched_launch", table.data_ptr(),
+                       out.data_ptr(), indices.data_ptr(), values.data_ptr(),
                        fetched.data_ptr(), success.data_ptr(),
-                       counters.data_ptr(), n, table.shape[0], OP_CODES[op],
-                       dt, exp, _stream(table))
+                       scratch.data_ptr(), nbytes, n, table.shape[0],
+                       OP_CODES[op], dt, exp, _stream(table))
     LAUNCHES["rmw_table_fetched"] += 1
     return out, fetched, success
 

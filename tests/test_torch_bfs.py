@@ -89,3 +89,19 @@ def test_validate_parents_agrees_with_reference():
         results.append(want)
     assert results[0] and not results[1] and True in results[2:]
     assert False in results[2:]
+
+
+@pytest.mark.parametrize("op", ["cas", "swp", "faa"])
+def test_bfs_takes_edge_tensors_or_host_arrays(op):
+    """Edges given as int64 host arrays (narrowed on the device) or as int32
+    tensors already there: the same parents."""
+    src, dst = tbfs.kronecker_graph(8, 8, seed=4)
+    s, d = np.concatenate([src, dst]), np.concatenate([dst, src])
+    root = int(s[0])
+    want = tbfs.bfs(s, d, 1 << 8, root=root, op=op, device="cpu")
+    got = tbfs.bfs(torch.from_numpy(s.astype(np.int32)),
+                   torch.from_numpy(d.astype(np.int32)), 1 << 8, root=root,
+                   op=op, device="cpu")
+    same(got.parent, want.parent.numpy())
+    assert (got.levels, got.edges_traversed) == (want.levels,
+                                                 want.edges_traversed)

@@ -58,6 +58,57 @@ def test_kernels_match_plain_versions(cuda_device, op, dtype):
         assert torch.equal(K.slot_counts(idx, m), K.slot_counts_plain(idx, m))
 
 
+# the fetched kernel's edge shapes: one slot; the BFS shape (scale 20,
+# edgefactor 16) with 90% of ops dropped; every op dropped; a slot range
+# that needs four radix passes; Kronecker skew
+FETCHED_CASES = [("m1", 1 << 22, 1), ("bfs_90pct_dropped", 1 << 25, 1 << 20),
+                 ("all_dropped", 1 << 22, 1 << 20),
+                 ("m_2pow25_plus1", 1 << 24, (1 << 25) + 1),
+                 ("kronecker", 1 << 22, 1 << 18)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("case,n,m", FETCHED_CASES,
+                         ids=[c[0] for c in FETCHED_CASES])
+def test_fetched_kernel_edge_shapes_bit_equal_and_repeatable(cuda_device,
+                                                             case, n, m, op):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    idx = torch.randint(0, m, (n,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    if case == "bfs_90pct_dropped":
+        drop = torch.rand((n,), generator=g, device=cuda_device) < 0.9
+        idx = torch.where(drop, m, idx)
+    elif case == "all_dropped":
+        idx = torch.where(idx % 2 == 0, m, -1 - idx)
+    elif case == "kronecker":
+        src, dst = tbfs.kronecker_graph(18, 16, seed=1)
+        idx = torch.as_tensor(dst.astype(np.int32), device=cuda_device)
+    tab = torch.randint(-8, 9, (m,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    val = torch.randint(-8, 9, (n,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    exp = 0 if op == "cas" else None
+    got = K.rmw_table_fetched(tab, idx, val, op, expected=exp)
+    again = K.rmw_table_fetched(tab, idx, val, op, expected=exp)
+    want = K.rmw_table_fetched_plain(tab, idx, val, op, exp)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, c)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_fetched_kernel_layout_is_the_libraries(cuda_device):
+    """The scratch the library asks for: 16 counters, five histogram rows,
+    an 8-byte status word per tile of 4096 ops and digit, four int32 arrays
+    of n, each part a multiple of 256 bytes; its digit is the cost model's
+    RADIX_BITS."""
+    assert K.fetched_layout(0) == (0, K.RADIX_BITS)
+    assert K.fetched_layout(1) == (256 + 5120 + 2048 + 4 * 256, 8)
+    assert K.fetched_layout(1 << 25) == (
+        256 + 5120 + 8192 * 256 * 8 + 4 * (4 << 25), K.RADIX_BITS)
+
+
 @pytest.mark.gpu
 def test_wrappers_count_launches_and_leave_inputs_unchanged(cuda_device):
     tab = torch.arange(10, dtype=torch.int32, device=cuda_device)

@@ -7,12 +7,15 @@ the JAX oracles bit for bit for int32.  The CUDA kernels themselves are
 held against these plain versions on the card by tests/test_torch_gpu.py.
 """
 
+import zlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from _torch_gpu import collision_heavy, same
+from repro.core import rmw as jrmw
 from repro.kernels.rmw import ops as jops
 from repro.kernels.rmw import ref as jref
 from repro_torch.kernels.rmw import kernel as K
@@ -180,3 +183,304 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                         device="meta"))
     with pytest.raises(ValueError):
         K.rmw_table(t, t, t, "cas")
+
+
+# ---------------------------------------------------------------------------
+# The card's fetched kernel, stage by stage, in plain torch
+# ---------------------------------------------------------------------------
+# `rmw_table_fetched` runs on the card in stages (csrc/rmw.cu): compact the
+# kept ops, a stable LSD radix sort by slot at the kernel's digit, a
+# segmented scan whose carry crosses tiles by decoupled look-back, one more
+# pass that buckets the (position, fetched) pairs by the positions' top
+# digit, and the scatter.  CUDA does not run here, so this mirror repeats
+# each stage's arithmetic at a small tile (the kernel: 32 lanes, 8 warps, 16
+# ops a thread) and is held against the JAX oracles bit for bit.  `lag` is
+# how many predecessors a tile finds with only their aggregate published, so
+# the look-back walks that far.
+
+LANES, WARPS, ITEMS = 4, 2, 4
+THREADS = LANES * WARPS
+TILE = THREADS * ITEMS
+DIGITS = 1 << K.RADIX_BITS
+
+
+def _tiled(x, fill):
+    t = -(-x.shape[0] // TILE)
+    out = x.new_full((t * TILE,), fill)
+    out[:x.shape[0]] = x
+    return out.view(t, TILE)
+
+
+def _exclusive(x, dim):
+    return torch.cumsum(x, dim) - x
+
+
+def _pos_shift(n):
+    return max((n - 1).bit_length() - K.RADIX_BITS, 0)
+
+
+def _digit_hist(x, shift):
+    return torch.bincount(((x >> shift) & (DIGITS - 1)).long(),
+                          minlength=DIGITS)
+
+
+def _mirror_compact(idx, m):
+    """Stage 1: the kept ops as (slot, position) in batch order; a tile's
+    offset is the kept count of the tiles before it (the look-back's sum),
+    a warp's the count of the warps before it, an op's its ballot rank.
+    Also each slot pass's digit histogram, and the positions' top digit's
+    last."""
+    n = idx.shape[0]
+    keep_t = _tiled((idx >= 0) & (idx < m), False)
+    per_warp = keep_t.view(-1, WARPS, TILE // WARPS).long()
+    rank = _exclusive(per_warp, 2)
+    warp_off = _exclusive(per_warp.sum(2), 1)
+    tile_off = _exclusive(per_warp.sum((1, 2)), 0)
+    dst = (tile_off[:, None, None] + warp_off[:, :, None] + rank).view(-1)[:n]
+    keep = keep_t.view(-1)[:n]
+    k = int(keep.sum())
+    keys = torch.empty(k, dtype=torch.int32)
+    pos = torch.empty(k, dtype=torch.int32)
+    keys[dst[keep]] = idx[keep]
+    pos[dst[keep]] = torch.arange(n, dtype=torch.int32)[keep]
+    hist = [_digit_hist(idx[keep], p * K.RADIX_BITS)
+            for p in range(K.radix_passes(m))]
+    hist.append(_digit_hist(torch.arange(n)[keep], _pos_shift(n)))
+    return keep, keys, pos, hist
+
+
+def _mirror_radix_pass(keys, pos, hist, shift):
+    """One radix pass (stages 2 and 4): a pair's place is its digit's start
+    in the output (the histogram's exclusive scan), plus that digit's count
+    in earlier tiles (the look-back), in earlier warps of its tile, and
+    among earlier pairs of its warp with the same digit (`__match_any_sync`
+    ranks)."""
+    kt = _tiled(keys, -1).view(-1, WARPS, TILE // WARPS)
+    valid = kt >= 0
+    digit = torch.where(valid, (kt >> shift) & (DIGITS - 1), DIGITS).long()
+    onehot = torch.nn.functional.one_hot(digit, DIGITS + 1)[..., :DIGITS]
+    rank = (_exclusive(onehot, 2) * onehot).sum(-1)
+    warp_counts = onehot.sum(2)
+    warp_off = _exclusive(warp_counts, 1)
+    earlier = _exclusive(warp_counts.sum(1), 0)
+    start = _exclusive(hist, 0)
+    d = digit.clamp(max=DIGITS - 1)
+    t = torch.arange(kt.shape[0])[:, None, None].expand_as(d)
+    w = torch.arange(WARPS)[None, :, None].expand_as(d)
+    dst = (start[d] + earlier[t, d] + warp_off[t, w, d] + rank)[valid]
+    out_k, out_p = torch.empty_like(keys), torch.empty_like(pos)
+    out_k[dst] = kt[valid]
+    out_p[dst] = _tiled(pos, 0).view_as(kt)[valid]
+    return out_k, out_p
+
+
+def _combiner(op, e):
+    if op == "faa":
+        return torch.add
+    if op in ("min", "max"):
+        return torch.minimum if op == "min" else torch.maximum
+    # cas: the first value other than e (or the first value)
+    return lambda a, b: torch.where((a != e) | (b == e), a, b)
+
+
+def _mirror_scan(table, keys, pos, vals, op, e, lag):
+    """Stage 3: fetched, success and the final table over the sorted pairs.
+    Threads hold ITEMS consecutive pairs; thread aggregates are combined
+    over a warp as the shuffles do (Hillis-Steele), then over the warps
+    before; a tile's carry walks back over tiles combining aggregates until
+    an inclusive value."""
+    k = keys.shape[0]
+    out = table.clone()
+    fetched = vals.new_zeros(k)
+    success = torch.ones(k, dtype=torch.bool)
+    if k == 0:
+        return out, fetched, success
+    none = torch.tensor([-1], dtype=torch.int32)
+    head = keys != torch.cat([none, keys[:-1]])
+    last = keys != torch.cat([keys[1:], none])
+    v = vals[pos.long()]
+    base = torch.where(head, table[keys.long()], 0)
+    if op == "swp":
+        f = torch.where(head, base, torch.cat([v[:1], v[:-1]]))
+        out[keys[last].long()] = v[last]
+        return out, f, success
+    comb = _combiner(op, e)
+    shape = (-1, THREADS, ITEMS)
+    kt = _tiled(keys, -1).view(shape)
+    ht = _tiled(head, True).view(shape)       # ops past k count as heads
+    vt = _tiled(v, 0).view(shape)
+    bt = _tiled(base, 0).view(shape)
+    x = torch.where(ht, comb(bt, vt), vt)
+    agg_h, agg_v = ht[..., 0], x[..., 0]
+    for i in range(1, ITEMS):
+        agg_v = torch.where(ht[..., i], x[..., i], comb(agg_v, x[..., i]))
+        agg_h = agg_h | ht[..., i]
+    # inclusive over each warp, lane by lane as the shuffles
+    s_h = agg_h.view(-1, WARPS, LANES).clone()
+    s_v = agg_v.view(-1, WARPS, LANES).clone()
+    lane = torch.arange(LANES)
+    d = 1
+    while d < LANES:
+        o_h, o_v = torch.roll(s_h, d, 2), torch.roll(s_v, d, 2)
+        take = lane >= d
+        s_v = torch.where(take & ~s_h, comb(o_v, s_v), s_v)
+        s_h = torch.where(take, s_h | o_h, s_h)
+        d *= 2
+    # the exclusive of each thread: previous lane, then the warps before
+    ex_h = torch.roll(s_h, 1, 2)
+    ex_v = torch.roll(s_v, 1, 2)
+    has = (lane > 0).expand_as(ex_h).clone()
+    wp_h, wp_v = s_h[:, 0, -1], s_v[:, 0, -1]
+    tile_h, tile_v = wp_h.clone(), wp_v.clone()
+    for w in range(1, WARPS):
+        e_h, e_v = ex_h[:, w], ex_v[:, w]
+        ex_v[:, w] = torch.where(has[:, w] & e_h, e_v,
+                                 torch.where(has[:, w], comb(wp_v[:, None],
+                                                             e_v),
+                                             wp_v[:, None]))
+        ex_h[:, w] = torch.where(has[:, w], e_h | wp_h[:, None],
+                                 wp_h[:, None])
+        has[:, w] = True
+        w_h, w_v = s_h[:, w, -1], s_v[:, w, -1]
+        wp_v = torch.where(w_h, w_v, comb(wp_v, w_v))
+        wp_h = wp_h | w_h
+        tile_v = torch.where(w_h, w_v, comb(tile_v, w_v))
+        tile_h = tile_h | w_h
+    # decoupled look-back: a tile with a head publishes its inclusive value
+    # at once; the `lag` tiles before another are still at their aggregate
+    tiles = kt.shape[0]
+    incl = [None] * tiles
+    carry = vals.new_zeros(tiles)
+    for t in range(tiles):
+        if not bool(ht[t, 0, 0]):
+            acc = None
+            for j in range(t - 1, -1, -1):
+                ready = bool(tile_h[j]) or j < t - lag
+                val = incl[j] if ready else tile_v[j]
+                acc = val if acc is None else comb(val, acc)
+                if ready:
+                    break
+            carry[t] = acc
+        incl[t] = tile_v[t] if bool(tile_h[t]) else comb(carry[t], tile_v[t])
+    ex_h, ex_v, has = ex_h.view(-1, THREADS), ex_v.view(-1, THREADS), \
+        has.view(-1, THREADS)
+    c = carry[:, None].expand_as(ex_v)
+    prev = torch.where(has, torch.where(ex_h, ex_v, comb(c, ex_v)), c)
+    ft = torch.empty_like(vt)
+    after = torch.empty_like(vt)
+    for i in range(ITEMS):
+        ft[..., i] = torch.where(ht[..., i], bt[..., i], prev)
+        prev = comb(ft[..., i], vt[..., i])
+        after[..., i] = prev
+    live = kt >= 0
+    f = ft[live]
+    if op == "cas":
+        success = f == e
+    out[keys[last].long()] = after[live][last]
+    return out, f, success
+
+
+def _mirror_fetched(table, idx, vals, op, expected=None, lag=3):
+    """The stages end to end: (table, fetched, success), dropped ops
+    reporting fetched 0 and success False."""
+    m, n = table.shape[0], idx.shape[0]
+    e = torch.tensor(0 if expected is None else expected, dtype=table.dtype)
+    keep, keys, pos, hist = _mirror_compact(idx, m)
+    success = keep & (op != "cas")
+    for p in range(K.radix_passes(m)):
+        keys, pos = _mirror_radix_pass(keys, pos, hist[p], p * K.RADIX_BITS)
+    assert bool((keys[1:] >= keys[:-1]).all())
+    tab, f, s = _mirror_scan(table, keys, pos, vals, op, e, lag)
+    # bucket (position, fetched) by the positions' top digit, then scatter
+    bpos, bf = _mirror_radix_pass(pos, f, hist[-1], _pos_shift(n))
+    bucket = bpos >> _pos_shift(n)
+    assert bool((bucket[1:] >= bucket[:-1]).all())
+    fetched = vals.new_zeros(n)
+    fetched[bpos.long()] = bf
+    if op == "cas":
+        success[bpos.long()] = bf == e
+    return tab, fetched, success
+
+
+def _kron_keys(n, m):
+    from repro_torch.core import bfs as tbfs
+    src, dst = tbfs.kronecker_graph(12, 16, seed=3)
+    return (np.concatenate([src, dst])[:n] % m).astype(np.int32)
+
+
+# (name, n, m): one slot over every tile; every op dropped; one op; one
+# slot with drops; a top digit that is nearly empty; Kronecker skew
+MIRROR_CASES = [("one_slot", 900, 1), ("all_dropped", 500, 64),
+                ("n1", 1, 7), ("m1_drops", 700, 1),
+                ("m_2pow20_plus1", 3000, (1 << 20) + 1),
+                ("kronecker", 4000, 4096), ("cas_expected_in_vals", 2000, 50)]
+
+
+@pytest.mark.parametrize("op", OPS4 + ["cas"])
+@pytest.mark.parametrize("case,n,m", MIRROR_CASES,
+                         ids=[c[0] for c in MIRROR_CASES])
+def test_fetched_kernel_stages_match_jax_oracles(case, n, m, op):
+    rng = np.random.default_rng(zlib.crc32(f"{case}-{op}".encode()))
+    lo, hi = (-1, 2) if op == "cas" else (-8, 9)
+    if case == "cas_expected_in_vals":
+        lo, hi = -2, 3
+    table = rng.integers(lo, hi, m).astype(np.int32)
+    vals = rng.integers(lo, hi, n).astype(np.int32)
+    if case == "kronecker":
+        idx = _kron_keys(n, m)
+    elif case == "all_dropped":
+        idx = np.where(rng.random(n) < 0.5, m, -1 - rng.integers(0, 9, n))
+    elif case == "m_2pow20_plus1":
+        idx = rng.integers(0, m, n)
+        idx[::5] = m - 1                     # the top digit's only slot
+        idx[::7] = m
+    else:
+        idx = rng.integers(0, m + (m > 1) + 1, n)   # some dropped
+    idx = idx.astype(np.int32)
+    exp = (1 if case == "cas_expected_in_vals" else 0) if op == "cas" \
+        else None
+    got = _mirror_fetched(_t(table), _t(idx), _t(vals), op, exp)
+    want = jref.rmw_table_fetched_ref(
+        jnp.asarray(table), jnp.asarray(idx), jnp.asarray(vals), op,
+        None if exp is None else jnp.int32(exp))
+    for g, w, what in zip(got, want, ("table", "fetched", "success")):
+        same(g, w, what)
+    keep = (idx >= 0) & (idx < m)
+    ser = jrmw.rmw_serialized(
+        jnp.asarray(table), jnp.asarray(idx[keep]), jnp.asarray(vals[keep]),
+        op, None if exp is None else jnp.full(int(keep.sum()), exp,
+                                              jnp.int32))
+    same(got[0], ser.table, "serialized table")
+    same(got[1][_t(keep)], ser.fetched, "serialized fetched")
+    same(got[2][_t(keep)], ser.success, "serialized success")
+
+
+@pytest.mark.parametrize("lag", [0, 1, 5])
+@pytest.mark.parametrize("op", OPS4 + ["cas"])
+def test_fetched_look_back_depth_changes_nothing(op, lag):
+    """Hot slots whose segments span many tiles: however far the look-back
+    walks before an inclusive value, int32 results are the same bits."""
+    rng = np.random.default_rng(11)
+    m, n = 3, 1500
+    table = rng.integers(-1, 2, m).astype(np.int32)
+    idx = rng.integers(0, m + 1, n).astype(np.int32)
+    vals = rng.integers(-1, 2, n).astype(np.int32)
+    exp = 0 if op == "cas" else None
+    want = jref.rmw_table_fetched_ref(
+        jnp.asarray(table), jnp.asarray(idx), jnp.asarray(vals), op,
+        None if exp is None else jnp.int32(exp))
+    got = _mirror_fetched(_t(table), _t(idx), _t(vals), op, exp, lag=lag)
+    for g, w in zip(got, want):
+        same(g, w)
+
+
+def test_fetched_kernel_passes_scratch_and_bytes():
+    """Passes: ceil(bit_length(m - 1) / 8).  Bytes moved: 9n + (52 + 16P)k,
+    8 per slot, 8m, and 9n more for CAS.  (The scratch size is the
+    library's own, held on the card by tests/test_torch_gpu.py.)"""
+    ms = (1, 2, 256, 257, 1 << 20, 1 << 24, (1 << 25) + 1)
+    assert [K.radix_passes(m) for m in ms] == [0, 1, 1, 2, 3, 3, 4]
+    assert K.fetched_design_bytes(100, 50, 1 << 20, 10, "faa") == \
+        900 + 100 * 50 + 80 + (8 << 20)
+    assert K.fetched_design_bytes(100, 50, 1, 1, "cas") - \
+        K.fetched_design_bytes(100, 50, 1, 1, "swp") == 900
