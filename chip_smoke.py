@@ -10,7 +10,9 @@ chunk kernel from `src/repro_torch/kernels/ssd/csrc/ssd.cu`, the flash
 attention kernel from
 `src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`), holds
 each kernel against its plain PyTorch version (the fetched RMW kernel also
-at its edge shapes, twice), drives the port's three main
+at its edge shapes, twice; fp32 MIN/MAX also on ±0 and NaN; the SSD kernel
+with B and C per group of heads and per head, beside a control that rounds
+its products' operands to TF32 once), drives the port's three main
 paths with the launch counters reset just before each and read just after
 — `atomics.execute` on CUDA tables plus Graph500 BFS at scale 20,
 edgefactor 16; `BatchServer` serving mamba2_780m; and `BatchServer`
@@ -59,6 +61,7 @@ OPS = ("faa", "swp", "min", "max", "cas")
 HBM_BPS = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 PEAK_OPS = 67e12         # H100 SXM fp32 outside the tensor cores
 PEAK_BF16 = 989e12       # H100 SXM bf16 tensor cores, dense
+PEAK_TF32 = 494.7e12     # H100 SXM tf32 tensor cores, dense
 SCALE, EDGEFACTOR = 20, 16
 SOURCE = "src/repro_torch/kernels/rmw/csrc/rmw.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
@@ -270,6 +273,48 @@ def _fp32_faa_run_to_run(gen):
     return out
 
 
+def _same_bits(got, want, what):
+    """NaN where the plain version has NaN, every other value bit for bit
+    (−0 is not +0); a NaN's payload is not compared."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan) or not torch.equal(
+            got[~nan].view(torch.int32), want[~nan].view(torch.int32)):
+        raise AssertionError(f"{what}: differs from the plain version")
+
+
+def _check_fp32_zeros_and_nans(gen):
+    """fp32 MIN/MAX in the reference's order (−0 below +0, NaN wins and
+    stays): both kernels against their plain versions on tables and
+    operands drawn from ±0, ±1, 2 and NaN, at the contended shape and at
+    a sparse one."""
+    pool = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0, math.nan, -math.nan],
+                        device="cuda")
+    weights = torch.tensor([4.0, 4.0, 2.0, 2.0, 2.0, 0.3, 0.3],
+                           device="cuda")
+    done = []
+    for n, m in ((1 << 22, 1024), (1 << 20, 1 << 18)):
+        tab = pool[torch.multinomial(weights, m, True, generator=gen)]
+        val = pool[torch.multinomial(weights, n, True, generator=gen)]
+        idx = torch.randint(0, m + 7, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        for op in ("min", "max"):
+            _same_bits(K.rmw_table(tab, idx, val, op),
+                       ref.rmw_table_ref(tab, idx, val, op),
+                       f"rmw_table fp32 {op} ±0/NaN")
+            got = K.rmw_table_fetched(tab, idx, val, op)
+            want = K.rmw_table_fetched_plain(tab, idx, val, op)
+            sync()
+            for g, w, what in zip(got[:2], want[:2], ("table", "fetched")):
+                _same_bits(g, w, f"rmw_table_fetched fp32 {op} ±0/NaN "
+                                 f"{what}")
+            if not torch.equal(got[2], want[2]):
+                raise AssertionError(f"rmw_table_fetched fp32 {op} ±0/NaN: "
+                                     f"success differs")
+        done.append(dict(n=n, m=m, nan_slots_after_min=int(torch.isnan(
+            K.rmw_table(tab, idx, val, "min")).sum())))
+    return done
+
+
 def phase_kernels(gen, errs):
     if K.fetched_layout(1)[1] != K.RADIX_BITS:
         raise AssertionError("rmw_table_fetched: the library's radix digit "
@@ -327,6 +372,8 @@ def phase_kernels(gen, errs):
              launches=dict(K.LAUNCHES))
     emit("kernels", fetched_int32_bit_equal_twice=_check_fetched_cases(
         gen, 2 * EDGEFACTOR << SCALE),
+         fp32_min_max_zeros_and_nans_as_plain=_check_fp32_zeros_and_nans(
+             gen),
          fp32_normal_faa_same_bits_run_to_run=_fp32_faa_run_to_run(gen))
 
 
@@ -469,26 +516,36 @@ def phase_bfs_search(s, d, root, parents):
 # 6. the SSD chunk kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def _ssd_inputs(gen, b, s, h):
+def _ssd_inputs(gen, b, s, h, g=None):
     """The reference tests' distributions (tests/test_kernels_ssd.py:14-20):
-    x, B, C standard normal, dt in [0.01, 0.2], A in -[0.5, 2]."""
+    x, B, C standard normal, dt in [0.01, 0.2], A in -[0.5, 2]; B and C on
+    g groups of heads (default: one per head)."""
     dev = "cuda"
+    g = h if g is None else g
     x = torch.randn((b, s, h, SSD_P), generator=gen, device=dev)
     dt = torch.rand((b, s, h), generator=gen, device=dev) * 0.19 + 0.01
     A = -(torch.rand((h,), generator=gen, device=dev) * 1.5 + 0.5)
-    B = torch.randn((b, s, h, SSD_N), generator=gen, device=dev)
-    C = torch.randn((b, s, h, SSD_N), generator=gen, device=dev)
+    B = torch.randn((b, s, g, SSD_N), generator=gen, device=dev)
+    C = torch.randn((b, s, g, SSD_N), generator=gen, device=dev)
     return x, dt, A, B, C
 
 
-def _chunk_inputs(gen, bh, s):
-    """ssd_chunk's operands, made as `ops.ssd` makes them: (BH, S, ·) f32."""
-    x, dt, A, B, C = _ssd_inputs(gen, 1, s, bh)
+def _chunk_inputs(gen, bh, s, hpg=1):
+    """ssd_chunk's operands, made as `ops.ssd` makes them: (BH, S, ·) f32,
+    B and C (BH / hpg, S, N) for groups of hpg heads."""
+    x, dt, A, B, C = _ssd_inputs(gen, 1, s, bh, bh // hpg)
 
     def flat(t):
-        return t.transpose(1, 2).reshape(bh, s, *t.shape[3:]).contiguous()
+        return t.transpose(1, 2).reshape(-1, s, *t.shape[3:]).contiguous()
 
     return (flat(x * dt[..., None]), flat(dt * A), flat(B), flat(C))
+
+
+# ssd_chunk's shapes (name, BH, heads per group): mamba2_780m serving one
+# sequence (48 heads in one group), four sequences, the reference's
+# per-head interface, and two groups of 24
+SSD_CASES = [("serving", SSD_H, SSD_H), ("batch4", 4 * SSD_H, SSD_H),
+             ("serving_per_head", SSD_H, 1), ("two_groups", SSD_H, SSD_H // 2)]
 
 
 def _check_close(got, want, what):
@@ -501,35 +558,57 @@ def _check_close(got, want, what):
 
 def phase_ssd_kernel(gen):
     errs = {}
-    for name, bh in (("serving", SSD_H), ("batch4", 4 * SSD_H)):
-        args = _chunk_inputs(gen, bh, 4096)
-        y, st = SK.ssd_chunk(*args, chunk=SSD_Q)
-        y_p, st_p = SK.ssd_chunk_plain(*args, chunk=SSD_Q)
+    for name, bh, hpg in SSD_CASES:
+        args = _chunk_inputs(gen, bh, 4096, hpg)
+        y, st = SK.ssd_chunk(*args, chunk=SSD_Q, heads_per_group=hpg)
+        y_p, st_p = SK.ssd_chunk_plain(*args, chunk=SSD_Q,
+                                       heads_per_group=hpg)
         sync()
         if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
             raise AssertionError(f"ssd_chunk {name}: non-finite output")
         errs[name] = {"y_intra": _check_close(y, y_p, f"ssd_chunk {name} y"),
                       "states": _check_close(st, st_p,
                                              f"ssd_chunk {name} states")}
-        emit("ssd_kernel", shape=name, bh=bh, s=4096, p=SSD_P, n=SSD_N,
-             chunk=SSD_Q, rtol=SSD_TOL, atol=SSD_TOL,
-             max_abs_err=errs[name], launches=dict(SK.LAUNCHES))
+        fields = {}
+        if name == "serving":
+            # the control: one TF32 pass per product must fail the check
+            y_c, st_c = SK.ssd_chunk_plain(*args, chunk=SSD_Q,
+                                           heads_per_group=hpg,
+                                           tf32_operands=True)
+            sync()
+            fields["tf32_one_pass_control"] = {
+                "y_intra": _max_err(y_c, y_p), "states": _max_err(st_c, st_p),
+                "fails_tolerance": not (
+                    torch.allclose(y_c, y_p, rtol=SSD_TOL, atol=SSD_TOL)
+                    and torch.allclose(st_c, st_p, rtol=SSD_TOL,
+                                       atol=SSD_TOL))}
+            if not fields["tf32_one_pass_control"]["fails_tolerance"]:
+                print(f"ssd_chunk: the tolerance {SSD_TOL} cannot tell one "
+                      f"TF32 pass from f32 at the serving shape", flush=True)
+            del y_c, st_c
+        emit("ssd_kernel", shape=name, bh=bh, heads_per_group=hpg, s=4096,
+             p=SSD_P, n=SSD_N, chunk=SSD_Q, rtol=SSD_TOL, atol=SSD_TOL,
+             max_abs_err=errs[name], launches=dict(SK.LAUNCHES), **fields)
     # a short prompt, 1000 = 3 * 256 + 232 steps, through the composition
     # (padding, flattening, cross-chunk recurrence) and the sequential oracle
     s = 1000
-    args = _ssd_inputs(gen, 1, s, SSD_H)
+    args = _ssd_inputs(gen, 1, s, SSD_H, 1)
+    before = SK.LAUNCHES["ssd_chunk"]
     y, hf = ssd_ops.ssd(*args, chunk=SSD_Q, use_kernel=True,
                         return_final_state=True)
+    if SK.LAUNCHES["ssd_chunk"] != before + 1:
+        raise AssertionError("ops.ssd on one group: not one kernel launch")
     y_p, hf_p = ssd_ops.ssd_chunked(*args, chunk=SSD_Q,
                                     return_final_state=True)
-    y_o = ssd_ref.ssd_ref(*args)
+    y_o = ssd_ref.ssd_ref(*args[:3], *(t.expand(-1, -1, SSD_H, -1)
+                                       for t in args[3:]))
     sync()
     errs["ops_ssd"] = {
         "y": _check_close(y, y_p, "ops.ssd y vs ssd_chunked"),
         "h_final": _check_close(hf, hf_p, "ops.ssd h_final vs ssd_chunked"),
         "y_vs_sequential_oracle": _check_close(y, y_o, "ops.ssd vs ssd_ref")}
-    emit("ssd_kernel", shape="ops_ssd_short", b=1, s=s, h=SSD_H, p=SSD_P,
-         n=SSD_N, chunk=SSD_Q, rtol=SSD_TOL, atol=SSD_TOL,
+    emit("ssd_kernel", shape="ops_ssd_short", b=1, s=s, h=SSD_H, groups=1,
+         p=SSD_P, n=SSD_N, chunk=SSD_Q, rtol=SSD_TOL, atol=SSD_TOL,
          max_abs_err=errs["ops_ssd"], launches=dict(SK.LAUNCHES))
     return max(v for e in errs.values() for v in e.values())
 
@@ -808,14 +887,15 @@ def phase_serve():
     decode_trace = _device_trace(decode, "ssd_chunk_kernel", steps=8)
 
     # the SSD kernel's share of prefill: its time at each request's padded
-    # length (CUDA events) x 48 layers, over the prefills' host time
+    # length (CUDA events), in the group form serving calls, x 48 layers,
+    # over the prefills' host time
     ssd_ms = 0.0
     for v in lengths:
         sp = -(-v // SSD_Q) * SSD_Q
         args = _chunk_inputs(torch.Generator(device="cuda").manual_seed(v),
-                             SSD_H, sp)
+                             SSD_H, sp, SSD_H)
         ssd_ms += cfg.n_layers * time_ms(
-            lambda: SK.ssd_chunk(*args, chunk=SSD_Q))
+            lambda: SK.ssd_chunk(*args, chunk=SSD_Q, heads_per_group=SSD_H))
     prefill_ms = 1e3 * timing["prefill_s"]
     emit("serve", arch=ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
          vocab=cfg.vocab_size, dtype=cfg.dtype, weight_bytes=weight_bytes,
@@ -1078,12 +1158,14 @@ def host_us(fn, reps=200):
     return us
 
 
-def bound(nbytes, nops, nops_bf16=0):
+def bound(nbytes, nops, nops_bf16=0, nops_tf32=0):
     """The least time for the work: bytes over the memory rate, or the
     operations over the peak for their operands' type (``nops`` at f32's,
-    ``nops_bf16`` at bf16's tensor-core rate), whichever is longer."""
+    ``nops_bf16`` at bf16's and ``nops_tf32`` at TF32's tensor-core rate),
+    whichever is longer."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = (nops / PEAK_OPS + nops_bf16 / PEAK_BF16) * 1e3
+    t_ops = (nops / PEAK_OPS + nops_bf16 / PEAK_BF16
+             + nops_tf32 / PEAK_TF32) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1164,21 +1246,29 @@ def phase_timing(gen, bfs_n, bfs_m):
     idx = torch.where(drop, bfs_m, idx)
     for op in OPS:
         rows.append(_fetched_row("bfs_90pct_dropped", tab, idx, val, op))
-    for bh in (SSD_H, 4 * SSD_H):
+    for name, bh, hpg in SSD_CASES[:3]:
         s, q, n, p = 4096, SSD_Q, SSD_N, SSD_P
-        args = _chunk_inputs(gen, bh, s)
+        args = _chunk_inputs(gen, bh, s, hpg)
         nc = bh * s // q
         tri = q * (q + 1) // 2          # (t, s) pairs with s <= t
-        nbytes = 4 * (bh * s * (p + 1 + 2 * n)          # xdt, adt, B, C in
-                      + bh * s * p + nc * n * p)        # y, states out
-        nops = nc * (tri * (2 * n + 2 * p + 1) + 2 * q * n * p)
-        b, by = bound(nbytes, nops)
+        # xdt, adt in, y out; B and C once per group; the states out
+        nbytes = 4 * (bh * s * (2 * p + 1) + 2 * (bh // hpg) * s * n
+                      + nc * n * p)
+        # the group's scores once, then per head the masked product and the
+        # state; on the tensor cores each f32 product is three TF32 ones
+        ops_scores = (bh // hpg) * (s // q) * tri * 2 * n
+        ops_heads = nc * (tri * (2 * p + 1) + 2 * q * n * p)
+        b, by = bound(nbytes, 0, nops_tf32=3 * (ops_scores + ops_heads))
         rows.append(dict(
-            kernel="ssd_chunk", op="serving" if bh == SSD_H else "batch4",
-            shape=f"BH={bh} S={s} P={p} N={n} Q={q}", bytes=nbytes,
-            ops=nops,
-            ms=time_ms(lambda: SK.ssd_chunk(*args, chunk=q), 20),
-            plain_ms=time_ms(lambda: SK.ssd_chunk_plain(*args, chunk=q), 5),
+            kernel="ssd_chunk", op=name,
+            shape=f"BH={bh} S={s} P={p} N={n} Q={q} heads_per_group={hpg}",
+            bytes=nbytes, ops=ops_scores + ops_heads, ops_scores=ops_scores,
+            bound_bytes_ms=nbytes / HBM_BPS * 1e3,
+            bound_ops_ms=3 * (ops_scores + ops_heads) / PEAK_TF32 * 1e3,
+            ms=time_ms(lambda: SK.ssd_chunk(*args, chunk=q,
+                                            heads_per_group=hpg), 20),
+            plain_ms=time_ms(lambda: SK.ssd_chunk_plain(
+                *args, chunk=q, heads_per_group=hpg), 5),
             library_ms=None, bound_ms=b, bound_by=by))
     rows += flash_timing(gen)
     for row in rows:
@@ -1301,6 +1391,13 @@ def main():
     fa["decode"] = {k: dec[k] for k in (
         "ms", "eager_ms", "host_us", "scratch_alloc_us", "plain_ms",
         "bound_ms", "bound_by", "library_ms")}
+    # ssd_chunk's headline is the group form serving calls; the reference's
+    # per-head form at the same shape goes beside it
+    per_head = next(r for r in rows if r["kernel"] == "ssd_chunk"
+                    and r["op"] == "serving_per_head")
+    sk = next(k for k in kernels if k["name"] == "ssd_chunk")
+    sk["per_head"] = {k: per_head[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}
     # rmw_table_fetched: the same call with 90% of ops dropped, as BFS's
     # levels run it (the bytes its stages move are in the timing rows)
     dropped = next(r for r in rows if r["kernel"] == "rmw_table_fetched"

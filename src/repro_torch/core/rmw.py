@@ -12,6 +12,11 @@ serially in order (the paper's hardware semantics):
 Index conventions follow the JAX reference exactly, so the two packages agree
 bit for bit on the same inputs: a negative index counts from the end of the
 table, a gather clamps to the table and a scatter outside it is dropped.
+
+Float MIN/MAX follow the reference's order (XLA's min/max) everywhere in the
+port through one helper, :func:`order_key`: −0 orders below +0, and a NaN,
+as an operand or already in the table, wins and stays.  The payload of a
+NaN that comes out is not part of the contract.
 """
 
 from __future__ import annotations
@@ -31,6 +36,67 @@ class RmwResult(NamedTuple):
     table: Tensor    # table after all ops applied
     fetched: Tensor  # per-op value seen *before* that op (serialized order)
     success: Tensor  # per-op bool; always True for non-CAS ops
+
+
+# ---------------------------------------------------------------------------
+# Float MIN/MAX in the reference's order
+# ---------------------------------------------------------------------------
+
+_SIGNED = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def order_key(x: Tensor, op: str) -> Tensor:
+    """Integer keys whose order is the reference's order of float values
+    under ``op`` ("min" or "max"): a float's bits with the magnitude bits of
+    negative values flipped (so −0 sits just below +0), and every NaN mapped
+    past all numbers in the op's direction (the smallest key under MIN, the
+    largest under MAX), so it wins every combine and stays.  Integer tensors
+    are their own keys.  `from_order_key` inverts it (a NaN comes back as
+    one NaN of the op's choosing)."""
+    if not x.dtype.is_floating_point:
+        return x
+    kd = _SIGNED[x.element_size()]
+    k = x.view(kd)
+    info = torch.iinfo(kd)
+    k = k ^ ((k >> (8 * x.element_size() - 1)) & info.max)
+    return torch.where(torch.isnan(x), info.min if op == "min" else info.max,
+                       k)
+
+
+def from_order_key(k: Tensor, dtype: torch.dtype) -> Tensor:
+    """The values of ``dtype`` whose `order_key` is ``k``."""
+    if not dtype.is_floating_point:
+        return k
+    k = k ^ ((k >> (8 * k.element_size() - 1)) & torch.iinfo(k.dtype).max)
+    return k.view(dtype)
+
+
+def minmax(op: str, a: Tensor, b: Tensor) -> Tensor:
+    """Elementwise MIN or MAX of ``a`` and ``b`` in the reference's order."""
+    f = torch.minimum if op == "min" else torch.maximum
+    return from_order_key(f(order_key(a, op), order_key(b, op)), a.dtype)
+
+
+def reduce_minmax(x: Tensor, dim: int, op: str) -> Tensor:
+    """MIN or MAX over ``dim`` in the reference's order."""
+    k = order_key(x, op)
+    return from_order_key(k.amin(dim) if op == "min" else k.amax(dim),
+                          x.dtype)
+
+
+def scatter_minmax_(dst: Tensor, index: Tensor, src: Tensor,
+                    op: str) -> Tensor:
+    """``dst[index[i]] = MIN/MAX(dst[index[i]], src[i])`` in place, in the
+    reference's order.  A slot whose key does not move keeps its bits (a
+    NaN already in the table keeps its payload)."""
+    reduce = "amin" if op == "min" else "amax"
+    if not dst.dtype.is_floating_point:
+        return dst.scatter_reduce_(0, index, src, reduce=reduce)
+    old = order_key(dst, op)
+    new = old.clone().scatter_reduce_(0, index, order_key(src, op),
+                                      reduce=reduce)
+    return dst.copy_(torch.where(new == old, dst,
+                                 from_order_key(new, dst.dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -126,11 +192,17 @@ def rmw_serialized(table: Tensor, indices: Tensor, values: Tensor, op: str,
     idx = indices.detach().cpu().numpy().astype(np.int64)
     val = values.detach().cpu().numpy().astype(dt)
     n = idx.shape[0]
+    # float MIN/MAX run on order keys, which integer min/max orders as the
+    # reference orders the floats
+    keyed = op in ("min", "max") and np.issubdtype(dt, np.floating)
+    if keyed:
+        tab, val = (order_key(torch.from_numpy(a), op).numpy()
+                    for a in (tab, val))
     exp = np.broadcast_to(np.asarray(
         0 if expected is None else (expected.detach().cpu().numpy()
                                     if isinstance(expected, Tensor)
                                     else expected), dt), (n,))
-    fetched = np.zeros((n,), dt)
+    fetched = np.zeros((n,), tab.dtype)
     success = np.ones((n,), bool)
     with np.errstate(over="ignore"):
         for k in range(n):
@@ -153,6 +225,9 @@ def rmw_serialized(table: Tensor, indices: Tensor, values: Tensor, op: str,
             if 0 <= j < m:
                 tab[j] = new
             fetched[k] = old
+    if keyed:
+        tab, fetched = (from_order_key(torch.from_numpy(a), table.dtype)
+                        .numpy() for a in (tab, fetched))
     dev = table.device
     return RmwResult(torch.from_numpy(tab).to(dev),
                      torch.from_numpy(fetched).to(dev),
@@ -164,7 +239,9 @@ def rmw_serialized(table: Tensor, indices: Tensor, values: Tensor, op: str,
 # ---------------------------------------------------------------------------
 
 def _combine_fn(op: str):
-    return {"faa": torch.add, "min": torch.minimum, "max": torch.maximum}[op]
+    if op == "faa":
+        return torch.add
+    return lambda a, b: minmax(op, a, b)
 
 
 def _identity(op: str, dtype: torch.dtype):
@@ -224,8 +301,7 @@ def rmw_combining(table: Tensor, indices: Tensor, values: Tensor, op: str,
     if op == "faa":
         padded.index_add_(0, slot, values)
     else:
-        padded.scatter_reduce_(0, slot, values,
-                               reduce="amin" if op == "min" else "amax")
+        scatter_minmax_(padded, slot, values, op)
     return RmwResult(padded[:m], fetched_s[inv], ok)
 
 

@@ -38,8 +38,9 @@ import torch
 
 from repro_torch.core import perf_model
 from repro_torch.core.placement import PlacementState, Tier
-from repro_torch.core.rmw import (OPS, RmwResult, _identity, rmw_combining,
-                                  rmw_serialized)
+from repro_torch.core.rmw import (OPS, RmwResult, _identity, minmax,
+                                  reduce_minmax, rmw_combining,
+                                  rmw_serialized, scatter_minmax_)
 from repro_torch.kernels.rmw.kernel import fetched_design_bytes, radix_passes
 
 Tensor = torch.Tensor
@@ -118,12 +119,8 @@ def rmw_onehot(table: Tensor, indices: Tensor, values: Tensor, op: str,
             acc.index_add_(0, ib, vb)
         elif op in ("min", "max"):
             masked = torch.where(same, vb[None, :], _identity(op, vb.dtype))
-            if op == "min":
-                fetched = torch.minimum(base, masked.amin(1))
-                acc.scatter_reduce_(0, ib, vb, reduce="amin")
-            else:
-                fetched = torch.maximum(base, masked.amax(1))
-                acc.scatter_reduce_(0, ib, vb, reduce="amax")
+            fetched = minmax(op, base, reduce_minmax(masked, 1, op))
+            scatter_minmax_(acc, ib, vb, op)
         elif op == "swp":
             mpos = torch.where(same, pos[None, :], -1).amax(1)
             fetched = torch.where(mpos >= 0, vb[mpos.clamp(min=0)], base)
@@ -171,8 +168,7 @@ def _tables_only(table: Tensor, indices: Tensor, values: Tensor, op: str,
         if op == "faa":
             padded.index_add_(0, slot, values)
         else:
-            padded.scatter_reduce_(0, slot, values,
-                                   reduce="amin" if op == "min" else "amax")
+            scatter_minmax_(padded, slot, values, op)
         return RmwResult(padded[:m], *zeros)
     if op == "swp":
         last = torch.full((m + 1,), -1, dtype=torch.int32, device=dev)

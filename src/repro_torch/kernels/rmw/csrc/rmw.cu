@@ -19,7 +19,8 @@
 //   and written once (8 B per slot): (8 n + 8 m) / 3.35 TB/s.
 //   Design: one thread per op, hardware atomics on the table, which the
 //   order-free ops tolerate exactly: atomicAdd (FAA), atomicMin/atomicMax
-//   (int32; fp32 through the order-preserving int/uint mapping of the bits).
+//   (int32; fp32 by a compare-and-swap loop in the reference's order: −0
+//   below +0, a NaN operand or table value wins).
 //   SWP is last-wins by batch position: pass 1 takes atomicMax(last[slot], i)
 //   on an int32 scratch set to -1, pass 2 writes vals[last[slot]].  No tile
 //   or one-hot matrix: the card's L2 atomics do the combining the TPU did on
@@ -99,6 +100,7 @@
 //   atomicAdd otherwise.
 // ---------------------------------------------------------------------------
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -121,19 +123,57 @@ __device__ __forceinline__ T min_of(T a, T b) { return b < a ? b : a; }
 template <typename T>
 __device__ __forceinline__ T max_of(T a, T b) { return b > a ? b : a; }
 
+// fp32 MIN/MAX in the reference's order (core/rmw.py, `order_key`): −0 below
+// +0, and a NaN wins and stays.  A float's key is its bits with the
+// magnitude bits of a negative value flipped, so signed int order is float
+// order with −0 just below +0; every NaN keys past all numbers in the op's
+// direction.  The result comes back from the winning key, so these give the
+// plain versions' bits, NaN included.
+__device__ __forceinline__ bool is_nan_bits(unsigned b) {
+  return (b & 0x7fffffffu) > 0x7f800000u;
+}
+__device__ __forceinline__ int order_key(float x, bool nan_low) {
+  const int k = __float_as_int(x);
+  if (is_nan_bits((unsigned)k)) return nan_low ? INT_MIN : INT_MAX;
+  return k ^ ((k >> 31) & 0x7fffffff);
+}
+__device__ __forceinline__ float from_order_key(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+}
+__device__ __forceinline__ float min_of(float a, float b) {
+  return from_order_key(min(order_key(a, true), order_key(b, true)));
+}
+__device__ __forceinline__ float max_of(float a, float b) {
+  return from_order_key(max(order_key(a, false), order_key(b, false)));
+}
+
 __device__ __forceinline__ void atomic_min_t(int* a, int v) { atomicMin(a, v); }
 __device__ __forceinline__ void atomic_max_t(int* a, int v) { atomicMax(a, v); }
 
-// fp32 min/max by the order-preserving mapping: non-negative floats order as
-// signed ints, negative floats order in reverse as unsigned ints.  Exact for
-// every non-NaN value (min/max ignore the order of the batch).
+// fp32 MIN/MAX on the table word by compare-and-swap.  The slot only ever
+// moves down (MIN) or up (MAX) in the order above, so a stale read that
+// already orders at or past v needs no write; the loop stops as soon as the
+// slot holds a NaN, and otherwise writes the combined value (a NaN operand
+// writes NaN).
+template <bool MIN>
+__device__ __forceinline__ void atomic_minmax_float(float* a, float v) {
+  unsigned* w = reinterpret_cast<unsigned*>(a);
+  unsigned old = *reinterpret_cast<volatile unsigned*>(w);
+  while (!is_nan_bits(old)) {
+    const float cur = __uint_as_float(old);
+    const unsigned want = __float_as_uint(MIN ? min_of(cur, v)
+                                              : max_of(cur, v));
+    if (want == old) return;
+    const unsigned seen = atomicCAS(w, old, want);
+    if (seen == old) return;
+    old = seen;
+  }
+}
 __device__ __forceinline__ void atomic_min_t(float* a, float v) {
-  if (!(__float_as_uint(v) >> 31)) atomicMin((int*)a, __float_as_int(v));
-  else atomicMax((unsigned int*)a, __float_as_uint(v));
+  atomic_minmax_float<true>(a, v);
 }
 __device__ __forceinline__ void atomic_max_t(float* a, float v) {
-  if (!(__float_as_uint(v) >> 31)) atomicMax((int*)a, __float_as_int(v));
-  else atomicMin((unsigned int*)a, __float_as_uint(v));
+  atomic_minmax_float<false>(a, v);
 }
 
 // --- rmw_table -------------------------------------------------------------

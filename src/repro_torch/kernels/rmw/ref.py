@@ -6,7 +6,9 @@ Port of `repro.kernels.rmw.ref`.  Semantics contract (shared with
 batch with the selected combiner:
 
   faa — table[i] += sum of colliding values            (order-free)
-  min/max — combine with minimum / maximum             (order-free)
+  min/max — combine with minimum / maximum             (order-free; floats
+            in the reference's order: −0 below +0, NaN wins, see
+            `core.rmw.order_key`)
   swp — last collider (by batch position) wins         (order-dependent)
 
 Indices outside ``[0, table size)`` are dropped.
@@ -22,6 +24,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.rmw import from_order_key, order_key, scatter_minmax_
 
 Tensor = torch.Tensor
 
@@ -42,8 +46,7 @@ def rmw_table_ref(table: Tensor, indices: Tensor, values: Tensor,
     if op == "faa":
         return padded.index_add_(0, slot, values)[:m]
     if op in ("min", "max"):
-        return padded.scatter_reduce_(
-            0, slot, values, reduce="amin" if op == "min" else "amax")[:m]
+        return scatter_minmax_(padded, slot, values, op)[:m]
     # swp — last-wins: the highest batch position per slot
     pos = torch.arange(idx.shape[0], dtype=torch.int32, device=idx.device)
     last = torch.full((m + 1,), -1, dtype=torch.int32, device=idx.device)
@@ -71,7 +74,12 @@ def rmw_table_fetched_ref(table: Tensor, indices: Tensor, values: Tensor,
                    (expected.item() if isinstance(expected, Tensor)
                     else expected)).astype(dt)
     n = idx.shape[0]
-    fetched = np.zeros((n,), dt)
+    # float MIN/MAX run on order keys, as `core.rmw.rmw_serialized` does
+    keyed = op in ("min", "max") and np.issubdtype(dt, np.floating)
+    if keyed:
+        tab, val = (order_key(torch.from_numpy(a), op).numpy()
+                    for a in (tab, val))
+    fetched = np.zeros((n,), tab.dtype)
     success = np.zeros((n,), bool)
     with np.errstate(over="ignore"):
         for k in range(n):
@@ -95,6 +103,9 @@ def rmw_table_fetched_ref(table: Tensor, indices: Tensor, values: Tensor,
             tab[i] = new
             fetched[k] = old
             success[k] = ok
+    if keyed:
+        tab, fetched = (from_order_key(torch.from_numpy(a), table.dtype)
+                        .numpy() for a in (tab, fetched))
     dev = table.device
     return (torch.from_numpy(tab).to(dev), torch.from_numpy(fetched).to(dev),
             torch.from_numpy(success).to(dev))

@@ -7,6 +7,11 @@ SSD: per (batch-head, chunk of Q steps) the intra-chunk output
 chunk's end state ``B^T (xdt · exp(l_{Q-1} - l_s))``.  The cross-chunk
 recurrence is plain torch in `ops.py`, as the reference does it in jnp.
 
+B and C come per group of heads: ``heads_per_group`` consecutive heads
+share one (S, N) slice of B and C (Mamba-2's ``n_groups``), so the kernel
+forms each chunk's ``C B^T`` once for all of them.  ``heads_per_group = 1``
+is the reference's interface, B and C per head.
+
 `ssd_chunk` on a CUDA tensor launches the kernel (building the library at
 first use) or raises; on a CPU tensor it runs `ssd_chunk_plain`.  There is
 no fallback from the kernel to the plain version.  `LAUNCHES` counts kernel
@@ -26,8 +31,10 @@ from repro_torch.kernels.build import NvccLibrary
 Tensor = torch.Tensor
 
 DEFAULT_CHUNK = 128
-#: what `csrc/ssd.cu` takes: head width P, state width N % 32, chunk Q % 64
+#: what `csrc/ssd.cu` takes: head width P, state width N % 32 up to N_MAX,
+#: chunk Q % 64 up to Q_MAX (its shared-memory plan)
 KERNEL_P, KERNEL_N_MULTIPLE, KERNEL_Q_MULTIPLE = 64, 32, 64
+KERNEL_N_MAX, KERNEL_Q_MAX = 128, 256
 
 #: kernel launches per wrapper since the last `reset_launches()`
 LAUNCHES = {"ssd_chunk": 0}
@@ -36,8 +43,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: `csrc/ssd.cu`, built by nvcc at first launch
 LIBRARY = NvccLibrary("ssd", Path(__file__).resolve().parent / "csrc"
                       / "ssd.cu", {
-    # xdt, adt, B, C, y, states, bh, s, q, p, n, stream
-    "ssd_chunk_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # xdt, adt, B, C, y, states, bh, s, q, p, n, heads_per_group, stream
+    "ssd_chunk_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P),
 })
 
 
@@ -46,32 +54,54 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def tf32_round(x: Tensor) -> Tensor:
+    """f32 values rounded to TF32 (10 explicit mantissa bits): the 13 low
+    mantissa bits dropped, rounding to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` does.  What one TF32 tensor-core pass sees of an f32
+    operand."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def ssd_chunk_plain(xdt: Tensor, adt: Tensor, B: Tensor, C: Tensor, *,
-                    chunk: int = DEFAULT_CHUNK) -> Tuple[Tensor, Tensor]:
-    """The kernel's function in plain torch (batched matmuls per chunk)."""
+                    chunk: int = DEFAULT_CHUNK, heads_per_group: int = 1,
+                    tf32_operands: bool = False) -> Tuple[Tensor, Tensor]:
+    """The kernel's function in plain torch (batched matmuls per chunk), on
+    B and C repeated to every head of their group.
+
+    ``tf32_operands`` rounds the operands of each of the three products to
+    TF32 first (`tf32_round`): one TF32 tensor-core pass, the control that
+    the kernel's f32-accurate products are held against."""
     bh, s, p = xdt.shape
     n = B.shape[-1]
     nc = s // chunk
+    r = tf32_round if tf32_operands else (lambda t: t)
     x = xdt.float().reshape(bh, nc, chunk, p)
-    Bc = B.float().reshape(bh, nc, chunk, n)
-    Cc = C.float().reshape(bh, nc, chunk, n)
+    Bc = B.float().repeat_interleave(heads_per_group, 0).reshape(
+        bh, nc, chunk, n)
+    Cc = C.float().repeat_interleave(heads_per_group, 0).reshape(
+        bh, nc, chunk, n)
     l = torch.cumsum(adt.float().reshape(bh, nc, chunk), dim=-1)
     mask = torch.ones((chunk, chunk), dtype=torch.bool,
                       device=xdt.device).tril()
     m = torch.where(mask, torch.exp(l[..., :, None] - l[..., None, :]), 0.0)
-    y = ((Cc @ Bc.transpose(-1, -2)) * m) @ x
+    y = r((r(Cc) @ r(Bc).transpose(-1, -2)) * m) @ r(x)
     decay_end = torch.exp(l[..., -1:] - l)[..., None]
-    states = Bc.transpose(-1, -2) @ (x * decay_end)
+    states = r(Bc).transpose(-1, -2) @ r(x * decay_end)
     return y.reshape(bh, s, p), states
 
 
-def _check(xdt: Tensor, adt: Tensor, B: Tensor, C: Tensor, chunk: int
-           ) -> None:
+def _check(xdt: Tensor, adt: Tensor, B: Tensor, C: Tensor, chunk: int,
+           heads_per_group: int = 1) -> None:
     """Validate what the kernel takes; raise on anything else."""
     bh, s, p = xdt.shape
     n = B.shape[-1]
-    for t, shape in ((xdt, (bh, s, p)), (adt, (bh, s)), (B, (bh, s, n)),
-                     (C, (bh, s, n))):
+    if heads_per_group < 1 or bh % heads_per_group:
+        raise ValueError(f"ssd_chunk: heads_per_group={heads_per_group} does "
+                         f"not divide BH={bh}")
+    g = bh // heads_per_group
+    for t, shape in ((xdt, (bh, s, p)), (adt, (bh, s)), (B, (g, s, n)),
+                     (C, (g, s, n))):
         if tuple(t.shape) != shape:
             raise ValueError(f"ssd_chunk: shape {tuple(t.shape)}, want "
                              f"{shape}")
@@ -81,19 +111,23 @@ def _check(xdt: Tensor, adt: Tensor, B: Tensor, C: Tensor, chunk: int
             raise TypeError("ssd_chunk takes contiguous float32 tensors")
         if t.data_ptr() % 16:
             raise ValueError("ssd_chunk takes 16-byte aligned tensors")
-    if (p != KERNEL_P or n % KERNEL_N_MULTIPLE or chunk % KERNEL_Q_MULTIPLE
-            or bh > 65535 or s // chunk > 65535):
+    if (p != KERNEL_P or n % KERNEL_N_MULTIPLE or n > KERNEL_N_MAX
+            or chunk % KERNEL_Q_MULTIPLE or chunk > KERNEL_Q_MAX
+            or bh > (1 << 24) or s // chunk > 65535):
         raise ValueError(
             f"ssd_chunk kernel takes P == {KERNEL_P}, N % "
-            f"{KERNEL_N_MULTIPLE} == 0, chunk % {KERNEL_Q_MULTIPLE} == 0; got "
+            f"{KERNEL_N_MULTIPLE} == 0 and N <= {KERNEL_N_MAX}, chunk % "
+            f"{KERNEL_Q_MULTIPLE} == 0 and chunk <= {KERNEL_Q_MAX}; got "
             f"P={p}, N={n}, chunk={chunk}, BH={bh}")
 
 
 def ssd_chunk(xdt: Tensor, adt: Tensor, B: Tensor, C: Tensor, *,
-              chunk: int = DEFAULT_CHUNK) -> Tuple[Tensor, Tensor]:
+              chunk: int = DEFAULT_CHUNK, heads_per_group: int = 1
+              ) -> Tuple[Tensor, Tensor]:
     """Per-chunk intra outputs and chunk states.
 
-    xdt (BH, S, P), adt (BH, S), B/C (BH, S, N); S % chunk == 0.
+    xdt (BH, S, P), adt (BH, S), B/C (BH / heads_per_group, S, N): head i
+    reads group i // heads_per_group; S % chunk == 0.
     Returns y_intra (BH, S, P), states (BH, NC, N, P), both f32.
     """
     bh, s, p = xdt.shape
@@ -101,8 +135,9 @@ def ssd_chunk(xdt: Tensor, adt: Tensor, B: Tensor, C: Tensor, *,
     if s % chunk:
         raise ValueError(f"S={s} is not a multiple of chunk={chunk}")
     if xdt.device.type == "cpu":
-        return ssd_chunk_plain(xdt, adt, B, C, chunk=chunk)
-    _check(xdt, adt, B, C, chunk)
+        return ssd_chunk_plain(xdt, adt, B, C, chunk=chunk,
+                               heads_per_group=heads_per_group)
+    _check(xdt, adt, B, C, chunk, heads_per_group)
     y = torch.empty((bh, s, p), dtype=torch.float32, device=xdt.device)
     states = torch.empty((bh, s // chunk, n, p), dtype=torch.float32,
                          device=xdt.device)
@@ -110,6 +145,7 @@ def ssd_chunk(xdt: Tensor, adt: Tensor, B: Tensor, C: Tensor, *,
         LIBRARY.launch("ssd_chunk_launch", xdt.data_ptr(), adt.data_ptr(),
                        B.data_ptr(), C.data_ptr(), y.data_ptr(),
                        states.data_ptr(), bh, s, chunk, p, n,
+                       heads_per_group,
                        torch.cuda.current_stream(xdt.device).cuda_stream)
     LAUNCHES["ssd_chunk"] += 1
     return y, states

@@ -7,6 +7,11 @@ Port of `repro.kernels.ssd.ops`.  Composition:
 Steps 2 and 3 are plain torch, as the reference does them in jnp outside
 Pallas; the recurrence is a loop over chunks (the reference's associative
 scan associates the same products differently: equal up to rounding).
+
+B and C may come per group: a head axis of G for any G that divides H
+(head h reads group h // (H / G)); G = H is the reference's layout.  `ssd`
+hands the groups to the kernel as they are, `ssd_chunked` repeats them to
+the heads.
 """
 
 from __future__ import annotations
@@ -46,8 +51,12 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor, *,
                 chunk: int = _k.DEFAULT_CHUNK,
                 return_final_state: bool = False):
     """Chunked SSD in plain torch, head axis explicit throughout (counterpart
-    of `ssd_chunked_jnp`).  Same layouts and returns as :func:`ssd`."""
+    of `ssd_chunked_jnp`).  Same layouts and returns as :func:`ssd`; B and C
+    are repeated from their groups to the heads first."""
     b, s, h, p = x.shape
+    hpg = _heads_per_group(h, B, C)
+    if hpg > 1:
+        B, C = (t.repeat_interleave(hpg, dim=2) for t in (B, C))
     pad = (-s) % chunk
     if pad:
         x, dt, B, C = _pad_seq(pad, x, dt, B, C)
@@ -83,10 +92,19 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor, *,
     return y
 
 
+def _heads_per_group(h: int, B: Tensor, C: Tensor) -> int:
+    g = B.shape[2]
+    if C.shape != B.shape or g < 1 or h % g:
+        raise ValueError(f"B {tuple(B.shape)} and C {tuple(C.shape)} need a "
+                         f"group axis that divides H={h}")
+    return h // g
+
+
 def ssd(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor, *,
         chunk: int = _k.DEFAULT_CHUNK, use_kernel: Optional[bool] = None,
         return_final_state: bool = False):
-    """Chunked SSD.  x (B,S,H,P), dt (B,S,H), A (H,), B/C (B,S,H,N).
+    """Chunked SSD.  x (B,S,H,P), dt (B,S,H), A (H,), B/C (B,S,G,N) with G
+    dividing H (head h reads group h // (H / G); G = H: one per head).
 
     With return_final_state, also returns h_final (B,H,N,P) for decode.
     use_kernel: None = `kernel.ssd_chunk` on CUDA tensors, `ssd_chunked`
@@ -99,26 +117,34 @@ def ssd(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor, *,
                            return_final_state=return_final_state)
     b, s, h, p = x.shape
     n = B.shape[-1]
+    hpg = _heads_per_group(h, B, C)
+    g = h // hpg
     pad = (-s) % chunk
     if pad:
         x, dt, B, C = _pad_seq(pad, x, dt, B, C)
     sp = s + pad
     nc = sp // chunk
 
-    def flat(t):  # (B, S, H, *) -> (B*H, S, *), contiguous
-        return t.transpose(1, 2).reshape(b * h, sp, *t.shape[3:])
+    def flat(t):  # (B, S, K, *) -> (B*K, S, *), contiguous: a view when K = 1
+        return t.transpose(1, 2).reshape(-1, sp, *t.shape[3:]).contiguous()
 
-    xdt = flat((x * dt[..., None]).float()).contiguous()
-    adt = flat((dt * A[None, None, :]).float()).contiguous()
-    Bf, Cf = flat(B.float()).contiguous(), flat(C.float()).contiguous()
+    xdt = flat((x * dt[..., None]).float())
+    adt = flat((dt * A[None, None, :]).float())
+    Bf, Cf = flat(B.float()), flat(C.float())                # (B*G, S, N)
 
-    y_intra, states = _k.ssd_chunk(xdt, adt, Bf, Cf, chunk=chunk)
+    y_intra, states = _k.ssd_chunk(xdt, adt, Bf, Cf, chunk=chunk,
+                                   heads_per_group=hpg)
 
     l = torch.cumsum(adt.reshape(b * h, nc, chunk), dim=-1)   # (BH,NC,Q)
     decay = torch.exp(l[..., -1])[..., None, None]            # (BH,NC,1,1)
     h_prev, h_last = _chunk_recurrence(decay, states)         # entering st.
-    cdecay = Cf.reshape(b * h, nc, chunk, n) * torch.exp(l)[..., None]
-    y = y_intra.reshape(b * h, nc, chunk, p) + cdecay @ h_prev
+    # y_inter[t] = exp(l_t) (C_t @ H_prev): one product per group, the heads
+    # of the group side by side in its columns
+    hg = h_prev.reshape(b * g, hpg, nc, n, p).permute(0, 2, 3, 1, 4)
+    ch = Cf.reshape(b * g, nc, chunk, n) @ hg.reshape(b * g, nc, n, hpg * p)
+    y_inter = ch.reshape(b * g, nc, chunk, hpg, p).permute(0, 3, 1, 2, 4) \
+        .reshape(b * h, nc, chunk, p) * torch.exp(l)[..., None]
+    y = y_intra.reshape(b * h, nc, chunk, p) + y_inter
     y = y.reshape(b, h, sp, p).transpose(1, 2)[:, :s].to(x.dtype)
     if return_final_state:
         # padded steps have dt = 0, so the last inclusive state is the state

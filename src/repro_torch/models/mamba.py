@@ -113,14 +113,18 @@ class Mamba2(nn.Module):
         cc = conv_out[..., di + g * n:]
 
         xh = xc.reshape(b, s, h, p)
-        # groups broadcast to heads (n_groups == 1 typical)
-        rep = h // g
-        bh = bc.reshape(b, s, g, n).repeat_interleave(rep, dim=2)
-        ch = cc.reshape(b, s, g, n).repeat_interleave(rep, dim=2)
+        # B and C stay per group (n_groups == 1 typical): `ssd` shares them
+        # across the heads of a group
+        bg = bc.reshape(b, s, g, n)
+        cg = cc.reshape(b, s, g, n)
         dt = softplus(dt_raw.float() + self.dt_bias)          # (B,S,H)
         A = -torch.exp(self.A_log)                            # (H,)
 
         if cache is not None and s == 1:
+            # the decode step takes B and C per head: groups broadcast
+            rep = h // g
+            bh = bg.repeat_interleave(rep, dim=2)
+            ch = cg.repeat_interleave(rep, dim=2)
             hstate, y = ssd_decode_step(
                 cache["ssm"], xh[:, 0].float(), dt[:, 0], A,
                 bh[:, 0].float(), ch[:, 0].float())
@@ -128,12 +132,12 @@ class Mamba2(nn.Module):
             new_cache = {"conv": new_conv, "ssm": hstate,
                          "len": cache["len"] + 1}
         elif cache is not None:
-            y, hstate = ssd(xh, dt, A, bh, ch, chunk=cfg.ssm.chunk,
+            y, hstate = ssd(xh, dt, A, bg, cg, chunk=cfg.ssm.chunk,
                             use_kernel=use_kernel, return_final_state=True)
             new_cache = {"conv": new_conv, "ssm": hstate,
                          "len": cache["len"] + s}
         else:
-            y = ssd(xh, dt, A, bh, ch, chunk=cfg.ssm.chunk,
+            y = ssd(xh, dt, A, bg, cg, chunk=cfg.ssm.chunk,
                     use_kernel=use_kernel)
             new_cache = None
 

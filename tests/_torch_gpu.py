@@ -33,3 +33,25 @@ def same(port_tensor, ref_array, what=""):
     """Bit-equality of a port tensor and a reference (JAX/numpy) array."""
     np.testing.assert_array_equal(port_tensor.detach().cpu().numpy(),
                                   np.asarray(ref_array), err_msg=what)
+
+
+def zeros_and_nans(rng, size):
+    """f32 values drawn from ±0, ±1, 2 and NaNs of both signs: the cases
+    where float MIN/MAX orders differ (−0 against +0, NaN against all)."""
+    pool = np.array([0.0, -0.0, 0.0, -0.0, 1.0, -1.0, 2.0, np.nan, -np.nan],
+                    np.float32)
+    weights = np.array([4, 4, 4, 4, 2, 2, 2, 1, 1], float)
+    return rng.choice(pool, size=size, p=weights / weights.sum())
+
+
+def same_bits(port_tensor, ref_array, what=""):
+    """NaN where the reference has NaN, and every other float bit for bit
+    (so −0 and +0 differ); a NaN's payload is not compared."""
+    got = np.ascontiguousarray(port_tensor.detach().cpu().numpy())
+    want = np.ascontiguousarray(np.asarray(ref_array))
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan, err_msg=f"{what}: NaN")
+    np.testing.assert_array_equal(got[~nan].view(np.uint32),
+                                  want[~nan].view(np.uint32),
+                                  err_msg=f"{what}: bits")

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_gpu import collision_heavy, same
+from _torch_gpu import collision_heavy, same, same_bits, zeros_and_nans
 from repro import atomics as jat
 from repro.core import perf_model as jpm
 from repro_torch import atomics as tat
@@ -57,6 +57,34 @@ def test_execute_matches_reference(kind, backend):
     in_range = idx < table.shape[0]      # fetched is contracted in range only
     same(got.fetched[in_range], np.asarray(want.fetched)[in_range], "fetched")
     same(got.success[in_range], np.asarray(want.success)[in_range], "success")
+
+
+@pytest.mark.parametrize("backend",
+                         ["serialized", "sort", "onehot", "cuda", "auto"])
+@pytest.mark.parametrize("kind", ["min", "max"])
+def test_execute_fp32_minmax_signed_zeros_and_nan_match_reference(kind,
+                                                                  backend):
+    """fp32 MIN/MAX with ±0 and NaN in the table and the operands, repeated
+    slots and some ops out of range, on every CPU backend of the port:
+    against the reference's serialized and onehot backends in full, and
+    its `auto` choice for the table (NaN by isnan, other values bit for
+    bit).  The reference's `sort` backend, which `auto` picks at this size,
+    returns some fetched −0 as +0, unlike its own oracle: not held here."""
+    rng = np.random.default_rng(71 + len(kind + backend))
+    table, vals = zeros_and_nans(rng, 61), zeros_and_nans(rng, 300)
+    idx = collision_heavy(rng, 300, 65)
+    got = tat.execute(convert.table_from_numpy(table, "cpu"),
+                      _ops(kind, idx, vals, "torch"), backend=backend)
+    in_range = idx < table.shape[0]
+    for ref_backend in ("serialized", "onehot", "auto"):
+        want = jat.execute(jnp.asarray(table), _ops(kind, idx, vals, "jax"),
+                           backend=ref_backend)
+        same_bits(got.table.data, want.table.data, f"{ref_backend} table")
+        if ref_backend == "auto":
+            continue
+        same_bits(got.fetched[in_range], np.asarray(want.fetched)[in_range],
+                  f"{ref_backend} fetched")
+        same(got.success[in_range], np.asarray(want.success)[in_range])
 
 
 @pytest.mark.parametrize("kind", OPS)
@@ -176,7 +204,7 @@ _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
 
 def test_port_imports_nothing_of_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py"))]
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}:{k}: {line.strip()}"
            for f in files

@@ -1,13 +1,14 @@
 """The port's CUDA kernels on the card (every test here needs a CUDA card).
 
 Each kernel is held against its plain PyTorch version on the same device
-tensors; BFS on the kernels against BFS on the plain sort backend; the SSD
-kernel's composition and a full-width two-layer mamba2_780m prefill against
-the plain SSD path; the flash-attention kernel (f32 at rtol = atol = 3e-5,
-bf16 at 2e-2, as the reference's attention tests, and at one bf16 ulp at
-gemma_2b's shapes; decode split across CTAs, prefill on tensor cores) and
-a full-width two-layer gemma_2b prefill and decode against the plain
-attention path.
+tensors (fp32 MIN/MAX also with ±0 and NaN); BFS on the kernels against BFS
+on the plain sort backend; the SSD kernel in per-head and group form, its
+composition and a full-width two-layer mamba2_780m prefill and decode
+against the plain SSD path; the flash-attention kernel (f32 at rtol = atol
+= 3e-5, bf16 at 2e-2, as the reference's attention tests, and at one bf16
+ulp at gemma_2b's shapes; decode split across CTAs, prefill on tensor
+cores) and a full-width two-layer gemma_2b prefill and decode against the
+plain attention path.
 This file imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \
@@ -20,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_gpu import cuda_device  # noqa: F401
+from _torch_gpu import cuda_device, same_bits, zeros_and_nans  # noqa: F401
 from repro_torch import atomics
 from repro_torch.configs import get_config
 from repro_torch.core import bfs as tbfs
@@ -56,6 +57,30 @@ def test_kernels_match_plain_versions(cuda_device, op, dtype):
             assert torch.equal(K.rmw_table(tab, idx, val, op),
                                tref.rmw_table_ref(tab, idx, val, op))
         assert torch.equal(K.slot_counts(idx, m), K.slot_counts_plain(idx, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(3000, 700), (1 << 16, 64),
+                                 (1 << 20, 1 << 12)])
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_fp32_minmax_signed_zeros_and_nan_match_plain_versions(cuda_device,
+                                                               op, n, m):
+    """fp32 MIN/MAX in the reference's order on the card: ±0 and NaN in the
+    table and the operands, repeated slots, some ops out of range.  Both
+    kernels against their plain versions on the same device tensors, NaN
+    by isnan and every other value bit for bit."""
+    rng = np.random.default_rng(n + m)
+    tab = torch.as_tensor(zeros_and_nans(rng, m), device=cuda_device)
+    val = torch.as_tensor(zeros_and_nans(rng, n), device=cuda_device)
+    idx = torch.as_tensor(rng.integers(0, m + 7, n).astype(np.int32),
+                          device=cuda_device)
+    same_bits(K.rmw_table(tab, idx, val, op),
+              tref.rmw_table_ref(tab, idx, val, op).cpu().numpy(), "table")
+    got = K.rmw_table_fetched(tab, idx, val, op)
+    want = K.rmw_table_fetched_plain(tab, idx, val, op)
+    same_bits(got[0], want[0].cpu().numpy(), "fetched kernel's table")
+    same_bits(got[1], want[1].cpu().numpy(), "fetched")
+    assert torch.equal(got[2], want[2])
 
 
 # the fetched kernel's edge shapes: one slot; the BFS shape (scale 20,
@@ -188,6 +213,81 @@ def test_ssd_chunk_matches_plain_version(cuda_device, bh, s, n, chunk):
     torch.testing.assert_close(st, st_p, **SSD_TOL)
 
 
+# (BH, heads per group, S, N, chunk): mamba2_780m's serving shape in its
+# one group, two groups of 24, the per-head form, four sequences, and
+# narrower groups that take the kernel's other work splits
+SSD_GROUPED = [(48, 48, 4096, 128, 256), (48, 24, 4096, 128, 256),
+               (48, 1, 1024, 128, 256), (192, 48, 1024, 128, 256),
+               (6, 3, 512, 64, 128), (4, 2, 512, 32, 64),
+               (8, 4, 768, 128, 192)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,hpg,s,n,chunk", SSD_GROUPED)
+def test_ssd_chunk_group_form_matches_plain_version(cuda_device, bh, hpg, s,
+                                                    n, chunk):
+    """B and C per group of heads (head i reads group i // hpg), one
+    launch, against the plain version on B and C repeated to the heads."""
+    g = torch.Generator(device=cuda_device).manual_seed(bh * hpg + s)
+    xdt, adt, _, _ = _ssd_chunk_inputs(g, cuda_device, bh, s, n)
+    B, C = (torch.randn((bh // hpg, s, n), generator=g, device=cuda_device)
+            for _ in range(2))
+    SK.reset_launches()
+    y, st = SK.ssd_chunk(xdt, adt, B, C, chunk=chunk, heads_per_group=hpg)
+    assert SK.LAUNCHES == {"ssd_chunk": 1}
+    y_p, st_p = SK.ssd_chunk_plain(xdt, adt, B, C, chunk=chunk,
+                                   heads_per_group=hpg)
+    torch.testing.assert_close(y, y_p, **SSD_TOL)
+    torch.testing.assert_close(st, st_p, **SSD_TOL)
+
+
+@pytest.mark.gpu
+def test_ssd_one_group_launches_one_kernel(cuda_device):
+    """`ops.ssd` with B and C on one group of 8 heads hands the group to the
+    kernel in one launch (no per-head copy), against the plain path."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    b, s, h = 2, 300, 8
+    x = torch.randn((b, s, h, 64), generator=g, device=cuda_device)
+    dt = torch.rand((b, s, h), generator=g, device=cuda_device) * 0.19 + 0.01
+    A = -(torch.rand((h,), generator=g, device=cuda_device) * 1.5 + 0.5)
+    B = torch.randn((b, s, 1, 128), generator=g, device=cuda_device)
+    C = torch.randn((b, s, 1, 128), generator=g, device=cuda_device)
+    SK.reset_launches()
+    y, hf = sops.ssd(x, dt, A, B, C, chunk=256, return_final_state=True)
+    assert SK.LAUNCHES == {"ssd_chunk": 1}
+    y_p, hf_p = sops.ssd_chunked(x, dt, A, B, C, chunk=256,
+                                 return_final_state=True)
+    torch.testing.assert_close(y, y_p, **SSD_TOL)
+    torch.testing.assert_close(hf, hf_p, **SSD_TOL)
+
+
+@pytest.mark.gpu
+def test_mamba_two_layers_serve_through_the_group_path(cuda_device):
+    """mamba2_780m at full width (48 heads, one group), cut to two layers,
+    bf16: a 300-token prefill through the kernel in group form (one launch
+    per layer) and four decode steps (no launch), against the plain SSD
+    path, logits within 0.05."""
+    cfg = get_config("mamba2_780m").replace(n_layers=2)
+    model = LM(cfg, device=cuda_device, seed=0)
+    toks = torch.randint(0, cfg.vocab_size, (1, 304), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device)
+                         .manual_seed(1))
+    out = {}
+    for use_kernel in (None, False):
+        model.use_kernel = use_kernel
+        SK.reset_launches()
+        cache, logits = model.prefill({"tokens": toks[:, :300]}, 512)
+        steps = [logits]
+        for t in range(300, 304):
+            cache, logits = model.decode_step(cache,
+                                              {"tokens": toks[:, t:t + 1]})
+            steps.append(logits)
+        out[use_kernel] = torch.stack(steps)
+        assert SK.LAUNCHES == {"ssd_chunk": 2 if use_kernel is None else 0}
+    assert torch.isfinite(out[None]).all()
+    assert (out[None] - out[False]).abs().max() <= 0.05
+
+
 @pytest.mark.gpu
 def test_ssd_composition_on_the_card_matches_plain_path(cuda_device):
     """`ops.ssd` picks the kernel on CUDA tensors by default; 300 steps pad
@@ -216,6 +316,14 @@ def test_ssd_kernel_refuses_what_it_cannot_take(cuda_device):
         SK.ssd_chunk(z((2, 64, 16), device=dev), z((2, 64), device=dev),
                      z((2, 64, 32), device=dev), z((2, 64, 32), device=dev),
                      chunk=64)
+    with pytest.raises(ValueError, match="kernel takes"):
+        SK.ssd_chunk(z((2, 512, 64), device=dev), z((2, 512), device=dev),
+                     z((2, 512, 32), device=dev), z((2, 512, 32), device=dev),
+                     chunk=512)
+    with pytest.raises(ValueError, match="heads_per_group"):
+        SK.ssd_chunk(z((3, 64, 64), device=dev), z((3, 64), device=dev),
+                     z((1, 64, 32), device=dev), z((1, 64, 32), device=dev),
+                     chunk=64, heads_per_group=2)
     with pytest.raises(TypeError):
         SK.ssd_chunk(*(t.double() for t in _ssd_chunk_inputs(
             torch.Generator(device=dev).manual_seed(0), dev, 1, 64, 32)),

@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_gpu import collision_heavy, same
+from _torch_gpu import collision_heavy, same, same_bits, zeros_and_nans
 from repro.core import rmw as jrmw
 from repro.kernels.rmw import ops as jops
 from repro.kernels.rmw import ref as jref
+from repro_torch.core import rmw as trmw
 from repro_torch.kernels.rmw import kernel as K
 from repro_torch.kernels.rmw import ops as tops
 from repro_torch.kernels.rmw import ref as tref
@@ -110,6 +111,35 @@ def test_rmw_apply_fetched_fp32_normal_faa_close():
         np.testing.assert_allclose(g.numpy(), np.asarray(w),
                                    rtol=1e-5, atol=1e-5)
     same(got.success, want.success)
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_plain_versions_fp32_minmax_signed_zeros_and_nan(op):
+    """The plain versions of `rmw_table` and `rmw_table_fetched` (and the
+    wrappers on CPU tensors, which run them) with ±0 and NaN in the table
+    and the operands and repeated slots, against the reference's oracle
+    on the kept ops: NaN by isnan, every other value bit for bit; dropped
+    ops fetch 0 and fail."""
+    rng = np.random.default_rng(17 if op == "min" else 19)
+    m, n = 61, 300
+    table, vals = zeros_and_nans(rng, m), zeros_and_nans(rng, n)
+    idx = collision_heavy(rng, n, m + 4)
+    keep = idx < m
+    want = jrmw.rmw_serialized(jnp.asarray(table), jnp.asarray(idx[keep]),
+                               jnp.asarray(vals[keep]), op)
+    args = (_t(table), _t(idx), _t(vals), op)
+    for name, tab in (("rmw_table_ref", tref.rmw_table_ref(*args)),
+                      ("rmw_table", K.rmw_table(*args))):
+        same_bits(tab, want.table, name)
+    for name, fn in (("rmw_table_fetched", K.rmw_table_fetched),
+                     ("rmw_table_fetched_plain", K.rmw_table_fetched_plain),
+                     ("rmw_table_fetched_ref", tref.rmw_table_fetched_ref)):
+        tab, fetched, success = fn(*args)
+        same_bits(tab, want.table, f"{name} table")
+        same_bits(fetched[_t(keep)], want.fetched, f"{name} fetched")
+        same_bits(fetched[_t(~keep)], np.zeros(int((~keep).sum()),
+                                               np.float32))
+        same(success, keep, f"{name} success")
 
 
 def test_slot_occupancy_matches_reference():
@@ -278,7 +308,7 @@ def _combiner(op, e):
     if op == "faa":
         return torch.add
     if op in ("min", "max"):
-        return torch.minimum if op == "min" else torch.maximum
+        return lambda a, b: trmw.minmax(op, a, b)
     # cas: the first value other than e (or the first value)
     return lambda a, b: torch.where((a != e) | (b == e), a, b)
 

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_gpu import collision_heavy, same
+from _torch_gpu import collision_heavy, same, same_bits, zeros_and_nans
 from repro.core import rmw as jrmw
 from repro_torch.core import rmw as trmw
 
@@ -91,6 +91,40 @@ def test_combining_float_faa_close_to_reference():
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got.fetched.numpy(), np.asarray(want.fetched),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("path", ["serialized", "combining"])
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_fp32_minmax_signed_zeros_and_nan_match_reference(op, path):
+    """fp32 MIN/MAX in the reference's order: −0 below +0, and a NaN in the
+    table or among the operands wins and stays.  Repeated slots, against
+    the reference's oracle: NaN by isnan, every other value bit for bit."""
+    rng = np.random.default_rng(61 + len(op + path))
+    table, vals = zeros_and_nans(rng, 61), zeros_and_nans(rng, 300)
+    idx = collision_heavy(rng, 300, 61)
+    want = jrmw.rmw_serialized(jnp.asarray(table), jnp.asarray(idx),
+                               jnp.asarray(vals), op)
+    got = getattr(trmw, f"rmw_{path}")(_t(table), _t(idx), _t(vals), op)
+    same_bits(got.table, want.table, "table")
+    same_bits(got.fetched, want.fetched, "fetched")
+    same(got.success, want.success, "success")
+
+
+def test_order_key_orders_as_the_reference():
+    """`order_key` sorts ±0 and NaN as XLA's min/max do, and
+    `from_order_key` inverts it on every non-NaN value."""
+    x = torch.tensor([np.nan, 1.0, -0.0, 0.0, -np.inf, -1.0, np.inf],
+                     dtype=torch.float32)
+    for op, f in (("min", jnp.minimum), ("max", jnp.maximum)):
+        k = trmw.order_key(x, op)
+        assert k.dtype == torch.int32
+        same_bits(trmw.from_order_key(k, x.dtype)[1:], x[1:].numpy())
+        for i in range(x.shape[0]):
+            got = trmw.minmax(op, x[i].expand(7), x)
+            same_bits(got, f(jnp.asarray(x[i].numpy()), jnp.asarray(
+                x.numpy())), f"{op} {x[i]}")
+    ints = torch.tensor([3, -2], dtype=torch.int32)
+    assert trmw.order_key(ints, "min") is ints
 
 
 @pytest.mark.parametrize("name", ["add", "minimum", "maximum"])
