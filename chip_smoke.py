@@ -9,12 +9,13 @@ kernels from `src/repro_torch/kernels/rmw/csrc/rmw.cu`, the Mamba-2 SSD
 chunk kernel from `src/repro_torch/kernels/ssd/csrc/ssd.cu`, the flash
 attention kernel from
 `src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`), holds
-each kernel against its plain PyTorch version (the fetched RMW kernel also
-at its edge shapes, twice; fp32 MIN/MAX also on ±0 and NaN; the SSD kernel
-with B and C per group of heads and per head, beside a control that rounds
-its products' operands to TF32 once), drives the port's three main
-paths with the launch counters reset just before each and read just after
-— `atomics.execute` on CUDA tables plus Graph500 BFS at scale 20,
+each kernel against its plain PyTorch version (the table-only RMW kernel
+in every regime it can take, at each regime's shapes; the fetched RMW
+kernel also at its edge shapes, twice; fp32 MIN/MAX also on ±0 and NaN; the
+SSD kernel with B and C per group of heads and per head, beside a control
+that rounds its products' operands to TF32 once), drives the port's three
+main paths with the launch counters reset just before each and read just
+after — `atomics.execute` on CUDA tables plus Graph500 BFS at scale 20,
 edgefactor 16; `BatchServer` serving mamba2_780m; and `BatchServer`
 serving gemma_2b, both at full width and depth in bf16 — times BFS's
 search alone with the edges already on the card, and times each kernel
@@ -68,8 +69,8 @@ SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SOURCES = {"ssd_chunk": SSD_SOURCE, "flash_attention": FA_SOURCE}
 # the RMW kernels as the device trace names them
-RMW_KERNELS = ("rmw_table_kernel", "swp_write_kernel", "fetched_",
-               "cas_success_kernel", "slot_counts")
+RMW_KERNELS = ("table_combine_kernel", "swp_write_kernel", "fetched_",
+               "cas_success_kernel")
 REPLACES = {"rmw_table": "src/repro/kernels/rmw/kernel.py:107",
             "rmw_table_fetched": "src/repro/kernels/rmw/kernel.py:306",
             "slot_counts": "src/repro/kernels/rmw/kernel.py:169",
@@ -285,22 +286,28 @@ def _same_bits(got, want, what):
 def _check_fp32_zeros_and_nans(gen):
     """fp32 MIN/MAX in the reference's order (−0 below +0, NaN wins and
     stays): both kernels against their plain versions on tables and
-    operands drawn from ±0, ±1, 2 and NaN, at the contended shape and at
-    a sparse one."""
+    operands drawn from ±0, ±1, 2 and NaN, at the contended shape, at a
+    sparse one and over three L2 windows; the table-only kernel in every
+    regime the shape allows."""
     pool = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0, math.nan, -math.nan],
                         device="cuda")
     weights = torch.tensor([4.0, 4.0, 2.0, 2.0, 2.0, 0.3, 0.3],
                            device="cuda")
     done = []
-    for n, m in ((1 << 22, 1024), (1 << 20, 1 << 18)):
+    for n, m in ((1 << 22, 1024), (1 << 20, 1 << 18),
+                 (1 << 22, 3 * K.WINDOW_SLOTS)):
         tab = pool[torch.multinomial(weights, m, True, generator=gen)]
         val = pool[torch.multinomial(weights, n, True, generator=gen)]
         idx = torch.randint(0, m + 7, (n,), generator=gen, device="cuda",
                             dtype=torch.int32)
         for op in ("min", "max"):
-            _same_bits(K.rmw_table(tab, idx, val, op),
-                       ref.rmw_table_ref(tab, idx, val, op),
+            want = ref.rmw_table_ref(tab, idx, val, op)
+            _same_bits(K.rmw_table(tab, idx, val, op), want,
                        f"rmw_table fp32 {op} ±0/NaN")
+            for regime in K.table_regimes(m):
+                _same_bits(K.table_combine(tab.clone(), idx, val, op,
+                                           regime), want,
+                           f"rmw_table fp32 {op} ±0/NaN {regime}")
             got = K.rmw_table_fetched(tab, idx, val, op)
             want = K.rmw_table_fetched_plain(tab, idx, val, op)
             sync()
@@ -310,8 +317,86 @@ def _check_fp32_zeros_and_nans(gen):
             if not torch.equal(got[2], want[2]):
                 raise AssertionError(f"rmw_table_fetched fp32 {op} ±0/NaN: "
                                      f"success differs")
-        done.append(dict(n=n, m=m, nan_slots_after_min=int(torch.isnan(
-            K.rmw_table(tab, idx, val, "min")).sum())))
+        done.append(dict(n=n, m=m, regimes=K.table_regimes(m),
+                         nan_slots_after_min=int(torch.isnan(
+                             K.rmw_table(tab, idx, val, "min")).sum())))
+    return done
+
+
+# the table-only kernel's shapes (name, n, m): a small table, the cluster
+# range, BFS's n over 2^20 uniform and Kronecker, over L2 windows, one
+# slot, every op dropped, the largest private copy
+TABLE_CASES = (("cluster_range", 1 << 25, 300_000),
+               ("uniform_bfs_n", 2 * EDGEFACTOR << SCALE, 1 << SCALE),
+               ("kronecker", 2 * EDGEFACTOR << SCALE, 1 << SCALE),
+               ("uniform_2pow24", 1 << 24, 1 << 24), ("m1", 1 << 22, 1),
+               ("all_dropped", 1 << 22, 1 << 20),
+               ("smem_full", 1 << 22, K.SMEM_SLOTS))
+
+
+def _check_table_regimes(gen, errs):
+    """`rmw_table` (faa, min, max, swp; int32 and integer-valued fp32, so
+    every sum is exact) and `slot_counts`, in the regime the rule picks and
+    forced into every other regime the shape allows, bit-equal to the plain
+    versions, the input table unchanged; normal fp32 FAA in the regime the
+    rule picks within rtol 1e-5, atol 1e-5 sqrt(max occupancy)."""
+    done = []
+    for name, n, m in TABLE_CASES:
+        if name == "kronecker":
+            idx = _kronecker_idx(gen, SCALE, n)
+        else:
+            idx = torch.randint(0, m + 3, (n,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            if name == "all_dropped":
+                idx = torch.where(idx % 2 == 0, m, -1 - idx)
+        want = K.slot_counts_plain(idx, m)
+        if not torch.equal(K.slot_counts(idx, m), want):
+            raise AssertionError(f"slot_counts {name}: counts differ")
+        for regime in K.table_regimes(m):
+            if not torch.equal(K.table_combine(torch.zeros_like(want), idx,
+                                               None, "count", regime), want):
+                raise AssertionError(f"slot_counts {name} {regime}: differ")
+        atol = 1e-5 * math.sqrt(max(int(want.max()), 1))
+        for dtype in (torch.int32, torch.float32):
+            tab, _, val = _inputs(gen, n, m, dtype, drops=False)
+            before = tab.clone()
+            for op in ("faa", "min", "max", "swp"):
+                want = ref.rmw_table_ref(tab, idx, val, op)
+                got = {None: K.rmw_table(tab, idx, val, op)}
+                for regime in K.table_regimes(m):
+                    got[regime] = K.table_combine(tab.clone(), idx, val, op,
+                                                  regime)
+                sync()
+                for regime, g in got.items():
+                    if not torch.equal(g, want):
+                        raise AssertionError(
+                            f"rmw_table {op} {dtype} {name} "
+                            f"{regime or 'picked'}: differs from the plain "
+                            f"version in {int((g != want).sum())} places")
+            if not torch.equal(tab, before):
+                raise AssertionError(f"rmw_table {name}: input changed")
+        # normal fp32 FAA: the regime the rule picks is held to the
+        # tolerance; each forced regime's error is reported beside it: a
+        # slot of ~10^6 ops summed in atomic order can exceed it (m = 1
+        # forced into the global regime), where the rule takes smem
+        tab, _, val = _inputs(gen, n, m, torch.float32, normal=True,
+                              drops=False)
+        want = ref.rmw_table_ref(tab, idx, val, "faa")
+        got = K.rmw_table(tab, idx, val, "faa")
+        err = _max_err(got, want)
+        if not torch.allclose(got, want, rtol=1e-5, atol=atol):
+            raise AssertionError(f"rmw_table fp32 normal FAA {name}: off by "
+                                 f"{err}")
+        errs["rmw_table"] = max(errs["rmw_table"], err)
+        forced = {regime: _max_err(K.table_combine(tab.clone(), idx, val,
+                                                   "faa", regime), want)
+                  for regime in K.table_regimes(m)}
+        done.append(dict(case=name, n=n, m=m,
+                         picked=K.table_regime("faa", torch.int32, n, m),
+                         regimes=K.table_regimes(m),
+                         kept=int(((idx >= 0) & (idx < m)).sum()),
+                         normal_faa_max_abs_err=err, normal_faa_atol=atol,
+                         normal_faa_forced_max_abs_err=forced))
     return done
 
 
@@ -370,7 +455,8 @@ def phase_kernels(gen, errs):
              normal_faa_rtol=1e-5, normal_faa_atol=atol, max_occupancy=occ,
              max_abs_err={k: v for k, v in errs.items()},
              launches=dict(K.LAUNCHES))
-    emit("kernels", fetched_int32_bit_equal_twice=_check_fetched_cases(
+    emit("kernels", table_regimes_as_plain=_check_table_regimes(gen, errs),
+         fetched_int32_bit_equal_twice=_check_fetched_cases(
         gen, 2 * EDGEFACTOR << SCALE),
          fp32_min_max_zeros_and_nans_as_plain=_check_fp32_zeros_and_nans(
              gen),
@@ -1211,38 +1297,80 @@ def _fetched_row(shape, tab, idx, val, op):
     return row
 
 
-def phase_timing(gen, bfs_n, bfs_m):
+def _table_rows(shape, tab, idx, val, ops=("faa", "min", "max", "swp"),
+                device=False):
+    """`rmw_table` (``ops``) and `slot_counts` at one shape, each beside its
+    bound, its plain version and the PyTorch call that computes the same
+    function (`index_add`, `scatter_reduce`, `bincount`; none for SWP), on
+    the indices in range (those calls take no others).  The bound counts
+    what this batch needs: every index, the values of the k ops it keeps,
+    the table in and out (a count: the indices and the counts out).  With
+    ``device``, also the device time of one call (``device_ms``: its
+    kernels' sum in the profiler's trace, the table's copy included), for
+    calls shorter than their own host work."""
+    n, m = idx.shape[0], tab.shape[0]
+    live = (idx >= 0) & (idx < m)
+    k = int(live.sum())
+    # the library calls take only in-range indices
+    idx_k, val_k = idx[live], val[live]
+    idx_kl = idx_k.long()
     rows = []
-    for shape, (n, m) in {"bfs": (bfs_n, bfs_m),
+    for op in ops:
+        lib = {"faa": lambda: torch.index_add(tab, 0, idx_k, val_k),
+               "min": lambda: torch.scatter_reduce(tab, 0, idx_kl, val_k,
+                                                   "amin"),
+               "max": lambda: torch.scatter_reduce(tab, 0, idx_kl, val_k,
+                                                   "amax")}.get(op)
+        b, by = bound(4 * n + 4 * k + 8 * m, n)
+        fn = lambda: K.rmw_table(tab, idx, val, op)
+        rows.append(dict(
+            kernel="rmw_table", op=op, shape=shape, n=n, m=m, kept=k,
+            regime=K.table_regime(op, tab.dtype, n, m), ms=time_ms(fn),
+            plain_ms=time_ms(lambda: ref.rmw_table_ref(tab, idx, val, op)),
+            library_ms=None if lib is None else time_ms(lib),
+            bound_ms=b, bound_by=by))
+        if device:
+            rows[-1]["device_ms"] = sum(stage_ms(fn).values())
+    b, by = bound(4 * n + 4 * m, n)
+    fn = lambda: K.slot_counts(idx, m)
+    rows.append(dict(
+        kernel="slot_counts", op="count", shape=shape, n=n, m=m, kept=k,
+        regime=K.table_regime("count", torch.int32, n, m), ms=time_ms(fn),
+        plain_ms=time_ms(lambda: K.slot_counts_plain(idx, m)),
+        library_ms=time_ms(lambda: torch.bincount(idx_kl, minlength=m)),
+        bound_ms=b, bound_by=by))
+    if device:
+        rows[-1]["device_ms"] = sum(stage_ms(fn).values())
+    return rows
+
+
+def phase_timing(gen, bfs_n, bfs_m):
+    """Each kernel beside its bound, its plain version and its library
+    call.  The RMW rows: ``uniform_bfs_n`` is BFS's batch size (n = 2^25
+    edges over 2^20 vertices) with uniform slots and every op kept, not
+    BFS's traffic; ``kronecker`` and ``kronecker_90pct_dropped`` are BFS's
+    Graph500 skew, with every op kept and with 90% dropped as its levels
+    run; ``contended`` is the paper's n = 2^22 over 1,024 slots; ``uniform``
+    n = m = 2^24, a table past the L2."""
+    rows = []
+    for shape, (n, m) in {"uniform_bfs_n": (bfs_n, bfs_m),
                           "uniform": (1 << 24, 1 << 24)}.items():
         tab, idx, val = _inputs(gen, n, m, torch.int32, drops=False)
-        idx_long = idx.long()
-        for op in ("faa", "min", "max", "swp"):
-            lib = {"faa": lambda: torch.index_add(tab, 0, idx, val),
-                   "min": lambda: torch.scatter_reduce(tab, 0, idx_long, val,
-                                                       "amin"),
-                   "max": lambda: torch.scatter_reduce(tab, 0, idx_long, val,
-                                                       "amax")}.get(op)
-            b, by = bound(8 * n + 8 * m, n)
-            rows.append(dict(
-                kernel="rmw_table", op=op, shape=shape, n=n, m=m,
-                ms=time_ms(lambda: K.rmw_table(tab, idx, val, op)),
-                plain_ms=time_ms(lambda: ref.rmw_table_ref(tab, idx, val,
-                                                           op)),
-                library_ms=None if lib is None else time_ms(lib),
-                bound_ms=b, bound_by=by))
+        rows += _table_rows(shape, tab, idx, val)
         for op in OPS:
             rows.append(_fetched_row(shape, tab, idx, val, op))
-        b, by = bound(4 * n + 4 * m, n)
-        rows.append(dict(
-            kernel="slot_counts", op="count", shape=shape, n=n, m=m,
-            ms=time_ms(lambda: K.slot_counts(idx, m)),
-            plain_ms=time_ms(lambda: K.slot_counts_plain(idx, m)),
-            library_ms=time_ms(lambda: torch.bincount(idx_long, minlength=m)),
-            bound_ms=b, bound_by=by))
-    # ... and at the BFS shape with 90% of ops dropped, as BFS's levels run
-    tab, idx, val = _inputs(gen, bfs_n, bfs_m, torch.int32, drops=False)
+    kron = _kronecker_idx(gen, SCALE, bfs_n)
     drop = torch.rand((bfs_n,), generator=gen, device="cuda") < 0.9
+    for shape, idx in (("kronecker", kron),
+                       ("kronecker_90pct_dropped",
+                        torch.where(drop, bfs_m, kron))):
+        tab, _, val = _inputs(gen, bfs_n, bfs_m, torch.int32, drops=False)
+        rows += _table_rows(shape, tab, idx, val, ("faa", "min", "swp"))
+    tab, idx, val = _inputs(gen, 1 << 22, 1024, torch.int32, drops=False)
+    rows += _table_rows("contended", tab, idx, val, device=True)
+    # ... and the fetched kernel at the BFS shape with 90% of ops dropped,
+    # uniform slots
+    tab, idx, val = _inputs(gen, bfs_n, bfs_m, torch.int32, drops=False)
     idx = torch.where(drop, bfs_m, idx)
     for op in OPS:
         rows.append(_fetched_row("bfs_90pct_dropped", tab, idx, val, op))
@@ -1367,9 +1495,9 @@ def main():
     launches.update(phase_serve_gemma())  # the same
 
     rows = phase_timing(gen, bfs_n, bfs_m)
-    headline = {"rmw_table": ("faa", "bfs"),
-                "rmw_table_fetched": ("cas", "bfs"),
-                "slot_counts": ("count", "bfs"),
+    headline = {"rmw_table": ("faa", "uniform_bfs_n"),
+                "rmw_table_fetched": ("cas", "uniform_bfs_n"),
+                "slot_counts": ("count", "uniform_bfs_n"),
                 "ssd_chunk": ("serving", None),
                 "flash_attention": ("prefill", None)}
     kernels = []
@@ -1383,6 +1511,12 @@ def main():
             launches=launches[name], max_abs_err=errs[name], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+        if name in ("rmw_table", "slot_counts"):
+            # ... and at BFS's Kronecker skew, every op kept
+            kron = next(r for r in rows if r["kernel"] == name
+                        and r["op"] == op and r["shape"] == "kronecker")
+            kernels[-1]["kronecker"] = {f: kron[f] for f in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     # flash_attention's headline is the prefill call; its decode call at
     # 1,600 rows goes beside it
     dec = next(r for r in rows if r["kernel"] == "flash_attention"

@@ -87,6 +87,11 @@ class HardwareSpec:
     # table) — the latency floor of the host-roundtrip path, what the
     # in-collective exchange path avoids.
     device_put_launch_s: float = 0.0
+    # --- table-only atomics (the port's CUDA kernels, rmw_engine.cost_cuda) ---
+    # Rate of 4-byte atomics where the word lives: the L2 (a table that fits
+    # it, uniform slots) and a CTA's shared memory.  0 -> priced by bytes.
+    l2_atomic_ops_per_s: float = 0.0
+    smem_atomic_ops_per_s: float = 0.0
 
     def with_residuals(self, residual: Mapping[Tuple[str, Tier], float]) -> "HardwareSpec":
         return replace(self, residual_s=dict(residual))
@@ -151,7 +156,10 @@ TPU_V5E = HardwareSpec(
 # a calibration runs on the card.  The engine constants describe *eager*
 # PyTorch on the card: every plain-tensor step is a kernel launch, so the
 # per-element costs carry launch amortisation and `loop_step_s` is one
-# Python-loop block step (several launches).
+# Python-loop block step (several launches).  The atomic rates are int32
+# FAA at n = 2^25 from tools/rmw_table_ablate.py on an H100 80GB HBM3 at
+# 700 W: L2 atomics over 2^20 uniform slots, shared-memory atomics into a
+# CTA's copy of 48K slots.
 
 H100 = HardwareSpec(
     name="h100_sxm",
@@ -188,6 +196,8 @@ H100 = HardwareSpec(
     collective_launch_s=1e-5,
     host_roundtrip_Bps=64e9,
     device_put_launch_s=1e-5,
+    l2_atomic_ops_per_s=76e9,
+    smem_atomic_ops_per_s=190e9,
 )
 
 

@@ -14,7 +14,9 @@ Port of `repro.core.rmw_engine`.  Backends:
 ``cuda``
     The hand-written Hopper kernels (`kernels.rmw.ops`), in the place the
     reference gives its Pallas kernel.  int32 and fp32 tables.  Table-only
-    batches combine with hardware atomics in one pass; fetched values come
+    batches combine with hardware atomics where the word is cheapest (a
+    CTA's shared memory, the L2, or the L2 one window of the table at a
+    time: `kernels.rmw.kernel.table_regime`); fetched values come
     from a stable radix sort of the kept ops by slot and a segmented scan,
     with no ordered chain across the batch.
 
@@ -41,7 +43,8 @@ from repro_torch.core.placement import PlacementState, Tier
 from repro_torch.core.rmw import (OPS, RmwResult, _identity, minmax,
                                   reduce_minmax, rmw_combining,
                                   rmw_serialized, scatter_minmax_)
-from repro_torch.kernels.rmw.kernel import fetched_design_bytes, radix_passes
+from repro_torch.kernels.rmw.kernel import (WINDOW_SLOTS, fetched_design_bytes,
+                                            radix_passes, table_regime)
 
 Tensor = torch.Tensor
 
@@ -270,10 +273,15 @@ def cost_onehot(spec: perf_model.HardwareSpec, op: str, n: int, m: int,
 
 def cost_cuda(spec: perf_model.HardwareSpec, op: str, n: int, m: int,
               need_fetched: bool = True, device_type: str = "cpu") -> float:
-    """The Hopper kernels: their bytes over HBM bandwidth, plus one HBM
-    latency per kernel of the fetched kernel.
+    """The Hopper kernels: what each moves over HBM bandwidth, or where
+    atomics bound it, their rate; plus one HBM latency per kernel of the
+    fetched kernel.
 
-    Table-only (FAA/MIN/MAX/SWP without fetched values): one atomic pass.
+    Table-only (FAA/MIN/MAX/SWP without fetched values): the regime
+    `table_regime` picks.  Its bytes: the batch once (once a window in
+    ``windows``), the table in and out, SWP's positions; or n atomics at
+    the rate of where the word lives (``smem_atomic_ops_per_s`` in
+    ``smem``, else ``l2_atomic_ops_per_s``), whichever is longer.
     Fetched (and every CAS): sort and scan, its stages' bytes
     (`fetched_design_bytes`) priced with every op kept, and its
     `radix_passes(m) + 4` kernels (one more for CAS).
@@ -284,8 +292,12 @@ def cost_cuda(spec: perf_model.HardwareSpec, op: str, n: int, m: int,
     if device_type != "cuda":
         return math.inf
     if not need_fetched and op != "cas":
-        nbytes = 8.0 * n + 8.0 * m + (8.0 * m if op == "swp" else 0.0)
-        return nbytes / max(spec.hbm_Bps, 1.0)
+        regime = table_regime(op, torch.int32, n, m)   # priced as int32
+        passes = -(-m // WINDOW_SLOTS) if regime == "windows" else 1
+        nbytes = 8.0 * n * passes + 8.0 * m + (8.0 * m if op == "swp" else 0.0)
+        rate = (spec.smem_atomic_ops_per_s if regime == "smem"
+                else spec.l2_atomic_ops_per_s)
+        return max(nbytes / max(spec.hbm_Bps, 1.0), n / rate if rate else 0.0)
     nbytes = fetched_design_bytes(n, n, m, 0, op)
     kernels = radix_passes(m) + 4 + (op == "cas")
     return (nbytes / max(spec.hbm_Bps, 1.0)

@@ -9,24 +9,67 @@
 // cudaGetLastError().  Tables are int32 or float32; indices int32.  An index
 // outside [0, m) is dropped.
 //
-// Op codes: 0 faa, 1 swp, 2 min, 3 max, 4 cas.  Dtype codes: 0 int32, 1 fp32.
+// Op codes: 0 faa, 1 swp, 2 min, 3 max, 4 cas, 5 count.  Dtype codes: 0 int32,
+// 1 fp32.
 //
 // ---------------------------------------------------------------------------
-// rmw_table  (replaces src/repro/kernels/rmw/kernel.py::rmw_table, body
-//             _rmw_kernel: the one-hot (block x tile) MXU contraction)
-//   Computes the table after the batch, no per-op outputs.
-//   Bound: bytes.  Each op reads its index and value (8 B), the table is read
-//   and written once (8 B per slot): (8 n + 8 m) / 3.35 TB/s.
-//   Design: one thread per op, hardware atomics on the table, which the
-//   order-free ops tolerate exactly: atomicAdd (FAA), atomicMin/atomicMax
-//   (int32; fp32 by a compare-and-swap loop in the reference's order: −0
-//   below +0, a NaN operand or table value wins).
-//   SWP is last-wins by batch position: pass 1 takes atomicMax(last[slot], i)
-//   on an int32 scratch set to -1, pass 2 writes vals[last[slot]].  No tile
-//   or one-hot matrix: the card's L2 atomics do the combining the TPU did on
-//   the MXU.  Hardware atomics only ever build the final table here; they
-//   return values in thread order, never the serialized fetched values.
-//
+// rmw_table and slot_counts  (replace src/repro/kernels/rmw/kernel.py:107
+//             rmw_table, body _rmw_kernel, and :169 slot_counts, body
+//             _slot_count_kernel: one-hot (block x tile) MXU contractions)
+//   One family of table-only combining kernels, table_combine_kernel: the
+//   table after a faa/min/max/swp batch, and slot_counts as its "count" mode
+//   (int32 FAA of 1 onto a zero table, no values read).  No per-op outputs:
+//   hardware atomics only ever build the final table here; they return
+//   values in thread order, never the serialized fetched values.
+//   Bound: bytes, (8 n + 8 m) / 3.35 TB/s ((4 n + 4 m) for a count).  What
+//   bounds it on this card is where the word lives (tools/rmw_table_ablate.py,
+//   int32, n = 2^25, H100 80GB HBM3 at 700 W, operations a second): loads
+//   alone 303 G (count 512 G); a shared-memory atomic 190 G (count 212 G);
+//   an L2 atomic 76 G (m = 2^20); a distributed-shared-memory atomic in a
+//   cluster of 8 78 G, of 16 66 G; past the L2 (m = 2^24) 21 G; one hot slot
+//   1.35 G.  So the L2's request rate, not bytes, bounds a batch over a
+//   table that fits the L2: a plain L2 load costs about what an atomic does
+//   (a MIN that skips its atomic after one: 93 G), while a load that hits
+//   the SM's L1 does not (one hot slot: 195 G).
+//   Regimes, picked per call by kernel.table_regime (op, dtype, n, m):
+//   - smem: m fits a CTA's shared memory (SMEM_SLOTS) and n >= 32 m.  CTAs
+//     of 1,024 threads (one holding many slots is alone on its SM) combine
+//     their share of the batch into a private copy with shared-memory
+//     atomics, then flush it once: cp.reduce.async.bulk (add, min, max on
+//     32-bit words, add on f32) or, for fp32 MIN/MAX, a compare-and-swap per
+//     touched slot (so those take it only for small tables and many ops a
+//     slot).  The paper's contended regime (n = 2^22 over 1,024): 15x the
+//     global regime for FAA.
+//   - global: one global atomic per kept op; MIN, MAX and SWP (atomicMax on
+//     batch position) first read the slot through the L1 and skip the
+//     atomic where it already orders at or past the operand (the slot only
+//     moves one way, so a stale read only skips less: 0.43 -> 0.35 ms at
+//     m = 2^20, and the L1 gives Kronecker slots 9% over reads from the L2).
+//     SWP walks the batch from its end, so the winning position tends to
+//     land first.
+//   - windows: a table of two L2 windows (WINDOW_SLOTS) or more is applied
+//     one window at a time, one pass over the batch a window, so the
+//     atomics stay in the L2 and off HBM (m = 2^24: 2x one pass).
+//   Each thread loads 8 indices, then their values and (global MIN, MAX,
+//   SWP) the words they land on, before it combines any: more loads in
+//   flight.  fp32 MIN/MAX into the output take one op a thread a step on
+//   four times the resident CTAs, as each compare-and-swap waits for its
+//   answer (eight a step: 25% slower).
+//   Measured and not kept: a cluster's distributed shared memory (no faster
+//   than the L2 at 8 CTAs, slower at 16); warp aggregation with
+//   __match_any_sync (no gain on Graph500 Kronecker slots); 16-byte loads
+//   (no gain over 4-byte ones where the atomics bound it).
+//   Words: an op's 4-byte word is the table's type for FAA and MIN/MAX on
+//   int32 and for a count, an order key for fp32 MIN/MAX (the reference's
+//   order: −0 below +0, NaN wins; turned back at the flush), a batch position
+//   for SWP (atomicMax into an int32 last_pos set to -1; a second kernel
+//   writes vals[last_pos[s]]).  The private copy starts at the op's identity
+//   (fp32 FAA: −0, since −0 + x is x for every x), so a slot no op touched
+//   flushes to no change.  int32 results are exact in every regime; fp32 FAA
+//   only reassociates: each slot's ops are summed per CTA, then into the
+//   table, so the rounding stays within the tolerance a sum of that many
+//   terms in any order already needs (rtol 1e-5, atol 1e-5 sqrt(occupancy)).
+
 // rmw_table_fetched  (replaces kernel.py::rmw_table_fetched, body
 //             _rmw_fetched_kernel: per-tile pallas_calls, each a 1-D grid over
 //             index blocks with a strict-lower-triangular one-hot prefix)
@@ -90,26 +133,21 @@
 //   words, two pair buffers of 2 n int32, every part 256-byte aligned.  The
 //   counters, bins and status words are zeroed by cudaMemsetAsync.
 //
-// slot_counts  (replaces kernel.py::slot_counts, body _slot_count_kernel:
-//             column sums of the one-hot matrix)
-//   Computes the (m,) int32 per-slot occupancy.
-//   Bound: bytes, (4 n + 4 m) / 3.35 TB/s.
-//   Design: an exact integer histogram.  Per-CTA counters in shared memory
-//   (privatised, flushed with one global atomicAdd per non-zero bin) while m
-//   fits in 48K slots and the flush is cheaper than the ops; global
-//   atomicAdd otherwise.
 // ---------------------------------------------------------------------------
 
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <type_traits>
 
-enum { OP_FAA = 0, OP_SWP = 1, OP_MIN = 2, OP_MAX = 3, OP_CAS = 4 };
+enum { OP_FAA = 0, OP_SWP = 1, OP_MIN = 2, OP_MAX = 3, OP_CAS = 4,
+       OP_COUNT = 5 };
 enum { DT_INT32 = 0, DT_FLOAT32 = 1 };
 
 static const int THREADS = 256;        // threads per block of the others
 static const int MAX_BLOCKS = 132 * 32;
-static const int SMEM_HIST_SLOTS = 48 * 1024;
+static const int UNROLL = 8;           // ops a table_combine thread loads
+                                       // before it combines any (see STEP)
 
 // --- arithmetic that matches the plain PyTorch versions bit for bit -------
 
@@ -147,18 +185,15 @@ __device__ __forceinline__ float max_of(float a, float b) {
   return from_order_key(max(order_key(a, false), order_key(b, false)));
 }
 
-__device__ __forceinline__ void atomic_min_t(int* a, int v) { atomicMin(a, v); }
-__device__ __forceinline__ void atomic_max_t(int* a, int v) { atomicMax(a, v); }
-
-// fp32 MIN/MAX on the table word by compare-and-swap.  The slot only ever
-// moves down (MIN) or up (MAX) in the order above, so a stale read that
-// already orders at or past v needs no write; the loop stops as soon as the
-// slot holds a NaN, and otherwise writes the combined value (a NaN operand
-// writes NaN).
+// fp32 MIN/MAX on the table word by compare-and-swap, starting from `old`,
+// a read of the word.  The slot only ever moves down (MIN) or up (MAX) in
+// the order above, so a stale read that already orders at or past v needs
+// no write; the loop stops as soon as the slot holds a NaN, and otherwise
+// writes the combined value (a NaN operand writes NaN).
 template <bool MIN>
-__device__ __forceinline__ void atomic_minmax_float(float* a, float v) {
+__device__ __forceinline__ void atomic_minmax_float(float* a, float v,
+                                                    unsigned old) {
   unsigned* w = reinterpret_cast<unsigned*>(a);
-  unsigned old = *reinterpret_cast<volatile unsigned*>(w);
   while (!is_nan_bits(old)) {
     const float cur = __uint_as_float(old);
     const unsigned want = __float_as_uint(MIN ? min_of(cur, v)
@@ -169,32 +204,190 @@ __device__ __forceinline__ void atomic_minmax_float(float* a, float v) {
     old = seen;
   }
 }
-__device__ __forceinline__ void atomic_min_t(float* a, float v) {
-  atomic_minmax_float<true>(a, v);
-}
-__device__ __forceinline__ void atomic_max_t(float* a, float v) {
-  atomic_minmax_float<false>(a, v);
-}
 
-// --- rmw_table -------------------------------------------------------------
+// --- rmw_table and slot_counts: table_combine_kernel ----------------------
+
+enum { REGIME_GLOBAL = 0, REGIME_SMEM = 1, REGIME_WINDOWS = 2 };
 
 template <typename T>
-__global__ void rmw_table_kernel(T* __restrict__ table,
-                                 const int* __restrict__ idx,
-                                 const T* __restrict__ vals,
-                                 int* __restrict__ last_pos,
-                                 long long n, int m, int op) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int s = idx[i];
-    if (s < 0 || s >= m) continue;
-    switch (op) {
-      case OP_FAA: atomicAdd(&table[s], vals[i]); break;
-      case OP_MIN: atomic_min_t(&table[s], vals[i]); break;
-      case OP_MAX: atomic_max_t(&table[s], vals[i]); break;
-      default: atomicMax(&last_pos[s], (int)i); break;   // OP_SWP
+constexpr bool IS_F32 = std::is_same<T, float>::value;
+
+// An op's 4-byte word (see the note at the top): what the private copy and
+// the flush combine.
+template <typename T, int OP>
+__device__ __forceinline__ int op_word(const T* vals, long long i) {
+  if constexpr (OP == OP_COUNT) return 1;
+  else if constexpr (OP == OP_SWP) return (int)i;
+  else if constexpr (IS_F32<T>)
+    return OP == OP_FAA ? __float_as_int(vals[i])
+                        : order_key(vals[i], OP == OP_MIN);
+  else return vals[i];
+}
+
+// The word no op changes: a private slot still holding it flushes to nothing.
+// fp32 FAA's is −0 (its bits are INT_MIN): −0 + x is x for every x.
+template <typename T, int OP>
+__device__ __forceinline__ int identity_word() {
+  if constexpr (OP == OP_MIN) return INT_MAX;
+  else if constexpr (OP == OP_MAX) return INT_MIN;
+  else if constexpr (OP == OP_SWP) return -1;
+  else if constexpr (OP == OP_FAA && IS_F32<T>) return INT_MIN;
+  else return 0;
+}
+
+// A word into the CTA's private copy.  MIN, MAX and SWP read first and skip
+// the atomic where the slot already orders at or past the word.
+template <typename T, int OP>
+__device__ __forceinline__ void private_word(int* priv, int s, int w) {
+  if constexpr (OP == OP_FAA && IS_F32<T>) {
+    atomicAdd(reinterpret_cast<float*>(priv) + s, __int_as_float(w));
+  } else if constexpr (OP == OP_FAA || OP == OP_COUNT) {
+    atomicAdd(&priv[s], w);
+  } else {
+    const int cur = *reinterpret_cast<volatile int*>(&priv[s]);
+    if (OP == OP_MIN ? w < cur : w > cur) {
+      if (OP == OP_MIN) atomicMin(&priv[s], w);
+      else atomicMax(&priv[s], w);
     }
+  }
+}
+
+// The output word an op lands on: the table's, or last_pos's for SWP.
+template <typename T, int OP>
+__device__ __forceinline__ int* out_word(T* table, int* last_pos, int s) {
+  return OP == OP_SWP ? &last_pos[s] : reinterpret_cast<int*>(table) + s;
+}
+
+// MIN, MAX and SWP read the output word first (`read_word`) and skip the
+// atomic where it already orders at or past theirs.  The word only ever
+// moves one way, so a stale read only skips less: the read may come from
+// the SM's L1, which keeps a hot slot's line near.
+template <int OP>
+constexpr bool READS = OP == OP_MIN || OP == OP_MAX || OP == OP_SWP;
+
+// Threads a CTA: a CTA that holds a private copy of many slots is alone on
+// its SM, so it takes the SM's 1,024 threads itself.
+template <bool PRIVATE>
+constexpr int BLOCK = PRIVATE ? 1024 : THREADS;
+
+// Ops a thread loads before it combines any: UNROLL, which keeps more loads
+// in flight; but one for fp32 MIN/MAX into the output, whose
+// compare-and-swap waits for its answer before the next op (eight: 25%
+// slower at m = 2^20, tools/rmw_table_ablate.py), run on four times the
+// resident CTAs instead.
+template <typename T, int OP, bool PRIVATE>
+constexpr int STEP =
+    !PRIVATE && IS_F32<T> && (OP == OP_MIN || OP == OP_MAX) ? 1 : UNROLL;
+
+template <typename T, int OP>
+__device__ __forceinline__ int read_word(T* table, int* last_pos, int s) {
+  return __ldca(out_word<T, OP>(table, last_pos, s));
+}
+
+// A word into the output, `cur` a read of it (READS).
+template <typename T, int OP>
+__device__ __forceinline__ void global_word(T* table, int* last_pos, int s,
+                                            int w, int cur) {
+  if constexpr (OP == OP_FAA && IS_F32<T>) {
+    atomicAdd(&table[s], __int_as_float(w));
+  } else if constexpr (OP == OP_FAA || OP == OP_COUNT) {
+    atomicAdd(&table[s], w);
+  } else if constexpr (IS_F32<T> && OP != OP_SWP) {  // fp32 MIN/MAX: a key
+    atomic_minmax_float<OP == OP_MIN>(&table[s], from_order_key(w),
+                                      (unsigned)cur);
+  } else if (OP == OP_MIN ? w < cur : w > cur) {
+    int* word = out_word<T, OP>(table, last_pos, s);
+    if (OP == OP_MIN) atomicMin(word, w);
+    else atomicMax(word, w);
+  }
+}
+
+// Bulk-reduce `bytes` of the private copy into dst (16-byte aligned, a
+// multiple of 16 bytes), each element atomically, and wait until the
+// shared memory has been read.
+template <typename T, int OP>
+__device__ __forceinline__ void bulk_flush(void* dst, const int* priv,
+                                           int bytes) {
+  const unsigned src = (unsigned)__cvta_generic_to_shared(priv);
+  if constexpr (OP == OP_FAA && IS_F32<T>)
+    asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32"
+                 " [%0], [%1], %2;" :: "l"(dst), "r"(src), "r"(bytes)
+                 : "memory");
+  else if constexpr (OP == OP_FAA || OP == OP_COUNT)
+    asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.u32"
+                 " [%0], [%1], %2;" :: "l"(dst), "r"(src), "r"(bytes)
+                 : "memory");
+  else if constexpr (OP == OP_MIN)
+    asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.min.s32"
+                 " [%0], [%1], %2;" :: "l"(dst), "r"(src), "r"(bytes)
+                 : "memory");
+  else
+    asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.max.s32"
+                 " [%0], [%1], %2;" :: "l"(dst), "r"(src), "r"(bytes)
+                 : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Applies the ops whose slot lies in [lo, hi): each thread loads STEP
+// indices (neighbouring threads, neighbouring ops), then the values of
+// those in range (and, into the output, the words they land on: READS),
+// then combines them, over the batch grid-stride (SWP from its end).
+// PRIVATE (lo = 0): into the CTA's shared copy of the hi slots, then
+// flushed, the first `bulk` slots in one bulk reduction and the rest one
+// atomic per touched slot.
+template <typename T, int OP, bool PRIVATE>
+__global__ void __launch_bounds__(BLOCK<PRIVATE>)
+table_combine_kernel(T* __restrict__ table, const int* __restrict__ idx,
+                     const T* __restrict__ vals, int* __restrict__ last_pos,
+                     long long n, int lo, int hi, int bulk) {
+  constexpr int NT = BLOCK<PRIVATE>;
+  extern __shared__ int priv[];
+  if (PRIVATE) {
+    for (int s = threadIdx.x; s < hi; s += NT)
+      priv[s] = identity_word<T, OP>();
+    __syncthreads();
+  }
+  constexpr int U = STEP<T, OP, PRIVATE>;
+  const long long step = (long long)gridDim.x * NT * U;
+  for (long long j0 = (long long)blockIdx.x * NT * U + threadIdx.x;
+       j0 < n; j0 += step) {
+    int s[U], w[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long j = j0 + u * NT;
+      s[u] = j < n ? idx[OP == OP_SWP ? n - 1 - j : j] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long j = j0 + u * NT;
+      if (s[u] >= lo && s[u] < hi)
+        w[u] = op_word<T, OP>(vals, OP == OP_SWP ? n - 1 - j : j);
+    }
+    int cur[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (!PRIVATE && READS<OP> && s[u] >= lo && s[u] < hi)
+        cur[u] = read_word<T, OP>(table, last_pos, s[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (s[u] < lo || s[u] >= hi) continue;
+      if (PRIVATE) private_word<T, OP>(priv, s[u], w[u]);
+      else global_word<T, OP>(table, last_pos, s[u], w[u], cur[u]);
+    }
+  }
+  if (!PRIVATE) return;
+  // the shared copy's writes become visible to the bulk copy's proxy
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  if (bulk > 0 && threadIdx.x == 0)
+    bulk_flush<T, OP>(OP == OP_SWP ? (void*)last_pos : (void*)table, priv,
+                      bulk * 4);
+  for (int s = bulk + threadIdx.x; s < hi; s += NT) {
+    const int w = priv[s];
+    if (w != identity_word<T, OP>())
+      global_word<T, OP>(table, last_pos, s, w,
+                         READS<OP> ? read_word<T, OP>(table, last_pos, s) : 0);
   }
 }
 
@@ -660,38 +853,6 @@ __global__ void cas_success_kernel(const int* __restrict__ idx,
     success[i] = idx[i] >= 0 && idx[i] < m && fetched[i] == e;
 }
 
-// --- slot_counts -----------------------------------------------------------
-
-__global__ void slot_counts_smem_kernel(const int* __restrict__ idx,
-                                        int* __restrict__ counts, long long n,
-                                        int m) {
-  extern __shared__ int hist[];
-  for (int s = threadIdx.x; s < m; s += blockDim.x) hist[s] = 0;
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int s = idx[i];
-    if (s >= 0 && s < m) atomicAdd(&hist[s], 1);
-  }
-  __syncthreads();
-  for (int s = threadIdx.x; s < m; s += blockDim.x) {
-    const int c = hist[s];
-    if (c) atomicAdd(&counts[s], c);
-  }
-}
-
-__global__ void slot_counts_global_kernel(const int* __restrict__ idx,
-                                          int* __restrict__ counts,
-                                          long long n, int m) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int s = idx[i];
-    if (s >= 0 && s < m) atomicAdd(&counts[s], 1);
-  }
-}
-
 // --- C entries -------------------------------------------------------------
 
 static int grid_for(long long work) {
@@ -700,33 +861,107 @@ static int grid_for(long long work) {
   return (int)(b < MAX_BLOCKS ? b : MAX_BLOCKS);
 }
 
-extern "C" int rmw_table_launch(void* table, const void* idx, const void* vals,
-                                void* last_pos, long long n, long long m,
-                                int op, int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (op < OP_FAA || op > OP_MAX || (dtype != DT_INT32 && dtype != DT_FLOAT32))
-    return (int)cudaErrorInvalidValue;
-  if (n > 0 && m > 0) {
-    const int blocks = grid_for(n);
-    if (dtype == DT_INT32)
-      rmw_table_kernel<int><<<blocks, THREADS, 0, st>>>(
-          (int*)table, (const int*)idx, (const int*)vals, (int*)last_pos, n,
-          (int)m, op);
-    else
-      rmw_table_kernel<float><<<blocks, THREADS, 0, st>>>(
-          (float*)table, (const int*)idx, (const float*)vals, (int*)last_pos,
-          n, (int)m, op);
-    if (op == OP_SWP) {
-      const int mb = grid_for(m);
-      if (dtype == DT_INT32)
-        swp_write_kernel<int><<<mb, THREADS, 0, st>>>(
-            (int*)table, (const int*)vals, (const int*)last_pos, (int)m);
-      else
-        swp_write_kernel<float><<<mb, THREADS, 0, st>>>(
-            (float*)table, (const float*)vals, (const int*)last_pos, (int)m);
-    }
+template <typename T, int OP>
+static cudaError_t launch_table(T* table, const int* idx, const T* vals,
+                                int* last_pos, long long n, int m, int regime,
+                                long long window, cudaStream_t st) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (regime == REGIME_SMEM) {
+    constexpr int nt = BLOCK<true>;
+    const long long most = (n + nt * UNROLL - 1) / (nt * UNROLL);
+    auto kernel = table_combine_kernel<T, OP, true>;
+    const int bytes = m * 4;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          nt, bytes);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    // every CTA flushes m slots: at least m ops a CTA
+    long long blocks = (long long)sms * per_sm;
+    if (blocks > n / m) blocks = n / m;
+    if (blocks > most) blocks = most;
+    if (blocks < 1) blocks = 1;
+    void* dst = OP == OP_SWP ? (void*)last_pos : (void*)table;
+    const bool bulk_op = !(IS_F32<T> && (OP == OP_MIN || OP == OP_MAX));
+    const int bulk = bulk_op && ((uintptr_t)dst & 15) == 0 ? (m & ~3) : 0;
+    kernel<<<(int)blocks, nt, bytes, st>>>(table, idx, vals, last_pos, n, 0,
+                                            m, bulk);
+  } else {
+    auto kernel = table_combine_kernel<T, OP, false>;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, 0);
+    if (err != cudaSuccess) return err;
+    constexpr int u = STEP<T, OP, false>;
+    const long long most = (n + THREADS * u - 1) / (THREADS * u);
+    long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1) *
+                       (u == 1 ? 4 : 1);
+    if (blocks > most) blocks = most;
+    const long long step = regime == REGIME_WINDOWS ? window : m;
+    for (long long lo = 0; lo < m; lo += step)
+      kernel<<<(int)blocks, THREADS, 0, st>>>(
+          table, idx, vals, last_pos, n, (int)lo,
+          (int)(lo + step < m ? lo + step : m), 0);
   }
-  return (int)cudaGetLastError();
+  if (OP == OP_SWP)
+    swp_write_kernel<T><<<grid_for(m), THREADS, 0, st>>>(table, vals, last_pos,
+                                                         m);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t launch_table_op(int op, T* table, const int* idx,
+                                   const T* vals, int* last_pos, long long n,
+                                   int m, int regime, long long window,
+                                   cudaStream_t st) {
+#define TABLE(OP) \
+  launch_table<T, OP>(table, idx, vals, last_pos, n, m, regime, window, st)
+  switch (op) {
+    case OP_FAA: return TABLE(OP_FAA);
+    case OP_SWP: return TABLE(OP_SWP);
+    case OP_MIN: return TABLE(OP_MIN);
+    default: return TABLE(OP_MAX);
+  }
+#undef TABLE
+}
+
+// rmw_table (faa, swp, min, max) and slot_counts (count: int32, no values)
+// into `table`, a copy of the input table (slot_counts: zeros) that the
+// kernels update in place.  `last_pos` (SWP): m int32 set to -1.  `regime`
+// as kernel.table_regime picks it; `window` the slots of an L2 window.
+extern "C" int table_combine_launch(void* table, const void* idx,
+                                    const void* vals, void* last_pos,
+                                    long long n, long long m, int op,
+                                    int dtype, int regime, long long window,
+                                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool count = op == OP_COUNT;
+  if ((op != OP_FAA && op != OP_SWP && op != OP_MIN && op != OP_MAX && !count)
+      || (dtype != DT_INT32 && dtype != DT_FLOAT32)
+      || (count && dtype != DT_INT32) || (op == OP_SWP && last_pos == nullptr)
+      || regime < REGIME_GLOBAL || regime > REGIME_WINDOWS
+      || (regime == REGIME_WINDOWS && window < 1) || n < 0 || n > INT_MAX
+      || m < 0 || m > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0 || m == 0) return (int)cudaGetLastError();
+  cudaError_t err;
+  if (count)
+    err = launch_table<int, OP_COUNT>((int*)table, (const int*)idx, nullptr,
+                                      nullptr, n, (int)m, regime, window, st);
+  else if (dtype == DT_INT32)
+    err = launch_table_op<int>(op, (int*)table, (const int*)idx,
+                               (const int*)vals, (int*)last_pos, n, (int)m,
+                               regime, window, st);
+  else
+    err = launch_table_op<float>(op, (float*)table, (const int*)idx,
+                                 (const float*)vals, (int*)last_pos, n,
+                                 (int)m, regime, window, st);
+  return (int)err;
 }
 
 // Scratch layout of rmw_table_fetched for a batch of n ops (bytes); the
@@ -848,27 +1083,6 @@ extern "C" int rmw_table_fetched_launch(const void* table, void* out,
                             (float*)fetched, (uint8_t*)success,
                             (char*)scratch, L, n, (int)m, op,
                             (float)expected, st);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int slot_counts_launch(const void* idx, void* counts, long long n,
-                                  long long m, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n > 0 && m > 0) {
-    const int blocks = grid_for(n / 16);
-    if (m <= SMEM_HIST_SLOTS && (long long)blocks * m <= n) {
-      const int bytes = (int)(m * sizeof(int));
-      cudaError_t err = cudaFuncSetAttribute(
-          slot_counts_smem_kernel,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (err != cudaSuccess) return (int)err;
-      slot_counts_smem_kernel<<<blocks, THREADS, bytes, st>>>(
-          (const int*)idx, (int*)counts, n, (int)m);
-    } else {
-      slot_counts_global_kernel<<<grid_for(n), THREADS, 0, st>>>(
-          (const int*)idx, (int*)counts, n, (int)m);
-    }
   }
   return (int)cudaGetLastError();
 }

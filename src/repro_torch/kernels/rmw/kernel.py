@@ -27,7 +27,7 @@ Tensor = torch.Tensor
 #: kernel launches per wrapper since the last `reset_launches()`
 LAUNCHES = {"rmw_table": 0, "rmw_table_fetched": 0, "slot_counts": 0}
 
-OP_CODES = {"faa": 0, "swp": 1, "min": 2, "max": 3, "cas": 4}
+OP_CODES = {"faa": 0, "swp": 1, "min": 2, "max": 3, "cas": 4, "count": 5}
 DTYPE_CODES = {torch.int32: 0, torch.float32: 1}
 #: the bits of the fetched kernel's radix digit (DBITS in csrc/rmw.cu, which
 #: `fetched_layout` reports), for the cost model and the CPU tests
@@ -38,8 +38,8 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 #: `csrc/rmw.cu`, built by nvcc at first launch
 LIBRARY = NvccLibrary("rmw", Path(__file__).resolve().parent / "csrc"
                       / "rmw.cu", {
-    # table, idx, vals, last_pos, n, m, op, dtype, stream
-    "rmw_table_launch": (_P, _P, _P, _P, _LL, _LL, _I, _I, _P),
+    # table, idx, vals, last_pos, n, m, op, dtype, regime, window, stream
+    "table_combine_launch": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _P),
     # table, out, idx, vals, fetched, success, scratch, scratch_bytes, n, m,
     # op, dtype, expected, stream
     "rmw_table_fetched_launch": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
@@ -47,8 +47,6 @@ LIBRARY = NvccLibrary("rmw", Path(__file__).resolve().parent / "csrc"
     # n, scratch_bytes, digit_bits
     "rmw_table_fetched_layout": (_LL, ctypes.POINTER(_LL),
                                  ctypes.POINTER(_I)),
-    # idx, counts, n, m, stream
-    "slot_counts_launch": (_P, _P, _LL, _LL, _P),
 })
 
 
@@ -88,8 +86,92 @@ def _stream(t: Tensor) -> int:
 
 
 # ---------------------------------------------------------------------------
-# rmw_table: the table-only combine
+# rmw_table and slot_counts: the table-only combine (`table_combine_launch`)
 # ---------------------------------------------------------------------------
+
+#: the regimes of the table-only kernels (csrc/rmw.cu, REGIME_*)
+REGIMES = {"global": 0, "smem": 1, "windows": 2}
+#: 4-byte words a CTA's private copy holds (224 KiB of the SM's 227 KB of
+#: shared memory), and the slots of an L2 window (16 MiB, a third of the
+#: H100's 50 MB L2: the batch streams through it too)
+SMEM_SLOTS = 56 * 1024
+WINDOW_SLOTS = 1 << 22
+#: ... and for fp32 MIN/MAX, whose private copies flush by compare-and-swap
+#: (no bulk reduction takes their order), and whose compare-and-swap into a
+#: table past the L2 waits on HBM either way: the largest private copy, the
+#: ops a slot it needs, and the smallest table that goes in windows
+CAS_SMEM_SLOTS = 16 * 1024
+CAS_SMEM_OPS_A_SLOT = 512
+CAS_WINDOWS_FROM = 3 * WINDOW_SLOTS
+
+
+def table_regime(op: str, dtype: torch.dtype, n: int, m: int) -> str:
+    """Where the table-only kernels combine n ops of ``op`` over m slots of
+    ``dtype`` (`tools/rmw_table_ablate.py` measured each threshold from
+    both sides on an H100):
+
+    - ``smem``: m fits one CTA's shared memory and the batch holds at least
+      32 ops a slot, so the private copies' init and flush stay small beside
+      the ops;
+    - ``windows``: the table is two L2 windows or more, so one pass would
+      send its atomics to HBM (at 1.5 windows one pass was faster);
+    - ``global``: otherwise, one L2 atomic per kept op, fewer for MIN, MAX
+      and SWP.
+
+    fp32 MIN/MAX (a compare-and-swap per slot, not one atomic) take the
+    smem regime only up to `CAS_SMEM_SLOTS` slots and from
+    `CAS_SMEM_OPS_A_SLOT` ops a slot, and windows from `CAS_WINDOWS_FROM`
+    slots.  Every other op and dtype combines 4-byte words (SWP as batch
+    positions, counts as ints) alike.
+    """
+    if dtype == torch.float32 and op in ("min", "max"):
+        if m <= CAS_SMEM_SLOTS and n >= CAS_SMEM_OPS_A_SLOT * m:
+            return "smem"
+        return "windows" if m >= CAS_WINDOWS_FROM else "global"
+    if m <= SMEM_SLOTS and n >= 32 * m:
+        return "smem"
+    return "windows" if m >= 2 * WINDOW_SLOTS else "global"
+
+
+def table_regimes(m: int) -> Tuple[str, ...]:
+    """Every regime the table-only kernel can run m slots in: ``global``;
+    ``smem`` while m fits a CTA's private copy; ``windows`` past one
+    window."""
+    return (("global",) + (("smem",) if m <= SMEM_SLOTS else ())
+            + (("windows",) if m > WINDOW_SLOTS else ()))
+
+
+def table_combine(out: Tensor, indices: Tensor, values, op: str,
+                  regime: str) -> Tensor:
+    """Launch the table-only kernel in ``regime`` on CUDA tensors, updating
+    ``out`` in place (the callers pass a copy of the table, or zeros for op
+    ``count``, whose ``values`` are None) and returning it.  Counts no
+    launch: `rmw_table` and `slot_counts` do, in the regime `table_regime`
+    picks; the other regimes are for the tests and
+    `tools/rmw_table_ablate.py`."""
+    if regime not in REGIMES:
+        raise ValueError(f"unknown regime {regime!r}")
+    if regime == "smem" and out.shape[0] > SMEM_SLOTS:
+        raise ValueError(f"the smem regime takes at most {SMEM_SLOTS} slots")
+    if op == "count":
+        _check(out, indices)
+        if out.dtype != torch.int32:
+            raise TypeError("counts are int32")
+        dt = DTYPE_CODES[torch.int32]
+    else:
+        _check(out, indices, values)
+        dt = _dtype_code(out, values)
+    last = (torch.full(out.shape, -1, dtype=torch.int32, device=out.device)
+            if op == "swp" else None)
+    with torch.cuda.device(out.device):
+        LIBRARY.launch("table_combine_launch", out.data_ptr(),
+                       indices.data_ptr(),
+                       None if values is None else values.data_ptr(),
+                       None if last is None else last.data_ptr(),
+                       indices.shape[0], out.shape[0], OP_CODES[op], dt,
+                       REGIMES[regime], WINDOW_SLOTS, _stream(out))
+    return out
+
 
 def rmw_table(table: Tensor, indices: Tensor, values: Tensor,
               op: str = "faa") -> Tensor:
@@ -102,17 +184,9 @@ def rmw_table(table: Tensor, indices: Tensor, values: Tensor,
         raise ValueError(f"rmw_table takes faa/min/max/swp, got {op!r}")
     if table.device.type == "cpu":
         return _ref.rmw_table_ref(table, indices, values, op)
-    _check(table, indices, values)
-    dt = _dtype_code(table, values)
-    out = table.clone()
-    last = (torch.full(table.shape, -1, dtype=torch.int32, device=table.device)
-            if op == "swp" else None)
-    with torch.cuda.device(table.device):
-        LIBRARY.launch("rmw_table_launch", out.data_ptr(),
-                       indices.data_ptr(), values.data_ptr(),
-                       None if last is None else last.data_ptr(),
-                       indices.shape[0], table.shape[0], OP_CODES[op], dt,
-                       _stream(table))
+    out = table_combine(table.clone(), indices, values, op,
+                        table_regime(op, table.dtype, indices.shape[0],
+                                     table.shape[0]))
     LAUNCHES["rmw_table"] += 1
     return out
 
@@ -216,14 +290,13 @@ def slot_counts_plain(indices: Tensor, m: int) -> Tensor:
 
 def slot_counts(indices: Tensor, m: int) -> Tensor:
     """(m,) int32 occupancy counts for a slot-index batch; out-of-range
-    indices match no slot."""
+    indices match no slot.  On the card: the table-only kernel's count
+    mode, an int32 FAA of 1 onto a zero table."""
     if indices.device.type == "cpu":
         return slot_counts_plain(indices, m)
-    counts = torch.zeros((m,), dtype=torch.int32, device=indices.device)
-    _check(counts, indices)
-    with torch.cuda.device(indices.device):
-        LIBRARY.launch("slot_counts_launch", indices.data_ptr(),
-                       counts.data_ptr(), indices.shape[0], m,
-                       _stream(indices))
+    counts = table_combine(torch.zeros((m,), dtype=torch.int32,
+                                       device=indices.device), indices, None,
+                           "count", table_regime("count", torch.int32,
+                                                 indices.shape[0], m))
     LAUNCHES["slot_counts"] += 1
     return counts

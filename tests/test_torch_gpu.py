@@ -83,6 +83,101 @@ def test_fp32_minmax_signed_zeros_and_nan_match_plain_versions(cuda_device,
     assert torch.equal(got[2], want[2])
 
 
+# the table-only kernels' regimes (`kernel.table_regime`), each at shapes
+# that take it: (name, n, m, the regime the rule picks).  m = 1, every op
+# dropped and Kronecker skew beside them; every other regime the shape
+# allows is forced too.
+TABLE_SHAPES = [("smem_small", 1 << 16, 700, "smem"),
+                ("contended", 1 << 22, 1024, "smem"),
+                ("smem_full", 1 << 22, K.SMEM_SLOTS, "smem"),
+                ("m1", 1 << 20, 1, "smem"),
+                ("cluster_range", 1 << 22, 300_000, "global"),
+                ("bfs_n", 1 << 25, 1 << 20, "global"),
+                ("all_dropped", 1 << 20, 1 << 20, "global"),
+                ("kronecker", 1 << 22, 1 << 18, "global"),
+                ("windows", 1 << 24, 1 << 24, "windows"),
+                ("windows_ragged", 1 << 22, 2 * K.WINDOW_SLOTS + 5,
+                 "windows")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,dtype", [(op, dt) for op in ("faa", "min", "max",
+                                                          "swp")
+                                      for dt in (torch.int32, torch.float32)]
+                         + [("count", torch.int32)],
+                         ids=lambda x: str(x).replace("torch.", ""))
+@pytest.mark.parametrize("case,n,m,regime", TABLE_SHAPES,
+                         ids=[c[0] for c in TABLE_SHAPES])
+def test_table_kernels_every_regime_match_plain_versions(cuda_device, case,
+                                                         n, m, regime, op,
+                                                         dtype):
+    """`rmw_table` and `slot_counts` in the regime the rule picks, and
+    every other regime the shape allows forced, against the plain
+    versions: integer-valued tables bit for bit (fp32 too: every sum is
+    exact), normal fp32 FAA within rtol 1e-5, atol 1e-5 sqrt(max
+    occupancy); the input table unchanged."""
+    assert K.table_regime("faa", torch.int32, n, m) == regime
+    g = torch.Generator(device=cuda_device).manual_seed(n + m)
+    if case == "kronecker":
+        _, dst = tbfs.kronecker_graph(18, 8, seed=5)
+        idx = torch.as_tensor(dst.astype(np.int32), device=cuda_device)
+    else:
+        idx = torch.randint(0, m + 3, (n,), generator=g, device=cuda_device,
+                            dtype=torch.int32)
+        if case == "all_dropped":
+            idx = torch.where(idx % 2 == 0, m, -1 - idx)
+    n = idx.shape[0]
+    forced = K.table_regimes(m)
+    if op == "count":
+        want = K.slot_counts_plain(idx, m)
+        assert torch.equal(K.slot_counts(idx, m), want)
+        for r in forced:
+            got = K.table_combine(torch.zeros_like(want), idx, None, "count",
+                                  r)
+            assert torch.equal(got, want), r
+        return
+    tab = torch.randint(-8, 9, (m,), generator=g, device=cuda_device,
+                        dtype=torch.int32).to(dtype)
+    val = torch.randint(-8, 9, (n,), generator=g, device=cuda_device,
+                        dtype=torch.int32).to(dtype)
+    before = tab.clone()
+    want = tref.rmw_table_ref(tab, idx, val, op)
+    assert torch.equal(K.rmw_table(tab, idx, val, op), want)
+    assert torch.equal(tab, before)
+    for r in forced:
+        assert torch.equal(K.table_combine(tab.clone(), idx, val, op, r),
+                           want), r
+    if op == "faa" and dtype == torch.float32:
+        tab = torch.randn((m,), generator=g, device=cuda_device)
+        val = torch.randn((n,), generator=g, device=cuda_device)
+        want = tref.rmw_table_ref(tab, idx, val, op)
+        atol = 1e-5 * float(K.slot_counts_plain(idx, m).max()) ** 0.5
+        for r in forced:
+            got = K.table_combine(tab.clone(), idx, val, op, r)
+            assert torch.allclose(got, want, rtol=1e-5, atol=atol), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["smem", "global", "windows"])
+@pytest.mark.parametrize("op", ["min", "max", "faa"])
+def test_table_kernels_fp32_signed_zeros_and_nan_every_regime(cuda_device,
+                                                              op, regime):
+    """fp32 MIN/MAX on ±0 and NaN (NaN by isnan, the rest bit for bit),
+    and FAA's identity: a −0 slot that no op touches stays −0, in every
+    regime (windows over a table of three windows)."""
+    m = 3 * K.WINDOW_SLOTS if regime == "windows" else 1000
+    rng = np.random.default_rng(len(op) + len(regime))
+    tab = torch.as_tensor(zeros_and_nans(rng, m), device=cuda_device)
+    n = 1 << 20
+    val = torch.as_tensor(zeros_and_nans(rng, n), device=cuda_device)
+    idx = torch.as_tensor(rng.integers(0, m + 7, n).astype(np.int32),
+                          device=cuda_device)
+    if op == "faa":                        # no NaN in the sums
+        tab, val = torch.nan_to_num(tab), torch.nan_to_num(val)
+    same_bits(K.table_combine(tab.clone(), idx, val, op, regime),
+              tref.rmw_table_ref(tab, idx, val, op).cpu().numpy(), regime)
+
+
 # the fetched kernel's edge shapes: one slot; the BFS shape (scale 20,
 # edgefactor 16) with 90% of ops dropped; every op dropped; a slot range
 # that needs four radix passes; Kronecker skew
@@ -141,6 +236,7 @@ def test_wrappers_count_launches_and_leave_inputs_unchanged(cuda_device):
     before = tab.clone()
     K.reset_launches()
     K.rmw_table(tab, idx, idx, "swp")
+    K.table_combine(tab.clone(), idx, idx, "faa", "smem")   # counts nothing
     K.rmw_table_fetched(tab, idx, idx, "faa")
     K.slot_counts(idx, 10)
     assert K.LAUNCHES == {"rmw_table": 1, "rmw_table_fetched": 1,

@@ -216,6 +216,195 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 # ---------------------------------------------------------------------------
+# The card's table-only kernel, regime by regime, in plain torch
+# ---------------------------------------------------------------------------
+# `rmw_table` and `slot_counts` run on the card as one kernel in three
+# regimes (csrc/rmw.cu, `kernel.table_regime`).  Every op combines 4-byte
+# words: the value (FAA, int32 MIN/MAX), 1 (count), an order key (fp32
+# MIN/MAX) or a batch position (SWP, into last_pos, then a gather).  `smem`
+# cuts the batch into CTA shares, combines each into a private copy that
+# starts at the op's identity word, and flushes every slot of each copy
+# into the table; `global` and `windows` combine the words straight into
+# the table, `windows` one window of slots a pass.  This mirror repeats
+# that word arithmetic and is held against the JAX oracles.
+
+# (name, op, dtype, n, m, regime): the shapes the card's tests and smoke
+# run take, and each threshold from both sides
+I32, F32 = torch.int32, torch.float32
+REGIME_SHAPES = [("bfs_n", "faa", I32, 1 << 25, 1 << 20, "global"),
+                 ("bfs_n_fp32_min", "min", F32, 1 << 25, 1 << 20, "global"),
+                 ("contended", "swp", I32, 1 << 22, 1024, "smem"),
+                 ("contended_fp32_max", "max", F32, 1 << 22, 1024, "smem"),
+                 ("smem_full", "count", I32, 1 << 22, K.SMEM_SLOTS, "smem"),
+                 ("smem_few_ops", "faa", I32, 1 << 20, K.SMEM_SLOTS,
+                  "global"),
+                 ("32_ops_a_slot", "min", I32, 1 << 15, 1024, "smem"),
+                 ("31_ops_a_slot", "min", I32, 31 << 10, 1024, "global"),
+                 ("fp32_faa_40000", "faa", F32, 1 << 25, 40_000, "smem"),
+                 ("fp32_min_40000", "min", F32, 1 << 25, 40_000, "global"),
+                 ("fp32_min_cas_smem", "min", F32, 1 << 25,
+                  K.CAS_SMEM_SLOTS, "smem"),
+                 ("fp32_min_256_a_slot", "min", F32, 1 << 22, 16_384,
+                  "global"),
+                 ("m1", "faa", I32, 1 << 20, 1, "smem"),
+                 ("one_op", "max", I32, 1, 5, "global"),
+                 ("cluster_range", "faa", I32, 1 << 25, 300_000, "global"),
+                 ("1.5_windows", "faa", I32, 1 << 25,
+                  3 * K.WINDOW_SLOTS // 2, "global"),
+                 ("two_windows", "swp", F32, 1 << 25, 2 * K.WINDOW_SLOTS,
+                  "windows"),
+                 ("two_windows_fp32_min", "min", F32, 1 << 25,
+                  2 * K.WINDOW_SLOTS, "global"),
+                 ("fp32_min_cas_windows", "min", F32, 1 << 25,
+                  K.CAS_WINDOWS_FROM, "windows"),
+                 ("uniform_2pow24", "count", I32, 1 << 24, 1 << 24,
+                  "windows"),
+                 ("windows_ragged", "max", I32, 1 << 22,
+                  2 * K.WINDOW_SLOTS + 5, "windows")]
+
+
+@pytest.mark.parametrize("case,op,dtype,n,m,regime", REGIME_SHAPES,
+                         ids=[c[0] for c in REGIME_SHAPES])
+def test_table_regime_rule(case, op, dtype, n, m, regime):
+    assert K.table_regime(op, dtype, n, m) == regime
+    assert regime in K.table_regimes(m)
+
+
+def _identity_word(op, dtype):
+    if op == "min":
+        return torch.iinfo(torch.int32).max
+    if op == "max":
+        return torch.iinfo(torch.int32).min
+    if op == "swp":
+        return -1
+    if op == "faa" and dtype == torch.float32:     # the bits of −0
+        return torch.iinfo(torch.int32).min
+    return 0
+
+
+def _combine_words(dst, slot, words, op, dtype):
+    """Combine 4-byte words into ``dst`` (int32 words) at ``slot``, in
+    place: what the atomics do, in any order."""
+    if op == "faa" and dtype == torch.float32:
+        f = dst.view(torch.float32)
+        f.index_add_(0, slot, words.view(torch.float32))
+    elif op in ("faa", "count"):
+        dst.index_add_(0, slot, words)
+    else:
+        dst.scatter_reduce_(0, slot, words,
+                            "amin" if op == "min" else "amax")
+
+
+def _mirror_table(table, idx, vals, op, shares=0, window=None):
+    """The kernel's words end to end.  ``shares`` > 0: the smem regime with
+    that many CTA shares; else global, in windows of ``window`` slots."""
+    m, n = table.shape[0], idx.shape[0]
+    dtype = table.dtype
+    pos = torch.arange(n, dtype=torch.int32)
+    if op == "count":
+        words = torch.ones(n, dtype=torch.int32)
+    elif op == "swp":
+        words = pos
+    elif dtype == torch.float32 and op in ("min", "max"):
+        words = trmw.order_key(vals, op)
+    else:
+        words = vals.view(torch.int32)
+    # the output's words: last_pos for SWP, keys for fp32 MIN/MAX
+    if op == "swp":
+        out = torch.full((m,), -1, dtype=torch.int32)
+    elif dtype == torch.float32 and op in ("min", "max"):
+        out = trmw.order_key(table, op).clone()
+    else:
+        out = table.clone().view(torch.int32)
+    keep = (idx >= 0) & (idx < m)
+    if shares:
+        for share in torch.tensor_split(torch.arange(n), shares):
+            k = share[keep[share]]
+            priv = torch.full((m,), _identity_word(op, dtype),
+                              dtype=torch.int32)
+            _combine_words(priv, idx[k].long(), words[k], op, dtype)
+            # the flush: every slot of the copy into the output
+            _combine_words(out, torch.arange(m), priv, op, dtype)
+    else:
+        step = window or m
+        for lo in range(0, m, step):
+            k = keep & (idx >= lo) & (idx < lo + step)
+            _combine_words(out, idx[k].long(), words[k], op, dtype)
+    if op == "swp":
+        return torch.where(out >= 0, vals[out.clamp(min=0).long()], table)
+    if dtype == torch.float32 and op in ("min", "max"):
+        new = trmw.from_order_key(out, dtype)
+        # a slot whose key did not move keeps its bits (a NaN's payload)
+        return torch.where(out == trmw.order_key(table, op), table, new)
+    return out.view(dtype)
+
+
+# (name, CTA shares (0: global), window)
+REGIME_MODELS = [("global", 0, None), ("smem_1", 1, None),
+                 ("smem_4", 4, None), ("smem_13", 13, None),
+                 ("windows_3", 0, 23)]
+
+
+@pytest.mark.parametrize("model,shares,window", REGIME_MODELS,
+                         ids=[r[0] for r in REGIME_MODELS])
+@pytest.mark.parametrize("op,dtype", [(op, dt) for op in OPS4
+                                      for dt in ("int32", "float32")]
+                         + [("count", "int32")])
+def test_table_kernel_words_match_jax_oracles(op, dtype, model, shares,
+                                              window):
+    """Privatise-then-flush (and the global and windowed passes) on the
+    kernel's words against the JAX oracles: int32 bit for bit; fp32 with
+    ±0 and NaN in the table and operands (FAA on integer values and ±0, so
+    every sum is exact) NaN by isnan and every other value bit for bit;
+    repeated slots (SWP's duplicates) and dropped ops."""
+    rng = np.random.default_rng(zlib.crc32(f"{op}-{dtype}-{model}".encode()))
+    m, n = 61, 500
+    idx = collision_heavy(rng, n, m + 4)
+    if op == "count":                      # onto a zero table
+        table, vals = np.zeros(m, np.int32), None
+    elif dtype == "int32":
+        table = rng.integers(-9, 10, m).astype(np.int32)
+        vals = rng.integers(-9, 10, n).astype(np.int32)
+    else:
+        table, vals = zeros_and_nans(rng, m), zeros_and_nans(rng, n)
+        if op == "faa":                    # no NaN: its payload would differ
+            table, vals = np.nan_to_num(table), np.nan_to_num(vals)
+    got = _mirror_table(_t(table), _t(idx),
+                        None if vals is None else _t(vals), op, shares,
+                        window)
+    if op == "count":
+        same(got, jops.slot_occupancy(jnp.asarray(idx), m))
+        return
+    keep = idx < m
+    want = jrmw.rmw_serialized(jnp.asarray(table), jnp.asarray(idx[keep]),
+                               jnp.asarray(vals[keep]), op).table
+    if dtype == "int32":
+        same(got, want)
+        same(got, jref.rmw_table_ref(jnp.asarray(table), jnp.asarray(idx),
+                                     jnp.asarray(vals), op))
+    else:
+        same_bits(got, want, f"{op} {model}")
+
+
+def test_table_kernel_fp32_faa_words_within_tolerance():
+    """Normal fp32 FAA summed per CTA share, then into the table: within
+    the reference tests' tolerance of the Pallas kernel (interpret mode)."""
+    m, n = 256, 3000
+    table = RNG.normal(size=m).astype(np.float32)
+    idx = collision_heavy(RNG, n, m + 5)
+    vals = RNG.normal(size=n).astype(np.float32)
+    want = jops.rmw_apply(jnp.asarray(table), jnp.asarray(idx),
+                          jnp.asarray(vals), "faa", table_tile=256,
+                          block=1024)
+    occ = int(np.bincount(idx[idx < m], minlength=m).max())
+    for shares, window in ((0, None), (7, None), (0, 100)):
+        got = _mirror_table(_t(table), _t(idx), _t(vals), "faa", shares,
+                            window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5 * np.sqrt(occ))
+
+
+# ---------------------------------------------------------------------------
 # The card's fetched kernel, stage by stage, in plain torch
 # ---------------------------------------------------------------------------
 # `rmw_table_fetched` runs on the card in stages (csrc/rmw.cu): compact the

@@ -162,6 +162,22 @@ def test_auto_picks_the_kernels_on_cuda(op, need_fetched):
                                            **kw) != "cuda"
 
 
+@pytest.mark.parametrize("op", OPS4)
+def test_auto_picks_the_table_kernels_at_bfs_shape(op):
+    """BFS's table-only batches (n = 2^25 edges over m = 2^20 vertices) go
+    to the kernels on a CUDA table, priced by the L2's atomic rate, which
+    bounds them there, not by their bytes."""
+    n, m = 2 * 16 << 20, 1 << 20
+    for dtype in (torch.int32, torch.float32):
+        assert teng.select_backend(op, n, m, tpm.H100, device="cuda",
+                                   dtype=dtype, need_fetched=False) == "cuda"
+    assert teng.cost_cuda(tpm.H100, op, n, m, False, "cuda") == \
+        pytest.approx(n / tpm.H100.l2_atomic_ops_per_s)
+    # the contended shape combines in shared memory, at its rate
+    assert teng.cost_cuda(tpm.H100, op, 1 << 22, 1024, False, "cuda") == \
+        pytest.approx((1 << 22) / tpm.H100.smem_atomic_ops_per_s)
+
+
 def test_selection_respects_dtypes_and_per_op_cas():
     assert not teng.BACKENDS["cuda"].supports("faa", dtype=torch.float64)
     assert teng.BACKENDS["cuda"].supports("faa", dtype=torch.int32)
