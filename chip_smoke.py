@@ -8,8 +8,13 @@ toolkit.  It builds the port's kernel libraries in parallel (the three RMW
 kernels from `src/repro_torch/kernels/rmw/csrc/rmw.cu`, the Mamba-2 SSD
 chunk kernel from `src/repro_torch/kernels/ssd/csrc/ssd.cu`, the flash
 attention kernel from
-`src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`), holds
-each kernel against its plain PyTorch version (the table-only RMW kernel
+`src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`, the
+one-thread serialized executor and pointer chase from
+`src/repro_torch/kernels/serial/csrc/serial.cu`, whose SASS it writes
+beside the library), holds each kernel against its plain PyTorch version
+(`serial_rmw` bit for bit against the host loop on every op, int32 and
+fp32, ±0, NaN and subnormals included; `chase` in its four modes; the
+table-only RMW kernel
 in every regime it can take, at each regime's shapes; the fetched RMW
 kernel also at its edge shapes, twice; fp32 MIN/MAX also on ±0 and NaN; the
 SSD kernel with B and C per group of heads and per head, beside a control
@@ -20,7 +25,12 @@ edgefactor 16; `BatchServer` serving mamba2_780m; and `BatchServer`
 serving gemma_2b, both at full width and depth in bf16 — times BFS's
 search alone with the edges already on the card, and times each kernel
 beside its bound, its plain version and the PyTorch library call that
-computes the same function, where there is one.
+computes the same function, where there is one.  Last, the paper's
+measurement suites (`python -m repro_torch.benchmarks.run`: latency by
+tier, bandwidth, contention, operand size, two fetched operands, BFS, the
+backend shoot-out, calibration into `build/repro_torch/calibrated_spec.json`
+and the Table 2/3 fit with its NRMSE), with the one-thread kernels'
+launch counters reset before and read after.
 
 Phases print one JSON line each (`{"phase": ...}`); every phase raises on a
 failure.  The line before the last is the per-kernel record, and the last
@@ -47,11 +57,15 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import atomics  # noqa: E402
 from repro_torch.atomics.stats import stats_from_occupancy  # noqa: E402
+from repro_torch.benchmarks import bandwidth as bw_suite  # noqa: E402
+from repro_torch.benchmarks import run as suites  # noqa: E402
 from repro_torch.core import bfs as bfs_mod  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.rmw import kernel as K  # noqa: E402
 from repro_torch.kernels.rmw import ref  # noqa: E402
+from repro_torch.kernels.serial import kernel as XK  # noqa: E402
 from repro_torch.kernels.ssd import kernel as SK  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
@@ -67,7 +81,9 @@ SCALE, EDGEFACTOR = 20, 16
 SOURCE = "src/repro_torch/kernels/rmw/csrc/rmw.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
-SOURCES = {"ssd_chunk": SSD_SOURCE, "flash_attention": FA_SOURCE}
+SERIAL_SOURCE = "src/repro_torch/kernels/serial/csrc/serial.cu"
+SOURCES = {"ssd_chunk": SSD_SOURCE, "flash_attention": FA_SOURCE,
+           "serial_rmw": SERIAL_SOURCE, "chase": SERIAL_SOURCE}
 # the RMW kernels as the device trace names them
 RMW_KERNELS = ("table_combine_kernel", "swp_write_kernel", "fetched_",
                "cas_success_kernel")
@@ -76,7 +92,11 @@ REPLACES = {"rmw_table": "src/repro/kernels/rmw/kernel.py:107",
             "slot_counts": "src/repro/kernels/rmw/kernel.py:169",
             "ssd_chunk": "src/repro/kernels/ssd/kernel.py:57",
             "flash_attention":
-                "src/repro/kernels/flash_attention/kernel.py:84"}
+                "src/repro/kernels/flash_attention/kernel.py:84",
+            # device loops, not TPU kernels: the reference's lax.scan and
+            # its latency suite's fori_loop walks
+            "serial_rmw": "src/repro/core/rmw.py:106",
+            "chase": "benchmarks/latency.py:60"}
 # SSD: mamba2_780m's widths (configs/mamba2_780m.py): 48 heads of P = 64,
 # N = 128, chunk Q = 256; the reference tests' rtol = atol (f32 sums in
 # another order, tests/test_kernels_ssd.py:32)
@@ -163,7 +183,7 @@ def _build_one(library):
 def phase_build():
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    libraries = (K.LIBRARY, SK.LIBRARY, FK.LIBRARY)
+    libraries = (K.LIBRARY, SK.LIBRARY, FK.LIBRARY, XK.LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:
         done = list(pool.map(_build_one, libraries))
     for built, secs in done:
@@ -171,6 +191,34 @@ def phase_build():
                  if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
         emit("build", seconds=secs, library=built.path.name, ptxas=ptxas)
     emit("build", total_seconds=time.perf_counter() - t0)
+    emit("build", serial_sass=_serial_sass(XK.LIBRARY.load().path))
+
+
+def _serial_sass(lib_path):
+    """The one-thread kernels' SASS (``cuobjdump -sass``), written beside
+    the library; per kernel, its instructions and its global atomics (a
+    loop that waits on each atomic's return before the next holds one)."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return {"file": None, "kernels": "cuobjdump not found"}
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    with open(str(lib_path) + ".sass", "w") as f:
+        f.write(sass)
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            out[name] = {"instructions": 0, "atomics": 0}
+        elif name and "*/" in line and ";" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            out[name]["instructions"] += 1
+            out[name]["atomics"] += bool(words) and words[0].split(".")[0] \
+                in ("ATOMG", "ATOM", "RED")
+    return {"file": str(lib_path) + ".sass", "kernels": out}
 
 
 # ---------------------------------------------------------------------------
@@ -378,10 +426,14 @@ def _check_table_regimes(gen, errs):
         # normal fp32 FAA: the regime the rule picks is held to the
         # tolerance; each forced regime's error is reported beside it: a
         # slot of ~10^6 ops summed in atomic order can exceed it (m = 1
-        # forced into the global regime), where the rule takes smem
+        # forced into the global regime), where the rule takes smem.  The
+        # plain version sums in float64 here: in fp32 on the card it is
+        # itself an atomic-order sum, whose rounding at m = 1 (0.009-0.027
+        # from run to run on the same inputs) is the tolerance's size
         tab, _, val = _inputs(gen, n, m, torch.float32, normal=True,
                               drops=False)
-        want = ref.rmw_table_ref(tab, idx, val, "faa")
+        want = ref.rmw_table_ref(tab.double(), idx, val.double(),
+                                 "faa").float()
         got = K.rmw_table(tab, idx, val, "faa")
         err = _max_err(got, want)
         if not torch.allclose(got, want, rtol=1e-5, atol=atol):
@@ -461,6 +513,150 @@ def phase_kernels(gen, errs):
          fp32_min_max_zeros_and_nans_as_plain=_check_fp32_zeros_and_nans(
              gen),
          fp32_normal_faa_same_bits_run_to_run=_fp32_faa_run_to_run(gen))
+
+
+# ---------------------------------------------------------------------------
+# 3b. the one-thread device loops against their plain versions
+# ---------------------------------------------------------------------------
+
+SUBNORMALS = (1e-40, -1e-40, 5e-39, -1.1e-38, 1.2e-38, -1.5e-45,
+              1.17549435e-38)
+
+
+def _serial_values(gen, n, dtype, kind):
+    """Operands (or a table) of ``n`` values: integers in [-8, 8] (every
+    fp32 sum exact), ±0/±1/2/NaN for fp32 MIN/MAX and CAS, or normal
+    draws mixed with subnormals for fp32 FAA."""
+    if kind == "zeros_nans":
+        pool = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0, math.nan, -math.nan],
+                            device="cuda")
+        w = torch.tensor([4.0, 4.0, 2.0, 2.0, 2.0, 0.5, 0.5], device="cuda")
+        return pool[torch.multinomial(w, n, True, generator=gen)]
+    if kind == "subnormal":
+        x = torch.randn((n,), generator=gen, device="cuda") * 1e-38
+        sub = torch.tensor(SUBNORMALS, device="cuda")
+        pick = torch.randint(0, len(SUBNORMALS), (n,), generator=gen,
+                             device="cuda")
+        return torch.where(torch.rand((n,), generator=gen, device="cuda")
+                           < 0.5, sub[pick], x)
+    return torch.randint(-8, 9, (n,), generator=gen,
+                         device="cuda").to(dtype)
+
+
+def _check_serial(got, tab, idx, val, op, exp, what):
+    """`serial_rmw` against the host loop: every output bit for bit, NaN
+    by ``isnan``.  Returns the largest difference over non-NaN values."""
+    want = XK.serial_rmw(tab.cpu(), idx.cpu(),
+                         val.cpu(), op, exp.cpu() if isinstance(
+                             exp, torch.Tensor) else exp)
+    for g, w, name in zip(got[:2], want[:2], ("table", "fetched")):
+        _same_bits(g.cpu(), w, f"serial_rmw {what}: {name}")
+    if not torch.equal(got[2].cpu(), want[2]):
+        raise AssertionError(f"serial_rmw {what}: success differs")
+    return max(_max_err(g[~torch.isnan(g)].cpu(), w[~torch.isnan(w)])
+               if g.dtype.is_floating_point else 0.0
+               for g, w in zip(got[:2], want[:2]))
+
+
+def _serial_cases(gen):
+    """(what, table, indices, values, op, expected): every op in int32 and
+    fp32 at n = 4,096 over 1,024 slots and over one (indices from -m - 3
+    to m + 3: negative ones count from the end, those outside drop); fp32
+    MIN/MAX and CAS on ±0 and NaN; CAS with a per-op and a scalar
+    expected; fp32 FAA on subnormals; then the suites' shapes."""
+    n = 4096
+    for m in (1024, 1):
+        for dtype in (torch.int32, torch.float32):
+            kinds = ("ints",) + (("zeros_nans",) if dtype == torch.float32
+                                 else ())
+            for kind in kinds:
+                tab = _serial_values(gen, m, dtype, kind)
+                val = _serial_values(gen, n, dtype, kind)
+                idx = torch.randint(-m - 3, m + 3, (n,), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+                for op in XK.OP_CODES:
+                    if kind == "zeros_nans" and op in ("faa", "swp"):
+                        continue
+                    exp = (_serial_values(gen, n, dtype, kind)
+                           if op == "cas" else None)
+                    yield (f"{op} {dtype} {kind} m={m}", tab, idx, val, op,
+                           exp)
+                    if op == "cas":
+                        yield (f"cas scalar {dtype} {kind} m={m}", tab, idx,
+                               val, op, 0)
+        tab = _serial_values(gen, m, torch.float32, "subnormal")
+        val = _serial_values(gen, n, torch.float32, "subnormal")
+        idx = torch.randint(0, m, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        yield f"faa fp32 subnormal m={m}", tab, idx, val, "faa", None
+    # the suites' shapes: bandwidth (4,096 over 262,144, normal fp32),
+    # contention's hot slot (2,048 on one of 65,536), operand_size and
+    # operands_fetched (2,048 CAS over 65,536, expected 0 or gathered)
+    rng = np.random.default_rng(1)
+    m = bw_suite.TABLE
+    tab = torch.zeros((m,), device="cuda")
+    idx = torch.as_tensor(rng.integers(0, m, bw_suite.N_OPS_SER),
+                          dtype=torch.int32).cuda()
+    val = torch.as_tensor(rng.normal(size=bw_suite.N_OPS_SER),
+                          dtype=torch.float32).cuda()
+    for op in ("faa", "swp"):
+        yield f"bandwidth {op}", tab, idx, val, op, None
+    hot = torch.zeros((2048,), dtype=torch.int32, device="cuda")
+    yield ("contention serialized_hot", torch.zeros((65536,), device="cuda"),
+           hot, val[:2048], "faa", None)
+    for dtype in (torch.int32, torch.float32):
+        tab = torch.zeros((65536,), dtype=dtype, device="cuda")
+        idx = torch.randint(0, 65536, (2048,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        val = torch.randint(1, 100, (2048,), generator=gen,
+                            device="cuda").to(dtype)
+        exp = torch.randint(0, 3, (65536,), generator=gen,
+                            device="cuda").to(dtype)[idx.long()]
+        yield (f"operand_size cas {dtype}", tab, idx, val, "cas",
+               torch.zeros_like(val))
+        yield f"operands_fetched cas2 {dtype}", tab, idx, val, "cas", exp
+
+
+def _check_chase(table, steps, mode, start, what):
+    """`chase` against `chase_plain` on a copy of the same table: the end
+    slot and the table after."""
+    host = table._replace(words=table.words.cpu())
+    got = XK.chase(table, steps, mode, start)
+    want = XK.chase_plain(host, steps, mode, start)
+    sync()
+    if int(got) != int(want):
+        raise AssertionError(f"chase {what}: ends at {int(got)}, the plain "
+                             f"version at {int(want)}")
+    after = table.words.cpu()
+    if not torch.equal(after, host.words):
+        raise AssertionError(f"chase {what}: table after differs in "
+                             f"{int((after != host.words).sum())} slots")
+
+
+def phase_serial_kernels(gen, errs):
+    """`serial_rmw` bit-equal to the host loop on every case of
+    `_serial_cases`; `chase` equal to its plain version in all four modes
+    at 2^12 slots (three times round the cycle) and at the latency suite's
+    L2 table (2^22 slots, 2^20 steps)."""
+    checked = 0
+    for what, tab, idx, val, op, exp in _serial_cases(gen):
+        got = XK.serial_rmw(tab, idx, val, op, exp)
+        sync()
+        errs["serial_rmw"] = max(errs["serial_rmw"],
+                                 _check_serial(got, tab, idx, val, op, exp,
+                                               what))
+        checked += 1
+    chases = []
+    for m, steps in ((1 << 12, 3 << 12), (1 << 22, 1 << 20)):
+        table = XK.single_cycle(m, gen, device="cuda")
+        for mode in XK.CHASE_MODES:
+            start = int(torch.randint(0, m, (1,), generator=gen,
+                                      device="cuda"))
+            _check_chase(table, steps, mode, start, f"{mode} m={m}")
+            chases.append(f"{mode} m={m} steps={steps}")
+    errs["chase"] = 0.0                 # slots: equal or the check raised
+    emit("serial_kernels", serial_rmw_bit_equal_cases=checked,
+         chase_equal=chases, launches=dict(XK.LAUNCHES))
 
 
 # ---------------------------------------------------------------------------
@@ -1465,6 +1661,81 @@ def flash_timing(gen):
 
 
 # ---------------------------------------------------------------------------
+# 11. the paper's measurement suites (this slice's main path)
+# ---------------------------------------------------------------------------
+
+def phase_suites():
+    """`repro_torch.benchmarks.run`'s suites on the card, each printing its
+    rows, with the launch counters reset just before and read just after;
+    raises if a suite failed or a one-thread kernel never launched."""
+    t0 = time.perf_counter()
+    XK.reset_launches()
+    K.reset_launches()
+    csv, results, failures = suites.run_suites(device="cuda")
+    launches = dict(XK.LAUNCHES)
+    for name in suites.SUITES:
+        emit("suites", suite=name, rows=[
+            r for r in csv.rows if r["name"].split(".")[0] == name])
+    if failures:
+        raise AssertionError(f"suites failed: {failures}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"never launched by the suites: {missing}")
+    mv = results["model_validation"]
+    emit("suites", seconds=time.perf_counter() - t0, launches=launches,
+         rmw_launches=dict(K.LAUNCHES), latency_ns=results["latency"],
+         nrmse=mv["nrmse"], flagged=mv["flagged"],
+         validation_rows=mv["rows"],
+         calibrate_kept_priors=results["calibrate"]["kept_priors"])
+    return results, launches
+
+
+def serial_timing(gen, latency_ns):
+    """The one-thread kernels at the suites' shapes beside their bounds and
+    plain versions.  Bound: latency, as no two of their ops may overlap
+    more than the card lets one thread's atomics: n (or steps) times the
+    read chase's measured latency at the tier the table sits in (the L2
+    for both shapes here)."""
+    l2_ms = latency_ns["L2"]["read"] * 1e-6
+    rng = np.random.default_rng(1)
+    m, n = bw_suite.TABLE, bw_suite.N_OPS_SER
+    tab = torch.zeros((m,), device="cuda")
+    idx = torch.as_tensor(rng.integers(0, m, n), dtype=torch.int32).cuda()
+    val = torch.as_tensor(rng.normal(size=n), dtype=torch.float32).cuda()
+    host = (tab.cpu(), idx.cpu(), val.cpu())
+    rows = [dict(kernel="serial_rmw", op="faa",
+                 shape=f"bandwidth n={n} m={m} fp32",
+                 ms=time_ms(lambda: XK.serial_rmw(tab, idx, val, "faa"), 20),
+                 plain_ms=_host_ms(lambda: XK.serial_rmw(*host, "faa")),
+                 library_ms=None, bound_ms=n * l2_ms,
+                 bound_by="operations",
+                 bound_note="n x the L2 read chase's latency")]
+    m, steps = 1 << 22, 1 << 20
+    table = XK.single_cycle(m, gen, device="cuda")
+    plain_table = table._replace(words=table.words.cpu())
+    rows.append(dict(kernel="chase", op="faa",
+                     shape=f"latency L2 m={m} steps={steps}",
+                     ms=time_ms(lambda: XK.chase(table, steps, "faa"), 3),
+                     plain_ms=_host_ms(lambda: XK.chase_plain(
+                         plain_table, steps, "faa"), 1),
+                     library_ms=None, bound_ms=steps * l2_ms,
+                     bound_by="operations",
+                     bound_note="steps x the L2 read chase's latency"))
+    for row in rows:
+        emit("timing", **row)
+    return rows
+
+
+def _host_ms(fn, reps=3):
+    """Host time of a plain version that runs on the CPU, in ms."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     # f32 products in full f32 on the card (the plain versions' matmuls)
@@ -1475,8 +1746,9 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     errs = {"rmw_table": 0.0, "rmw_table_fetched": 0.0, "slot_counts": 0.0,
-            "fetched_normal_faa": 0.0}
+            "fetched_normal_faa": 0.0, "serial_rmw": 0.0}
     phase_kernels(gen, errs)
+    phase_serial_kernels(gen, errs)
     errs["ssd_chunk"] = phase_ssd_kernel(gen)
     errs["flash_attention"] = phase_flash_kernel(gen)
 
@@ -1495,11 +1767,15 @@ def main():
     launches.update(phase_serve_gemma())  # the same
 
     rows = phase_timing(gen, bfs_n, bfs_m)
+    suite_results, suite_launches = phase_suites()  # its own main path
+    launches.update(suite_launches)
+    rows += serial_timing(gen, suite_results["latency"])
     headline = {"rmw_table": ("faa", "uniform_bfs_n"),
                 "rmw_table_fetched": ("cas", "uniform_bfs_n"),
                 "slot_counts": ("count", "uniform_bfs_n"),
                 "ssd_chunk": ("serving", None),
-                "flash_attention": ("prefill", None)}
+                "flash_attention": ("prefill", None),
+                "serial_rmw": ("faa", None), "chase": ("faa", None)}
     kernels = []
     for name, (op, shape) in headline.items():
         row = next(r for r in rows if r["kernel"] == name
@@ -1539,6 +1815,9 @@ def main():
     rf = next(k for k in kernels if k["name"] == "rmw_table_fetched")
     rf["bfs_90pct_dropped"] = {k: dropped[k] for k in (
         "ms", "plain_ms", "bound_ms")}
+    # the chase's ns per op at every tier and mode of the latency suite
+    ch = next(k for k in kernels if k["name"] == "chase")
+    ch["latency_ns"] = suite_results["latency"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ Port of `repro.core.rmw`.  A *batch* of RMWs against a table executes as a
 data-parallel combine-by-index whose results equal executing the batch
 serially in order (the paper's hardware semantics):
 
-* :func:`rmw_serialized` — the order-faithful oracle, one op per step (a
-  Python loop: for the tests and tiny batches only).
+* :func:`rmw_serialized` — the order-faithful oracle, one op per step: on a
+  CUDA table one thread on the card applies the batch with the card's
+  atomics (`kernels.serial.kernel.serial_rmw`); on the CPU a host loop
+  (:func:`rmw_serialized_host`, for the tests and tiny batches).
 * :func:`rmw_combining`  — stable sort + segmented scan; exact for
   FAA/SWP/MIN/MAX and for CAS with a uniform expected value.
 
@@ -177,10 +179,25 @@ def _arrival_rank_argsort(keys: Tensor) -> Tensor:
 
 def rmw_serialized(table: Tensor, indices: Tensor, values: Tensor, op: str,
                    expected=None) -> RmwResult:
-    """Apply ops one at a time in order; the semantics oracle.
+    """Apply ops one at a time in order; the semantics oracle, and the
+    paper's measured hardware (no ILP between dependent atomics).
 
-    A host loop over numpy scalars of the table's dtype (float32 arithmetic
-    stays float32, int32 wraps): meant for tests and tiny batches.
+    On a CUDA table: `kernels.serial.kernel.serial_rmw`, one thread on the
+    card (int32 and float32 tables; it raises on others).  On the CPU:
+    :func:`rmw_serialized_host`.
+    """
+    if table.device.type == "cuda":
+        from repro_torch.kernels.serial.kernel import serial_rmw
+        return RmwResult(*serial_rmw(table, indices, values, op, expected))
+    return rmw_serialized_host(table, indices, values, op, expected)
+
+
+def rmw_serialized_host(table: Tensor, indices: Tensor, values: Tensor,
+                        op: str, expected=None) -> RmwResult:
+    """`rmw_serialized` as a host loop over numpy scalars of the table's
+    dtype (float32 arithmetic stays float32, int32 wraps): meant for tests
+    and tiny batches, and the plain version of the card's `serial_rmw`.
+    Results go back to the table's device.
     """
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}")

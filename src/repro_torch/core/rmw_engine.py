@@ -26,14 +26,19 @@ supports (integer dtypes bit for bit; float FAA up to reassociation).
 Selection (`select_backend`) is the paper's L(A, S) model as a runtime
 decision: each backend prices (op, batch size, table size, device) from a
 :class:`~repro_torch.core.perf_model.HardwareSpec` and the cheapest correct
-backend wins.  The spec defaults by the table's device: `perf_model.H100` on
-CUDA, `perf_model.cpu_default_spec()` on the CPU.
+backend wins.  The spec defaults by the table's device (`default_spec`): a
+live override when one is installed (`set_live_spec`, which bumps
+`spec_epoch`), else `perf_model.H100` on CUDA, and on the CPU
+`perf_model.cpu_default_spec()` overlaid with the port's own calibration
+file when it was written on the CPU (`calibrated_spec`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -377,24 +382,44 @@ register_backend(RmwBackend(
 
 # Process-wide "live spec" override.  Selectors default their spec through
 # `default_spec()`, so this one indirection swaps the cost model everywhere.
-# The spec only steers *selection* — every backend matches the serialized
-# oracle — so a swap never changes results, only which implementation runs.
+# The epoch counter is bumped on every install and clear, so a decision
+# cache keyed on it refreshes the moment a new spec lands.  The spec only
+# steers *selection* — every backend matches the serialized oracle — so a
+# swap never changes results, only which implementation runs.
 _LIVE_SPEC: Optional[perf_model.HardwareSpec] = None
+_SPEC_EPOCH: int = 0
+_SPEC_CACHE: Dict[str, perf_model.HardwareSpec] = {}
+
+#: the file `repro_torch.benchmarks.calibrate` writes, unless
+#: ``REPRO_TORCH_CALIBRATED_SPEC`` names another (build/ is not committed)
+DEFAULT_CALIBRATED_SPEC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))), "build", "repro_torch",
+    "calibrated_spec.json")
 
 
-def set_live_spec(spec: perf_model.HardwareSpec) -> None:
-    """Install ``spec`` as the process-wide selection cost model."""
-    global _LIVE_SPEC
+def _reset_spec_cache() -> None:  # test hook
+    _SPEC_CACHE.clear()
+
+
+def set_live_spec(spec: perf_model.HardwareSpec) -> int:
+    """Install ``spec`` as the process-wide selection cost model and return
+    the new spec epoch."""
+    global _LIVE_SPEC, _SPEC_EPOCH
     if not isinstance(spec, perf_model.HardwareSpec):
         raise TypeError(f"live spec must be a HardwareSpec, got {type(spec)}")
     _LIVE_SPEC = spec
+    _SPEC_EPOCH += 1
+    return _SPEC_EPOCH
 
 
 def clear_live_spec() -> None:
-    """Drop the live override; `default_spec()` reverts to the platform
-    spec."""
-    global _LIVE_SPEC
-    _LIVE_SPEC = None
+    """Drop the live override; `default_spec()` reverts to the calibrated
+    platform spec.  Bumps the epoch when an override was installed."""
+    global _LIVE_SPEC, _SPEC_EPOCH
+    if _LIVE_SPEC is not None:
+        _LIVE_SPEC = None
+        _SPEC_EPOCH += 1
 
 
 def live_spec() -> Optional[perf_model.HardwareSpec]:
@@ -402,21 +427,76 @@ def live_spec() -> Optional[perf_model.HardwareSpec]:
     return _LIVE_SPEC
 
 
+def spec_epoch() -> int:
+    """Monotonic counter bumped on every live-spec install and clear."""
+    return _SPEC_EPOCH
+
+
 def platform_spec(device="cuda") -> perf_model.HardwareSpec:
     """The priors for a device: `perf_model.H100` on CUDA, the CPU priors
-    elsewhere.  (The reference's calibration file is keyed on its JAX
-    backend and is never read here.)"""
+    elsewhere."""
     if _device_type(device) == "cuda":
         return perf_model.H100
     return perf_model.cpu_default_spec()
 
 
+def device_key(device="cuda") -> str:
+    """What a calibration file names its device by: ``"cuda:<card name>"``
+    (``torch.cuda.get_device_name``) or ``"cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return f"cuda:{torch.cuda.get_device_name(dev)}"
+    return dev.type
+
+
+def calibrated_spec_path() -> str:
+    """Where `repro_torch.benchmarks.calibrate` writes its fit and the CPU
+    loader reads it: ``REPRO_TORCH_CALIBRATED_SPEC`` when set, else
+    `DEFAULT_CALIBRATED_SPEC`.  (The reference's calibration file is never
+    read here.)"""
+    return os.environ.get("REPRO_TORCH_CALIBRATED_SPEC") \
+        or DEFAULT_CALIBRATED_SPEC
+
+
+def load_calibration(path: str, device: str,
+                     base: perf_model.HardwareSpec
+                     ) -> Optional[perf_model.HardwareSpec]:
+    """The spec a calibration file holds for ``device`` (a `device_key`),
+    over ``base``; None when the file is missing, unreadable or written for
+    another device."""
+    try:
+        with open(path) as f:
+            payload = json.load(f)
+        if payload.get("device") != device:
+            return None
+        return perf_model.spec_from_dict(payload["spec"], base=base)
+    except (OSError, ValueError, KeyError, TypeError, AttributeError):
+        return None  # an unreadable calibration file never breaks dispatch
+
+
+def calibrated_spec(device="cuda") -> perf_model.HardwareSpec:
+    """The platform spec ignoring any live override.  On the card, the
+    priors `perf_model.H100` (as the reference returns its TPU constants on
+    a TPU); on the CPU, `perf_model.cpu_default_spec()` overlaid with the
+    calibration file at `calibrated_spec_path()` when its ``device`` is
+    ``"cpu"``."""
+    dev_type = _device_type(device)
+    if dev_type in _SPEC_CACHE:
+        return _SPEC_CACHE[dev_type]
+    spec = platform_spec(device)
+    if dev_type != "cuda":
+        spec = load_calibration(calibrated_spec_path(), dev_type,
+                                spec) or spec
+    _SPEC_CACHE[dev_type] = spec
+    return spec
+
+
 def default_spec(device="cuda") -> perf_model.HardwareSpec:
     """The spec selectors use when the caller passes none: the live
-    override when installed, else the platform spec of ``device``."""
+    override when installed, else `calibrated_spec(device)`."""
     if _LIVE_SPEC is not None:
         return _LIVE_SPEC
-    return platform_spec(device)
+    return calibrated_spec(device)
 
 
 class Selection(NamedTuple):

@@ -4,9 +4,11 @@ Every kernel family of the port (`kernels/rmw`, `kernels/ssd`) declares one
 :class:`NvccLibrary`: its ``csrc/*.cu`` source and the ``ctypes`` argument
 types of each ``extern "C"`` entry.  The shared library goes to
 ``build/repro_torch/`` at the repository root (listed in ``.gitignore``),
-named by a hash of the source and the nvcc flags, so an edit rebuilds and an
-unchanged checkout builds once.  Nothing happens at import: :meth:`load`
-builds on first use.  Every entry returns ``cudaGetLastError()`` as an int.
+named by a hash of the source, the headers it includes by a quoted path
+(`kernels/csrc/*.cuh`, found through ``-I kernels``) and the nvcc flags, so
+an edit rebuilds and an unchanged checkout builds once.  Nothing happens
+at import: :meth:`load` builds on first use.  Every entry returns
+``cudaGetLastError()`` as an int.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,8 +25,12 @@ from pathlib import Path
 from typing import Mapping, NamedTuple, Optional, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+#: where ``#include "csrc/<header>.cuh"`` finds the headers the sources share
+INCLUDE_DIR = Path(__file__).resolve().parent
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(INCLUDE_DIR))
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 class Built(NamedTuple):
@@ -53,8 +60,27 @@ class NvccLibrary:
         self._built: Optional[Built] = None
         self._lock = threading.Lock()
 
+    def files(self) -> Sequence[Path]:
+        """The source and every header it includes by a quoted path,
+        transitively (as nvcc resolves them: beside the including file,
+        else under `INCLUDE_DIR`)."""
+        seen, todo = [], [self.source]
+        while todo:
+            f = todo.pop()
+            if f in seen:
+                continue
+            seen.append(f)
+            for name in _QUOTED_INCLUDE.findall(f.read_text()):
+                for d in (f.parent, INCLUDE_DIR):
+                    if (d / name).exists():
+                        todo.append((d / name).resolve())
+                        break
+        return seen
+
     def digest(self) -> str:
-        h = hashlib.sha256(self.source.read_bytes())
+        h = hashlib.sha256()
+        for f in self.files():
+            h.update(f.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return h.hexdigest()[:16]
 

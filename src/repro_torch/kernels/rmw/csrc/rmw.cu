@@ -140,6 +140,8 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "csrc/order.cuh"
+
 enum { OP_FAA = 0, OP_SWP = 1, OP_MIN = 2, OP_MAX = 3, OP_CAS = 4,
        OP_COUNT = 5 };
 enum { DT_INT32 = 0, DT_FLOAT32 = 1 };
@@ -156,40 +158,13 @@ __device__ __forceinline__ int add_wrap(int a, int b) {
 }
 __device__ __forceinline__ float add_wrap(float a, float b) { return a + b; }
 
-template <typename T>
-__device__ __forceinline__ T min_of(T a, T b) { return b < a ? b : a; }
-template <typename T>
-__device__ __forceinline__ T max_of(T a, T b) { return b > a ? b : a; }
-
-// fp32 MIN/MAX in the reference's order (core/rmw.py, `order_key`): −0 below
-// +0, and a NaN wins and stays.  A float's key is its bits with the
-// magnitude bits of a negative value flipped, so signed int order is float
-// order with −0 just below +0; every NaN keys past all numbers in the op's
-// direction.  The result comes back from the winning key, so these give the
-// plain versions' bits, NaN included.
-__device__ __forceinline__ bool is_nan_bits(unsigned b) {
-  return (b & 0x7fffffffu) > 0x7f800000u;
-}
-__device__ __forceinline__ int order_key(float x, bool nan_low) {
-  const int k = __float_as_int(x);
-  if (is_nan_bits((unsigned)k)) return nan_low ? INT_MIN : INT_MAX;
-  return k ^ ((k >> 31) & 0x7fffffff);
-}
-__device__ __forceinline__ float from_order_key(int k) {
-  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
-}
-__device__ __forceinline__ float min_of(float a, float b) {
-  return from_order_key(min(order_key(a, true), order_key(b, true)));
-}
-__device__ __forceinline__ float max_of(float a, float b) {
-  return from_order_key(max(order_key(a, false), order_key(b, false)));
-}
+// min_of / max_of / order_key: kernels/csrc/order.cuh
 
 // fp32 MIN/MAX on the table word by compare-and-swap, starting from `old`,
 // a read of the word.  The slot only ever moves down (MIN) or up (MAX) in
-// the order above, so a stale read that already orders at or past v needs
-// no write; the loop stops as soon as the slot holds a NaN, and otherwise
-// writes the combined value (a NaN operand writes NaN).
+// the reference's order (order.cuh), so a stale read that already orders at
+// or past v needs no write; the loop stops as soon as the slot holds a NaN,
+// and otherwise writes the combined value (a NaN operand writes NaN).
 template <bool MIN>
 __device__ __forceinline__ void atomic_minmax_float(float* a, float v,
                                                     unsigned old) {

@@ -199,7 +199,9 @@ def test_spec_from_reference(spec):
             assert getattr(got, f) == getattr(spec, f)
 
 
-_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+#: JAX, the reference package, and the reference's suites (`benchmarks/`)
+_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|repro|benchmarks)(\.|\s|$)")
 
 
 def test_port_imports_nothing_of_jax_or_the_reference():

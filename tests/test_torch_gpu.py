@@ -8,7 +8,9 @@ against the plain SSD path; the flash-attention kernel (f32 at rtol = atol
 = 3e-5, bf16 at 2e-2, as the reference's attention tests, and at one bf16
 ulp at gemma_2b's shapes; decode split across CTAs, prefill on tensor
 cores) and a full-width two-layer gemma_2b prefill and decode against the
-plain attention path.
+plain attention path; the one-thread device loops (`serial_rmw` bit for
+bit against the host loop, on ±0, NaN and subnormals too; `chase` in its
+four modes against its plain version).
 This file imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \
@@ -29,6 +31,7 @@ from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.rmw import kernel as K
 from repro_torch.kernels.rmw import ref as tref
+from repro_torch.kernels.serial import kernel as XK
 from repro_torch.kernels.ssd import kernel as SK
 from repro_torch.kernels.ssd import ops as sops
 from repro_torch.models.model import LM
@@ -701,3 +704,96 @@ def test_gemma_two_layers_on_the_kernel_match_plain_path(cuda_device):
                                2 * 5 if use_kernel is None else 0}
     assert torch.isfinite(out[None]).all()
     assert (out[None] - out[False]).abs().max() <= 0.05
+
+
+# ---------------------------------------------------------------------------
+# the one-thread device loops: serial_rmw and chase
+# ---------------------------------------------------------------------------
+
+def _serial_inputs(g, dev, n, m, dtype, kind):
+    def draw(size):
+        if kind == "zeros_nans":
+            pool = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0, float("nan"),
+                                 -float("nan")], device=dev)
+            return pool[torch.randint(0, len(pool), (size,), generator=g,
+                                      device=dev)]
+        if kind == "subnormal":
+            sub = torch.tensor([1e-40, -1e-40, 5e-39, -1.1e-38, 1.2e-38,
+                                -1.5e-45], device=dev)
+            pick = sub[torch.randint(0, len(sub), (size,), generator=g,
+                                     device=dev)]
+            x = torch.randn((size,), generator=g, device=dev) * 1e-38
+            return torch.where(torch.rand((size,), generator=g, device=dev)
+                               < 0.5, pick, x)
+        return torch.randint(-8, 9, (size,), generator=g,
+                             device=dev).to(dtype)
+    lo = 0 if kind == "subnormal" else -m - 3
+    hi = m if kind == "subnormal" else m + 3
+    idx = torch.randint(lo, hi, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    return draw(m), idx, draw(n), draw(n)
+
+
+#: (op, operands, dtype): every op on small integers in int32 and fp32 and
+#: on ±0/NaN in fp32; fp32 FAA also on subnormals, which atom.add.f32
+#: flushes to zero and the kernel then restores
+SERIAL_CASES = ([(op, "ints", dt) for op in XK.OP_CODES
+                 for dt in (torch.int32, torch.float32)]
+                + [(op, "zeros_nans", torch.float32) for op in XK.OP_CODES]
+                + [("faa", "subnormal", torch.float32)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,kind,dtype", SERIAL_CASES)
+def test_serial_rmw_matches_host_loop(cuda_device, op, kind, dtype):
+    """serial_rmw against the host loop, every output bit for bit (NaN by
+    isnan), at n = 4,096 over 1,024 slots and over one, indices from
+    -m - 3 to m + 3; CAS with a per-op and a scalar expected."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for m in (1024, 1):
+        tab, idx, val, exp = _serial_inputs(g, cuda_device, 4096, m, dtype,
+                                            kind)
+        for e in ((exp, 0) if op == "cas" else (None,)):
+            got = XK.serial_rmw(tab, idx, val, op, e)
+            host = e.cpu() if isinstance(e, torch.Tensor) else e
+            want = XK.serial_rmw(tab.cpu(), idx.cpu(), val.cpu(), op, host)
+            same_bits(got[0], want[0].numpy(), f"{op} table")
+            same_bits(got[1], want[1].numpy(), f"{op} fetched")
+            assert torch.equal(got[2].cpu(), want[2])
+
+
+@pytest.mark.gpu
+def test_rmw_serialized_runs_serial_rmw_on_the_card(cuda_device):
+    XK.reset_launches()
+    tab = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    idx = torch.arange(100, device=cuda_device) % 70      # int64, some drop
+    r = atomics.execute(tab, atomics.Faa(idx, torch.ones_like(idx)),
+                        backend="serialized")
+    assert XK.LAUNCHES["serial_rmw"] == 1
+    want = XK.serial_rmw(tab.cpu(), idx.cpu(),
+                         torch.ones(100, dtype=torch.int32), "faa")
+    assert torch.equal(r.table.data.cpu(), want[0])
+    assert torch.equal(r.fetched.cpu(), want[1])
+    with pytest.raises(TypeError):
+        XK.serial_rmw(tab.double(), idx, idx.double(), "faa")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", list(XK.CHASE_MODES))
+@pytest.mark.parametrize("m,steps", [(1 << 12, 3 << 12), (1 << 16, 1 << 16)])
+def test_chase_matches_plain_version(cuda_device, mode, m, steps):
+    """The chase against its plain version on a copy of the same cycle:
+    the end slot and the table after (faa counts visits in the high bits;
+    the other modes leave the cycle as it was)."""
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    table = XK.single_cycle(m, g, cuda_device)
+    host = table._replace(words=table.words.cpu())
+    before = host.words.clone()
+    XK.reset_launches()
+    end = XK.chase(table, steps, mode, start=m // 3)
+    want = XK.chase_plain(host, steps, mode, start=m // 3)
+    assert XK.LAUNCHES["chase"] == 1
+    assert int(end) == int(want)
+    assert torch.equal(table.words.cpu(), host.words)
+    if mode != "faa":
+        assert torch.equal(host.words, before)
