@@ -30,7 +30,16 @@ measurement suites (`python -m repro_torch.benchmarks.run`: latency by
 tier, bandwidth, contention, operand size, two fetched operands, BFS, the
 backend shoot-out, calibration into `build/repro_torch/calibrated_spec.json`
 and the Table 2/3 fit with its NRMSE), with the one-thread kernels'
-launch counters reset before and read after.
+launch counters reset before and read after.  Last, the sharded tier
+(`sharded`): 4 ranks sharing the card on a 2x2 ``("pod", "dev")`` mesh
+over gloo, 2^22 ops a rank over 2^24 int32 slots, every exchange strategy
+and op (per-op CAS, dense, replicas, ``reverse_ranks``; int32 and fp32)
+against the serialized oracle in rank order, `bfs_sharded` at the BFS
+phase's scale against its parents, `execute_until` with every policy
+against the local tier's round history, ms per batch split into the
+exchange and the ranks' kernels, the kernels' launches inside the ranks;
+then a world-size-1 NCCL run, and two NCCL ranks on the one card, whose
+refusal it records.
 
 Phases print one JSON line each (`{"phase": ...}`); every phase raises on a
 failure.  The line before the last is the per-kernel record, and the last
@@ -333,7 +342,8 @@ def _same_bits(got, want, what):
 
 def _check_fp32_zeros_and_nans(gen):
     """fp32 MIN/MAX in the reference's order (−0 below +0, NaN wins and
-    stays): both kernels against their plain versions on tables and
+    stays), and uniform CAS with `expected` 0, −0 and 1 (the serialized
+    chain's bits): both kernels against their plain versions on tables and
     operands drawn from ±0, ±1, 2 and NaN, at the contended shape, at a
     sparse one and over three L2 windows; the table-only kernel in every
     regime the shape allows."""
@@ -364,6 +374,18 @@ def _check_fp32_zeros_and_nans(gen):
                                  f"{what}")
             if not torch.equal(got[2], want[2]):
                 raise AssertionError(f"rmw_table_fetched fp32 {op} ±0/NaN: "
+                                     f"success differs")
+        # uniform CAS: a value equal to `expected` in the other zero's bits
+        # keeps the chain alive and is what the next op fetches
+        for exp in (0.0, -0.0, 1.0):
+            got = K.rmw_table_fetched(tab, idx, val, "cas", expected=exp)
+            want = K.rmw_table_fetched_plain(tab, idx, val, "cas", exp)
+            sync()
+            for g, w, what in zip(got[:2], want[:2], ("table", "fetched")):
+                _same_bits(g, w, f"rmw_table_fetched fp32 cas (expected "
+                                 f"{exp}) ±0/NaN {what}")
+            if not torch.equal(got[2], want[2]):
+                raise AssertionError(f"rmw_table_fetched fp32 cas ±0/NaN: "
                                      f"success differs")
         done.append(dict(n=n, m=m, regimes=K.table_regimes(m),
                          nan_slots_after_min=int(torch.isnan(
@@ -1526,7 +1548,7 @@ def _table_rows(shape, tab, idx, val, ops=("faa", "min", "max", "swp"),
             library_ms=None if lib is None else time_ms(lib),
             bound_ms=b, bound_by=by))
         if device:
-            rows[-1]["device_ms"] = sum(stage_ms(fn).values())
+            rows[-1]["device_ms"] = _device_ms(fn)
     b, by = bound(4 * n + 4 * m, n)
     fn = lambda: K.slot_counts(idx, m)
     rows.append(dict(
@@ -1536,8 +1558,15 @@ def _table_rows(shape, tab, idx, val, ops=("faa", "min", "max", "swp"),
         library_ms=time_ms(lambda: torch.bincount(idx_kl, minlength=m)),
         bound_ms=b, bound_by=by))
     if device:
-        rows[-1]["device_ms"] = sum(stage_ms(fn).values())
+        rows[-1]["device_ms"] = _device_ms(fn)
     return rows
+
+
+def _device_ms(fn):
+    """`stage_ms`'s total, or None (not measured) where the profiler's
+    trace holds no device events."""
+    stages = stage_ms(fn)
+    return None if stages is None else sum(stages.values())
 
 
 def phase_timing(gen, bfs_n, bfs_m):
@@ -1736,6 +1765,514 @@ def _host_ms(fn, reps=3):
 
 
 # ---------------------------------------------------------------------------
+# 12. the sharded tier on 4 ranks sharing the card (this slice's main path)
+# ---------------------------------------------------------------------------
+
+SH_SHAPE, SH_AXES = (2, 2), ("pod", "dev")
+SH_WORLD = 4
+SH_N, SH_M = 1 << 22, 1 << 24    # ops a rank; global int32 slots (16 MB a
+#                                  shard of four)
+SH_STRATEGIES = ("naive", "oneshot", "hierarchical")
+SH_RETRY_N, SH_RETRY_M = 64, 1 << 12
+SH_REPS = 3
+# the oracle groups: (op, distribution, dtype); every case below is held
+# against its group's `rmw_serialized` over the batches in rank order
+SH_GROUPS = [(op, dist, "int32") for op in ("faa", "swp", "min", "cas",
+                                            "cas_perop")
+             for dist in ("hot", "uniform")]
+SH_GROUPS += [("faa", "hot", "float32"), ("faa", "uniform", "float32"),
+              ("faa", "hot_normal", "float32"), ("min", "hot", "float32"),
+              ("min", "uniform", "float32"), ("swp", "hot", "float32"),
+              ("cas", "hot", "float32")]
+F32_POOL = (0.0, -0.0, 1.0, -1.0, 2.0, float("nan"))
+
+
+def _sh_case(group, strategy="oneshot", *, need_fetched=True,
+             replicated=False, reverse=False, stats=False, gated=True):
+    return dict(group=group, strategy=strategy, need_fetched=need_fetched,
+                replicated=replicated, reverse=reverse, stats=stats,
+                gated=gated)
+
+
+def _sh_cases():
+    """Every strategy x op (naive, oneshot, hierarchical x faa, swp, min,
+    uniform cas; hot and uniform), per-op CAS, dense, 2 replicas x 2
+    shards, reverse_ranks, a table-only CAS (BFS's call), stats; int32 and
+    fp32."""
+    out = []
+    for op in ("faa", "swp", "min", "cas"):
+        for dist in ("hot", "uniform"):
+            for strategy in SH_STRATEGIES:
+                out.append(_sh_case((op, dist, "int32"), strategy,
+                                    stats=(op, dist, strategy)
+                                    == ("faa", "hot", "oneshot")))
+    for dist in ("hot", "uniform"):
+        out.append(_sh_case(("cas_perop", dist, "int32")))
+        out.append(_sh_case(("faa", dist, "int32"), "dense",
+                            need_fetched=False))
+    for op in ("faa", "swp", "min", "cas", "cas_perop"):
+        out.append(_sh_case((op, "hot", "int32"), replicated=True))
+    out.append(_sh_case(("faa", "hot", "int32"), "dense", need_fetched=False,
+                        replicated=True))
+    for strategy in SH_STRATEGIES:
+        out.append(_sh_case(("swp", "hot", "int32"), strategy, reverse=True))
+    out.append(_sh_case(("faa", "uniform", "int32"), reverse=True))
+    out.append(_sh_case(("cas", "hot", "int32"), reverse=True))
+    out.append(_sh_case(("cas_perop", "hot", "int32"), reverse=True))
+    out.append(_sh_case(("cas", "hot", "int32"), need_fetched=False))
+    for dist in ("hot", "uniform"):
+        for strategy in SH_STRATEGIES:
+            out.append(_sh_case(("faa", dist, "float32"), strategy))
+    out.append(_sh_case(("faa", "hot_normal", "float32"), gated=False))
+    for strategy in SH_STRATEGIES:
+        out.append(_sh_case(("min", "hot", "float32"), strategy))
+    out.append(_sh_case(("min", "uniform", "float32")))
+    out.append(_sh_case(("swp", "hot", "float32"), "hierarchical"))
+    out.append(_sh_case(("cas", "hot", "float32")))
+    return out
+
+
+def _sh_inputs(k, world, dev):
+    """Group ``k``'s batches (world, SH_N) and table (SH_M,), made on the
+    card from the group's seed, so every rank makes the same.  ``hot`` is
+    the reference example's distribution (95% of every rank's ops on 8
+    slots of shard 0); ``uniform`` spans the table and a few slots past
+    it (dropped).  int32 values in [-8, 8] (CAS in [-1, 1]); fp32 FAA
+    integer-valued (exact sums) or normal (``hot_normal``, uniform); fp32
+    MIN/MAX/SWP/CAS from ±0, ±1, 2 and NaN."""
+    op, dist, dtype = SH_GROUPS[k]
+    g = torch.Generator(device=dev)
+    g.manual_seed(1000 + k)
+    shape = (world, SH_N)
+    ri = lambda lo, hi, size: torch.randint(lo, hi, size, generator=g,
+                                            device=dev, dtype=torch.int32)
+    if dist.startswith("hot"):
+        idx = torch.where(torch.rand(shape, generator=g, device=dev) < 0.95,
+                          ri(0, 8, shape), ri(0, SH_M, shape))
+    else:
+        idx = ri(0, SH_M + 64, shape)
+    lo, hi = (-1, 2) if op.startswith("cas") else (-8, 9)
+    if dtype == "int32":
+        vals, table, exps = ri(lo, hi, shape), ri(lo, hi, (SH_M,)), \
+            ri(-1, 2, shape)
+    elif op == "faa" and dist != "hot":
+        vals = torch.randn(shape, generator=g, device=dev)
+        table = torch.randn((SH_M,), generator=g, device=dev)
+        exps = torch.zeros(shape, device=dev)
+    elif op == "faa":
+        vals, table = ri(lo, hi, shape).float(), ri(lo, hi, (SH_M,)).float()
+        exps = torch.zeros(shape, device=dev)
+    else:
+        pool = torch.tensor(F32_POOL, device=dev)
+        pick = lambda size: pool[ri(0, len(F32_POOL), size).long()]
+        vals, table, exps = pick(shape), pick((SH_M,)), pick(shape)
+    return idx, vals, exps, table
+
+
+def _sh_oracle(k, inputs):
+    """Group ``k``'s `rmw_serialized` over every rank's batch in rank
+    order: (table, fetched, success), dropped ops fetching 0 and failing."""
+    idx, vals, exps, table = inputs
+    op = SH_GROUPS[k][0]
+    kind = "cas" if op.startswith("cas") else op
+    exp = exps.reshape(-1) if op == "cas_perop" else (
+        torch.zeros_like(vals.reshape(-1)) if kind == "cas" else None)
+    # out-of-range ops write nothing and report fetched 0, success False
+    flat = idx.reshape(-1)
+    valid = (flat >= 0) & (flat < SH_M)
+    res = _serialized_dropping(table, flat, vals.reshape(-1), kind, exp)
+    return (res[0], torch.where(valid, res[1], torch.zeros_like(res[1])),
+            res[2] & valid)
+
+
+def _serialized_dropping(table, idx, vals, op, exp):
+    """`core.rmw.rmw_serialized` (on the card, `serial_rmw`) with dropped
+    ops on a scratch row past the table."""
+    from repro_torch.core.rmw import rmw_serialized
+    m = table.shape[0]
+    pad = torch.cat([table, table.new_zeros(1)])
+    res = rmw_serialized(pad, torch.where((idx >= 0) & (idx < m), idx, m),
+                         vals, op, exp)
+    return res.table[:m], res.fetched, res.success
+
+
+def _bcast(mesh, x):
+    """Rank 0's ``x`` on every rank (fp32 as its bits, bool as bytes)."""
+    if x.dtype == torch.float32:
+        return mesh.broadcast(x.view(torch.int32), SH_AXES).view(x.dtype)
+    if x.dtype == torch.bool:
+        return mesh.broadcast(x.to(torch.uint8), SH_AXES).bool()
+    return mesh.broadcast(x, SH_AXES)
+
+
+def _same(got, want, *, f32, faa_tol=None):
+    """(equal, max abs err): bit for bit, NaN by isnan; or, for fp32 FAA,
+    within rtol 1e-5 and ``faa_tol`` (atol)."""
+    if got.shape != want.shape:
+        return False, None
+    if faa_tol is not None:
+        err = _max_err(got, want)
+        return bool(torch.allclose(got, want, rtol=1e-5, atol=faa_tol)), err
+    if not f32:
+        return bool(torch.equal(got, want)), None
+    nan = torch.isnan(want)
+    ok = torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+    return bool(ok), None
+
+
+def _sh_levels(mesh, op, n, m_global):
+    """The engine backend `auto` picks at each level of each strategy (the
+    pre-combine over n ops, the owner resolve over its received rows)."""
+    from repro_torch.core import rmw_engine
+    sel = lambda nn, mm, nf=True: rmw_engine.select_backend(
+        op, nn, mm, device="cuda", dtype=torch.int32, need_fetched=nf)
+    m_loc = m_global // SH_WORLD
+    cap1 = min(n, m_loc * SH_SHAPE[0])
+    return {"oneshot": {"combine": sel(n, n),
+                        "resolve": sel(SH_WORLD * min(n, m_loc), m_loc)},
+            "hierarchical": {"combine": sel(n, n),
+                             "deputy": sel(SH_SHAPE[1] * cap1,
+                                           SH_SHAPE[1] * cap1),
+                             "resolve": sel(SH_SHAPE[0] * min(
+                                 SH_SHAPE[1] * cap1, m_loc), m_loc)},
+            "naive": {"resolve": sel(SH_WORLD * n, m_loc)},
+            "dense": {"combine": sel(n, m_global, False)}}
+
+
+def _kernel_split(fn):
+    """Device time of ``fn``'s kernels and of its copies (host staging),
+    from torch.profiler's CUPTI trace; None where it holds none."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        dev = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    except (RuntimeError, AssertionError):   # no CUPTI trace here
+        return None, None
+    if not dev:
+        return None, None
+    copy = sum(e.duration_ns() for e in dev if "Memcpy" in e.name()
+               or "Memset" in e.name()) / 1e6
+    return sum(e.duration_ns() for e in dev) / 1e6 - copy, copy
+
+
+def _sharded_rank(mesh, cfg):
+    """One rank of the `sharded` phase; returns what it checked and timed.
+
+    Rank 0 first runs every group's serialized oracle, each on its own
+    stream (one thread each, side by side), and broadcasts them; the
+    launch counts are reset after that, so they hold only the main path:
+    every case through `atomics.execute` on a sharded table, `bfs_sharded`
+    (cas, swp) and `execute_until` with every policy.  The timing runs
+    come after the counts are read."""
+    from repro_torch.core.bfs import bfs_sharded
+    dev = torch.device("cuda")
+    world = mesh.size(SH_AXES)
+    me = mesh.index(SH_AXES)
+    staged = mesh.probe(dev)
+    out = dict(rank=mesh.rank, host_staged=list(staged), cases=[])
+    t0 = time.perf_counter()
+    oracles = {}
+    if me == 0:
+        # every group's inputs first, then each oracle on its own stream:
+        # the one-thread loops run side by side
+        inputs = [_sh_inputs(k, world, dev) for k in range(len(SH_GROUPS))]
+        sync()
+        for k, s in enumerate([torch.cuda.Stream() for _ in SH_GROUPS]):
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                oracles[k] = _sh_oracle(k, inputs[k])
+        sync()
+        del inputs
+    out["oracle_s"] = time.perf_counter() - t0
+    K.reset_launches()
+    XK.reset_launches()
+    t_main = time.perf_counter()
+    for k, (op, dist, dtype) in enumerate(SH_GROUPS):
+        cases = [c for c in _sh_cases() if c["group"] == (op, dist, dtype)]
+        if not cases:
+            continue
+        idx, vals, exps, table0 = _sh_inputs(k, world, dev)
+        if me == 0:
+            want = oracles.pop(k)
+        else:                            # shapes to receive rank 0's into
+            want = (torch.empty_like(table0),
+                    torch.empty_like(vals.reshape(-1)),
+                    torch.empty((world * SH_N,), dtype=torch.bool,
+                                device=dev))
+        want = [_bcast(mesh, w) for w in want]
+        f32 = dtype == "float32"
+        kind = "cas" if op.startswith("cas") else op
+        for c in cases:
+            rep = c["replicated"]
+            axis, rep_axes = ("dev", "pod") if rep else (SH_AXES, ())
+            n_shards = mesh.size(axis)
+            m_loc = SH_M // n_shards
+            shard = mesh.index(axis)
+            rows = slice(shard * m_loc, (shard + 1) * m_loc)
+            # reverse_ranks: rank r takes rank (world - 1 - r)'s batch, so
+            # the reversed rank order replays the same stream, and the
+            # same oracle holds
+            src = world - 1 - me if c["reverse"] else me
+            i, v, e = (t[src] for t in (idx, vals, exps))
+            table = atomics.AtomicTable(table0[rows].clone(), axis=axis,
+                                        replica_axes=rep_axes, mesh=mesh)
+            aop = (atomics.Cas(i, v, expected=e if op == "cas_perop" else 0)
+                   if kind == "cas" else atomics.OP_KINDS[kind](i, v))
+            res = atomics.execute(table, aop, strategy=c["strategy"],
+                                  need_fetched=c["need_fetched"],
+                                  reverse_ranks=c["reverse"],
+                                  collect_stats=c["stats"])
+            sync()
+            tol = None
+            if f32 and op == "faa":
+                occ = torch.bincount(idx[(idx >= 0) & (idx < SH_M)].long(),
+                                     minlength=SH_M)
+                tol = 1e-5 * math.sqrt(int(occ.max()))
+            ok_t, err_t = _same(res.table.data, want[0][rows], f32=f32,
+                                faa_tol=tol)
+            row = dict(group=f"{op}/{dist}/{dtype}", strategy=c["strategy"],
+                       need_fetched=c["need_fetched"], replicated=rep,
+                       reverse=c["reverse"], gated=c["gated"], table=ok_t,
+                       table_err=err_t)
+            if c["need_fetched"]:
+                sl = slice(src * SH_N, (src + 1) * SH_N)
+                row["fetched"], row["fetched_err"] = _same(
+                    res.fetched, want[1][sl], f32=f32, faa_tol=tol)
+                row["success"] = bool(torch.equal(res.success, want[2][sl]))
+            if c["stats"]:
+                flat = idx.reshape(-1)
+                live = flat[(flat >= 0) & (flat < SH_M)]
+                plain = stats_from_occupancy(
+                    K.slot_counts_plain(live, SH_M), live.shape[0])
+                row["stats"] = all(torch.equal(getattr(res.stats, f),
+                                               getattr(plain, f))
+                                   for f in ("n_ops", "distinct_slots",
+                                             "max_occupancy",
+                                             "occupancy_hist", "topk_slots",
+                                             "topk_counts"))
+                row["level_ops"] = [res.stats.level_ops_in.tolist(),
+                                    res.stats.level_ops_out.tolist()]
+            out["cases"].append(row)
+        del want
+    out["cases_s"] = time.perf_counter() - t_main
+    # bfs_sharded at scale 20 over all four ranks, both protocols
+    t0 = time.perf_counter()
+    s = np.load(cfg["src"], mmap_mode="r")
+    d = np.load(cfg["dst"], mmap_mode="r")
+    out["bfs"] = {}
+    for op in ("cas", "swp"):
+        sync()
+        t1 = time.perf_counter()
+        r = bfs_sharded(s, d, cfg["n"], root=cfg["root"], mesh=mesh,
+                        axis=SH_AXES, op=op, device=dev)
+        sync()
+        out["bfs"][op] = dict(seconds=time.perf_counter() - t1,
+                              levels=r.levels, edges=r.edges_traversed,
+                              parent=r.parent.cpu() if me == 0 else None)
+    out["bfs_s"] = time.perf_counter() - t0
+    # execute_until on a fully contended CAS batch, every policy, against
+    # the local tier (on the CPU, the plain versions: no launches counted)
+    out["retry"] = {}
+    for name in atomics.POLICIES:
+        pol = (atomics.ExponentialBackoff(base_s=1e-5, max_s=1e-3)
+               if name == "exponential" else atomics.POLICIES[name]())
+        n = SH_RETRY_N
+
+        def make_ops(slots, observed, where=dev):
+            if slots is None:
+                zeros = torch.zeros((n,), dtype=torch.int32, device=where)
+                return atomics.Cas(zeros, zeros + 1, expected=zeros)
+            return atomics.Cas(slots, observed + 1, expected=observed)
+
+        runs = {}
+        for tier, where in (("sharded", dev), ("local", "cpu")):
+            table = atomics.make_table(
+                SH_RETRY_M, torch.int32, device=where,
+                **(dict(mesh=mesh, axis=SH_AXES) if tier == "sharded"
+                   else {}))
+            runs[tier] = atomics.execute_until(
+                table, lambda s_, o_: make_ops(s_, o_, where),
+                max_rounds=4 * n, policy=pol)
+        sh, lo = runs["sharded"], runs["local"]
+        full = mesh.all_gather(sh.table.data, SH_AXES)
+        out["retry"][name] = dict(
+            n=n, rounds=sh.n_rounds, pending=int(sh.pending.size),
+            attempts=int(sh.rounds.sum()),
+            history_equal=bool(sh.n_rounds == lo.n_rounds and all(
+                np.array_equal(getattr(sh, f), getattr(lo, f))
+                for f in ("rounds", "fetched", "success", "pending"))
+                and torch.equal(full.cpu(), lo.table.data)))
+    out["launches"] = {**K.LAUNCHES, **XK.LAUNCHES}
+    out["main_s"] = time.perf_counter() - t_main
+    # timing: ms per batch per strategy, the exchange (wall clock inside
+    # the collectives, the card synchronised around each) beside the rest
+    out["levels"] = _sh_levels(mesh, "faa", SH_N, SH_M)
+    out["timing"] = []
+    mesh.sync_timing = True
+    for k, (op, dist, dtype) in enumerate(SH_GROUPS):
+        if (op, dtype) != ("faa", "int32"):
+            continue
+        idx, vals, _, table0 = _sh_inputs(k, world, dev)
+        table = atomics.AtomicTable(table0[me * (SH_M // world):(me + 1) * (
+            SH_M // world)].clone(), axis=SH_AXES, mesh=mesh)
+        for strategy in SH_STRATEGIES + ("dense",):
+            nf = strategy != "dense"
+            call = lambda: atomics.execute(table, atomics.Faa(idx[me],
+                                                              vals[me]),
+                                           strategy=strategy,
+                                           need_fetched=nf)
+            call()
+            sync()
+            mesh.exchange_s = 0.0
+            t0 = time.perf_counter()
+            for _ in range(SH_REPS):
+                call()
+            sync()
+            wall = (time.perf_counter() - t0) / SH_REPS * 1e3
+            exch = mesh.exchange_s / SH_REPS * 1e3
+            kern, copy = _kernel_split(call)
+            out["timing"].append(dict(
+                dist=dist, strategy=strategy, need_fetched=nf, ms=wall,
+                exchange_ms=exch, rest_ms=wall - exch, kernel_ms=kern,
+                copy_ms=copy))
+    mesh.sync_timing = False
+    return out
+
+
+def _nccl_rank(mesh, cfg):
+    """The world-size-1 NCCL run: FAA (oneshot) and per-op CAS through
+    `atomics.execute` on a one-shard table, against the serialized
+    oracle; NCCL carries every collective (no host staging)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    n, m = SH_N, SH_M
+    idx = torch.randint(0, m + 64, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    vals = torch.randint(-1, 2, (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    exps = torch.randint(-1, 2, (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    table0 = torch.randint(-1, 2, (m,), generator=g, device=dev,
+                           dtype=torch.int32)
+    out = dict(backend=mesh.backend)
+    for name, op, kind, exp in (("faa_oneshot", atomics.Faa(idx, vals),
+                                 "faa", None),
+                                ("cas_perop", atomics.Cas(idx, vals,
+                                                          expected=exps),
+                                 "cas", exps)):
+        table = atomics.AtomicTable(table0.clone(), axis="dev", mesh=mesh)
+        res = atomics.execute(table, op, strategy="oneshot")
+        want = _serialized_dropping(table0, idx, vals, kind, exp)
+        live = (idx >= 0) & (idx < m)
+        out[name] = bool(torch.equal(res.table.data, want[0]) and torch.equal(
+            res.fetched[live], want[1][live]) and torch.equal(
+            res.success, want[2] & live))
+    return out
+
+
+def _nccl_pair_rank(mesh, cfg):
+    """Two NCCL ranks on one card: one all-reduce (NCCL refuses them)."""
+    x = torch.ones((1,), device="cuda")
+    return float(mesh.all_reduce(x, "dev").item())
+
+
+def phase_sharded(s, d, root, parents):
+    """The sharded tier on 4 ranks sharing the card (gloo, CUDA tensors;
+    the libraries already built, so the ranks load them), then the
+    world-size-1 NCCL run and two NCCL ranks on the card.  Raises if a
+    rank failed or a gated check did not hold; returns the kernel launches
+    inside the ranks' main path, summed."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import ranks
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        np.save(os.path.join(tmp, "src.npy"), s.astype(np.int32))
+        np.save(os.path.join(tmp, "dst.npy"), d.astype(np.int32))
+        cfg = dict(src=os.path.join(tmp, "src.npy"),
+                   dst=os.path.join(tmp, "dst.npy"), n=1 << SCALE,
+                   root=root)
+        out = ranks.launch(f"{os.path.abspath(__file__)}:_sharded_rank",
+                           SH_WORLD, mesh=(SH_SHAPE, SH_AXES),
+                           device="cuda", args=(cfg,), timeout=900)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    bad = [f"rank {o['rank']}: {c}" for o in out for c in o["cases"]
+           if c["gated"] and not all(c.get(k, True) for k in (
+               "table", "fetched", "success", "stats"))]
+    for op in ("cas", "swp"):
+        if not torch.equal(out[0]["bfs"][op]["parent"], parents[op].cpu()):
+            bad.append(f"bfs_sharded {op}: parents differ from the local "
+                       f"phase's")
+    for o in out:
+        # n ops in <= n rounds (immediate, exponential); shrink trades
+        # rounds for fewer attempts (the reference's contract for it)
+        rt = o["retry"]
+        for name, r in rt.items():
+            bound = (r["attempts"] < rt["immediate"]["attempts"]
+                     if name == "shrink" else r["rounds"] <= r["n"])
+            if not (r["history_equal"] and r["pending"] == 0 and bound):
+                bad.append(f"rank {o['rank']}: execute_until {name}: {r}")
+    launches = {k: sum(o["launches"][k] for o in out)
+                for k in out[0]["launches"]}
+    missing = [k for k in ("rmw_table", "rmw_table_fetched", "slot_counts",
+                           "serial_rmw") if launches[k] == 0]
+    if missing:
+        bad.append(f"never launched inside the ranks: {missing}")
+    t1 = time.perf_counter()
+    nccl = ranks.launch(f"{os.path.abspath(__file__)}:_nccl_rank", 1,
+                        mesh=((1,), ("dev",)), backend="nccl",
+                        device="cuda", args=({},), timeout=300)[0]
+    if not (nccl["faa_oneshot"] and nccl["cas_perop"]):
+        bad.append(f"NCCL world-size-1 run: {nccl}")
+    nccl["seconds"] = time.perf_counter() - t1
+    try:
+        pair = ranks.launch(f"{os.path.abspath(__file__)}:_nccl_pair_rank",
+                            2, mesh=((2,), ("dev",)), backend="nccl",
+                            device="cuda", args=({},), timeout=120,
+                            collective_timeout_s=60)
+        pair_error = f"no error: {pair}"
+    except ranks.RankFailed as e:
+        # NCCL's own words: the "Duplicate GPU" line, else the lines after
+        # its "Last error:"
+        lines = str(e).splitlines()
+        dup = [ln for ln in lines if "Duplicate GPU" in ln]
+        last = [k for k, ln in enumerate(lines) if "Last error" in ln]
+        pair_error = " | ".join(
+            dup[:1] or (lines[last[-1]:last[-1] + 3] if last
+                        else lines[-3:]))[-600:]
+    unchecked = [c for c in out[0]["cases"] if not c["gated"]]
+    emit("sharded", ranks=SH_WORLD, mesh=dict(zip(SH_AXES, SH_SHAPE)),
+         n_per_rank=SH_N, m_global=SH_M, seconds=wall,
+         rank_seconds={k: max(o[k] for o in out) for k in (
+             "oracle_s", "cases_s", "bfs_s", "main_s")},
+         transport="gloo", host_staged=out[0]["host_staged"],
+         cases=len(out[0]["cases"]), cases_checked_per_rank=sum(
+             c["gated"] for c in out[0]["cases"]),
+         not_gated=unchecked, bad=bad[:20],
+         stats_levels=[c.get("level_ops") for c in out[0]["cases"]
+                       if "stats" in c],
+         bfs={op: {k: v for k, v in r.items() if k != "parent"}
+              for op, r in out[0]["bfs"].items()},
+         retry={o["rank"]: o["retry"] for o in out[:1]},
+         levels=out[0]["levels"], launches=launches,
+         timing=[dict(rank=o["rank"], **t) for o in out
+                 for t in o["timing"]],
+         nccl_world1=nccl, nccl_two_ranks_one_card=pair_error)
+    if bad:
+        raise AssertionError(f"sharded phase: {bad[:10]}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     # f32 products in full f32 on the card (the plain versions' matmuls)
@@ -1770,6 +2307,11 @@ def main():
     suite_results, suite_launches = phase_suites()  # its own main path
     launches.update(suite_launches)
     rows += serial_timing(gen, suite_results["latency"])
+    # the sharded tier last, on the local BFS's graph: its main path runs
+    # inside its ranks, which reset and read their own counts, and their
+    # sums join the kernels line
+    for k, v in phase_sharded(*bfs_graph).items():
+        launches[k] += v
     headline = {"rmw_table": ("faa", "uniform_bfs_n"),
                 "rmw_table_fetched": ("cas", "uniform_bfs_n"),
                 "slot_counts": ("count", "uniform_bfs_n"),

@@ -1,6 +1,6 @@
-"""Atomics front-end of the port: one typed API over the local RMW tier.
+"""Atomics front-end of the port: one typed API over both RMW tiers.
 
-Port of `repro.atomics`, local tier.  Callers declare **what** they want
+Port of `repro.atomics`.  Callers declare **what** they want
 done (a typed op batch against a typed table) and the engine's cost model
 decides **how**::
 
@@ -16,20 +16,35 @@ decides **how**::
                     need_fetched=False)                    # table-only path
     atomics.arrival_rank(keys, num_keys)                   # FAA-fetch rank
 
-Every result equals `core.rmw.rmw_serialized` applied to the same batch.
-The sharded tier, `execute_until`, the layout and resharding come with later
-slices.
+    # every rank of an initialised torch.distributed world:
+    mesh = Mesh((2, 4), ("pod", "dev"))
+    shard = atomics.make_table(1 << 20, torch.int32, mesh=mesh,
+                               axis=("pod", "dev"))        # this rank's
+    atomics.execute(shard, atomics.Faa(global_idx, vals))  # shard
+
+    atomics.execute_until(table, make_ops, max_rounds=8,
+                          policy="immediate")    # bounded CAS-loop retry
+
+Every result equals `core.rmw.rmw_serialized` applied to the same batch (on
+a mesh: to the rank-ordered concatenation of the per-rank batches,
+`layout.TableLayout`).  Resharding comes with a later slice.
 """
 
 from repro_torch.atomics.ops import (  # noqa: F401
     OP_KINDS, AtomicOp, Cas, Faa, Max, Min, Swp)
 from repro_torch.atomics.table import AtomicTable, make_table  # noqa: F401
+from repro_torch.atomics.layout import TableLayout  # noqa: F401
 from repro_torch.atomics.stats import ContentionStats  # noqa: F401
 from repro_torch.atomics.execute import (  # noqa: F401
     AtomicResult, arrival_rank, execute)
+from repro_torch.atomics.retry import (  # noqa: F401
+    POLICIES, ExponentialBackoff, ImmediateRetry, RetryPolicy, RetryResult,
+    ShrinkBatch, execute_until)
 
 __all__ = [
     "AtomicOp", "Faa", "Swp", "Min", "Max", "Cas", "OP_KINDS",
-    "AtomicTable", "make_table", "AtomicResult", "ContentionStats",
-    "execute", "arrival_rank",
+    "AtomicTable", "make_table", "TableLayout",
+    "AtomicResult", "ContentionStats", "execute", "arrival_rank",
+    "RetryPolicy", "RetryResult", "execute_until", "POLICIES",
+    "ImmediateRetry", "ShrinkBatch", "ExponentialBackoff",
 ]

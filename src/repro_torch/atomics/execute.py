@@ -1,12 +1,23 @@
-"""`execute`: the one entry point of the local RMW tier.
+"""`execute`: one entry point over both RMW execution tiers.
 
-Port of `repro.atomics.execute`, local tier.  A typed op batch against an
-:class:`~repro_torch.atomics.table.AtomicTable` runs on the engine backend
-the cost model picks for the table's device (`core.rmw_engine`), or the one
-named by ``backend=``.  Per-op-expected CAS runs on the serialized oracle.
+Port of `repro.atomics.execute`.  Dispatch:
+
+1. **Tier** — an :class:`~repro_torch.atomics.table.AtomicTable` sharded
+   over mesh axes (``table.axis``, with its ``table.mesh``) routes to the
+   sharded tier (`core.rmw_sharded.execute_sharded`; every rank of the
+   mesh calls `execute` together); a local table routes to the engine
+   registry (`core.rmw_engine`).  A sharded table without a mesh, and the
+   sharded-only arguments on a local table, raise with guidance.
+2. **Strategy/backend** — the cost models pick the implementation:
+   `select_backend` over the engine backends for the table's device,
+   `select_exchange` over the exchange strategies; ``backend=`` and
+   ``strategy=`` override them.
+3. **Semantics** — per-op-expected CAS runs on the serialized oracle
+   locally, and across shards through the owner-side oracle pass.
+
 Every path returns results equal to `core.rmw.rmw_serialized` on the same
-batch.  (The reference's telemetry branch and sharded tier come with their
-own slices.)
+batch (sharded: on the rank-ordered concatenation).  (The reference's
+telemetry branch comes with its own slice.)
 """
 
 from __future__ import annotations
@@ -14,7 +25,9 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.atomics import contracts as _contracts
 from repro_torch.atomics import stats as _cstats
 from repro_torch.atomics.ops import AtomicOp
 from repro_torch.atomics.table import AtomicTable
@@ -64,12 +77,55 @@ def _local_exec_stats(table: Tensor, indices: Tensor, values: Tensor,
 
 
 def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
-                 backend: str, spec, collect_stats: bool):
+                 backend: str, strategy: str, spec,
+                 distinct_slots: Optional[int], reverse_ranks: bool,
+                 collect_stats: bool):
     if not isinstance(op, AtomicOp):
         raise TypeError(
             f"ops must be atomics.Faa/Swp/Min/Max/Cas instances, "
             f"got {type(op).__name__}")
+    if _contracts._observer is not None:
+        _contracts.notify(
+            "execute", table=table, op=op, need_fetched=need_fetched,
+            backend=backend, strategy=strategy,
+            distinct_slots=distinct_slots, reverse_ranks=reverse_ranks)
     stats = None
+    if table.is_sharded:
+        if table.mesh is None or not dist.is_initialized():
+            raise ValueError(
+                f"AtomicTable is sharded over mesh axes {table.axis!r} but "
+                f"has no process group: build it with make_table(..., "
+                f"mesh=Mesh(...)) on every rank of an initialised "
+                f"torch.distributed world (the sharded tier uses "
+                f"collectives), or build a local table")
+        # deferred: core.rmw_sharded imports this package's layout and
+        # stats, so binding it here keeps the package import acyclic
+        from repro_torch.core.rmw_sharded import execute_sharded
+        res = execute_sharded(
+            table.data, op.indices, op.values, op.kind, op.expected,
+            mesh=table.mesh, axis=table.axis,
+            replica_axes=table.replica_axes, strategy=strategy,
+            backend=backend, spec=spec, need_fetched=need_fetched,
+            distinct_slots=distinct_slots, reverse_ranks=reverse_ranks,
+            collect_stats=collect_stats)
+        if collect_stats:
+            res, stats = res
+        return table.with_data(res.table), res.fetched, res.success, stats
+    if reverse_ranks:
+        # on one device the caller owns the whole order: reversing is just
+        # flipping the batch
+        raise ValueError(
+            "reverse_ranks reverses the rank arrival order of the sharded "
+            "tier; for a local table reverse the batch itself "
+            "(indices.flip(0), values.flip(0))")
+    if strategy != "auto" or distinct_slots is not None:
+        # exchange strategies and hints exist only on the sharded tier:
+        # running locally would silently skip the exchange
+        raise ValueError(
+            f"strategy={strategy!r} / distinct_slots apply to the sharded "
+            f"tier only, but the table is local — build it sharded "
+            f"(make_table(..., mesh=..., axis=...)) or drop the "
+            f"sharded-tier arguments")
     if collect_stats:
         resolved = backend
         if resolved == "auto":
@@ -90,43 +146,57 @@ def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
 
 def execute(table: Union[AtomicTable, Tensor],
             ops: Union[AtomicOp, Sequence[AtomicOp]], *,
-            need_fetched: bool = True, backend: str = "auto", spec=None,
+            need_fetched: bool = True, backend: str = "auto",
+            strategy: str = "auto", spec=None,
+            distinct_slots: Optional[int] = None,
+            reverse_ranks: bool = False,
             collect_stats: bool = False) -> AtomicResult:
-    """Execute typed RMW op batches against a local table, cost-model-routed.
+    """Execute typed RMW op batches against a table, cost-model-routed.
 
     Args:
-      table: an :class:`AtomicTable` (or a bare 1-D tensor).  The ops'
-        tensors live on the table's device.
+      table: an :class:`AtomicTable` (or a bare 1-D tensor, a local
+        table).  The ops' tensors live on the table's device.  A sharded
+        table's ``data`` is this rank's shard and ``indices`` are *global*
+        slot ids; every rank of its mesh calls `execute` together.
       ops: one op batch (``atomics.Faa(idx, vals)`` ...) or a sequence,
         applied in order against the running table.
       need_fetched: False lets backends skip the per-op fetch machinery
         (table-only fast paths); ``fetched``/``success`` are then
         placeholders.
-      backend: engine backend ("auto" = `rmw_engine.select_backend` for the
-        table's device; or "serialized", "sort", "onehot", "cuda").
-      spec: `perf_model.HardwareSpec` override for the cost model.
+      backend: engine backend for local execution and the pre-combine /
+        resolve passes of the sharded tier ("auto" =
+        `rmw_engine.select_backend` for the table's device; or
+        "serialized", "sort", "onehot", "cuda").
+      strategy: exchange strategy of the sharded tier ("auto" =
+        `rmw_sharded.select_exchange`).
+      spec: `perf_model.HardwareSpec` override for the cost models.
+      distinct_slots: sharded tier only — an observed estimate of the
+        distinct slots a batch touches, the exchange selector's contention
+        hint (selection only).
+      reverse_ranks: sharded tier only — serialize ranks in *descending*
+        order (the arrival order reversed at every exchange level).
       collect_stats: True additionally computes the batch's
         :class:`~repro_torch.atomics.stats.ContentionStats` — returned as
-        ``result.stats``.  Results are identical either way.
+        ``result.stats`` (sharded: mesh-global, with per-level combining
+        counts).  Results are identical either way.
 
     Returns:
       :class:`AtomicResult`, equal to the serialized oracle.
     """
     if not isinstance(table, AtomicTable):
         table = AtomicTable(table)
+    kw = dict(need_fetched=need_fetched, backend=backend, strategy=strategy,
+              spec=spec, distinct_slots=distinct_slots,
+              reverse_ranks=reverse_ranks, collect_stats=collect_stats)
     if isinstance(ops, AtomicOp):
-        table, fetched, success, stats = _execute_one(
-            table, ops, need_fetched=need_fetched, backend=backend,
-            spec=spec, collect_stats=collect_stats)
+        table, fetched, success, stats = _execute_one(table, ops, **kw)
         return AtomicResult(table, fetched, success, stats)
     ops = tuple(ops)
     if not ops:
         raise ValueError("ops is empty")
     fetched_l, success_l, stats_l = [], [], []
     for op in ops:
-        table, fetched, success, stats = _execute_one(
-            table, op, need_fetched=need_fetched, backend=backend,
-            spec=spec, collect_stats=collect_stats)
+        table, fetched, success, stats = _execute_one(table, op, **kw)
         fetched_l.append(fetched)
         success_l.append(success)
         stats_l.append(stats)

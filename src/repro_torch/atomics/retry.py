@@ -1,0 +1,341 @@
+"""`execute_until`: bounded-retry combinator for CAS loops, both tiers.
+
+Port of `repro.atomics.retry`.  A failed CAS already *fetched* the winning
+value — that pre-image is exactly the next attempt's ``expected``, so a
+retry round never needs a separate read.  This module is that loop:
+
+* each round executes one batched `atomics.execute`, on the local engine
+  tier or, for a sharded table, on the sharded exchange tier (every rank
+  of the table's mesh calls `execute_until` with the same ``make_ops``;
+  each round's ops are scattered contiguously over the ranks in arrival
+  order, and the round's fetched and success values gathered back, so
+  every rank holds the same round history);
+* only the **failed** ops are re-batched, their fetched pre-images becoming
+  the next round's per-op ``expected`` and their payloads recomputed by
+  the caller's ``make_ops`` (the ``F`` in the lock-free ``CAS(x, v, F(v))``);
+* a pluggable :class:`RetryPolicy` shapes the retry stream (arxiv
+  1305.5800): retry everything at once (``immediate``), shrink the
+  per-round batch (``shrink``), or space rounds with exponentially growing
+  idle time (``exponential``);
+* the result carries **per-op round counts**.
+
+Convergence: a fully contended batch (every op on one slot) resolves
+exactly one op per round — each round's first pending op sees its
+expected value and wins — so ``n`` ops need ``<= n`` rounds on both
+tiers.  Within a round, ops execute in batch order (on a mesh, the rank
+concatenation re-creates it), so the local and sharded tiers produce
+identical round histories.
+
+(The reference's per-round telemetry events and the tuning controller's
+contention estimator come with their own slices.)
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Any, Callable, Dict, NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.atomics import contracts as _contracts
+from repro_torch.atomics.layout import norm_axes
+from repro_torch.atomics.ops import OP_KINDS, AtomicOp, Cas
+from repro_torch.atomics.table import AtomicTable
+
+Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Retry policies (arxiv 1305.5800: contention management as explicit policy)
+# ---------------------------------------------------------------------------
+
+class RetryPolicy:
+    """How failures are re-offered: batch sizing + inter-round spacing.
+
+    ``batch_size(n_pending, rnd)`` says how many of the pending ops round
+    ``rnd`` may issue; ``delay_s(rnd)`` is idle time *before* round
+    ``rnd`` (0 for the first round).
+    """
+
+    name = "custom"
+
+    def batch_size(self, n_pending: int, rnd: int) -> int:
+        return n_pending
+
+    def delay_s(self, rnd: int) -> float:
+        return 0.0
+
+    def __repr__(self):
+        return f"{type(self).__name__}()"
+
+
+class ImmediateRetry(RetryPolicy):
+    """Re-offer every failed op next round, no spacing."""
+
+    name = "immediate"
+
+
+class ShrinkBatch(RetryPolicy):
+    """Shrink the retry batch by ``factor`` each round after the first:
+    losers that were going to fail anyway never hit the exchange."""
+
+    name = "shrink"
+
+    def __init__(self, factor: float = 0.5, min_batch: int = 1):
+        if not 0.0 < factor <= 1.0:
+            raise ValueError(f"factor must be in (0, 1], got {factor}")
+        self.factor = factor
+        self.min_batch = max(1, int(min_batch))
+
+    def batch_size(self, n_pending: int, rnd: int) -> int:
+        if rnd == 0:
+            return n_pending
+        return max(self.min_batch, math.ceil(n_pending * self.factor))
+
+
+class ExponentialBackoff(RetryPolicy):
+    """Full retry batches spaced by exponentially growing idle time."""
+
+    name = "exponential"
+
+    def __init__(self, base_s: float = 1e-4, factor: float = 2.0,
+                 max_s: float = 0.1):
+        self.base_s = float(base_s)
+        self.factor = float(factor)
+        self.max_s = float(max_s)
+
+    def delay_s(self, rnd: int) -> float:
+        if rnd <= 0:
+            return 0.0
+        return min(self.max_s, self.base_s * self.factor ** (rnd - 1))
+
+
+POLICIES: Dict[str, Callable[[], RetryPolicy]] = {
+    "immediate": ImmediateRetry,
+    "shrink": ShrinkBatch,
+    "exponential": ExponentialBackoff,
+}
+
+
+def _resolve_policy(policy: Union[str, RetryPolicy]) -> RetryPolicy:
+    if isinstance(policy, RetryPolicy):
+        return policy
+    try:
+        return POLICIES[policy]()
+    except KeyError:
+        raise ValueError(f"unknown retry policy {policy!r}; have "
+                         f"{tuple(POLICIES)} or a RetryPolicy instance")
+
+
+class RetryResult(NamedTuple):
+    """Outcome of :func:`execute_until` (host arrays, original batch order).
+
+    ``fetched[i]`` is op i's *last observed pre-image*; ``success[i]``
+    whether it resolved within the round budget; ``rounds[i]`` how many
+    attempts it took (1 = first try); ``pending`` the original positions
+    still unresolved.  ``stats`` is round 0's
+    :class:`~repro_torch.atomics.stats.ContentionStats` when the loop was
+    asked for it (``collect_stats=True``), else None.
+    """
+
+    table: AtomicTable
+    fetched: np.ndarray
+    success: np.ndarray
+    rounds: np.ndarray
+    n_rounds: int
+    pending: np.ndarray
+    stats: Any = None
+
+
+# ---------------------------------------------------------------------------
+# One round on either tier
+# ---------------------------------------------------------------------------
+
+def _op(kind: str, idx: Tensor, vals: Tensor, exp: Optional[Tensor]):
+    if kind == "cas":
+        return Cas(idx, vals, expected=exp)
+    return OP_KINDS[kind](idx, vals)
+
+
+def _exec_round_sharded(table: AtomicTable, kind: str, idx, vals, exp, *,
+                        backend: str, strategy: str, spec, distinct_slots,
+                        collect_stats: bool):
+    """One round on a sharded table: the round's ops padded to ``per``
+    (a power of two) times the ranks, rank r taking the r-th slice in
+    arrival order; fetched and success gathered back to every rank."""
+    from repro_torch.atomics.execute import execute
+    mesh = table.mesh
+    axes = norm_axes(table.replica_axes) + norm_axes(table.axis)
+    n_dev = mesh.size(axes)
+    m_global = int(table.data.shape[0]) * mesh.size(table.axis)
+    dev = table.device
+    k = len(idx)
+    # a power of two a rank bounds the distinct shapes as the pending set
+    # drains; padding ops target slot m_global (dropped: no table effect)
+    per = 1 << max(0, (max(1, -(-k // n_dev)) - 1)).bit_length()
+    total = per * n_dev
+    idx_p = np.full(total, m_global, np.int64)
+    idx_p[:k] = idx
+    vals_p = np.zeros(total, vals.dtype)
+    vals_p[:k] = vals
+    exp_p = np.zeros(total, vals.dtype)
+    if exp is not None:
+        exp_p[:k] = exp
+    me = slice(mesh.index(axes) * per, (mesh.index(axes) + 1) * per)
+    t = lambda a, dt=None: torch.as_tensor(a[me], device=dev).to(
+        dt or table.dtype)
+    op = _op(kind, t(idx_p, torch.int32), t(vals_p),
+             t(exp_p) if kind == "cas" else None)
+    res = execute(table, op, need_fetched=True, backend=backend,
+                  strategy=strategy, spec=spec,
+                  distinct_slots=distinct_slots,
+                  collect_stats=collect_stats)
+    rows = torch.stack([res.fetched.contiguous().view(torch.int32),
+                        res.success.to(torch.int32)], -1)
+    rows = mesh.all_gather(rows, axes).cpu()
+    fetched = rows[:k, 0].contiguous().view(table.dtype).numpy()
+    return res.table, fetched, rows[:k, 1].numpy().astype(bool), res.stats
+
+
+def _exec_round(table: AtomicTable, kind: str, idx, vals, exp, *,
+                backend: str, strategy: str, spec, distinct_slots,
+                collect_stats: bool):
+    if table.is_sharded:
+        return _exec_round_sharded(
+            table, kind, idx, vals, exp, backend=backend, strategy=strategy,
+            spec=spec, distinct_slots=distinct_slots,
+            collect_stats=collect_stats)
+    from repro_torch.atomics.execute import execute
+    dev = table.device
+    t = lambda a, dt=None: torch.as_tensor(a, device=dev).to(
+        dt or table.dtype)
+    op = _op(kind, t(idx, torch.int32), t(vals),
+             t(exp) if kind == "cas" else None)
+    res = execute(table, op, need_fetched=True, backend=backend, spec=spec,
+                  collect_stats=collect_stats)
+    return (res.table, res.fetched.cpu().numpy(),
+            res.success.cpu().numpy().astype(bool), res.stats)
+
+
+# ---------------------------------------------------------------------------
+# The combinator
+# ---------------------------------------------------------------------------
+
+def _host(x, dtype) -> np.ndarray:
+    if isinstance(x, Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x).astype(dtype)
+
+
+def execute_until(table: Union[AtomicTable, Tensor],
+                  make_ops: Callable, *,
+                  max_rounds: int = 16,
+                  policy: Union[str, RetryPolicy] = "immediate",
+                  backend: str = "auto", strategy: str = "auto",
+                  spec=None, distinct_slots: Optional[int] = None,
+                  collect_stats: bool = False,
+                  sleep_fn: Callable[[float], None] = time.sleep
+                  ) -> RetryResult:
+    """Drive a batch of CAS loops to convergence in ``<= max_rounds`` rounds.
+
+    * ``make_ops(None, None)`` (round 0) returns the initial
+      :class:`~repro_torch.atomics.ops.AtomicOp` batch — typically a
+      ``Cas`` (scalar or per-op ``expected``); any other op kind resolves
+      in one round.
+    * ``make_ops(slots, observed)`` (later rounds) receives the pending
+      ops' slots and latest fetched pre-images (tensors on the table's
+      device) and returns the new *values* for exactly those ops, or a full
+      ``AtomicOp`` over them to also override ``expected``, or ``None`` to
+      give up.  The combinator supplies ``expected = observed``.
+
+    The table may be local or sharded; on a sharded table every rank of
+    its mesh calls `execute_until` with the same ``make_ops`` and gets the
+    same result.  ``strategy`` and ``distinct_slots`` apply to the sharded
+    tier.  ``collect_stats=True`` returns round 0's contention stats in
+    ``result.stats``.
+    """
+    pol = _resolve_policy(policy)
+    if max_rounds < 1:
+        raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
+    if _contracts._observer is not None:
+        _contracts.notify("execute_until", table=table,
+                          max_rounds=max_rounds, policy=pol.name)
+    if not isinstance(table, AtomicTable):
+        table = AtomicTable(table)
+    op0 = make_ops(None, None)
+    if not isinstance(op0, AtomicOp):
+        raise TypeError(
+            f"make_ops(None, None) must return an atomics op batch "
+            f"(got {type(op0).__name__}) — e.g. "
+            f"atomics.Cas(indices, values, expected=...)")
+    kind = op0.kind
+    n = int(op0.indices.shape[0])
+    dt = torch.empty((), dtype=table.dtype).numpy().dtype
+    slots = _host(op0.indices, np.int64).copy()
+    values = _host(op0.values, dt).copy()
+    is_cas = kind == "cas"
+    expected = (np.broadcast_to(_host(op0.expected, dt), (n,)).copy()
+                if is_cas else None)
+    observed = expected.copy() if is_cas else np.zeros(n, dt)
+    success = np.zeros(n, bool)
+    rounds = np.zeros(n, np.int64)
+    pending = np.arange(n)
+    stats0 = None
+    dev = table.device
+
+    n_rounds = 0
+    while len(pending) and n_rounds < max_rounds:
+        rnd = n_rounds
+        if rnd > 0:
+            d = pol.delay_s(rnd)
+            if d > 0:
+                sleep_fn(d)
+            made = make_ops(torch.as_tensor(slots[pending], device=dev),
+                            torch.as_tensor(observed[pending], device=dev))
+            if made is None:
+                break
+            if isinstance(made, AtomicOp):
+                if made.kind != kind or \
+                        int(made.indices.shape[0]) != len(pending):
+                    raise ValueError(
+                        f"make_ops must re-batch exactly the pending ops: "
+                        f"wanted {len(pending)} {kind!r} ops, got "
+                        f"{int(made.indices.shape[0])} {made.kind!r}")
+                slots[pending] = _host(made.indices, np.int64)
+                values[pending] = _host(made.values, dt)
+                if is_cas:
+                    expected[pending] = np.broadcast_to(
+                        _host(made.expected, dt), (len(pending),))
+            else:
+                vals_new = _host(made, dt)
+                if vals_new.shape != (len(pending),):
+                    raise ValueError(
+                        f"make_ops returned values of shape "
+                        f"{vals_new.shape}; want ({len(pending)},) — one "
+                        f"value per pending op")
+                values[pending] = vals_new
+                if is_cas:
+                    # the feedback loop: pre-image becomes next expected
+                    expected[pending] = observed[pending]
+        k = max(1, min(pol.batch_size(len(pending), rnd), len(pending)))
+        issue, defer = pending[:k], pending[k:]
+        table, fetched, ok, st = _exec_round(
+            table, kind, slots[issue], values[issue],
+            expected[issue] if is_cas else None, backend=backend,
+            strategy=strategy, spec=spec, distinct_slots=distinct_slots,
+            collect_stats=collect_stats and rnd == 0)
+        if st is not None:
+            stats0 = st
+        observed[issue] = fetched
+        rounds[issue] += 1
+        success[issue] = ok
+        # freshly failed ops lead the next round: their pre-images are
+        # current, so a round issuing any of them always makes progress;
+        # deferred ops (stale pre-images under a shrinking policy) trail
+        pending = np.concatenate([issue[~ok], defer])
+        n_rounds += 1
+    return RetryResult(table=table, fetched=observed, success=success,
+                       rounds=rounds, n_rounds=n_rounds,
+                       pending=np.sort(pending), stats=stats0)

@@ -1,4 +1,4 @@
-"""Device-side contention statistics for the local RMW tier.
+"""Device-side contention statistics for the RMW tiers.
 
 Port of `repro.atomics.stats`.  A small ``ContentionStats`` tuple of device
 tensors computed from the per-slot occupancy of a batch, returned alongside
@@ -12,13 +12,14 @@ results when callers opt in with ``collect_stats=``:
   ...; the top bucket absorbs the tail)
 * ``topk_slots`` / ``topk_counts`` — (TOPK,) int32, hottest slot ids and
   their occupancy; ``-1`` slot id where fewer than TOPK slots are occupied
-* ``level_ops_in`` / ``level_ops_out`` — (0,) int32 on the local tier (the
-  sharded tier's per-exchange-level counts)
+* ``level_ops_in`` / ``level_ops_out`` — (L,) int32: ops entering each
+  exchange level of the sharded tier and the combined reps leaving it
+  (``L = 0`` on the local tier)
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -52,18 +53,21 @@ def occupancy_hist(occ: Tensor) -> Tensor:
                           )[:HIST_BINS].to(torch.int32)
 
 
-def topk_hot(occ: Tensor):
+def topk_hot(occ: Tensor, slot_ids: Optional[Tensor] = None):
     """Hottest TOPK slots of an occupancy vector: ``(slots, counts)``.
 
-    Ties go to the lowest slot id (the reference's repeated argmax), and
-    ``-1`` marks a slot id whose count is zero.
+    ``slots`` are positions in ``occ``, or taken from ``slot_ids`` when
+    given (an owner shard's rows as global slot ids, say).  Ties go to the
+    lowest position (the reference's repeated argmax), and ``-1`` marks a
+    slot whose count is zero.
     """
     occ = occ.to(torch.int32)
     k = min(TOPK, occ.shape[0])
-    # stable descending sort keeps equal counts in slot order
+    # stable descending sort keeps equal counts in position order
     order = torch.sort(occ, descending=True, stable=True).indices[:k]
     counts = occ[order].clamp(min=0)
-    slots = torch.where(counts > 0, order.to(torch.int32), -1)
+    ids = order if slot_ids is None else slot_ids[order]
+    slots = torch.where(counts > 0, ids.to(torch.int32), -1)
     if k < TOPK:
         pad = torch.full((TOPK - k,), -1, dtype=torch.int32, device=occ.device)
         slots = torch.cat([slots, pad])

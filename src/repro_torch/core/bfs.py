@@ -1,6 +1,6 @@
 """Graph500-style BFS with selectable RMW combiner semantics (paper §6.1).
 
-Port of `repro.core.bfs` (single device).  The paper's point: CAS/SWP/FAA
+Port of `repro.core.bfs`.  The paper's point: CAS/SWP/FAA
 cost the same, so pick the primitive whose *semantics* fit — for the
 bfs_tree parent array, CAS (set-if-unvisited) and SWP (swap + revert) give
 simple protocols while FAA needs a revert scheme.  Per BFS level, all
@@ -10,6 +10,8 @@ default — on the card, the hand-written kernels.
 
 The level loop is eager: one host check of ``frontier.any()`` per level, at
 most ``max_levels`` levels, as the reference's ``lax.while_loop``.
+`bfs_sharded` runs the same search with the parent table sharded over a
+mesh axis of `repro_torch.launch.mesh.Mesh` (every rank calls it).
 """
 
 from __future__ import annotations
@@ -118,6 +120,80 @@ def bfs(src, dst, n: int, root: int = 0, op: str = "cas",
         parent = new_parent
         lvl += 1
     return BfsResult(parent=parent, levels=lvl, edges_traversed=int(edges))
+
+
+def bfs_sharded(src, dst, n: int, root: int = 0, *, mesh, axis="dev",
+                strategy: str = "auto", op: str = "cas",
+                backend: str = "auto", device="cuda",
+                max_levels: int = 64) -> BfsResult:
+    """Level-synchronous BFS with the **parent table sharded over a mesh**.
+
+    Every rank of ``mesh`` calls it with the same edge list.  The parent
+    array is sharded over ``axis`` (vertex ``v`` owned by shard
+    ``v // n_local``); the edges are padded to a multiple of the ranks
+    (with the drop row ``n_pad`` as both ends) and split over the same
+    ranks, contiguously in rank order.  Each level gathers the frontier
+    (``all_gather_into_tensor``) and issues every frontier edge's parent
+    update through the sharded tier of `repro_torch.atomics.execute`; one
+    ``all_reduce`` per level carries the edge count and the "more" flag.
+    Parents equal the single-device `bfs`: the arrival-order contract
+    serializes edges in (rank, local) order, the unsharded edge order.
+
+    ``op`` picks the combiner protocol, as in `bfs`: ``"cas"``
+    (set-if-unvisited, table-only) or ``"swp"`` (swap, then replay the
+    revert stream **globally reversed**: locally reversed batches under
+    ``reverse_ranks=True``).  Returns the whole parent array on every rank.
+    """
+    if op not in ("cas", "swp"):
+        raise ValueError(f"bfs_sharded supports op 'cas' or 'swp', "
+                         f"got {op!r}")
+    dev = torch.device(device)
+    ndev = mesh.size(axis)
+    me = mesh.index(axis)
+    n_pad = -(-n // ndev) * ndev
+    n_loc = n_pad // ndev
+    src, dst = np.asarray(src), np.asarray(dst)
+    e_loc = -(-len(src) // ndev)
+    lo, hi = me * e_loc, min((me + 1) * e_loc, len(src))
+    s = torch.full((e_loc,), n_pad, dtype=torch.int32, device=dev)
+    d = torch.full((e_loc,), n_pad, dtype=torch.int32, device=dev)
+    if hi > lo:
+        s[:hi - lo] = _edges(np.array(src[lo:hi]), dev)   # a copy: the
+        d[:hi - lo] = _edges(np.array(dst[lo:hi]), dev)   # edges may be
+        #                                                   a read-only map
+    s_long = s.long().clamp(max=n_pad - 1)
+    parent = torch.full((n_loc,), -1, dtype=torch.int32, device=dev)
+    frontier = torch.zeros((n_loc,), dtype=torch.uint8, device=dev)
+    if root // n_loc == me:
+        parent[root % n_loc] = root
+        frontier[root % n_loc] = 1
+    edges, lvl, more = 0, 0, True
+    kw = dict(strategy=strategy, backend=backend)
+    while more and lvl < max_levels:
+        fg = mesh.all_gather(frontier, axis).bool()          # (n_pad,)
+        active = fg[s_long] & (s < n_pad)
+        cand = torch.where(active, d, n_pad)                 # OOR drops
+        tbl = atomics.AtomicTable(parent, axis=axis, mesh=mesh)
+        if op == "cas":
+            new_parent = atomics.execute(
+                tbl, atomics.Cas(cand, s, expected=-1), need_fetched=False,
+                **kw).table.data
+        else:  # swp + revert (see `bfs`)
+            res = atomics.execute(tbl, atomics.Swp(cand, s), **kw)
+            revert_idx = torch.where(res.fetched != -1, cand, n_pad)
+            new_parent = atomics.execute(
+                res.table, atomics.Swp(revert_idx.flip(0),
+                                       res.fetched.flip(0)),
+                need_fetched=False, reverse_ranks=True, **kw).table.data
+        newf = (new_parent != -1) & (parent == -1)
+        counts = mesh.all_reduce(torch.stack(
+            [active.sum(), newf.sum()]).to(torch.int64), axis).tolist()
+        edges += counts[0]
+        more = counts[1] > 0
+        parent, frontier = new_parent, newf.to(torch.uint8)
+        lvl += 1
+    full = mesh.all_gather(parent, axis)[:n]
+    return BfsResult(parent=full, levels=lvl, edges_traversed=int(edges))
 
 
 def validate_parents(src, dst, parent, root: int) -> bool:

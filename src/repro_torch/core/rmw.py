@@ -326,27 +326,42 @@ def _cas_uniform(table: Tensor, indices: Tensor, values: Tensor,
                  expected) -> RmwResult:
     """CAS with one shared expected value: first collider at a matching slot
     wins; later colliders observe the winner's value and fail (paper's BFS
-    pattern: cas(parent[v], -1, u)).  1-D tables only."""
+    pattern: cas(parent[v], -1, u)).  1-D tables only.
+
+    Serialized chain semantics: ops succeed while the slot still compares
+    equal to `expected`, each writing its value; the first op whose value
+    compares unequal ("break op") ends the chain.  Before it, every op
+    observes its predecessor's value, bits included: a float ±0 written
+    over the other zero keeps the chain alive but changes the slot's bits.
+    """
     m = table.shape[0]
     e = torch.as_tensor(expected, dtype=table.dtype, device=table.device)
     _, inv, idx_s, seg_start, (val_s,) = _sort_by_index(
         indices, values.to(table.dtype))
     base = _gather_clamped(table, idx_s)
     matches = base == e  # slot held `expected` before the batch
-    # Serialized chain semantics: ops succeed while the slot still holds
-    # `expected`.  Writing desired == expected keeps the chain alive; the
-    # first op writing desired != expected ("break op") ends it.
     eq = (val_s == e).to(torch.int32)
     incl_alive = segmented_scan(eq, seg_start, torch.minimum)
     alive_excl = _exclusive_from_inclusive(incl_alive, seg_start, 1).bool()
     success_s = matches & alive_excl
     break_op = success_s & (eq == 0)
-    contrib = torch.where(break_op, val_s, torch.zeros_like(val_s))
-    incl_break = segmented_scan(contrib, seg_start, torch.add)
-    break_excl = _exclusive_from_inclusive(incl_break, seg_start, 0)
-    fetched_s = torch.where(alive_excl | ~matches, base, break_excl)
-    # Table write: only the break op changes the slot's value.
-    w = torch.where(break_op, _scatter_slot(idx_s, m + 1), m)
+    # the break op's value, to every later op of its segment: its position
+    # by a max-scan (one break op a segment), then a gather that keeps its
+    # bits (a sum of zeros would turn a −0 into +0)
+    at = torch.arange(val_s.shape[0], device=val_s.device)
+    incl_break = segmented_scan(torch.where(break_op, at, -1), seg_start,
+                                torch.maximum)
+    break_at = _exclusive_from_inclusive(incl_break, seg_start, -1)
+    break_excl = val_s[break_at.clamp(min=0)]
+    prev = torch.cat([base[:1], val_s[:-1]])   # the predecessor's value
+    alive_seen = torch.where(seg_start, base, prev)
+    fetched_s = torch.where(~matches, base,
+                            torch.where(alive_excl, alive_seen, break_excl))
+    # Table write: the break op, or, where the chain stays alive through
+    # the segment, its last op (equal to `expected`, maybe not in bits)
+    seg_end = torch.cat([seg_start[1:], seg_start.new_ones(1)])
+    last_alive = seg_end & matches & incl_alive.bool()
+    w = torch.where(break_op | last_alive, _scatter_slot(idx_s, m + 1), m)
     padded = _padded(table)
     padded[w] = val_s
     return RmwResult(padded[:m], fetched_s[inv], success_s[inv])

@@ -55,6 +55,10 @@ Tensor = torch.Tensor
 
 #: default batch-block edge for the blocked one-hot backend
 DEFAULT_ONEHOT_BLOCK = 128
+#: key spaces up to this size take `_arrival_rank_sortfree`'s dense one-hot
+#: path at any batch size (the sharded tier's lanes: one key a rank, and a
+#: scratch key)
+_DENSE_RANK_KEYS = 64
 
 
 def _is_uniform_expected(expected) -> bool:
@@ -136,15 +140,21 @@ def rmw_onehot(table: Tensor, indices: Tensor, values: Tensor, op: str,
             is_last = ~(eq_key & (pos[:, None] < pos[None, :])).any(1)
             acc[torch.where(is_last, ib, m)] = vb
         else:  # cas, uniform expected
-            # Serialized CAS chains compose associatively: the slot's value
-            # after a collider group is `first value != expected`.
+            # Serialized CAS chains compose associatively: after a collider
+            # group a live slot holds its first value != expected, else its
+            # last value (equal to expected, maybe not in bits: ±0).
             ne = vb != exp
             fpos = torch.where(same & ne[None, :], pos[None, :], b).amin(1)
-            x_excl = torch.where(fpos < b, vb[fpos.clamp(0, b - 1)], exp)
+            mpos = torch.where(same, pos[None, :], -1).amax(1)
+            x_excl = torch.where(fpos < b, vb[fpos.clamp(0, b - 1)],
+                                 torch.where(mpos >= 0,
+                                             vb[mpos.clamp(min=0)], base))
             fetched = torch.where(base == exp, x_excl, base)
             ok = fetched == exp
-            write = ne & (fpos == b) & (base == exp)
-            acc[torch.where(write, ib, m)] = vb
+            later = eq_key & (pos[:, None] < pos[None, :])
+            any_ne = (eq_key & ne[None, :]).any(1)
+            write = (ne & (fpos == b)) | (~any_ne & ~later.any(1))
+            acc[torch.where(write & (base == exp), ib, m)] = vb
         fetched_l.append(fetched)
         ok_l.append(ok)
     if nb == 0:
@@ -183,13 +193,18 @@ def _tables_only(table: Tensor, indices: Tensor, values: Tensor, op: str,
         last = last.scatter_reduce_(0, slot, pos, reduce="amax")[:m]
         tab = torch.where(last >= 0, values[last.clamp(min=0).long()], table)
         return RmwResult(tab, *zeros)
-    # cas, uniform expected: slot = first value != expected if live
+    # cas, uniform expected: a live slot ends on its first value !=
+    # expected, else on its last value (equal to expected, maybe not in
+    # bits: ±0)
     e = torch.as_tensor(expected, dtype=table.dtype, device=dev)
     first = torch.full((m + 1,), n, dtype=torch.int32, device=dev)
     first = first.scatter_reduce_(0, slot, torch.where(values != e, pos, n),
                                   reduce="amin")[:m]
-    tab = torch.where((table == e) & (first < n),
-                      values[first.clamp(0, n - 1).long()], table)
+    last = torch.full((m + 1,), -1, dtype=torch.int32, device=dev)
+    last = last.scatter_reduce_(0, slot, pos, reduce="amax")[:m]
+    pick = torch.where(first < n, first, last)
+    tab = torch.where((table == e) & (pick >= 0),
+                      values[pick.clamp(0, n - 1).long()], table)
     return RmwResult(tab, *zeros)
 
 
@@ -207,9 +222,19 @@ def _arrival_rank_sortfree(keys: Tensor, num_keys: int, *,
                            block: int = DEFAULT_ONEHOT_BLOCK) -> Tensor:
     """Sort-free per-element arrival order among equal keys (0-based): the
     fetched value of FAA(counter[key], 1) in element order.  A dense one-hot
-    cumsum for small key spaces, the blocked one-hot backend beyond."""
+    cumsum for small key spaces (up to `_DENSE_RANK_KEYS` keys, one key's
+    column at a time: a 1-D scan, where a scan down the columns of an
+    (n, keys) matrix runs one thread a column on the card), the blocked
+    one-hot backend beyond."""
     n = keys.shape[0]
     k = keys.to(torch.int32)
+    if num_keys <= _DENSE_RANK_KEYS:
+        rank = torch.zeros_like(k)
+        for key in range(num_keys):
+            hit = k == key
+            rank = torch.where(hit, torch.cumsum(hit, 0, dtype=torch.int32)
+                               - 1, rank)
+        return rank
     if n * num_keys <= (1 << 22):
         onehot = k[:, None] == torch.arange(num_keys, dtype=torch.int32,
                                             device=k.device)[None, :]

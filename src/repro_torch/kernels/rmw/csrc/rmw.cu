@@ -99,9 +99,9 @@
 //   3. Scan: a segment is a run of one slot.  Each op gathers vals[pos], a
 //      segment head also table[slot]; an inclusive segmented scan of
 //      (head, value) under the op's combiner (wrapping int32 or fp32 add,
-//      min, max; CAS: the first value other than `expected`) gives the
-//      slot's value after each op, and the value before it is the fetched
-//      one.  SWP needs no scan: fetched is the previous op's value.  The
+//      min, max; CAS: the first value other than `expected`, else the last)
+//      gives the slot's value after each op, and the value before it is the
+//      fetched one.  SWP needs no scan: fetched is the previous op's value.  The
 //      carry across tiles is the same look-back; a tile that holds a head
 //      publishes its inclusive value at once.  The last op of each segment
 //      writes the slot's final value into the output table (the input
@@ -613,7 +613,10 @@ __device__ __forceinline__ T combine(T a, T b, T e) {
   if constexpr (OP == OP_FAA) return add_wrap(a, b);
   else if constexpr (OP == OP_MIN) return min_of(a, b);
   else if constexpr (OP == OP_MAX) return max_of(a, b);
-  else return (a != e || b == e) ? a : b;   // CAS: first value other than e
+  // CAS: a slot other than e stays; else it takes b (b == e keeps the
+  // chain alive but writes b's bits: ±0).  Folded from the table's value,
+  // the first value other than e, else the last.
+  else return a != e ? a : b;
 }
 
 __device__ __forceinline__ unsigned to_bits(int v) { return (unsigned)v; }

@@ -1,0 +1,250 @@
+"""The port's device mesh: named axes over an initialised process group.
+
+Port of `repro.launch.mesh`, and the torch form of what `jax.make_mesh`
+and ``shard_map``'s named axes give the reference.  A :class:`Mesh` lays
+the ranks of the ``torch.distributed`` world out row-major over its axes,
+as `jax.make_mesh` lays out devices, and answers for any tuple of axis
+names:
+
+* `group(axes)` — the process group of the ranks that share this rank's
+  coordinates on every other axis (made once, at construction, by every
+  rank in the same order, with ``dist.new_group``);
+* `size(axes)` — the group's size, what ``lax.psum(1, axes)`` is;
+* `index(axes)` — this rank's index in it, major-to-minor over the tuple,
+  what ``lax.axis_index(axes)`` is.
+
+Its collectives take buffers laid out by that index (lane ``i`` of an
+all-to-all goes to the member of index ``i``), whatever order the process
+group gives its members.  A process group whose backend refuses a
+collective for CUDA tensors (gloo, on some builds) gets that collective's
+buffers copied to the host and back: `probe` finds which, once, and
+`host_staged` lists them.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+import time
+import warnings
+from typing import Dict, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+Tensor = torch.Tensor
+AxisNames = Union[str, Sequence[str]]
+
+def _names(axes: AxisNames) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class Mesh:
+    """``shape`` over ``axis_names``, row-major over the initialised world."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        self.axis_names = tuple(axis_names)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names,
+                                              map(int, shape)))
+        if len(self.shape) != len(tuple(shape)):
+            raise ValueError(f"mesh {tuple(shape)} needs one distinct name "
+                             f"per axis, got {self.axis_names}")
+        world = dist.get_world_size()
+        if math.prod(self.shape.values()) != world:
+            raise ValueError(f"mesh {dict(self.shape)} does not cover a "
+                             f"world of {world} ranks")
+        self.rank = dist.get_rank()
+        self.backend = dist.get_backend()
+        self.coords = dict(zip(self.axis_names, self._unravel(self.rank)))
+        self.host_staged: set = set()
+        self.exchange_s = 0.0        # wall clock inside collectives
+        self.sync_timing = False     # synchronise the card around them
+        # every subset of the axes, in mesh order: one group per block of
+        # ranks sharing the other coordinates, made by every rank alike
+        self._groups: Dict[frozenset, object] = {}
+        for k in range(1, len(self.axis_names) + 1):
+            for sub in itertools.combinations(self.axis_names, k):
+                mine = None
+                for block in self._blocks(sub):
+                    pg = (dist.group.WORLD if len(block) == world
+                          else dist.new_group(block))
+                    if self.rank in block:
+                        mine = pg
+                self._groups[frozenset(sub)] = mine
+
+    # --- layout -----------------------------------------------------------
+    def _unravel(self, flat: int):
+        out = []
+        for size in reversed(list(self.shape.values())):
+            out.append(flat % size)
+            flat //= size
+        return tuple(reversed(out))
+
+    def _ravel(self, coords: Dict[str, int]) -> int:
+        flat = 0
+        for name in self.axis_names:
+            flat = flat * self.shape[name] + coords[name]
+        return flat
+
+    def _blocks(self, sub: Tuple[str, ...]):
+        rest = [a for a in self.axis_names if a not in sub]
+        for fixed in itertools.product(*(range(self.shape[a])
+                                         for a in rest)):
+            yield sorted(self._ravel({**dict(zip(rest, fixed)), **dict(
+                zip(sub, free))}) for free in itertools.product(
+                    *(range(self.shape[a]) for a in sub)))
+
+    def _check(self, axes: AxisNames) -> Tuple[str, ...]:
+        names = _names(axes)
+        for a in names:
+            if a not in self.shape:
+                raise ValueError(f"axis {a!r} not on mesh "
+                                 f"{list(self.axis_names)}")
+        if len(set(names)) != len(names):
+            raise ValueError(f"axis named twice in {names}")
+        return names
+
+    def size(self, axes: AxisNames) -> int:
+        """Ranks along ``axes`` (1 for an empty tuple)."""
+        return math.prod(self.shape[a] for a in self._check(axes))
+
+    def index(self, axes: AxisNames) -> int:
+        """This rank's index along ``axes``, major-to-minor over the
+        tuple."""
+        idx = 0
+        for a in self._check(axes):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def members(self, axes: AxisNames) -> Tuple[int, ...]:
+        """Global ranks of this rank's group along ``axes``, by index."""
+        names = self._check(axes)
+        return tuple(self._ravel({**self.coords, **dict(zip(names, c))})
+                     for c in itertools.product(
+                         *(range(self.shape[a]) for a in names)))
+
+    def group(self, axes: AxisNames):
+        """The process group of this rank's ranks along ``axes``."""
+        return self._groups[frozenset(self._check(axes))]
+
+    def _perm(self, axes, device):
+        """Group rank (position among the sorted members) of each index;
+        None where they agree."""
+        members = self.members(axes)
+        if list(members) == sorted(members):
+            return None
+        order = sorted(members)
+        return torch.tensor([order.index(r) for r in members],
+                            device=device)
+
+    # --- collectives --------------------------------------------------------
+    def _run(self, name: str, fn, out: Tensor, *ins: Tensor) -> Tensor:
+        """Issue one collective, through the host where the backend refuses
+        CUDA buffers for it (`host_staged`)."""
+        if self.sync_timing and out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            if out.is_cuda and name in self.host_staged:
+                host = out.cpu()
+                fn(host, *(t.cpu() for t in ins))
+                out.copy_(host)
+            else:
+                fn(out, *ins)
+        if self.sync_timing and out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        self.exchange_s += time.perf_counter() - t0
+        return out
+
+    def all_to_all(self, x: Tensor, axes: AxisNames) -> Tensor:
+        """Block ``i`` of ``x`` (leading dim = `size(axes)`) to the member
+        of index ``i``; block ``j`` of the result from the member of index
+        ``j``.  `lax.all_to_all(split_axis=0, concat_axis=0)`."""
+        if not _names(axes):
+            return x.clone()
+        perm = self._perm(axes, x.device)
+        send = x.contiguous()
+        if perm is not None:
+            send = torch.empty_like(x)
+            send[perm] = x                 # blocks by group rank
+        recv = torch.empty_like(send)
+        self._run("all_to_all", lambda o, i: dist.all_to_all_single(
+            o, i, group=self.group(axes)), recv, send)
+        return recv if perm is None else recv[perm]
+
+    def reduce_scatter(self, x: Tensor, axes: AxisNames) -> Tensor:
+        """Sum over ``axes``, scattered: this rank keeps chunk `index` of
+        ``x``'s leading dim.  `lax.psum_scatter(tiled=True)`."""
+        n = self.size(axes)
+        if not _names(axes):
+            return x.clone()
+        perm = self._perm(axes, x.device)
+        send = x.contiguous()
+        if perm is not None:
+            chunks = send.reshape(n, -1)
+            send = torch.empty_like(chunks)
+            send[perm] = chunks
+            send = send.reshape(x.shape)
+        out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+        self._run("reduce_scatter", lambda o, i: dist.reduce_scatter_tensor(
+            o, i, group=self.group(axes)), out, send)
+        return out
+
+    def all_gather(self, x: Tensor, axes: AxisNames) -> Tensor:
+        """Every member's ``x`` stacked along dim 0 by index.
+        `lax.all_gather(tiled=True)`."""
+        n = self.size(axes)
+        if not _names(axes):
+            return x.clone()
+        perm = self._perm(axes, x.device)
+        out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+        self._run("all_gather", lambda o, i: dist.all_gather_into_tensor(
+            o, i, group=self.group(axes)), out, x.contiguous())
+        if perm is not None:
+            out = out.reshape(n, *x.shape)[perm].reshape(out.shape)
+        return out
+
+    def all_reduce(self, x: Tensor, axes: AxisNames, op: str = "sum"
+                   ) -> Tensor:
+        """`lax.psum` (``op="sum"``) or `lax.pmax` (``"max"``)."""
+        out = x.clone()
+        if not _names(axes):
+            return out
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        return self._run("all_reduce", lambda o: dist.all_reduce(
+            o, op=rop, group=self.group(axes)), out)
+
+    def broadcast(self, x: Tensor, axes: AxisNames, src: int = 0) -> Tensor:
+        """The member of index ``src``'s ``x`` on every member."""
+        out = x.clone()
+        if not _names(axes):
+            return out
+        root = self.members(axes)[src]
+        return self._run("broadcast", lambda o: dist.broadcast(
+            o, src=root, group=self.group(axes)), out)
+
+    def probe(self, device) -> Tuple[str, ...]:
+        """Try each collective once on tiny ``device`` tensors over the
+        whole mesh; the ones the backend refuses go through the host from
+        then on.  Every rank must call it.  Returns `host_staged`."""
+        axes = self.axis_names
+        n = self.size(axes)
+        x = torch.zeros((n,), dtype=torch.int32, device=device)
+        calls = {"all_to_all": lambda: self.all_to_all(x, axes),
+                 "reduce_scatter": lambda: self.reduce_scatter(x, axes),
+                 "all_gather": lambda: self.all_gather(x, axes),
+                 "all_reduce": lambda: self.all_reduce(x, axes, "max"),
+                 "broadcast": lambda: self.broadcast(x, axes)}
+        for name, call in calls.items():
+            try:
+                call()
+            except RuntimeError:
+                self.host_staged.add(name)
+                call()
+        dist.barrier()
+        return tuple(sorted(self.host_staged))
+
+    def __repr__(self):
+        return (f"Mesh({dict(self.shape)}, rank {self.rank} at "
+                f"{self.coords}, {self.backend})")

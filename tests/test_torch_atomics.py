@@ -87,6 +87,35 @@ def test_execute_fp32_minmax_signed_zeros_and_nan_match_reference(kind,
         same(got.success[in_range], np.asarray(want.success)[in_range])
 
 
+@pytest.mark.parametrize("need_fetched", [True, False])
+@pytest.mark.parametrize("backend",
+                         ["serialized", "sort", "onehot", "cuda", "auto"])
+@pytest.mark.parametrize("expected", [0.0, -0.0, 1.0])
+def test_execute_fp32_cas_signed_zeros_match_reference_oracle(
+        expected, backend, need_fetched):
+    """fp32 uniform CAS over ±0, ±1 and NaN: a value equal to `expected`
+    keeps the chain alive yet writes its own bits (a −0 over +0), so later
+    ops fetch it.  Every CPU backend of the port against the reference's
+    serialized oracle (NaN by isnan, other values bit for bit): its
+    combining backends, like the port's before, keep `expected`'s bits."""
+    rng = np.random.default_rng(83 + int(expected) + len(backend))
+    pool = np.array([0.0, -0.0, 1.0, -1.0, np.nan], np.float32)
+    table = rng.choice(pool, 13)
+    idx = collision_heavy(rng, 400, 13)
+    vals = rng.choice(pool, 400)
+    want = jat.execute(jnp.asarray(table), jat.Cas(
+        jnp.asarray(idx), jnp.asarray(vals),
+        expected=jnp.full((400,), expected, jnp.float32)),
+        backend="serialized")
+    got = tat.execute(convert.table_from_numpy(table, "cpu"),
+                      tat.Cas(_t(idx), _t(vals), expected=expected),
+                      backend=backend, need_fetched=need_fetched)
+    same_bits(got.table.data, want.table.data, "table")
+    if need_fetched:
+        same_bits(got.fetched, want.fetched, "fetched")
+        same(got.success, want.success, "success")
+
+
 @pytest.mark.parametrize("kind", OPS)
 def test_execute_collect_stats_matches_reference(kind):
     table, idx, vals = _batch(kind)
@@ -146,8 +175,11 @@ def test_arrival_rank_matches_reference(num_keys):
 
 
 def test_table_and_op_validation():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tat.AtomicTable(torch.zeros(4), axis="dev")
+    # a sharded table needs its mesh's process groups to execute on
+    sharded = tat.AtomicTable(torch.zeros(4), axis="dev")
+    assert sharded.is_sharded and sharded.mesh is None
+    with pytest.raises(ValueError, match="no process group"):
+        tat.execute(sharded, tat.Faa([0], [1.0]))
     with pytest.raises(ValueError):
         tat.AtomicTable(torch.zeros((2, 2)))
     with pytest.raises(ValueError):

@@ -86,6 +86,29 @@ def test_fp32_minmax_signed_zeros_and_nan_match_plain_versions(cuda_device,
     assert torch.equal(got[2], want[2])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(3000, 700), (1 << 16, 64),
+                                 (1 << 20, 1 << 12)])
+@pytest.mark.parametrize("expected", [0.0, -0.0, 1.0])
+def test_fp32_cas_signed_zeros_match_plain_version(cuda_device, expected,
+                                                   n, m):
+    """fp32 uniform CAS on the fetched kernel over ±0, ±1 and NaN: a value
+    equal to `expected` in another zero's bits keeps the chain alive and is
+    what the next op fetches.  Against the plain version on the same
+    tensors, NaN by isnan, every other value bit for bit."""
+    rng = np.random.default_rng(n + m + int(expected))
+    pool = np.array([0.0, -0.0, 1.0, -1.0, np.nan], np.float32)
+    tab = torch.as_tensor(rng.choice(pool, m), device=cuda_device)
+    val = torch.as_tensor(rng.choice(pool, n), device=cuda_device)
+    idx = torch.as_tensor(rng.integers(0, m + 7, n).astype(np.int32),
+                          device=cuda_device)
+    got = K.rmw_table_fetched(tab, idx, val, "cas", expected=expected)
+    want = K.rmw_table_fetched_plain(tab, idx, val, "cas", expected)
+    same_bits(got[0], want[0].cpu().numpy(), "table")
+    same_bits(got[1], want[1].cpu().numpy(), "fetched")
+    assert torch.equal(got[2], want[2])
+
+
 # the table-only kernels' regimes (`kernel.table_regime`), each at shapes
 # that take it: (name, n, m, the regime the rule picks).  m = 1, every op
 # dropped and Kronecker skew beside them; every other regime the shape
@@ -797,3 +820,41 @@ def test_chase_matches_plain_version(cuda_device, mode, m, steps):
     assert torch.equal(table.words.cpu(), host.words)
     if mode != "faa":
         assert torch.equal(host.words, before)
+
+
+@pytest.mark.gpu
+def test_sharded_two_ranks_on_the_card(cuda_device):
+    """Two gloo ranks sharing the card: oneshot FAA and per-op CAS on a
+    sharded table, against the serialized oracle over the two batches in
+    rank order; the kernels ran inside the ranks (the fetched kernel for
+    the FAA combine and resolve, `serial_rmw` for CAS at the owner)."""
+    import os
+    from repro_torch.core.rmw import rmw_serialized
+    from repro_torch.launch import ranks
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "_torch_sharded_worker.py")
+    n, m = 1 << 14, 1 << 14
+    out = ranks.launch(f"{worker}:run_card_pair", 2,
+                       mesh=((2,), ("dev",)), device="cuda", args=(n, m),
+                       timeout=600)
+    idx, vals, exps, table0 = out[0]["inputs"]
+    flat = torch.from_numpy(idx.reshape(-1)).long()
+    live = (flat >= 0) & (flat < m)
+    pad = torch.cat([torch.from_numpy(table0),
+                     torch.zeros(1, dtype=torch.int32)])
+    for name, kind, exp in (("faa", "faa", None),
+                            ("cas_perop", "cas",
+                             torch.from_numpy(exps.reshape(-1)))):
+        want = rmw_serialized(pad, torch.where(live, flat, m),
+                              torch.from_numpy(vals.reshape(-1)), kind, exp)
+        table = np.concatenate([o[name][0] for o in out])
+        fetched = np.concatenate([o[name][1] for o in out])
+        success = np.concatenate([o[name][2] for o in out])
+        np.testing.assert_array_equal(table, want.table[:m].numpy())
+        np.testing.assert_array_equal(fetched[live.numpy()],
+                                      want.fetched[live].numpy())
+        np.testing.assert_array_equal(success,
+                                      (want.success & live).numpy())
+    for o in out:
+        assert o["launches"]["rmw_table_fetched"] > 0
+        assert o["launches"]["serial_rmw"] > 0
