@@ -39,7 +39,19 @@ phase's scale against its parents, `execute_until` with every policy
 against the local tier's round history, ms per batch split into the
 exchange and the ranks' kernels, the kernels' launches inside the ranks;
 then a world-size-1 NCCL run, and two NCCL ranks on the one card, whose
-refusal it records.
+refusal it records.  Last, the elastic tier (`elastic`): on the same 4
+ranks, a 2^24-slot table built by 4 FAA batches of 2^22 ops a rank moves
+by the exchange path ((pod, dev)-sharded -> dev-sharded, pod replicas),
+then by device_put onto `survivors_mesh` (2 ranks) and back, each bit for
+bit; after each move three batches (fetched FAA with stats, per-op CAS,
+SWP) are held against a table never resharded and against
+`rmw_serialized`; two checkpoints are saved, and `run_with_recovery`
+with `reshard_tables` as its hook runs under a seeded fault at each of
+four sites, bit-equal to the run with none; a second world of 2 ranks
+restores the checkpoint under its own mesh and walks back past a
+corrupted step; no step down `reshard_tables`' ladder is allowed; ms for
+each migration path and for replaying the history, beside the cost
+model's predictions.
 
 Phases print one JSON line each (`{"phase": ...}`); every phase raises on a
 failure.  The line before the last is the per-kernel record, and the last
@@ -67,6 +79,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch import atomics  # noqa: E402
 from repro_torch.atomics.stats import stats_from_occupancy  # noqa: E402
 from repro_torch.benchmarks import bandwidth as bw_suite  # noqa: E402
+from repro_torch.benchmarks import reshard as reshard_suite  # noqa: E402
 from repro_torch.benchmarks import run as suites  # noqa: E402
 from repro_torch.core import bfs as bfs_mod  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -2273,6 +2286,425 @@ def phase_sharded(s, d, root, parents):
 
 
 # ---------------------------------------------------------------------------
+# 13. the elastic tier on 4 ranks sharing the card (this slice's main path)
+# ---------------------------------------------------------------------------
+
+EL_N_POST = 1 << 20      # ops a rank in each batch after a migration
+EL_HISTORY = (0, 1, 0, 1)  # the sharded phase's FAA groups: hot, uniform
+EL_POST_OPS = ("faa", "cas", "swp")  # fetched FAA (stats), per-op CAS, SWP
+EL_STEPS = 4
+EL_CHAOS = ("seed=7,step=1.0@1,ckpt_save=1.0@1,ckpt_restore=1.0@1,"
+            "reshard=1.0@1")
+EL_REPS = 3
+
+
+def _el_post_batch(seed, k, full, dev):
+    """A batch after a migration, ``k`` rows of EL_N_POST ops (by flat
+    index on the mesh that runs it), from ``seed``: half on 8 hot slots,
+    half uniform with some past the table (dropped); values in [-8, 8];
+    CAS expects each slot's value before the batch, so the first op on a
+    slot succeeds."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (k, EL_N_POST)
+    ri = lambda lo, hi: torch.randint(lo, hi, shape, generator=g, device=dev,
+                                      dtype=torch.int32)
+    idx = torch.where(torch.rand(shape, generator=g, device=dev) < 0.5,
+                      ri(0, 8), ri(0, SH_M + 64))
+    exps = full[idx.clamp(0, SH_M - 1).long()]
+    return idx, ri(-8, 9), exps
+
+
+def _el_flat_rows(table):
+    """This member's rows of the whole table under ``table``'s layout."""
+    lay = table.layout()
+    return slice(*lay.rows_of_shard(lay.shard_of_device(table.mesh.flat)))
+
+
+def _el_run(table, op, idx, vals, exps, stats=False):
+    """One batch on the members of ``table``'s mesh (row = flat index);
+    None outside it."""
+    if not table.mesh.is_member:
+        return None
+    f = table.mesh.flat
+    aop = (atomics.Cas(idx[f], vals[f], expected=exps[f]) if op == "cas"
+           else atomics.OP_KINDS[op](idx[f], vals[f]))
+    return atomics.execute(table, aop, collect_stats=stats)
+
+
+def _el_after(world_mesh, tag, moved, never, full, seed, dev):
+    """Check 3 after one migration: three batches (EL_POST_OPS) on the
+    migrated table ``moved`` and the same global streams on ``never`` (a
+    table that was never resharded), each against the other and against
+    `rmw_serialized` over the stream in rank order (run on rank 0 of the
+    world, on the card, and broadcast).  Returns the rows and the three
+    tables after the batches."""
+    rows = []
+    k = len(moved.mesh.ranks)
+    kn = len(never.mesh.ranks)
+    for j, op in enumerate(EL_POST_OPS):
+        idx, vals, exps = _el_post_batch(seed + j, k, full, dev)
+        flat = idx.reshape(-1)
+        if world_mesh.rank == 0:
+            want = _serialized_dropping(full, flat, vals.reshape(-1), op,
+                                        exps.reshape(-1) if op == "cas"
+                                        else None)
+            live = (flat >= 0) & (flat < SH_M)
+            want = (want[0], torch.where(live, want[1], 0), want[2] & live)
+        else:
+            want = (torch.empty_like(full), torch.empty_like(flat),
+                    torch.empty(flat.shape, dtype=torch.bool, device=dev))
+        want = [_bcast(world_mesh, w) for w in want]
+        stats = op == "faa"
+        res = _el_run(moved, op, idx, vals, exps, stats=stats)
+        res_n = _el_run(never, op, *(t.reshape(kn, -1)
+                                     for t in (idx, vals, exps)))
+        sync()
+        row = dict(migration=tag, op=op, ranks=k)
+        for name, r, n_rows in (("moved", res, k), ("never", res_n, kn)):
+            if r is None:
+                continue
+            f = r.table.mesh.flat
+            n = flat.shape[0] // n_rows
+            sl = slice(f * n, (f + 1) * n)
+            row[name] = bool(
+                torch.equal(r.table.data, want[0][_el_flat_rows(r.table)])
+                and torch.equal(r.fetched, want[1][sl])
+                and torch.equal(r.success, want[2][sl]))
+        if stats and res is not None:
+            live = flat[(flat >= 0) & (flat < SH_M)]
+            plain = stats_from_occupancy(K.slot_counts_plain(live, SH_M),
+                                         live.shape[0])
+            row["stats"] = all(torch.equal(getattr(res.stats, f),
+                                           getattr(plain, f))
+                               for f in ("n_ops", "distinct_slots",
+                                         "max_occupancy", "occupancy_hist",
+                                         "topk_slots", "topk_counts"))
+        rows.append(row)
+        moved = res.table if res is not None else moved
+        never = res_n.table if res_n is not None else never
+        full = want[0]
+    return rows, moved, never, full
+
+
+def _el_time(fn, reps=EL_REPS):
+    """Median wall clock of ``fn`` in ms, the card synchronised around each
+    call (the collectives run through gloo on the host)."""
+    out = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def _el_recovery(mesh, table0, tmp, dev):
+    """Check 5: `run_with_recovery` over a state holding the sharded table,
+    one FAA batch of SH_N ops a rank a step through `atomics.execute`,
+    with `reshard_tables` as the elastic hook; under the seeded plan and
+    under none.  Returns the fault plan's stats, the run's failures and
+    whether this rank's final shard equals the fault-free run's."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.runtime.chaos import FaultPlan
+    from repro_torch.runtime.elastic import reshard_tables
+    from repro_torch.runtime.fault_tolerance import (FaultConfig,
+                                                     run_with_recovery)
+
+    def fresh():
+        return {"table": reshard_suite.shard_of(mesh, table0, SH_AXES),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def step_fn(step, state):
+        g = torch.Generator(device=dev)
+        g.manual_seed(5000 + step)
+        idx = torch.randint(0, SH_M + 64, (SH_WORLD, SH_N), generator=g,
+                            device=dev, dtype=torch.int32)
+        vals = torch.randint(-8, 9, (SH_WORLD, SH_N), generator=g,
+                             device=dev, dtype=torch.int32)
+        f = mesh.flat
+        res = atomics.execute(state["table"], atomics.Faa(idx[f], vals[f]),
+                              need_fetched=False)
+        return {"table": res.table, "step": state["step"] + 1}
+
+    def run(tag, plan):
+        d = os.path.join(tmp, tag)
+
+        def restore_fn():
+            with use_mesh(mesh):
+                got = ckpt.restore_latest_valid(d, fresh())
+            return None if got is None else got[:2]
+
+        res = run_with_recovery(
+            step_fn, fresh, EL_STEPS,
+            FaultConfig(max_failures=8, backoff_base_s=0),
+            lambda s, st: ckpt.save(d, s, st), restore_fn,
+            reshard_fn=lambda s: reshard_tables(s, mesh), chaos=plan)
+        return res, restore_fn()
+
+    t0 = time.perf_counter()
+    plan = FaultPlan.from_spec(EL_CHAOS)
+    res, final = run("chaos", plan)
+    t1 = time.perf_counter()
+    base_res, base = run("no_faults", FaultPlan.null())
+    t2 = time.perf_counter()
+    return dict(stats=plan.stats(), failures=res.failures,
+                events=res.event_counts(), steps=res.steps_done,
+                final_step=final[0], base_failures=base_res.failures,
+                bit_equal=bool(final[0] == base[0] == EL_STEPS
+                               and torch.equal(final[1]["table"].data,
+                                               base[1]["table"].data)
+                               and int(final[1]["step"]) == EL_STEPS),
+                chaos_s=t1 - t0, no_faults_s=t2 - t1)
+
+
+def _elastic_rank(mesh, cfg):
+    """One rank of the `elastic` phase's 4-rank world.
+
+    The launch counts are reset first, so they hold this slice's main
+    path: the history, the three migrations (exchange; device_put onto
+    the survivors and back), check 3's batches and oracles, the
+    checkpoints and the recovery runs.  The timing runs come after they
+    are read."""
+    from repro_torch.atomics import reshard
+    from repro_torch.atomics.layout import TableLayout
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import rmw_engine
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime.elastic import survivors_mesh
+    dev = torch.device("cuda")
+    staged = mesh.probe(dev)
+    me = mesh.flat
+    out = dict(rank=mesh.rank, host_staged=list(staged), rows=[], bits={})
+    elastic.reset_degraded()
+    K.reset_launches()
+    XK.reset_launches()
+    t_main = time.perf_counter()
+    # the history: the sharded phase's FAA batches, hot and uniform, twice
+    groups = {k: _sh_inputs(k, SH_WORLD, dev) for k in set(EL_HISTORY)}
+    table0 = groups[0][3]
+    history = [groups[k][:2] for k in EL_HISTORY]
+    src_t = reshard_suite.run_history(
+        reshard_suite.shard_of(mesh, table0, SH_AXES), history,
+        need_fetched=False)
+    src = src_t.layout()
+    full0 = reshard.gather_table(src_t.data, src, mesh)
+    sync()
+    out["history_s"] = time.perf_counter() - t_main
+    # check 1: exchange, (pod, dev)-sharded -> dev-sharded, pod replicas
+    dst = TableLayout.from_mesh(mesh, num_slots=SH_M, dtype=torch.int32,
+                                axis=("dev",), replica_axes=("pod",))
+    x_plan = reshard.plan_reshard(src, dst, dst_mesh=mesh, src_mesh=mesh,
+                                  device=dev)
+    moved = x_plan.execute(src_t)
+    out["exchange_path"] = x_plan.path
+    out["bits"]["exchange"] = bool(torch.equal(
+        moved.data, full0[_el_flat_rows(moved)]))
+    rows, _, never, full1 = _el_after(mesh, "exchange", moved, src_t, full0,
+                                      100, dev)
+    out["rows"] += rows
+    # check 2: device_put onto the survivors (2 ranks of 4) and back
+    surv = survivors_mesh(dict(mesh.shape), 1, axis="pod")
+    shrunk = reshard.migrate(never, surv)
+    grown = reshard.migrate(shrunk, mesh)
+    out["shrink_path"] = reshard.plan_reshard(
+        never.layout(), reshard.live_layout(shrunk), dst_mesh=surv,
+        src_mesh=mesh).path
+    out["grow_path"] = reshard.plan_reshard(
+        reshard.live_layout(shrunk), grown.layout(), dst_mesh=mesh,
+        src_mesh=surv).path
+    if surv.is_member:
+        out["bits"]["shrink"] = bool(torch.equal(
+            shrunk.data, full1[_el_flat_rows(shrunk)]))
+    out["bits"]["round_trip"] = bool(torch.equal(grown.data, never.data))
+    rows, _, _, _ = _el_after(mesh, "shrink", shrunk, never, full1, 200, dev)
+    out["rows"] += rows
+    rows, after_g, _, full3 = _el_after(mesh, "grow", grown, never, full1,
+                                        300, dev)
+    out["rows"] += rows
+    # check 4 (first half): two steps saved at 4 ranks
+    ck = cfg["ckpt_dir"]
+    ckpt.save(ck, 1, {"counters": never, "step": torch.tensor(1)})
+    ckpt.save(ck, 2, {"counters": after_g, "step": torch.tensor(2)})
+    if mesh.rank == 0:
+        torch.save({"step1": full1.cpu(), "step2": full3.cpu()},
+                   cfg["expected"])
+    # check 5: recovery under the seeded plan
+    out["recovery"] = _el_recovery(mesh, table0, cfg["tmp"], dev)
+    out["degraded"] = dict(elastic.DEGRADED)
+    sync()
+    out["launches"] = {**K.LAUNCHES, **XK.LAUNCHES}
+    out["main_s"] = time.perf_counter() - t_main
+    # check 7: times (after the counts were read)
+    spec = rmw_engine.default_spec(dev)
+    n_hist = len(EL_HISTORY) * SH_WORLD * SH_N
+    shrink_plan = reshard.plan_reshard(
+        never.layout(), reshard.live_layout(shrunk), dst_mesh=surv,
+        src_mesh=mesh, device=dev)
+    grow_plan = reshard.plan_reshard(
+        reshard.live_layout(shrunk), grown.layout(), dst_mesh=mesh,
+        src_mesh=surv, device=dev)
+    timing = []
+    for tag, plan, table, replay_mesh, axis, rep in (
+            ("exchange", x_plan, src_t, mesh, ("dev",), ("pod",)),
+            ("device_put_shrink", shrink_plan, never, surv, SH_AXES, ()),
+            ("device_put_grow", grow_plan, shrunk, mesh, SH_AXES, ())):
+        k = len(replay_mesh.ranks)
+        resplit = [(i.reshape(k, -1), v.reshape(k, -1)) for i, v in history]
+
+        def replay():
+            return reshard_suite.run_history(
+                reshard_suite.shard_of(replay_mesh, table0, axis, rep),
+                resplit, need_fetched=False)
+
+        replayed = replay()
+        replay_ok = (not replay_mesh.is_member or torch.equal(
+            replayed.data, full0[_el_flat_rows(replayed)]))
+        timing.append(dict(
+            migration=tag, path=plan.path,
+            migrate_ms=_el_time(lambda: plan.execute(table)),
+            predicted_ms=plan.predicted_s[plan.path] * 1e3,
+            predicted_all_ms={p: v * 1e3 for p, v in plan.predicted_s.items()
+                              if math.isfinite(v)},
+            replay_ms=_el_time(replay, reps=2), replay_ranks=k,
+            replay_bits=bool(replay_ok),
+            cost_replay_ms=reshard.cost_replay(
+                spec, plan.dst, n_hist, n_batches=len(EL_HISTORY),
+                need_fetched=False, device_type="cuda") * 1e3))
+    out["timing"] = timing
+    return out
+
+
+def _elastic_restore_rank(mesh, cfg):
+    """One rank of the second world (2 ranks): check 4's restore under its
+    own mesh, the batch after it, and the walk back past a corrupted
+    step."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.mesh import use_mesh
+    dev = torch.device("cuda")
+    mesh.probe(dev)
+    want = torch.load(cfg["expected"])
+    ck = cfg["ckpt_dir"]
+    K.reset_launches()
+    XK.reset_launches()
+    like = {"counters": atomics.make_table(SH_M, torch.int32, device=dev,
+                                           mesh=mesh, axis=SH_AXES),
+            "step": torch.tensor(0)}
+    out = dict(rank=mesh.rank)
+    t0 = time.perf_counter()
+    with use_mesh(mesh):
+        restored, _ = ckpt.restore(ck, 2, like)
+    sync()
+    out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    full = want["step2"].to(dev)
+    tbl = restored["counters"]
+    out["restored"] = bool(torch.equal(tbl.data, full[_el_flat_rows(tbl)])
+                           and int(restored["step"]) == 2)
+    rows, _, _, _ = _el_after(mesh, "restored_2_ranks", tbl, tbl, full,
+                              400, dev)
+    out["rows"] = rows
+    mesh.all_reduce(torch.zeros(1, device=dev), SH_AXES)  # all restored
+    if mesh.rank == 0:                 # one byte of the newest step's npz
+        path = os.path.join(ck, "step-00000002", "arrays.npz")
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            b = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([b[0] ^ 0xFF]))
+    mesh.all_reduce(torch.zeros(1, device=dev), SH_AXES)  # all see it
+    with use_mesh(mesh):
+        got = ckpt.restore_latest_valid(ck, like)
+    full1 = want["step1"].to(dev)
+    out["walked_back_to"] = None if got is None else got[0]
+    out["walk_back_bits"] = bool(got is not None and torch.equal(
+        got[1]["counters"].data, full1[_el_flat_rows(got[1]["counters"])]))
+    out["launches"] = {**K.LAUNCHES, **XK.LAUNCHES}
+    return out
+
+
+def phase_elastic():
+    """The elastic tier on 4 ranks sharing the card (gloo, CUDA tensors),
+    then a second world of 2 ranks that restores the 4-rank world's
+    checkpoint.  Raises if a rank failed or a check did not hold; returns
+    the kernel launches inside the ranks' main paths, summed."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import ranks
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        cfg = dict(tmp=tmp, ckpt_dir=os.path.join(tmp, "ckpt"),
+                   expected=os.path.join(tmp, "expected.pt"))
+        out = ranks.launch(f"{os.path.abspath(__file__)}:_elastic_rank",
+                           SH_WORLD, mesh=(SH_SHAPE, SH_AXES),
+                           device="cuda", args=(cfg,), timeout=900)
+        t1 = time.perf_counter()
+        out2 = ranks.launch(
+            f"{os.path.abspath(__file__)}:_elastic_restore_rank", 2,
+            mesh=((1, 2), SH_AXES), device="cuda", args=(cfg,),
+            timeout=600)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t2 = time.perf_counter()
+    bad = []
+    for o in out:
+        r = o["rank"]
+        if o["exchange_path"] != "exchange":
+            bad.append(f"rank {r}: exchange planned {o['exchange_path']}")
+        if (o["shrink_path"], o["grow_path"]) != ("device_put",
+                                                  "device_put"):
+            bad.append(f"rank {r}: shrink/grow paths {o['shrink_path']}, "
+                       f"{o['grow_path']}")
+        bad += [f"rank {r}: {k} not bit-equal" for k, v in o["bits"].items()
+                if not v]
+        rec = o["recovery"]
+        fired = {s: v["fired"] for s, v in rec["stats"].items()
+                 if v["fired"]}
+        if fired != {"step": 1, "ckpt_save": 1, "ckpt_restore": 1,
+                     "reshard": 1} or not rec["bit_equal"] \
+                or rec["failures"] != 4 or rec["base_failures"]:
+            bad.append(f"rank {r}: recovery {rec}")
+        if any(o["degraded"].values()):
+            bad.append(f"rank {r}: degraded {o['degraded']}")
+        bad += [f"rank {r}: replay after {t['migration']} not bit-equal"
+                for t in o["timing"] if not t["replay_bits"]]
+    for o in out + out2:
+        bad += [f"rank {o['rank']}: {row}" for row in o["rows"]
+                if not all(row.get(k, True) for k in ("moved", "never",
+                                                      "stats"))]
+    for o in out2:
+        if not o["restored"]:
+            bad.append(f"2-rank world, rank {o['rank']}: restore differs")
+        if o["walked_back_to"] != 1 or not o["walk_back_bits"]:
+            bad.append(f"2-rank world, rank {o['rank']}: walk back "
+                       f"{o['walked_back_to']}")
+    launches = {k: sum(o["launches"][k] for o in out + out2)
+                for k in out[0]["launches"]}
+    missing = [k for k in ("rmw_table", "rmw_table_fetched", "slot_counts",
+                           "serial_rmw") if launches[k] == 0]
+    if missing:
+        bad.append(f"never launched inside the ranks: {missing}")
+    emit("elastic", ranks=SH_WORLD, mesh=dict(zip(SH_AXES, SH_SHAPE)),
+         m_global=SH_M, history_ops_per_rank=len(EL_HISTORY) * SH_N,
+         post_ops_per_rank=EL_N_POST, seconds=t2 - t0,
+         world4_seconds=t1 - t0, world2_seconds=t2 - t1,
+         rank_seconds={k: max(o[k] for o in out) for k in (
+             "history_s", "main_s")},
+         host_staged=out[0]["host_staged"],
+         checks=len(out[0]["rows"]) + len(out2[0]["rows"]),
+         recovery=out[0]["recovery"],
+         restore_ms=[o["restore_ms"] for o in out2],
+         degraded=out[0]["degraded"], launches=launches, bad=bad[:20],
+         timing=[dict(rank=o["rank"], **t) for o in out
+                 for t in o["timing"]])
+    if bad:
+        raise AssertionError(f"elastic phase: {bad[:10]}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     # f32 products in full f32 on the card (the plain versions' matmuls)
@@ -2311,6 +2743,9 @@ def main():
     # inside its ranks, which reset and read their own counts, and their
     # sums join the kernels line
     for k, v in phase_sharded(*bfs_graph).items():
+        launches[k] += v
+    # ... then the elastic tier, whose ranks count the same way
+    for k, v in phase_elastic().items():
         launches[k] += v
     headline = {"rmw_table": ("faa", "uniform_bfs_n"),
                 "rmw_table_fetched": ("cas", "uniform_bfs_n"),

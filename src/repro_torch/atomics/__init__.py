@@ -27,7 +27,13 @@ decides **how**::
 
 Every result equals `core.rmw.rmw_serialized` applied to the same batch (on
 a mesh: to the rank-ordered concatenation of the per-rank batches,
-`layout.TableLayout`).  Resharding comes with a later slice.
+`layout.TableLayout`).  The migration half (`reshard`) moves a sharded
+table onto another mesh by re-deriving that contract under the new
+extents — one ``all_to_all`` slot exchange when both meshes hold the same
+ranks, a gather when they do not — so every later `execute` equals a run
+that was never resharded::
+
+    atomics.migrate(shard, survivors)           # every rank of the world
 """
 
 from repro_torch.atomics.ops import (  # noqa: F401
@@ -40,6 +46,9 @@ from repro_torch.atomics.execute import (  # noqa: F401
 from repro_torch.atomics.retry import (  # noqa: F401
     POLICIES, ExponentialBackoff, ImmediateRetry, RetryPolicy, RetryResult,
     ShrinkBatch, execute_until)
+from repro_torch.atomics.reshard import (  # noqa: F401
+    ReshardPlan, cost_replay, migrate, plan_reshard, restore_table,
+    select_migration)
 
 __all__ = [
     "AtomicOp", "Faa", "Swp", "Min", "Max", "Cas", "OP_KINDS",
@@ -47,4 +56,6 @@ __all__ = [
     "AtomicResult", "ContentionStats", "execute", "arrival_rank",
     "RetryPolicy", "RetryResult", "execute_until", "POLICIES",
     "ImmediateRetry", "ShrinkBatch", "ExponentialBackoff",
+    "ReshardPlan", "plan_reshard", "migrate", "restore_table",
+    "select_migration", "cost_replay",
 ]

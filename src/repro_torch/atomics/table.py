@@ -11,7 +11,8 @@ is this rank's shard.  `repro_torch.atomics.layout.TableLayout` reifies
 the contract (:meth:`AtomicTable.layout`).
 
 :func:`make_table` builds a local table, or with ``mesh=`` this rank's
-shard of a sharded one.
+shard of a sharded one (empty on a rank outside a mesh that covers part
+of the world).
 """
 
 from __future__ import annotations
@@ -131,6 +132,7 @@ def make_table(num_slots: int, dtype=torch.int32, *, fill=0, device="cuda",
     if num_slots % n_shards:
         raise ValueError(f"{num_slots} slots do not divide over "
                          f"{n_shards} shards of {axis!r}")
-    data = torch.full((num_slots // n_shards,), fill, dtype=dtype,
-                      device=device)
+    # a rank outside a mesh that covers part of the world holds no shard
+    rows = num_slots // n_shards if mesh.is_member else 0
+    data = torch.full((rows,), fill, dtype=dtype, device=device)
     return AtomicTable(data, axis=axis, replica_axes=rep, mesh=mesh)

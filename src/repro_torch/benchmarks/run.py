@@ -12,6 +12,8 @@ figure, in the reference's order (`benchmarks/run.py`):
   calibrate         HardwareSpec persistence   (writes build/repro_torch/
                                                 calibrated_spec.json)
   model_validation  Tables 2-3 + §5 NRMSE gate (calibration + validation)
+  reshard           elastic migration against full replay (4 ranks)
+  fault_recovery    recovery under seeded faults + bounded retry
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--only a,b]
         [--fast] [--device cuda|cpu] [--out DIR]
@@ -33,13 +35,14 @@ import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.benchmarks import (bandwidth, bfs, calibrate, contention,
-                                    latency, model_validation, operand_size,
-                                    operands_fetched, rmw_backends)
+                                    fault_recovery, latency,
+                                    model_validation, operand_size,
+                                    operands_fetched, reshard, rmw_backends)
 from repro_torch.benchmarks.common import Csv
 
 SUITES = ("latency", "bandwidth", "contention", "operand_size",
           "operands_fetched", "bfs", "rmw_backends", "calibrate",
-          "model_validation")
+          "model_validation", "reshard", "fault_recovery")
 
 
 def run_suites(only: Optional[Sequence[str]] = None, fast: bool = False,
@@ -70,6 +73,9 @@ def run_suites(only: Optional[Sequence[str]] = None, fast: bool = False,
                 out_dir, "calibrated_spec.json")),
         "model_validation": lambda: model_validation.run(
             csv, results.get("latency"), device=device, fast=fast),
+        "reshard": lambda: reshard.run(csv, fast=fast, device=device),
+        "fault_recovery": lambda: fault_recovery.run(csv, fast=fast,
+                                                     device=device),
     }
     failures = []
     for name in SUITES:

@@ -19,15 +19,28 @@ group gives its members.  A process group whose backend refuses a
 collective for CUDA tensors (gloo, on some builds) gets that collective's
 buffers copied to the host and back: `probe` finds which, once, and
 `host_staged` lists them.
+
+A mesh may cover part of the world: ``ranks`` names its members, laid out
+row-major in that order (``jax.make_mesh`` over a subset of the devices).
+Every rank of the world still builds it, since ``dist.new_group`` is a
+collective of the whole world; a rank outside it holds no shard of its
+tables (`is_member` is False) and joins only the world-level collective
+(`all_gather_world`) that a migration between two meshes uses.
+
+`use_mesh` installs a mesh as the active one and `active_mesh` returns it
+(`repro.sharding.use_mesh` / `active_mesh`, for the mesh only: the port
+has no logical-axis rules yet); `atomics.reshard.restore_table` reads it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
+import threading
 import time
 import warnings
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -40,9 +53,11 @@ def _names(axes: AxisNames) -> Tuple[str, ...]:
 
 
 class Mesh:
-    """``shape`` over ``axis_names``, row-major over the initialised world."""
+    """``shape`` over ``axis_names``, row-major over ``ranks`` (default:
+    the whole initialised world, in rank order)."""
 
-    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 ranks: Optional[Sequence[int]] = None):
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               map(int, shape)))
@@ -50,12 +65,22 @@ class Mesh:
             raise ValueError(f"mesh {tuple(shape)} needs one distinct name "
                              f"per axis, got {self.axis_names}")
         world = dist.get_world_size()
-        if math.prod(self.shape.values()) != world:
-            raise ValueError(f"mesh {dict(self.shape)} does not cover a "
-                             f"world of {world} ranks")
+        self.ranks = tuple(range(world)) if ranks is None \
+            else tuple(int(r) for r in ranks)
+        if math.prod(self.shape.values()) != len(self.ranks):
+            raise ValueError(f"mesh {dict(self.shape)} does not cover "
+                             f"{len(self.ranks)} ranks")
+        if len(set(self.ranks)) != len(self.ranks) or not all(
+                0 <= r < world for r in self.ranks):
+            raise ValueError(f"mesh ranks {self.ranks} are not distinct "
+                             f"ranks of a world of {world}")
         self.rank = dist.get_rank()
         self.backend = dist.get_backend()
-        self.coords = dict(zip(self.axis_names, self._unravel(self.rank)))
+        self.is_member = self.rank in self.ranks
+        #: this rank's flat index on the mesh (None outside it)
+        self.flat = self.ranks.index(self.rank) if self.is_member else None
+        self.coords = (dict(zip(self.axis_names, self._unravel(self.flat)))
+                       if self.is_member else None)
         self.host_staged: set = set()
         self.exchange_s = 0.0        # wall clock inside collectives
         self.sync_timing = False     # synchronise the card around them
@@ -87,12 +112,19 @@ class Mesh:
         return flat
 
     def _blocks(self, sub: Tuple[str, ...]):
+        """World ranks of each group along ``sub``, sorted."""
         rest = [a for a in self.axis_names if a not in sub]
         for fixed in itertools.product(*(range(self.shape[a])
                                          for a in rest)):
-            yield sorted(self._ravel({**dict(zip(rest, fixed)), **dict(
-                zip(sub, free))}) for free in itertools.product(
-                    *(range(self.shape[a]) for a in sub)))
+            yield sorted(self.ranks[self._ravel({**dict(zip(rest, fixed)),
+                                                 **dict(zip(sub, free))})]
+                         for free in itertools.product(
+                             *(range(self.shape[a]) for a in sub)))
+
+    def _need_member(self):
+        if not self.is_member:
+            raise ValueError(f"rank {self.rank} is not on mesh "
+                             f"{dict(self.shape)} over ranks {self.ranks}")
 
     def _check(self, axes: AxisNames) -> Tuple[str, ...]:
         names = _names(axes)
@@ -111,20 +143,25 @@ class Mesh:
     def index(self, axes: AxisNames) -> int:
         """This rank's index along ``axes``, major-to-minor over the
         tuple."""
+        names = self._check(axes)
+        self._need_member()
         idx = 0
-        for a in self._check(axes):
+        for a in names:
             idx = idx * self.shape[a] + self.coords[a]
         return idx
 
     def members(self, axes: AxisNames) -> Tuple[int, ...]:
         """Global ranks of this rank's group along ``axes``, by index."""
         names = self._check(axes)
-        return tuple(self._ravel({**self.coords, **dict(zip(names, c))})
+        self._need_member()
+        return tuple(self.ranks[self._ravel({**self.coords,
+                                             **dict(zip(names, c))})]
                      for c in itertools.product(
                          *(range(self.shape[a]) for a in names)))
 
     def group(self, axes: AxisNames):
-        """The process group of this rank's ranks along ``axes``."""
+        """The process group of this rank's ranks along ``axes`` (None
+        outside the mesh)."""
         return self._groups[frozenset(self._check(axes))]
 
     def _perm(self, axes, device):
@@ -224,10 +261,21 @@ class Mesh:
         return self._run("broadcast", lambda o: dist.broadcast(
             o, src=root, group=self.group(axes)), out)
 
+    def all_gather_world(self, x: Tensor) -> Tensor:
+        """Every rank of the world's ``x`` stacked along dim 0 by world
+        rank, members of this mesh or not (every rank of the world calls
+        it): the collective a migration between two meshes uses."""
+        world = dist.get_world_size()
+        out = x.new_empty((world * x.shape[0], *x.shape[1:]))
+        self._run("all_gather_world", lambda o, i: dist.all_gather_into_tensor(
+            o, i, group=dist.group.WORLD), out, x.contiguous())
+        return out.reshape(world, *x.shape)
+
     def probe(self, device) -> Tuple[str, ...]:
         """Try each collective once on tiny ``device`` tensors over the
-        whole mesh; the ones the backend refuses go through the host from
-        then on.  Every rank must call it.  Returns `host_staged`."""
+        whole mesh (and the world-level gather); the ones the backend
+        refuses go through the host from then on.  Every rank of the world
+        must call it.  Returns `host_staged`."""
         axes = self.axis_names
         n = self.size(axes)
         x = torch.zeros((n,), dtype=torch.int32, device=device)
@@ -236,6 +284,9 @@ class Mesh:
                  "all_gather": lambda: self.all_gather(x, axes),
                  "all_reduce": lambda: self.all_reduce(x, axes, "max"),
                  "broadcast": lambda: self.broadcast(x, axes)}
+        if not self.is_member:
+            calls = {}
+        calls["all_gather_world"] = lambda: self.all_gather_world(x)
         for name, call in calls.items():
             try:
                 call()
@@ -246,5 +297,30 @@ class Mesh:
         return tuple(sorted(self.host_staged))
 
     def __repr__(self):
-        return (f"Mesh({dict(self.shape)}, rank {self.rank} at "
-                f"{self.coords}, {self.backend})")
+        where = (f"at {self.coords}" if self.is_member
+                 else "outside it")
+        return (f"Mesh({dict(self.shape)} over ranks {list(self.ranks)}, "
+                f"rank {self.rank} {where}, {self.backend})")
+
+
+# ---------------------------------------------------------------------------
+# The active mesh (reference: repro.sharding.use_mesh / active_mesh)
+# ---------------------------------------------------------------------------
+
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    """Install ``mesh`` as the active mesh for the block."""
+    prev = getattr(_state, "mesh", None)
+    _state.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _state.mesh = prev
+
+
+def active_mesh() -> Optional[Mesh]:
+    """The mesh `use_mesh` installed, or None."""
+    return getattr(_state, "mesh", None)

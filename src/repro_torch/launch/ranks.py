@@ -9,10 +9,11 @@ fresh temporary directory (no fixed port), builds the
 :class:`~repro_torch.launch.mesh.Mesh` and calls ``fn(mesh, *args)``; its
 return value comes back pickled.  ``target`` is ``"module:function"`` or
 ``"path/to/file.py:function"``.  A rank that fails (or outlives
-``timeout``) stops them all, and `launch` raises with its stderr.  On the
-CPU each rank runs one thread; with ``device="cuda"`` every rank uses the
-current card (gloo ranks exchange through the host; NCCL takes one card a
-rank).
+``timeout``) stops them all, and `launch` raises with its stderr.  The
+ranks run on the card unless ``device="cpu"`` asks for the CPU: with
+``device="cuda"`` every rank uses the current card (gloo ranks exchange
+through the host; NCCL takes one card a rank); on the CPU each rank runs
+one thread.
 
 The worker side is this module run as ``python -m repro_torch.launch.ranks
 SPEC RANK``.
@@ -44,7 +45,7 @@ class RankFailed(RuntimeError):
 
 def launch(target: str, world: int, *,
            mesh: Tuple[Sequence[int], Sequence[str]], args: tuple = (),
-           backend: str = "gloo", device: str = "cpu",
+           backend: str = "gloo", device: str = "cuda",
            timeout: Optional[float] = None,
            collective_timeout_s: float = 600.0) -> List[Any]:
     """Run ``target`` on ``world`` ranks; returns each rank's result."""

@@ -858,3 +858,39 @@ def test_sharded_two_ranks_on_the_card(cuda_device):
     for o in out:
         assert o["launches"]["rmw_table_fetched"] > 0
         assert o["launches"]["serial_rmw"] > 0
+
+
+@pytest.mark.gpu
+def test_exchange_migration_two_ranks_on_the_card(cuda_device):
+    """Two gloo ranks sharing the card: a table sharded over ``dev`` moves
+    by the exchange path onto the same ranks in reverse order (each
+    rank's shard crosses), bit for bit; then one FAA batch on the moved
+    table through the card's kernels equals the serialized oracle over the
+    two batches in the new mesh's rank order."""
+    import os
+    from repro_torch.core.rmw import rmw_serialized
+    from repro_torch.launch import ranks
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "_torch_elastic_worker.py")
+    m = 1 << 14
+    out = ranks.launch(f"{worker}:run_card_exchange", 2,
+                       mesh=((2,), ("dev",)), device="cuda", args=(m,),
+                       timeout=600)
+    tab0, idx, vals = out[0]["inputs"]
+    assert all(o["path"] == "exchange" for o in out)
+    # the reversed mesh: world rank 1 is flat 0 and holds rows [0, m/2)
+    assert [o["moved"][0] for o in out] == [1, 0]
+    moved = np.concatenate([o["moved"][1] for o in out[::-1]])
+    np.testing.assert_array_equal(moved, tab0)
+    flat = torch.from_numpy(idx.reshape(-1)).long()
+    live = (flat >= 0) & (flat < m)
+    pad = torch.cat([torch.from_numpy(tab0),
+                     torch.zeros(1, dtype=torch.int32)])
+    want = rmw_serialized(pad, torch.where(live, flat, m),
+                          torch.from_numpy(vals.reshape(-1)), "faa")
+    after = np.concatenate([o["after"][1] for o in out[::-1]])
+    np.testing.assert_array_equal(after, want.table[:m].numpy())
+    fetched = np.concatenate([o["fetched"][0] for o in out[::-1]])
+    np.testing.assert_array_equal(fetched[live.numpy()],
+                                  want.fetched[live].numpy())
+    assert all(o["launches"]["rmw_table_fetched"] > 0 for o in out)

@@ -146,7 +146,7 @@ def sharded():
     return ranks.launch(f"{worker}:run_retry", 8,
                         mesh=((2, 4), ("pod", "dev")),
                         args=(N_SHARDED, M_SHARDED, POLICY_NAMES),
-                        timeout=300)
+                        device="cpu", timeout=300)
 
 
 @pytest.mark.parametrize("policy", POLICY_NAMES)

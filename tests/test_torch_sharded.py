@@ -220,13 +220,14 @@ def run(tmp_path_factory):
     try:
         worker = os.path.join(HERE, "_torch_sharded_worker.py")
         results = ranks.launch(f"{worker}:run_cases", NDEV, mesh=MESH,
-                               args=(cases,), timeout=300)
+                               args=(cases,), device="cpu", timeout=300)
         src, dst = tbfs.kronecker_graph(scale=10, edgefactor=8, seed=3)
         s = np.concatenate([src, dst])
         d = np.concatenate([dst, src])
         root = int(s[0])
         bfs_out = ranks.launch(f"{worker}:run_bfs", NDEV, mesh=MESH,
-                               args=(s, d, 1 << 10, root), timeout=300)
+                               args=(s, d, 1 << 10, root), device="cpu",
+                               timeout=300)
         _, err = jax_proc.communicate(timeout=600)
     finally:
         if jax_proc.poll() is None:
