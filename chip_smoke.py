@@ -51,7 +51,21 @@ four sites, bit-equal to the run with none; a second world of 2 ranks
 restores the checkpoint under its own mesh and walks back past a
 corrupted step; no step down `reshard_tables`' ladder is allowed; ms for
 each migration path and for replaying the history, beside the cost
-model's predictions.
+model's predictions.  MoE: `flash_attention` at dbrx's and jamba's
+shapes (3,523-row prefill, 1,600-row decode; 48 and 64 query heads over 8
+KV heads of 128); `BatchServer` serving dbrx at full width cut to 4
+layers (`serve_dbrx`) and jamba at full width cut to 5 layers, every
+layer kind (`serve_jamba`), the same 8 requests, both with their launch
+counts, routing flips between the kernel and plain paths reported, bf16
+logits gated against the plain path routed to the kernel path's experts,
+the strict check at 2 layers in f32; and expert parallelism (`moe_ep`): one full-width dbrx
+MoE layer on 4 ranks sharing the card on a 2x2 ``("data", "model")``
+mesh, held to the local path where nothing drops, its global arrival
+ranks to a host recount, what it kept to its capacities, its aux loss to
+the local one, its time split by the layer's profiler ranges (weight
+gather, exchange, atomics, expert products), the RMW kernels' launches
+inside the ranks counted.  The suites include `rmw_sharded` (8 ranks on
+the card).
 
 Phases print one JSON line each (`{"phase": ...}`); every phase raises on a
 failure.  The line before the last is the per-kernel record, and the last
@@ -458,13 +472,12 @@ def _check_table_regimes(gen, errs):
                             f"version in {int((g != want).sum())} places")
             if not torch.equal(tab, before):
                 raise AssertionError(f"rmw_table {name}: input changed")
-        # normal fp32 FAA: the regime the rule picks is held to the
-        # tolerance; each forced regime's error is reported beside it: a
-        # slot of ~10^6 ops summed in atomic order can exceed it (m = 1
-        # forced into the global regime), where the rule takes smem.  The
-        # plain version sums in float64 here: in fp32 on the card it is
-        # itself an atomic-order sum, whose rounding at m = 1 (0.009-0.027
-        # from run to run on the same inputs) is the tolerance's size
+        # normal fp32 FAA: the regime the rule picks and every forced one
+        # (twice each: atomic order varies from run to run) held to the
+        # tolerance against the plain version summed in float64: in fp32 on
+        # the card it is itself an atomic-order sum, whose rounding at
+        # m = 1 (0.009-0.027 from run to run on the same inputs) is the
+        # tolerance's size
         tab, _, val = _inputs(gen, n, m, torch.float32, normal=True,
                               drops=False)
         want = ref.rmw_table_ref(tab.double(), idx, val.double(),
@@ -475,9 +488,17 @@ def _check_table_regimes(gen, errs):
             raise AssertionError(f"rmw_table fp32 normal FAA {name}: off by "
                                  f"{err}")
         errs["rmw_table"] = max(errs["rmw_table"], err)
-        forced = {regime: _max_err(K.table_combine(tab.clone(), idx, val,
-                                                   "faa", regime), want)
-                  for regime in K.table_regimes(m)}
+        forced = {}
+        for regime in K.table_regimes(m):
+            forced[regime] = []
+            for _ in range(2):
+                g = K.table_combine(tab.clone(), idx, val, "faa", regime)
+                forced[regime].append(_max_err(g, want))
+                if not torch.allclose(g, want, rtol=1e-5, atol=atol):
+                    raise AssertionError(
+                        f"rmw_table fp32 normal FAA {name} forced {regime}: "
+                        f"off the float64 sum by {forced[regime][-1]} "
+                        f"(atol {atol})")
         done.append(dict(case=name, n=n, m=m,
                          picked=K.table_regime("faa", torch.int32, n, m),
                          regimes=K.table_regimes(m),
@@ -943,11 +964,17 @@ FA_CASES = [(2, 4, 2, 128, 128, 64, True), (1, 8, 1, 100, 100, 32, True),
 
 def _gemma_attention_args(gen, s, cached=0, dtype=torch.bfloat16):
     """One gemma_2b attention call as the model makes it: q (1, s, 8, 256)
-    and a (1, 4112, 1, 256) KV cache, handed to the kernel as transposed
-    views, ``cached`` rows before the ``s`` new ones; rows past them hold
-    NaN, which the kernel must never read."""
-    q = torch.randn((1, s, G_HQ, G_D), generator=gen, device="cuda")
-    kc, vc = (torch.randn((1, G_S_MAX, G_HKV, G_D), generator=gen,
+    and a (1, 4112, 1, 256) KV cache."""
+    return _attention_args(gen, s, cached, G_HQ, G_HKV, G_D, dtype)
+
+
+def _attention_args(gen, s, cached, hq, hkv, d, dtype=torch.bfloat16):
+    """One attention call as the model makes it: q (1, s, hq, d) and a
+    (1, 4112, hkv, d) KV cache, handed to the kernel as transposed views,
+    ``cached`` rows before the ``s`` new ones; rows past them hold NaN,
+    which the kernel must never read."""
+    q = torch.randn((1, s, hq, d), generator=gen, device="cuda")
+    kc, vc = (torch.randn((1, G_S_MAX, hkv, d), generator=gen,
                           device="cuda") for _ in range(2))
     kc[:, cached + s:] = float("nan")
     vc[:, cached + s:] = float("nan")
@@ -1108,8 +1135,12 @@ def _device_trace(fn, kernel, steps=1):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         sync()
+    # the card's events but the ranges `record_function` marks on it (the
+    # MoE layer's stages), which span kernels and are none themselves
     dev = [e for e in prof.profiler.kineto_results.events()
-           if e.device_type() == torch.autograd.DeviceType.CUDA]
+           if e.device_type() == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", bool)()
+           and not e.name().startswith("moe.")]
     if not dev:
         return dict(kernels=None, busy_ms=None, span_ms=None,
                     idle_share=None, kernel_ms=None)
@@ -1642,6 +1673,45 @@ def phase_timing(gen, bfs_n, bfs_m):
     return rows
 
 
+def _fa_row(shape, args, kw, s, cached, hq, hkv, d):
+    """One flash_attention call beside its bound, its plain version and
+    SDPA, as device times (`graph_ms`; ``eager_ms`` with the wrapper's host
+    time as the model pays it)."""
+    valid = kw["kv_valid"]
+    pairs = sum(min(i + cached + 1, valid) for i in range(s))
+    # q k^T and p v, 2 operations per multiply-add each.  q k^T has bf16
+    # operands, and a bf16 product is exact in f32: the bf16 rate.  p v
+    # takes p in f32, as the TPU kernel keeps it.  p splits exactly into
+    # three bf16 parts (hi = bf16(p), mid = bf16(p - hi), lo = bf16(p - hi
+    # - mid)) whose products with bf16 v are exact in f32, so the same
+    # function costs three bf16 products: 3 x ops_pv at the bf16 rate.
+    ops_qk = ops_pv = 2 * hq * d * pairs
+    nbytes = 2 * d * (2 * hq * s + 2 * hkv * valid)  # bf16
+    b, by = bound(nbytes, 0, nops_bf16=ops_qk + 3 * ops_pv)
+    # the yardstick: SDPA on contiguous (B, H, S, D) copies of the valid
+    # rows; top-left causal alignment is ours only when square
+    lq, lk, lv = (t[:, :, :valid].contiguous() for t in args)
+    lib = lambda: F.scaled_dot_product_attention(
+        lq, lk, lv, is_causal=s > 1, enable_gqa=True)
+    reps = 5 if s > 1 else 50
+    return dict(
+        kernel="flash_attention", op=shape,
+        shape=f"B=1 Hq={hq} Hkv={hkv} Sq={s} kv_valid={valid} "
+              f"D={d} bf16 causal", bytes=nbytes, ops=ops_qk + ops_pv,
+        ops_qk=ops_qk, ops_pv=ops_pv,
+        bound_qk_ms=ops_qk / PEAK_BF16 * 1e3,
+        bound_pv_ms=3 * ops_pv / PEAK_BF16 * 1e3,
+        bound_bytes_ms=nbytes / HBM_BPS * 1e3,
+        ms=graph_ms(lambda: FK.flash_attention(*args, **kw), reps),
+        eager_ms=time_ms(lambda: FK.flash_attention(*args, **kw), reps),
+        plain_ms=graph_ms(lambda: FK.flash_attention_plain(*args, **kw),
+                          reps),
+        library_ms=graph_ms(lib, reps),
+        library_max_abs_err=_max_err(lib(), FK.flash_attention(*args,
+                                                               **kw)),
+        bound_ms=b, bound_by=by)
+
+
 def flash_timing(gen):
     """flash_attention at gemma_2b's prefill call and its decode calls at
     1,600 and 3,600 rows, beside its bound, its plain version and SDPA.
@@ -1656,39 +1726,7 @@ def flash_timing(gen):
                              ("decode_3600", 1, G_DECODE_LONG - 1)):
         args, kw = _gemma_attention_args(gen, s, cached)
         valid = kw["kv_valid"]
-        pairs = sum(min(i + cached + 1, valid) for i in range(s))
-        # q k^T and p v, 2 operations per multiply-add each.  q k^T has
-        # bf16 operands, and a bf16 product is exact in f32: the bf16 rate.
-        # p v takes p in f32, as the TPU kernel keeps it.  p splits exactly
-        # into three bf16 parts (hi = bf16(p), mid = bf16(p - hi), lo =
-        # bf16(p - hi - mid)) whose products with bf16 v are exact in f32,
-        # so the same function costs three bf16 products: 3 x ops_pv at the
-        # bf16 rate.
-        ops_qk = ops_pv = 2 * G_HQ * G_D * pairs
-        nbytes = 2 * G_D * (2 * G_HQ * s + 2 * G_HKV * valid)  # bf16
-        b, by = bound(nbytes, 0, nops_bf16=ops_qk + 3 * ops_pv)
-        # the yardstick: SDPA on contiguous (B, H, S, D) copies of the
-        # valid rows; top-left causal alignment is ours only when square
-        lq, lk, lv = (t[:, :, :valid].contiguous() for t in args)
-        lib = lambda: F.scaled_dot_product_attention(
-            lq, lk, lv, is_causal=shape == "prefill", enable_gqa=True)
-        reps = 5 if shape == "prefill" else 50
-        rows.append(dict(
-            kernel="flash_attention", op=shape,
-            shape=f"B=1 Hq={G_HQ} Hkv={G_HKV} Sq={s} kv_valid={valid} "
-                  f"D={G_D} bf16 causal", bytes=nbytes, ops=ops_qk + ops_pv,
-            ops_qk=ops_qk, ops_pv=ops_pv,
-            bound_qk_ms=ops_qk / PEAK_BF16 * 1e3,
-            bound_pv_ms=3 * ops_pv / PEAK_BF16 * 1e3,
-            bound_bytes_ms=nbytes / HBM_BPS * 1e3,
-            ms=graph_ms(lambda: FK.flash_attention(*args, **kw), reps),
-            eager_ms=time_ms(lambda: FK.flash_attention(*args, **kw), reps),
-            plain_ms=graph_ms(lambda: FK.flash_attention_plain(*args, **kw),
-                              reps),
-            library_ms=graph_ms(lib, reps),
-            library_max_abs_err=_max_err(lib(), FK.flash_attention(*args,
-                                                                   **kw)),
-            bound_ms=b, bound_by=by))
+        rows.append(_fa_row(shape, args, kw, s, cached, G_HQ, G_HKV, G_D))
         if s == 1:
             rows_max, max_splits = FK.decode_limits()
             sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1836,7 +1874,9 @@ def _sh_cases():
     for dist in ("hot", "uniform"):
         for strategy in SH_STRATEGIES:
             out.append(_sh_case(("faa", dist, "float32"), strategy))
-    out.append(_sh_case(("faa", "hot_normal", "float32"), gated=False))
+    # fp32 FAA of normal values, ~2^21 a hot slot: held to float64 sums
+    # (the sequential oracle's own rounding is the tolerance's size)
+    out.append(_sh_case(("faa", "hot_normal", "float32")))
     for strategy in SH_STRATEGIES:
         out.append(_sh_case(("min", "hot", "float32"), strategy))
     out.append(_sh_case(("min", "uniform", "float32")))
@@ -1896,6 +1936,31 @@ def _sh_oracle(k, inputs):
     res = _serialized_dropping(table, flat, vals.reshape(-1), kind, exp)
     return (res[0], torch.where(valid, res[1], torch.zeros_like(res[1])),
             res[2] & valid)
+
+
+def _sh_faa_f64(idx, vals, table0):
+    """fp32 FAA over every rank's batch in rank order, summed in float64:
+    the table (per-slot sums) and the fetched values (a stable sort by
+    slot, then an exclusive cumsum a slot); dropped ops fetch 0."""
+    m = table0.shape[0]
+    flat = idx.reshape(-1).long()
+    v = vals.reshape(-1).double()
+    valid = (flat >= 0) & (flat < m)
+    slot = torch.where(valid, flat, m)
+    pad = torch.cat([table0.double(), table0.new_zeros(1, dtype=
+                                                       torch.float64)])
+    table = pad.clone().index_add_(0, slot, v)[:m]
+    order = torch.sort(slot, stable=True).indices
+    ss, vs = slot[order], v[order]
+    excl = torch.cumsum(vs, 0) - vs
+    start = torch.ones_like(ss, dtype=torch.bool)
+    start[1:] = ss[1:] != ss[:-1]
+    first = torch.where(start, torch.arange(ss.shape[0], device=ss.device),
+                        0).cummax(0).values
+    fetched = torch.empty_like(v)
+    fetched[order] = pad[ss] + excl - excl[first]
+    fetched = torch.where(valid, fetched, torch.zeros_like(fetched))
+    return table.float(), fetched.float()
 
 
 def _serialized_dropping(table, idx, vals, op, exp):
@@ -2019,6 +2084,10 @@ def _sharded_rank(mesh, cfg):
                                 device=dev))
         want = [_bcast(mesh, w) for w in want]
         f32 = dtype == "float32"
+        # fp32 FAA on normal values: gated against float64 sums; the
+        # sequential oracle's distance is reported beside them
+        want64 = (_sh_faa_f64(idx, vals, table0) if dist == "hot_normal"
+                  else None)
         kind = "cas" if op.startswith("cas") else op
         for c in cases:
             rep = c["replicated"]
@@ -2046,17 +2115,30 @@ def _sharded_rank(mesh, cfg):
                 occ = torch.bincount(idx[(idx >= 0) & (idx < SH_M)].long(),
                                      minlength=SH_M)
                 tol = 1e-5 * math.sqrt(int(occ.max()))
-            ok_t, err_t = _same(res.table.data, want[0][rows], f32=f32,
+            ref_t = want[0] if want64 is None else want64[0]
+            ok_t, err_t = _same(res.table.data, ref_t[rows], f32=f32,
                                 faa_tol=tol)
             row = dict(group=f"{op}/{dist}/{dtype}", strategy=c["strategy"],
                        need_fetched=c["need_fetched"], replicated=rep,
                        reverse=c["reverse"], gated=c["gated"], table=ok_t,
                        table_err=err_t)
+            sl = slice(src * SH_N, (src + 1) * SH_N)
+            if want64 is not None:
+                row.update(reference="float64", faa_atol=tol,
+                           seq_oracle_table_err=_max_err(
+                               res.table.data, want[0][rows]),
+                           seq_oracle_vs_f64_table_err=_max_err(
+                               want[0][rows], want64[0][rows]))
             if c["need_fetched"]:
-                sl = slice(src * SH_N, (src + 1) * SH_N)
+                ref_f = want[1] if want64 is None else want64[1]
                 row["fetched"], row["fetched_err"] = _same(
-                    res.fetched, want[1][sl], f32=f32, faa_tol=tol)
+                    res.fetched, ref_f[sl], f32=f32, faa_tol=tol)
                 row["success"] = bool(torch.equal(res.success, want[2][sl]))
+                if want64 is not None:
+                    row.update(seq_oracle_fetched_err=_max_err(
+                        res.fetched, want[1][sl]),
+                        seq_oracle_vs_f64_fetched_err=_max_err(
+                            want[1][sl], want64[1][sl]))
             if c["stats"]:
                 flat = idx.reshape(-1)
                 live = flat[(flat >= 0) & (flat < SH_M)]
@@ -2071,7 +2153,7 @@ def _sharded_rank(mesh, cfg):
                 row["level_ops"] = [res.stats.level_ops_in.tolist(),
                                     res.stats.level_ops_out.tolist()]
             out["cases"].append(row)
-        del want
+        del want, want64
     out["cases_s"] = time.perf_counter() - t_main
     # bfs_sharded at scale 20 over all four ranks, both protocols
     t0 = time.perf_counter()
@@ -2271,6 +2353,9 @@ def phase_sharded(s, d, root, parents):
          cases=len(out[0]["cases"]), cases_checked_per_rank=sum(
              c["gated"] for c in out[0]["cases"]),
          not_gated=unchecked, bad=bad[:20],
+         float64_faa=[dict(rank=o["rank"], **c) for o in out
+                      for c in o["cases"] if c.get("reference")
+                      == "float64"],
          stats_levels=[c.get("level_ops") for c in out[0]["cases"]
                        if "stats" in c],
          bfs={op: {k: v for k, v in r.items() if k != "parent"}
@@ -2706,6 +2791,678 @@ def phase_elastic():
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 14. MoE: dbrx at full width, jamba, expert parallelism (this slice's path)
+# ---------------------------------------------------------------------------
+
+DBRX, JAMBA = "dbrx_132b", "jamba_1_5_large_398b"
+# dbrx at full width (d 6144, 48 heads, GQA 8, head_dim 128, 16 experts,
+# top 4, d_ff_expert 10752, vocab 100352); depth cut to 4 layers (6.52 GB a
+# layer in bf16: the 40 do not fit one card), and to 2 for the f32 check
+DBRX_LAYERS, DBRX_F32_LAYERS = 4, 2
+D_HQ, D_HKV, D_D = 48, 8, 128
+D_PREFILL, D_DECODE_VALID = 3523, 1600
+# jamba at full width (d 8192, 64 heads over 8 KV heads of 128, SSD heads
+# of P 64 and N 128 in chunks of 256, 16 experts top 2, d_ff 24,576, vocab
+# 65,536); depth cut to 5 layers, its first five, which hold every layer
+# kind: SSD with a dense MLP (layers 0, 2), SSD with MoE (1, 3), attention
+# without positions and a dense MLP (4); about 48 GB in bf16 (an MoE layer
+# is 19.3 GB).  The f32 check takes the first 2 (SSD + dense, SSD + MoE;
+# about 48 GB)
+JAMBA_LAYERS, JAMBA_F32_LAYERS = 5, 2
+J_HQ, J_HKV, J_D = 64, 8, 128
+# the bf16 served prefill logits of the first 4 prompts (3,523 to 1,292
+# tokens) against the plain path routed as the kernel path chose: within
+# GEMMA_FLOOR_FACTOR x the floor, the plain path with its attention through
+# the kernel's own f32 function, routed the same, as serve_gemma gates
+MOE_GATE_PROMPTS = 4
+# moe_ep: one full-width dbrx MoE layer on 4 ranks sharing the card, a 2x2
+# ("data", "model") mesh over gloo; x (2, 2048, 6144) in f32, batch and
+# sequence split: 1,024 tokens a rank
+EP_WORLD, EP_SHAPE, EP_AXES = 4, (2, 2), ("data", "model")
+EP_X = (2, 2048, 6144)
+# a capacity where nothing drops: every token's k assignments go to k
+# distinct experts, so capacity_factor E / k gives each expert a slot for
+# every token, locally (4,096) and on a rank (1,024)
+EP_NO_DROP = 4.0
+# the expert-parallel output against the local path where nothing drops:
+# the same f32 products (TF32 off) over buffers of other shapes, (1, 16,
+# 4096) rows locally and (2, 8, 1024) on a rank, which cuBLAS may block
+# differently; dot products of K = 6,144 and 10,752 terms round at about
+# eps sqrt(K) ~ 1e-5 of their scale, so two blockings differ by that; 1e-4
+# is ten times it, and far under what one routing difference moves (a gate
+# times an expert's output, about 0.1)
+EP_TOL = 1e-4
+# ... and a capacity at the mean load (capacity_factor 1), where experts
+# overflow on a rank and across the mesh, so the global filter drops
+EP_TIGHT = 1.0
+
+
+@contextlib.contextmanager
+def _served_config(cfg):
+    """`BatchServer(arch, reduced=False)` builds ``cfg``: the server takes
+    an arch name, so the cut config comes in through its module's config
+    lookup for the block."""
+    from repro_torch.launch import serve as serve_mod
+    real = serve_mod.get_config
+    serve_mod.get_config = lambda arch: cfg
+    try:
+        yield
+    finally:
+        serve_mod.get_config = real
+
+
+@contextlib.contextmanager
+def _routing_log():
+    """Every MoE layer's routing in call order, as the model runs it (read
+    by wrapping `moe._route`): the expert ids and the router's top-k margin
+    (the k-th probability less the (k+1)-th: how near a tie the choice
+    was)."""
+    from repro_torch.models import moe as moe_mod
+    real = moe_mod._route
+    log = []
+
+    def logged(x2d, router_w, m):
+        out = real(x2d, router_w, m)
+        probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        log.append(dict(ids=torch.sort(out[1].long(), -1).values,
+                        margin=top[:, m.top_k - 1] - top[:, m.top_k]))
+        return out
+
+    moe_mod._route = logged
+    try:
+        yield log
+    finally:
+        moe_mod._route = real
+
+
+def _routing_flips(a, b, n_moe, limit=10):
+    """Assignments whose expert set differs between two runs' logs: count,
+    and the first few by (MoE call, its layer, token, margin in each
+    run)."""
+    flips, n = [], 0
+    for call, (x, y) in enumerate(zip(a, b)):
+        bad = (x["ids"] != y["ids"]).any(-1).nonzero().flatten().tolist()
+        n += len(bad)
+        flips += [dict(call=call, layer=call % n_moe, token=t,
+                       margin_kernel=float(x["margin"][t]),
+                       margin_plain=float(y["margin"][t]))
+                  for t in bad[:limit - len(flips)]]
+    return n, flips
+
+
+@contextlib.contextmanager
+def _routing_pinned(choices=None):
+    """Without ``choices``: records each MoE call's expert ids, as
+    `moe._route` chose them.  With them: routes each call to its recorded
+    ids instead, in call order, with the router's probabilities there as
+    gates, normalised as `moe._route` does (so a run on another path takes
+    the same experts, and rounding moves only the gates)."""
+    from repro_torch.models import moe as moe_mod
+    real = moe_mod._route
+    rec = []
+    pinned = iter(choices or ())
+
+    def route(x2d, router_w, m):
+        if choices is None:
+            out = real(x2d, router_w, m)
+            rec.append(out[1])
+            return out
+        ids = next(pinned)
+        probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
+        gates = probs.gather(1, ids.long())
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        counts = torch.bincount(ids[:, 0].long(),
+                                minlength=m.n_experts).to(torch.float32)
+        return gates, ids, (probs.mean(0), counts)
+
+    moe_mod._route = route
+    try:
+        yield rec
+    finally:
+        moe_mod._route = real
+
+
+def _bf16_pinned_gate(name, model, prompts):
+    """The served bf16 model's prefill logits of the first
+    `MOE_GATE_PROMPTS` prompts through the kernels, against the plain path
+    routed to the experts the kernel path chose (`_routing_pinned`): within
+    `GEMMA_FLOOR_FACTOR` x the floor, the plain path with attention
+    through the kernel's own f32 function (`flash_attention_plain`), routed
+    the same, against that plain run.  Routing flips between the paths
+    (near ties that rounding tips) are counted in the served runs; here
+    they cannot hide a fault in the kernels' bf16 path."""
+    errs, floors = [], []
+    for p in prompts[:MOE_GATE_PROMPTS]:
+        model.use_kernel = None
+        with _routing_pinned() as chosen:
+            kern = _prefill_logits(model, p, G_S_MAX)
+        model.use_kernel = False
+        with _routing_pinned(chosen):
+            plain = _prefill_logits(model, p, G_S_MAX)
+        model.use_kernel = None
+        with _attention_through_plain_version(), _routing_pinned(chosen):
+            floor = _prefill_logits(model, p, G_S_MAX)
+        errs.append(_max_err(kern, plain))
+        floors.append(_max_err(floor, plain))
+    err, floor = max(errs), max(floors)
+    if err > GEMMA_FLOOR_FACTOR * floor:
+        raise AssertionError(f"{name} bf16 prefill logits, routing pinned: "
+                             f"kernel path off the plain path by {err} > "
+                             f"{GEMMA_FLOOR_FACTOR} x floor {floor}")
+    return dict(bf16_pinned_logit_max_abs_err=err, bf16_pinned_floor=floor,
+                bf16_pinned_gate=GEMMA_FLOOR_FACTOR * floor,
+                bf16_pinned_prompts=[len(p) for p in
+                                     prompts[:MOE_GATE_PROMPTS]])
+
+
+def _strict_f32(cfg, prompts, n_prompts=2):
+    """``cfg`` in f32 (TF32 off): prefill logits of the first prompts
+    through the kernels and the plain paths, same weights (seed 0), within
+    `SERVE_F32_LOGIT_ATOL`; routing flips between the two reported by
+    token and margin."""
+    m32 = LM(cfg.replace(dtype="float32"), seed=0, attn_impl="ref")
+    with _routing_log() as kern_log:
+        kern = [_prefill_logits(m32, p, G_S_MAX) for p in prompts[:n_prompts]]
+    m32.use_kernel = False
+    with _routing_log() as plain_log:
+        plain = [_prefill_logits(m32, p, G_S_MAX)
+                 for p in prompts[:n_prompts]]
+    n_moe = sum(b.is_moe for b in m32.blocks)
+    del m32
+    torch.cuda.empty_cache()
+    err = max(_max_err(a, b) for a, b in zip(kern, plain))
+    n_flips, flips = _routing_flips(kern_log, plain_log, n_moe)
+    if err > SERVE_F32_LOGIT_ATOL:
+        raise AssertionError(f"{cfg.name} f32 prefill logits: kernel path "
+                             f"off the plain path by {err} > "
+                             f"{SERVE_F32_LOGIT_ATOL}; routing flips "
+                             f"{n_flips}: {flips}")
+    return dict(f32_layers=cfg.n_layers, f32_prompts=n_prompts,
+                f32_logit_max_abs_err=err,
+                f32_logit_atol=SERVE_F32_LOGIT_ATOL,
+                f32_routing_flips=n_flips, f32_flips=flips,
+                f32_min_margin=min(float(x["margin"].min())
+                                   for x in plain_log))
+
+
+def _moe_ranges(fn):
+    """Each `moe.<stage>` range's host ms (its span on the host) and
+    device ms (its kernels' time on the card, from torch.profiler's CUPTI
+    trace; None where the trace holds none) during ``fn()``, summed over
+    its calls."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    host, dev = {}, {}
+    for e in prof.events():
+        if e.name.startswith("moe.") and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            k = e.name[len("moe."):]
+            host[k] = host.get(k, 0.0) + e.cpu_time_total / 1e3
+            dev[k] = dev.get(k, 0.0) + e.device_time_total / 1e3
+    if not any(dev.values()):
+        dev = {k: None for k in dev}
+    return host, dev
+
+
+def _moe_stages(block, cfg, s, reps=3):
+    """One MoE layer by stage (route, rank, scatter, experts, combine) on
+    (1, s, d) bf16 activations, from the ranges of a profiled run of
+    ``reps`` calls after a warm-up: device ms a call, host ms a call."""
+    from repro_torch.models import moe as moe_mod
+    g = torch.Generator(device="cuda").manual_seed(s)
+    h = torch.randn((1, s, cfg.d_model), generator=g, device="cuda").to(
+        block.moe["w1"].dtype)
+    moe_mod.moe_ffn(block.moe, h, cfg)
+    host, dev = _moe_ranges(lambda: [moe_mod.moe_ffn(block.moe, h, cfg)
+                                     for _ in range(reps)])
+    return dict(device_ms={k: v and v / reps for k, v in dev.items()},
+                host_ms={k: v / reps for k, v in host.items()})
+
+
+def _serve_moe(name, cfg, *, kernels):
+    """``cfg`` through `BatchServer` on the card: the 8 requests of the
+    serving phases (3523 to 319 tokens), 4 slots, 16 new tokens, with the
+    launch counters reset just before and read just after (each of
+    ``kernels`` must launch); then the same requests on the plain paths,
+    the routing flips between the two runs (count, and the first by
+    layer, token and margin), the bf16 gate with the plain path routed as
+    the kernel path chose (`_bf16_pinned_gate`), and the device's busy and
+    idle time for a
+    prefill and 8 decode steps.  Returns (launches, fields to emit, the
+    server, the prompts)."""
+    t0 = time.perf_counter()
+    with _served_config(cfg):
+        server = BatchServer(name, reduced=False, slots=SERVE_SLOTS,
+                             s_max=G_S_MAX, seed=0, device="cuda")
+    sync()
+    init_s = time.perf_counter() - t0
+    blocks = server.model.blocks
+    n_attn = sum(b.kind == "attn" for b in blocks)
+    n_ssm = sum(b.kind == "ssm" for b in blocks)
+    if not any(b.is_moe for b in blocks):
+        raise AssertionError(f"{name}: no MoE layer in {cfg}")
+    rng = np.random.default_rng(0)
+    lengths = [int(v) for v in rng.integers(256, 4097, SERVE_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab_size, v).tolist() for v in lengths]
+    _prefill_logits(server.model, prompts[0][:300], G_S_MAX)   # warm-up
+    sync()
+
+    reqs = _requests(prompts)
+    with _routing_log() as kern_log:
+        FK.reset_launches()              # the serving path starts here
+        SK.reset_launches()
+        stats = server.run(reqs)
+        launches = {**FK.LAUNCHES, **SK.LAUNCHES}   # ... and ends here
+    timing = dict(server.timing)
+    decode_tokens = SERVE_REQUESTS * (SERVE_MAX_NEW - 1)
+    want = {"flash_attention": n_attn * (SERVE_REQUESTS + decode_tokens),
+            "ssd_chunk": n_ssm * SERVE_REQUESTS}
+    if launches != want or 0 in [want[k] for k in kernels]:
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
+    if stats["completed"] != SERVE_REQUESTS or stats["tokens"] != \
+            decode_tokens:
+        raise AssertionError(f"{name}: serve stats {stats}")
+    for r in reqs:
+        lg = r.prefill_logits
+        if lg.shape != (cfg.vocab_size,) or not torch.isfinite(lg).all():
+            raise AssertionError(f"{name} request {r.rid}: bad logits")
+        if len(r.out) != SERVE_MAX_NEW or \
+                not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"{name} request {r.rid}: bad tokens "
+                                 f"{r.out}")
+
+    # the same requests on the same weights through the plain paths
+    server.model.use_kernel = False
+    server.timing = {k: type(v)() for k, v in server.timing.items()}
+    plain = _requests(prompts)
+    with _routing_log() as plain_log:
+        plain_stats = server.run(plain)
+    if {**FK.LAUNCHES, **SK.LAUNCHES} != want:
+        raise AssertionError(f"{name}: the plain path launched a kernel")
+    server.model.use_kernel = None
+    n_moe = sum(b.is_moe for b in blocks)
+    n_flips, flips = _routing_flips(kern_log, plain_log, n_moe)
+    del kern_log, plain_log
+    gate = _bf16_pinned_gate(name, server.model, prompts)
+    logit_err = max(_max_err(a.prefill_logits, b.prefill_logits)
+                    for a, b in zip(reqs, plain))
+    same_tok = sum(x == y for a, b in zip(reqs, plain)
+                   for x, y in zip(a.out, b.out))
+
+    first = torch.tensor([prompts[0]], device="cuda")
+    box = {}
+
+    def prefill():
+        box["cache"] = server.model.prefill({"tokens": first}, G_S_MAX)[0]
+
+    def decode(steps=8):
+        tok = first[:, -1:]
+        for _ in range(steps):
+            server.model.decode_step(box["cache"], {"tokens": tok})
+
+    names = FA_KERNELS + ("ssd_chunk_kernel",)
+    fields = dict(
+        arch=name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, dtype=cfg.dtype,
+        n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+        d_ff_expert=cfg.moe.d_ff_expert,
+        layers={"attn": n_attn, "ssm": n_ssm, "moe": n_moe},
+        weight_bytes=sum(p.numel() * p.element_size()
+                         for p in server.model.parameters()),
+        init_s=init_s, prompt_lengths=lengths, slots=SERVE_SLOTS,
+        max_new=SERVE_MAX_NEW, stats=stats, plain_stats=plain_stats,
+        launches=launches,
+        prefill_ms_per_request=1e3 * timing["prefill_s"]
+        / timing["prefills"],
+        decode_ms_per_token=1e3 * timing["decode_s"]
+        / timing["decode_steps"],
+        plain_prefill_ms_per_request=1e3 * server.timing["prefill_s"]
+        / server.timing["prefills"],
+        plain_decode_ms_per_token=1e3 * server.timing["decode_s"]
+        / server.timing["decode_steps"],
+        prefill_trace=dict(prompt=lengths[0],
+                           **_device_trace(prefill, names)),
+        decode_trace_per_token=_device_trace(decode, names, steps=8),
+        bf16_prefill_logit_max_abs_err=logit_err,
+        plain_logit_std=float(plain[0].prefill_logits.std()),
+        greedy_tokens_equal=f"{same_tok}/{SERVE_REQUESTS * SERVE_MAX_NEW}",
+        bf16_routing_flips=n_flips, bf16_first_flips=flips, **gate)
+    return launches, fields, server, prompts
+
+
+def phase_flash_dbrx(gen):
+    """flash_attention at dbrx's shapes (48 query heads over 8 KV heads of
+    128, bf16) and jamba's (64 over 8 of 128): the prefill of the longest
+    served prompt (3,523 rows) and a decode call at 1,600 rows, against the
+    plain version within one bf16 ulp (`FA_GEMMA_BF16`); each beside its
+    bound, the plain version and SDPA."""
+    errs, rows = {}, []
+    for arch, hq, hkv, d in (("dbrx", D_HQ, D_HKV, D_D),
+                             ("jamba", J_HQ, J_HKV, J_D)):
+        for shape, s, cached in (("prefill", D_PREFILL, 0),
+                                 ("decode", 1, D_DECODE_VALID - 1)):
+            args, kw = _attention_args(gen, s, cached, hq, hkv, d)
+            got = FK.flash_attention(*args, **kw)
+            want = FK.flash_attention_plain(*args, **kw)
+            errs[f"{arch}_{shape}"] = _check_fa(
+                got, want, f"{arch} {shape} bf16", **FA_GEMMA_BF16)
+            rows.append(dict(arch=arch, **_fa_row(shape, args, kw, s, cached,
+                                                  hq, hkv, d)))
+    emit("flash_dbrx", tol=FA_GEMMA_BF16, max_abs_err=errs, rows=rows)
+    return max(errs.values())
+
+
+def phase_serve_dbrx():
+    """dbrx at full width and 4 layers in bf16 through `BatchServer`
+    (`flash_attention` launches must be 4 x (8 + 120) = 512), the MoE
+    layer's time by stage at a prefill's and a decode's shape; then, with
+    the bf16 model freed, the strict check at 2 layers in f32 (about 31
+    GB)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(DBRX).replace(n_layers=DBRX_LAYERS)
+    if (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert,
+            cfg.vocab_size, cfg.dtype) != (6144, D_HQ, D_HKV, D_D, 16, 4,
+                                           10752, 100352, "bfloat16"):
+        raise AssertionError(f"not dbrx at full width: {cfg}")
+    launches, fields, server, prompts = _serve_moe(
+        DBRX, cfg, kernels=("flash_attention",))
+    block = next(b for b in server.model.blocks if b.is_moe)
+    fields["moe_stage_ms"] = {
+        "prefill_3523": _moe_stages(block, cfg, D_PREFILL),
+        "decode": _moe_stages(block, cfg, 1, reps=20)}
+    del server, block
+    torch.cuda.empty_cache()
+    fields.update(_strict_f32(cfg.replace(n_layers=DBRX_F32_LAYERS),
+                              prompts))
+    emit("serve_dbrx", **fields)
+    return launches
+
+
+def phase_serve_jamba():
+    """jamba at full width and 5 layers (every layer kind) in bf16 through
+    `BatchServer` (`ssd_chunk` and `flash_attention` must both launch: 4 x
+    8 and 1 x 128); then, with the bf16 model freed, the strict check at 2
+    layers in f32 (about 48 GB)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(JAMBA).replace(n_layers=JAMBA_LAYERS)
+    if (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.chunk,
+            cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert,
+            cfg.vocab_size, cfg.dtype) != (8192, J_HQ, J_HKV, J_D, 64, 128,
+                                           256, 16, 2, 24576, 65536,
+                                           "bfloat16"):
+        raise AssertionError(f"not jamba at full width: {cfg}")
+    launches, fields, server, prompts = _serve_moe(
+        JAMBA, cfg, kernels=("flash_attention", "ssd_chunk"))
+    kinds = [(b.kind, b.is_moe) for b in server.model.blocks]
+    if set(kinds) != {("ssm", False), ("ssm", True), ("attn", False)}:
+        raise AssertionError(f"jamba's 5 layers miss a kind: {kinds}")
+    del server
+    torch.cuda.empty_cache()
+    fields.update(_strict_f32(cfg.replace(n_layers=JAMBA_F32_LAYERS),
+                              prompts))
+    emit("serve_jamba", ssm=dataclasses.asdict(cfg.ssm), **fields)
+    return launches
+
+
+def _ep_config(capacity_factor, policy):
+    """One dbrx MoE layer at full width, in f32."""
+    from repro_torch.configs import get_config
+    cfg = get_config(DBRX).replace(n_layers=1, dtype="float32")
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor, overflow_policy=policy))
+
+
+def _ep_params(cfg, experts, rows):
+    """The layer's weights for ``experts`` and the d-rows ``rows`` of
+    w1/w3 (w2: its rows of f), each expert's drawn from its own seed, so a
+    rank's shard holds exactly the global tensor's values there."""
+    m, d = cfg.moe, cfg.d_model
+    f = m.d_ff_expert
+    out = {"router": torch.randn(
+        (d, m.n_experts), generator=torch.Generator(device="cuda")
+        .manual_seed(11), device="cuda") * d ** -0.5}
+    for w, (din, dout) in enumerate(((d, f), (d, f), (f, d))):
+        parts = []
+        for e in experts:
+            g = torch.Generator(device="cuda").manual_seed(100 + 3 * e + w)
+            full = torch.randn((din, dout), generator=g, device="cuda")
+            parts.append((full[rows(din)] * din ** -0.5).clone())
+            del full
+        out[("w1", "w3", "w2")[w]] = torch.stack(parts)
+    return out
+
+
+def _ep_x():
+    g = torch.Generator(device="cuda").manual_seed(12)
+    return torch.randn(EP_X, generator=g, device="cuda")
+
+
+@contextlib.contextmanager
+def _ep_observed(mesh):
+    """What `moe._ep_ffn` did on this rank, read at the module's seams:
+    the routing's expert ids (`moe._route`), the local slot ranks
+    (`moe._priority_rank`), the fetched sharded FAA's global arrival ranks
+    (`atomics.execute` with ``need_fetched``) and the tensors this rank
+    sent through ``mesh.all_to_all`` (the dispatch buffer among them)."""
+    from repro_torch.models import moe as moe_mod
+    seen = {"global_rank": None, "sent": []}
+    route, rank, execute = moe_mod._route, moe_mod._priority_rank, \
+        atomics.execute
+
+    def route_(*a):
+        out = route(*a)
+        seen["ids"] = out[1]
+        return out
+
+    def rank_(*a):
+        seen["rank"] = rank(*a)
+        return seen["rank"]
+
+    def execute_(table, op, **kw):
+        res = execute(table, op, **kw)
+        if kw.get("need_fetched", True):
+            seen["global_rank"] = res.fetched
+        return res
+
+    def all_to_all_(x, axis):
+        seen["sent"].append(x)
+        return type(mesh).all_to_all(mesh, x, axis)
+
+    moe_mod._route, moe_mod._priority_rank = route_, rank_
+    atomics.execute, mesh.all_to_all = execute_, all_to_all_
+    try:
+        yield seen
+    finally:
+        moe_mod._route, moe_mod._priority_rank = route, rank
+        atomics.execute = execute
+        del mesh.all_to_all
+
+
+def _ep_kept(seen, plan, cfg):
+    """Which assignments the dispatch kept, read from the buffer it sent:
+    an assignment (expert e, local rank r < capacity) was kept iff its row
+    (e's shard, e's local row, r) holds a token (x has no zero row)."""
+    e_loc, cap = cfg.moe.n_experts // plan.ep, plan.capacity
+    send = next(t for t in seen["sent"] if t.dim() == 3
+                and t.shape[:2] == (plan.ep, e_loc * cap))
+    full = send.abs().sum(-1) != 0
+    flat, r = seen["ids"].reshape(-1).long(), seen["rank"].long()
+    slot = (flat % e_loc) * cap + r.clamp(max=cap - 1)
+    return (r < cap) & full[flat // e_loc, slot]
+
+
+def _moe_ep_rank(mesh, cfg):
+    """One rank of the `moe_ep` phase: its shards of the layer's weights,
+    the global x, then the rank's body of the expert-parallel layer
+    (`moe._ep_ffn`, which `moe_ffn` runs under the mesh on its cuts of the
+    global weights) three times, the launch counts reset just before, each
+    call profiled by stage: where nothing drops, then under
+    swp_drop_newest at the default capacity and at the mean load."""
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import moe as moe_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    staged = mesh.probe(dev)
+    no_drop = _ep_config(EP_NO_DROP, "swp_drop_newest")
+    default = _ep_config(1.25, "swp_drop_newest")
+    tight = _ep_config(EP_TIGHT, "swp_drop_newest")
+    ep = mesh.shape["model"]
+    fsdp = mesh.size("data")
+    e_loc = default.moe.n_experts // ep
+    i, j = mesh.index("model"), mesh.index("data")
+    params = _ep_params(default, range(i * e_loc, (i + 1) * e_loc),
+                        lambda n: slice(j * n // fsdp, (j + 1) * n // fsdp))
+    x = _ep_x()
+    sync()
+    K.reset_launches()
+    XK.reset_launches()
+    out = dict(rank=mesh.rank, host_staged=list(staged))
+    with use_mesh(mesh):
+        for name, cfg_ in (("no_drop", no_drop), ("default", default),
+                           ("tight", tight)):
+            box = {}
+
+            def call():
+                box["y"], box["aux"] = moe_mod._ep_ffn(params, x, cfg_, mesh)
+
+            with _ep_observed(mesh) as seen:
+                host, devt = _moe_ranges(call)
+            plan = moe_mod.ep_plan(mesh, cfg_, *EP_X[:2])
+            gr = seen["global_rank"]
+            out[name] = dict(
+                aux=float(box["aux"]), plan=dataclasses.asdict(plan),
+                ids=seen["ids"].cpu(), local_rank=seen["rank"].cpu(),
+                keep=_ep_kept(seen, plan, cfg_).cpu(),
+                global_rank=None if gr is None else gr.cpu(),
+                host_ms=host, device_ms=devt)
+            if name == "no_drop":
+                y = box["y"]
+            del box, seen
+    out["launches"] = {**K.LAUNCHES, **XK.LAUNCHES}
+    out.update(
+        y=y.cpu() if mesh.rank == 0 else None,
+        y_abs_sum=float(y.double().abs().sum()),
+        peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def phase_moe_ep():
+    """Expert parallelism on 4 ranks sharing the card (gloo): one dbrx MoE
+    layer at full width, x (2, 2048, 6144) f32, 1,024 tokens a rank.
+    Raises unless (1) where nothing drops, the gathered output equals the
+    local `moe_ffn` within `EP_TOL`; (2) under swp_drop_newest, at the
+    default capacity and at the mean load, every assignment's global
+    arrival rank equals a host recount in rank order (data-major,
+    model-minor), exactly, and an assignment is kept exactly where its
+    local and global ranks are under their capacities; (3) the aux loss
+    equals the local path's within 1e-5 relative.  Returns the RMW kernels' launches inside
+    the ranks, summed."""
+    from repro_torch.launch import ranks
+    from repro_torch.models import moe as moe_mod
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = ranks.launch(f"{os.path.abspath(__file__)}:_moe_ep_rank",
+                       EP_WORLD, mesh=(EP_SHAPE, EP_AXES), device="cuda",
+                       args=({},), timeout=900)
+    ranks_s = time.perf_counter() - t0
+    bad = []
+    # the local path on the same x and weights (no mesh)
+    no_drop = _ep_config(EP_NO_DROP, "swp_drop_newest")
+    e = no_drop.moe.n_experts
+    params = _ep_params(no_drop, range(e), lambda n: slice(0, n))
+    x = _ep_x()
+    t1 = time.perf_counter()
+    want, aux_local = moe_mod.moe_ffn(params, x, no_drop)
+    sync()
+    local_s = time.perf_counter() - t1
+    del params
+    y = out[0]["y"].cuda()
+    err = _max_err(y, want)
+    if not torch.allclose(y, want, rtol=EP_TOL, atol=EP_TOL):
+        bad.append(f"no-drop output off the local path by {err}")
+    if not all(bool(o["no_drop"]["keep"].all()) for o in out):
+        bad.append("an assignment dropped at the no-drop capacity")
+    if len({o["y_abs_sum"] for o in out}) != 1:
+        bad.append(f"ranks gathered different outputs: "
+                   f"{[o['y_abs_sum'] for o in out]}")
+    del y, want, x
+    torch.cuda.empty_cache()
+    # (2) the global arrival ranks: a host recount over the ranks in mesh
+    # order (the world rank here: data-major, model-minor); and the drops:
+    # kept exactly where the local and the global rank are both under
+    # their capacities
+    drops = {}
+    for name in ("default", "tight"):
+        runs = [o[name] for o in out]
+        ids = torch.cat([r["ids"].reshape(-1) for r in runs]).numpy()
+        recount = np.zeros_like(ids)
+        seen = {}
+        for n, ex in enumerate(ids):
+            recount[n] = seen.get(int(ex), 0)
+            seen[int(ex)] = recount[n] + 1
+        got = torch.cat([r["global_rank"] for r in runs]).numpy()
+        cap, cap_g = runs[0]["plan"]["capacity"], \
+            runs[0]["plan"]["global_capacity"]
+        if not np.array_equal(got, recount):
+            bad.append(f"{name}: global arrival ranks differ from the host "
+                       f"recount in {int((got != recount).sum())} of "
+                       f"{len(got)}")
+        local_ok = torch.cat([r["local_rank"] < cap for r in runs])
+        global_ok = torch.from_numpy(got < cap_g)
+        keep = torch.cat([r["keep"] for r in runs])
+        if not torch.equal(keep, local_ok & global_ok):
+            bad.append(f"{name}: kept is not (local rank < {cap}) & "
+                       f"(global rank < {cap_g})")
+        drops[name] = dict(capacity=cap, global_capacity=cap_g,
+                           assignments=len(got), kept=int(keep.sum()),
+                           dropped_local=int((~local_ok).sum()),
+                           dropped_global_only=int(
+                               (local_ok & ~global_ok).sum()))
+    # (3) the aux loss
+    aux = float(aux_local)
+    for o in out:
+        for a in (o["no_drop"]["aux"], o["default"]["aux"],
+                  o["tight"]["aux"]):
+            if abs(a - aux) > 1e-5 * abs(aux):
+                bad.append(f"rank {o['rank']} aux {a} != local {aux}")
+    launches = {k: sum(o["launches"][k] for o in out)
+                for k in out[0]["launches"]}
+    for k in ("rmw_table", "rmw_table_fetched"):
+        if launches[k] == 0:
+            bad.append(f"{k} never launched inside the ranks")
+    # host ms by range, the slowest rank (gather, atomics and exchange are
+    # host-staged gloo collectives, and an exchange's span includes the wait
+    # for the kernels queued before it); device ms by range, the slowest
+    stage = {f: {k: max((o["default"][f][k] for o in out
+                         if o["default"][f][k] is not None), default=None)
+                 for k in out[0]["default"][f]}
+             for f in ("host_ms", "device_ms")}
+    emit("moe_ep", ranks=EP_WORLD, mesh=dict(zip(EP_AXES, EP_SHAPE)),
+         x=list(EP_X), dtype="float32", tokens_per_rank=EP_X[0] * EP_X[1]
+         // EP_WORLD, transport="gloo", host_staged=out[0]["host_staged"],
+         plan=out[0]["default"]["plan"], seconds=time.perf_counter() - t0,
+         ranks_s=ranks_s, local_s=local_s,
+         no_drop_max_abs_err=err, tol=EP_TOL, drops=drops,
+         aux_local=aux, aux_ranks=[(o["no_drop"]["aux"], o["default"]["aux"],
+                                    o["tight"]["aux"]) for o in out],
+         stage_ms_max_over_ranks=stage,
+         stage_ms_no_drop_rank0={f: out[0]["no_drop"][f]
+                                 for f in ("host_ms", "device_ms")},
+         peak_gb=[o["peak_gb"] for o in out], launches=launches,
+         bad=bad[:10])
+    if bad:
+        raise AssertionError(f"moe_ep phase: {bad}")
+    return launches
+
+
 def main():
     # f32 products in full f32 on the card (the plain versions' matmuls)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2719,7 +3476,8 @@ def main():
     phase_kernels(gen, errs)
     phase_serial_kernels(gen, errs)
     errs["ssd_chunk"] = phase_ssd_kernel(gen)
-    errs["flash_attention"] = phase_flash_kernel(gen)
+    errs["flash_attention"] = max(phase_flash_kernel(gen),
+                                  phase_flash_dbrx(gen))
 
     K.reset_launches()                   # the main path starts here
     phase_atomics(gen)
@@ -2734,6 +3492,9 @@ def main():
 
     launches.update(phase_serve())       # resets and reads its own count
     launches.update(phase_serve_gemma())  # the same
+    for phase in (phase_serve_dbrx, phase_serve_jamba):   # the same, added
+        for k, v in phase().items():
+            launches[k] += v
 
     rows = phase_timing(gen, bfs_n, bfs_m)
     suite_results, suite_launches = phase_suites()  # its own main path
@@ -2746,6 +3507,9 @@ def main():
         launches[k] += v
     # ... then the elastic tier, whose ranks count the same way
     for k, v in phase_elastic().items():
+        launches[k] += v
+    # ... then expert parallelism, whose ranks count the same way
+    for k, v in phase_moe_ep().items():
         launches[k] += v
     headline = {"rmw_table": ("faa", "uniform_bfs_n"),
                 "rmw_table_fetched": ("cas", "uniform_bfs_n"),

@@ -12,6 +12,9 @@ figure, in the reference's order (`benchmarks/run.py`):
   calibrate         HardwareSpec persistence   (writes build/repro_torch/
                                                 calibrated_spec.json)
   model_validation  Tables 2-3 + §5 NRMSE gate (calibration + validation)
+  rmw_sharded       distributed-RMW shoot-out  (naive vs one-shot vs
+                                                hierarchical, 8 ranks;
+                                                writes rmw_sharded.json)
   reshard           elastic migration against full replay (4 ranks)
   fault_recovery    recovery under seeded faults + bounded retry
 
@@ -23,7 +26,7 @@ Prints ``name,us_per_call,derived`` CSV rows.  The latency rows feed
 ``<name>,FAILED,<error>`` and the run goes on, then exits 1.  The device is
 the card unless ``--device cpu`` asks for the CPU (the kernels' plain
 versions; the tests' mode).  ``--out`` names the directory that
-`rmw_backends` and `calibrate` write their JSON to (default:
+`rmw_backends`, `calibrate` and `rmw_sharded` write their JSON to (default:
 `build/repro_torch/`, where the CPU's selection looks for the fit).
 """
 
@@ -37,12 +40,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from repro_torch.benchmarks import (bandwidth, bfs, calibrate, contention,
                                     fault_recovery, latency,
                                     model_validation, operand_size,
-                                    operands_fetched, reshard, rmw_backends)
+                                    operands_fetched, reshard, rmw_backends,
+                                    rmw_sharded)
 from repro_torch.benchmarks.common import Csv
 
 SUITES = ("latency", "bandwidth", "contention", "operand_size",
           "operands_fetched", "bfs", "rmw_backends", "calibrate",
-          "model_validation", "reshard", "fault_recovery")
+          "model_validation", "rmw_sharded", "reshard", "fault_recovery")
 
 
 def run_suites(only: Optional[Sequence[str]] = None, fast: bool = False,
@@ -73,6 +77,9 @@ def run_suites(only: Optional[Sequence[str]] = None, fast: bool = False,
                 out_dir, "calibrated_spec.json")),
         "model_validation": lambda: model_validation.run(
             csv, results.get("latency"), device=device, fast=fast),
+        "rmw_sharded": lambda: rmw_sharded.run(
+            csv, fast=fast, device=device, **({} if out_dir is None else {
+                "out_path": os.path.join(out_dir, "rmw_sharded.json")})),
         "reshard": lambda: reshard.run(csv, fast=fast, device=device),
         "fault_recovery": lambda: fault_recovery.run(csv, fast=fast,
                                                      device=device),

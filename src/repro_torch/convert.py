@@ -82,8 +82,12 @@ def lm_params_from_reference(params: Mapping, cfg: ModelConfig, *,
     The reference stacks each stage's parameters on a leading axis of
     ``repeats`` (``params["stages"][i][j]`` holds sub-layer j of stage i);
     repeat r of sub-layer j is the port's block
-    ``offset_i + r * len(sigs) + j``.  Every parameter of the model must be
-    filled, with its own shape and dtype, or this raises."""
+    ``offset_i + r * len(sigs) + j``; jamba's periodic super-block, whose
+    sub-layers alternate MoE and dense channels, maps the same way.  An MoE
+    channel's leaves (``moe.router``, ``moe.w1``/``w3``/``w2`` and
+    ``moe.shared.*``) go to the block's `models.moe.MoE` by name.  Every
+    parameter of the model must be filled, with its own shape and dtype, or
+    this raises."""
     model = LM(cfg, device=device) if model is None else model
     own: Dict[str, torch.nn.Parameter] = dict(model.named_parameters())
     filled = set()

@@ -69,6 +69,12 @@
 //   only reassociates: each slot's ops are summed per CTA, then into the
 //   table, so the rounding stays within the tolerance a sum of that many
 //   terms in any order already needs (rtol 1e-5, atol 1e-5 sqrt(occupancy)).
+//   fp32 FAA into the output (global, windows) sums each thread's UNROLL
+//   ops of one slot, then each warp's sums of one slot (__match_any_sync,
+//   then a tree over the peers' ranks), before one atomicAdd: a hot slot's
+//   sum is then a chain of n / 256 atomics, not of n.  Chained
+//   op by op, a slot's rounding grows with its occupancy and can pass that
+//   tolerance on one hot slot (m = 1); the warp's tree keeps it inside.
 
 // rmw_table_fetched  (replaces kernel.py::rmw_table_fetched, body
 //             _rmw_fetched_kernel: per-tile pallas_calls, each a 1-D grid over
@@ -277,6 +283,79 @@ __device__ __forceinline__ void global_word(T* table, int* last_pos, int s,
   }
 }
 
+// The lane of the k-th (0-based) set bit of `mask`: the largest p with at
+// most k set bits below it.
+__device__ __forceinline__ int nth_lane(unsigned mask, int k) {
+  int p = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1)
+    if (__popc(mask & ((1u << (p + w)) - 1u)) <= k) p += w;
+  return p;
+}
+
+// The sum of `v` over the warp's lanes holding the same `key` (every lane
+// of the warp calls it), as a tree over the peers' ranks: the lowest peer
+// returns the group's sum and true, the others false.
+__device__ __forceinline__ bool warp_sum_by_key(int key, float& v) {
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  const int lane = threadIdx.x & 31;
+  const int r = __popc(peers & ((1u << lane) - 1u));
+  const int cnt = __popc(peers);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const bool take = (r & (2 * d - 1)) == 0 && r + d < cnt;
+    const float o = __shfl_sync(0xffffffffu, v,
+                                take ? nth_lane(peers, r + d) : lane);
+    if (take) v += o;
+  }
+  return r == 0;
+}
+
+// fp32 FAA into the output: the U ops a thread loaded, summed first over
+// the thread's ops of one slot, its distinct slots then packed to the front
+// (so the t-th of every lane meet in one warp step whatever their batch
+// positions), each step summed over the warp's lanes of one slot, then one
+// atomicAdd a sum (see the note at the top).  Every lane of the warp calls
+// it.
+template <int U>
+__device__ __forceinline__ void faa_f32_aggregated(float* table, int* s,
+                                                   const int* w, int lo,
+                                                   int hi) {
+  float acc[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const bool live = s[u] >= lo && s[u] < hi;
+    acc[u] = live ? __int_as_float(w[u]) : 0.f;
+    if (!live) s[u] = -1;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int v = u + 1; v < U; ++v)
+      if (s[u] >= 0 && s[v] == s[u]) {
+        acc[u] += acc[v];
+        s[v] = -1;
+      }
+  }
+#pragma unroll
+  for (int t = 0; t < U; ++t) {
+    int key = -1;
+    float v = 0.f;
+    int seen = 0;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (s[u] >= 0) {
+        if (seen == t) {
+          key = s[u];
+          v = acc[u];
+        }
+        ++seen;
+      }
+    if (__all_sync(0xffffffffu, key < 0)) break;
+    if (warp_sum_by_key(key, v) && key >= 0) atomicAdd(&table[key], v);
+  }
+}
+
 // Bulk-reduce `bytes` of the private copy into dst (16-byte aligned, a
 // multiple of 16 bytes), each element atomically, and wait until the
 // shared memory has been read.
@@ -325,8 +404,11 @@ table_combine_kernel(T* __restrict__ table, const int* __restrict__ idx,
   }
   constexpr int U = STEP<T, OP, PRIVATE>;
   const long long step = (long long)gridDim.x * NT * U;
+  // the warp's lanes iterate together (an op past n loads slot -1), so
+  // fp32 FAA into the output can sum over the whole warp
+  const int lane = threadIdx.x & 31;
   for (long long j0 = (long long)blockIdx.x * NT * U + threadIdx.x;
-       j0 < n; j0 += step) {
+       j0 - lane < n; j0 += step) {
     int s[U], w[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -338,6 +420,10 @@ table_combine_kernel(T* __restrict__ table, const int* __restrict__ idx,
       const long long j = j0 + u * NT;
       if (s[u] >= lo && s[u] < hi)
         w[u] = op_word<T, OP>(vals, OP == OP_SWP ? n - 1 - j : j);
+    }
+    if constexpr (!PRIVATE && OP == OP_FAA && IS_F32<T>) {
+      faa_f32_aggregated<U>(reinterpret_cast<float*>(table), s, w, lo, hi);
+      continue;
     }
     int cur[U];
 #pragma unroll

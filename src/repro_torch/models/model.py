@@ -2,12 +2,14 @@
 
 Port of `repro.models.model`, as an ``nn.Module`` that holds its weights
 (the reference passes an explicit parameter pytree).  It serves the dense
-attention family (gemma_2b and the other GQA/MQA configs with RoPE) and the
-SSM family (mamba2_780m): token embedding, the block loop, the final norm
-and the tied (or separate) head, with f32 logits.  MLA, M-RoPE, MoE, the
-encoder, learned positions, embedding inputs and the training loss port
-with their slices and raise here.  Batches hold ``tokens`` (B, S) integer
-ids.
+attention family (gemma_2b and the other GQA/MQA configs with RoPE), the
+SSM family (mamba2_780m), MoE (dbrx) and the hybrid of all three (jamba,
+without positions): token embedding, the block loop, the final norm and
+the tied (or separate) head, with f32 logits.  The blocks' MoE aux losses
+are summed as the reference's `_backbone` does; serving drops them.  MLA,
+M-RoPE, the encoder, learned positions, embedding inputs and the training
+loss port with their slices and raise here.  Batches hold ``tokens``
+(B, S) integer ids.
 """
 
 from __future__ import annotations
@@ -77,15 +79,21 @@ class LM(nn.Module):
 
     # --------------------------------------------------------------- forward
     def _backbone(self, x: Tensor, *, caches: Optional[List[dict]]
-                  ) -> Tuple[Tensor, Optional[List[dict]]]:
+                  ) -> Tuple[Tensor, Optional[List[dict]], Optional[Tensor]]:
+        """(final-normed hidden, new caches, the MoE blocks' aux loss; None
+        where no block has MoE)."""
+        aux = None
         new_caches = [] if caches is not None else None
         for i, block in enumerate(self.blocks):
-            x, nc = block(x, caches[i] if caches is not None else None,
-                          use_kernel=self.use_kernel, impl=self.attn_impl)
+            x, nc, a = block(x, caches[i] if caches is not None else None,
+                             use_kernel=self.use_kernel,
+                             impl=self.attn_impl)
+            if a is not None:
+                aux = a if aux is None else aux + a
             if new_caches is not None:
                 new_caches.append(nc)
         x = norm(x, self.final_norm, self.cfg.norm, self.cfg.norm_eps)
-        return x, new_caches
+        return x, new_caches, aux
 
     def _head(self) -> Tensor:
         w = self.embed if self.cfg.tie_embeddings else self.lm_head
@@ -110,16 +118,16 @@ class LM(nn.Module):
                 ) -> Tuple[Dict[str, Any], Tensor]:
         """Run the full prompt, fill caches, return (cache, last logits)."""
         cache = self.init_cache(batch["tokens"].shape[0], s_max)
-        h, cache["layers"] = self._backbone(self._embed_in(batch),
-                                            caches=cache["layers"])
+        h, cache["layers"], _ = self._backbone(self._embed_in(batch),
+                                               caches=cache["layers"])
         return cache, self._logits(h)
 
     @torch.no_grad()
     def decode_step(self, cache: Dict[str, Any], batch: Dict[str, Tensor]
                     ) -> Tuple[Dict[str, Any], Tensor]:
         """One token: batch['tokens'] (B, 1)."""
-        h, cache["layers"] = self._backbone(self._embed_in(batch),
-                                            caches=cache["layers"])
+        h, cache["layers"], _ = self._backbone(self._embed_in(batch),
+                                               caches=cache["layers"])
         logits = self._logits(h)
         if self.cfg.logit_softcap > 0:
             c = self.cfg.logit_softcap

@@ -7,9 +7,10 @@ stacked parameters, while the port keeps one :class:`Block` per layer in a
 by sub-layer) and loops over it, since torch has no scan.
 
 Block = token mixer (GQA/MQA attention | Mamba-2 SSD) + channel mixer
-(dense MLP | none) with pre-norm residuals, or the parallel residual
-(command-r).  MoE channels and cross-attention raise until their slices
-port them.
+(dense MLP | MoE | none) with pre-norm residuals, or the parallel residual
+(command-r).  A block returns its MoE aux loss beside its output (None
+for a dense channel, which adds nothing), summed over the layers as the
+reference's `stage_forward` does.  Cross-attention raises until its slice ports it.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_init, norm, norm_init
 from repro_torch.models.mamba import Mamba2
+from repro_torch.models.moe import moe_ffn, moe_init
 
 Tensor = torch.Tensor
 
@@ -58,41 +60,48 @@ def layer_sigs(cfg: ModelConfig) -> List[Sig]:
 
 class Block(nn.Module):
     """Pre-norm residual block (`block_init` + `block_forward` of the
-    reference): x + mixer(norm(x)), then + mlp(norm(x)) where the config
-    has a dense MLP; or x + mixer(h) + mlp(h) on the same h = norm(x) with
-    the parallel residual."""
+    reference): x + mixer(norm(x)), then + channel(norm(x)) where the
+    config has a channel (a dense MLP, or MoE on the layers the config
+    marks); or x + mixer(h) + channel(h) on the same h = norm(x) with the
+    parallel residual."""
 
     def __init__(self, cfg: ModelConfig, sig: Sig, gen: torch.Generator,
                  dtype):
         super().__init__()
         kind, is_moe = sig
-        if is_moe:
-            raise NotImplementedError("MoE blocks port with the MoE slice")
         self.cfg = cfg
         self.kind = kind
+        self.is_moe = is_moe
         dev = gen.device
         self.ln1 = norm_init(cfg.d_model, cfg.norm, dtype, dev)
         if kind == "attn":
             self.attn = attn_mod.attn_init(gen, cfg, dtype)
         else:
             self.ssm = Mamba2(cfg, gen, dtype)
-        self.has_mlp = cfg.d_ff > 0
-        if self.has_mlp:
+        self.has_mlp = not is_moe and cfg.d_ff > 0
+        if is_moe or self.has_mlp:
             self.ln2 = norm_init(cfg.d_model, cfg.norm, dtype, dev)
+        if is_moe:
+            self.moe = moe_init(gen, cfg, dtype)
+        elif self.has_mlp:
             self.mlp = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
                                 dtype, bias=cfg.mlp_bias)
 
-    def _channel(self, h: Tensor) -> Tensor:
+    def _channel(self, h: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+        """(channel output, MoE aux loss or None)."""
+        if self.is_moe:
+            return moe_ffn(self.moe, h, self.cfg)
         if self.has_mlp:
-            return mlp_apply(h, self.mlp, self.cfg.mlp_act)
-        return torch.zeros_like(h)
+            return mlp_apply(h, self.mlp, self.cfg.mlp_act), None
+        return torch.zeros_like(h), None
 
     def forward(self, x: Tensor, cache: Optional[dict] = None, *,
                 use_kernel: Optional[bool] = None, impl: str = "chunked"
-                ) -> Tuple[Tensor, Optional[dict]]:
-        """``use_kernel`` goes to the mixer (None: its kernel on CUDA);
-        ``impl`` is the attention path without the kernel ("ref" or
-        "chunked")."""
+                ) -> Tuple[Tensor, Optional[dict], Optional[Tensor]]:
+        """(x', cache', MoE aux loss or None).  ``use_kernel`` goes to the
+        mixer (None:
+        its kernel on CUDA); ``impl`` is the attention path without the
+        kernel ("ref" or "chunked")."""
         cfg = self.cfg
         h = norm(x, self.ln1, cfg.norm, cfg.norm_eps)
         if self.kind == "attn":
@@ -102,8 +111,11 @@ class Block(nn.Module):
         else:
             mix, new_cache = self.ssm(h, cache, use_kernel=use_kernel)
         if cfg.parallel_residual:
-            return x + mix + self._channel(h), new_cache
+            out, aux = self._channel(h)
+            return x + mix + out, new_cache, aux
         x = x + mix
-        if self.has_mlp:
-            x = x + self._channel(norm(x, self.ln2, cfg.norm, cfg.norm_eps))
-        return x, new_cache
+        if self.is_moe or self.has_mlp:
+            out, aux = self._channel(norm(x, self.ln2, cfg.norm,
+                                          cfg.norm_eps))
+            return x + out, new_cache, aux
+        return x, new_cache, None

@@ -360,3 +360,62 @@ def test_serial_rmw_on_the_cpu_is_the_host_loop(op):
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
         XK.serial_rmw(tab, idx, val, "xor")
+
+
+# ---------------------------------------------------------------------------
+# the sharded tier's suite
+# ---------------------------------------------------------------------------
+
+def _reference_sharded_grid(fast):
+    """The reference's cells, from its own script: the grid section run
+    with a recording `bench`."""
+    from benchmarks import rmw_sharded as jrs
+    script = jrs.SCRIPT % {"fast": fast}
+    body = script[script.index("GRID_N = "):script.index('print("RESULT:')]
+    cells = []
+    exec(body, {"FAST": fast, "bench": lambda *a: cells.append(a)})
+    return cells
+
+
+@pytest.mark.parametrize("fast", [True, False])
+def test_rmw_sharded_grid_is_the_references(fast):
+    from repro_torch.benchmarks import rmw_sharded as trs
+    assert trs.grid(fast) == _reference_sharded_grid(fast)
+
+
+def test_rmw_sharded_cpu_fast_rows_and_acceptance(tmp_path, monkeypatch):
+    """The suite on 8 CPU ranks in fast mode: every cell of the reference's
+    fast grid once, in its order, finite; then the reference's own `run`,
+    fed these rows in place of its subprocess's, must print the same CSV
+    rows and compute the same speedups and acceptance row."""
+    import subprocess
+    import types
+
+    from benchmarks import rmw_sharded as jrs
+    from benchmarks.common import Csv as JCsv
+    csv, results, failures = trun.run_suites(
+        ["rmw_sharded"], fast=True, device="cpu", out_dir=str(tmp_path))
+    assert not failures
+    out = results["rmw_sharded"]
+    rows = out["rows"]
+    assert [(r["op"], r["strategy"], r["n_per_device"], r["m"], r["dist"],
+             r["suite"] == "fetched") for r in rows] == \
+        _reference_sharded_grid(True)
+    assert all(math.isfinite(r["us_per_call"]) and r["us_per_call"] > 0
+               for r in rows)
+    assert json.loads((tmp_path / "rmw_sharded.json").read_text())[
+        "host"]["ranks"] == 8
+    fake = types.SimpleNamespace(returncode=0, stderr="",
+                                 stdout="RESULT:" + json.dumps(rows))
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: fake)
+    jcsv = JCsv()
+    want = jrs.run(jcsv, fast=True, out_path=str(tmp_path / "ref.json"))
+    assert out["hierarchical_speedup_over_naive"] == \
+        want["hierarchical_speedup_over_naive"]
+    assert out["acceptance_hierarchical_beats_naive_on_hot"] == \
+        want["acceptance_hierarchical_beats_naive_on_hot"]
+    assert [(r["name"], r["us_per_call"], r["derived"]) for r in csv.rows[
+        :-1]] == [(r["name"], r["us_per_call"], r["derived"])
+                  for r in jcsv.rows[:-1]]
+    assert csv.rows[-1]["derived"].split(" json=")[0] == \
+        jcsv.rows[-1]["derived"].split(" json=")[0]

@@ -141,7 +141,9 @@ def test_table_kernels_every_regime_match_plain_versions(cuda_device, case,
     every other regime the shape allows forced, against the plain
     versions: integer-valued tables bit for bit (fp32 too: every sum is
     exact), normal fp32 FAA within rtol 1e-5, atol 1e-5 sqrt(max
-    occupancy); the input table unchanged."""
+    occupancy) of the plain version summed in float64 (in fp32 on the card
+    `index_add_` is itself a sum in atomic order, as far from the exact sum
+    as the kernel may be); the input table unchanged."""
     assert K.table_regime("faa", torch.int32, n, m) == regime
     g = torch.Generator(device=cuda_device).manual_seed(n + m)
     if case == "kronecker":
@@ -176,7 +178,8 @@ def test_table_kernels_every_regime_match_plain_versions(cuda_device, case,
     if op == "faa" and dtype == torch.float32:
         tab = torch.randn((m,), generator=g, device=cuda_device)
         val = torch.randn((n,), generator=g, device=cuda_device)
-        want = tref.rmw_table_ref(tab, idx, val, op)
+        want = tref.rmw_table_ref(tab.double(), idx, val.double(),
+                                  op).float()
         atol = 1e-5 * float(K.slot_counts_plain(idx, m).max()) ** 0.5
         for r in forced:
             got = K.table_combine(tab.clone(), idx, val, op, r)
@@ -894,3 +897,89 @@ def test_exchange_migration_two_ranks_on_the_card(cuda_device):
     np.testing.assert_array_equal(fetched[live.numpy()],
                                   want.fetched[live].numpy())
     assert all(o["launches"]["rmw_table_fetched"] > 0 for o in out)
+
+
+# ---------------------------------------------------------------------------
+# MoE models: dbrx and jamba on the card's kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,s,cached", [("prefill", 3523, 0),
+                                            ("decode", 1, 1599)])
+def test_flash_attention_dbrx_shapes_match_plain_version(cuda_device, shape,
+                                                         s, cached):
+    """dbrx's attention (48 query heads over 8 KV heads of 128, bf16): the
+    prefill of its longest served prompt and a decode call at 1,600 rows,
+    within one bf16 ulp of the plain version."""
+    args, kw = _gemma_call(cuda_device, s, cached, torch.bfloat16, hq=48,
+                           hkv=8, d=128)
+    got = FK.flash_attention(*args, **kw)
+    want = FK.flash_attention_plain(*args, **kw)
+    assert torch.isfinite(got).all()
+    assert torch.allclose(got.float(), want.float(), **GEMMA_BF16)
+
+
+@pytest.mark.gpu
+def test_dbrx_full_width_layer_matches_plain_path(cuda_device):
+    """dbrx at full width cut to one layer (attention and a 16-expert MoE),
+    f32: prefill logits of a 512-token prompt through the flash kernel and
+    through the plain attention within 1e-3; the MoE runs the same code on
+    both paths, so the expert choices agree."""
+    cfg = get_config("dbrx_132b").replace(n_layers=1, dtype="float32")
+    model = LM(cfg, device=cuda_device, seed=0, attn_impl="ref")
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device)
+                         .manual_seed(0))
+    FK.reset_launches()
+    _, logits = model.prefill({"tokens": toks}, 520)
+    assert FK.LAUNCHES == {"flash_attention": 1}
+    model.use_kernel = False
+    _, plain = model.prefill({"tokens": toks}, 520)
+    assert torch.isfinite(logits).all()
+    assert (logits - plain).abs().max() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,s,cached", [("prefill", 3523, 0),
+                                            ("decode", 1, 1599)])
+def test_flash_attention_jamba_shapes_match_plain_version(cuda_device, shape,
+                                                          s, cached):
+    """jamba's attention (64 query heads over 8 KV heads of 128, bf16), as
+    dbrx's above."""
+    args, kw = _gemma_call(cuda_device, s, cached, torch.bfloat16, hq=64,
+                           hkv=8, d=128)
+    got = FK.flash_attention(*args, **kw)
+    want = FK.flash_attention_plain(*args, **kw)
+    assert torch.isfinite(got).all()
+    assert torch.allclose(got.float(), want.float(), **GEMMA_BF16)
+
+
+@pytest.mark.gpu
+def test_jamba_on_the_kernels_matches_plain_path(cuda_device):
+    """jamba at full width cut to its first two layers (SSD + dense MLP,
+    SSD + a 16-expert MoE; P 64, N 128, chunk 256, 256 heads), f32, about
+    48 GB: prefill and two decode steps through the SSD kernel and through
+    the plain paths within 1e-3."""
+    cfg = get_config("jamba_1_5_large_398b").replace(n_layers=2,
+                                                     dtype="float32")
+    model = LM(cfg, device=cuda_device, seed=0, attn_impl="ref")
+    toks = torch.randint(0, cfg.vocab_size, (2, 302), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device)
+                         .manual_seed(1))
+    out = {}
+    for use_kernel in (None, False):
+        model.use_kernel = use_kernel
+        SK.reset_launches()
+        cache, logits = model.prefill({"tokens": toks[:, :300]}, 310)
+        steps = [logits]
+        for t in (300, 301):
+            cache, logits = model.decode_step(cache,
+                                              {"tokens": toks[:, t:t + 1]})
+            steps.append(logits)
+        out[use_kernel] = steps
+        assert SK.LAUNCHES["ssd_chunk"] == (2 if use_kernel is None else 0)
+    del model, cache
+    torch.cuda.empty_cache()
+    for a, b in zip(out[None], out[False]):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-3

@@ -21,7 +21,10 @@ shape (n = 2^25 ops over m = 2^20 uniform slots, int32, and fp32 MIN/MAX
 there and contended, n = 2^22 over m = 1024); ``bfs``, Graph500 BFS's
 search at scale 20, edgefactor 16, the edges on the card, per op (cas,
 swp, faa): host ms of one call, and of two traced calls the device's busy
-ms, the RMW kernels' ms and the table-only kernels' ms.
+ms, the RMW kernels' ms and the table-only kernels' ms; ``decode``,
+mamba2_780m's and gemma_2b's decode at full width and depth, bf16, random
+weights from seed 0, from the cache of the 3,523-token serving prompt:
+host ms a token over 32 steps after 4 untimed, and one traced step.
 """
 
 import json
@@ -129,6 +132,33 @@ def probe_mamba(out, get_config, LM):
     torch.cuda.empty_cache()
 
 
+def probe_decode(out, get_config, LM):
+    rng = np.random.default_rng(0)            # chip_smoke.py's prompts
+    lengths = [int(v) for v in rng.integers(256, 4097, 8)]
+    for arch in ("mamba2_780m", "gemma_2b"):
+        cfg = get_config(arch)
+        model = LM(cfg, seed=0, device="cuda")
+        prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                   lengths[0]).tolist()
+        toks = torch.tensor([prompt], device="cuda")
+        cache, _ = model.prefill({"tokens": toks}, 4096 + 16)
+        tok = toks[:, -1:]
+
+        def step():
+            model.decode_step(cache, {"tokens": tok})
+        for _ in range(4):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(32):
+            step()
+        torch.cuda.synchronize()
+        out[f"{arch}_decode_host_ms"] = 1e3 * (time.perf_counter() - t0) / 32
+        out[f"{arch}_decode_trace"] = trace(step)
+        del model, cache
+        torch.cuda.empty_cache()
+
+
 def probe_ssd(out, gen, SK):
     bh, s, q = 48, 4096, 256
     xdt = torch.randn((bh, s, 64), generator=gen, device="cuda") * 0.1
@@ -192,6 +222,8 @@ def main():
     gen.manual_seed(0)
     if "mamba" in sections:
         probe_mamba(out, get_config, LM)
+    if "decode" in sections:
+        probe_decode(out, get_config, LM)
     if "ssd" in sections:
         probe_ssd(out, gen, SK)
     if "rmw" in sections:
