@@ -65,7 +65,17 @@ ranks to a host recount, what it kept to its capacities, its aux loss to
 the local one, its time split by the layer's profiler ranges (weight
 gather, exchange, atomics, expert products), the RMW kernels' launches
 inside the ranks counted.  The suites include `rmw_sharded` (8 ranks on
-the card).
+the card).  Last, training and MLA, which launch no kernel (each phase
+fails if one launches; no kernel has a backward): `train_gemma` trains
+gemma_2b at full width through `launch.train.train` (8 x 256 tokens, 30
+steps, with deterministic algorithms and without: step ms, tokens/s,
+MFU, peak memory, a profiled step's idle share and kernels by time);
+`train_check` holds one step in f32 to f64 at full width cut to 2
+layers; `train_recovery` finds which backward ops break replay and holds
+train_100m's config under chaos bit for bit to a clean run;
+`train_moe` trains deepseek_v3's reduced config; `serve_deepseek`
+checks the full-width MLA layer in f32 against f64 and serves
+deepseek_v3 at full width cut to its first 4 layers.
 
 Phases print one JSON line each (`{"phase": ...}`); every phase raises on a
 failure.  The line before the last is the per-kernel record, and the last
@@ -85,6 +95,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# the training phases run with deterministic algorithms, whose cuBLAS needs
+# this workspace setting before its first handle is made
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -106,6 +119,7 @@ from repro_torch.kernels.ssd import kernel as SK  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.launch.serve import BatchServer, Request  # noqa: E402
+from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 
 OPS = ("faa", "swp", "min", "max", "cas")
@@ -1123,12 +1137,14 @@ def _f32_and_floor_checks(cfg, prompts, plain_logits):
                 bf16_floor=bf16_floor)
 
 
-def _device_trace(fn, kernel, steps=1):
+def _device_trace(fn, kernel, steps=1, top=0):
     """Kernels the card ran during ``fn()`` (torch.profiler's CUPTI trace):
     count, busy time, the span from the first kernel's start to the last's
     end, the idle share of that span, and the busy time of the kernels
     whose name holds ``kernel`` (a name, or a tuple of names); per step.
-    All None where the trace holds no device events."""
+    With ``top``, also the ``top`` kernel names by busy time (ms and count
+    per step, the name cut to 80 characters).  All None where the trace
+    holds no device events."""
     from torch.profiler import ProfilerActivity, profile
     sync()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1150,9 +1166,17 @@ def _device_trace(fn, kernel, steps=1):
     names = (kernel,) if isinstance(kernel, str) else kernel
     mine = sum(e.duration_ns() for e in dev
                if any(k in e.name() for k in names)) / 1e6
-    return dict(kernels=len(dev) / steps, busy_ms=busy / steps,
-                span_ms=span / steps, idle_share=1 - busy / span,
-                kernel_ms=mine / steps)
+    out = dict(kernels=len(dev) / steps, busy_ms=busy / steps,
+               span_ms=span / steps, idle_share=1 - busy / span,
+               kernel_ms=mine / steps)
+    if top:
+        by = {}
+        for e in dev:
+            ms, n = by.get(e.name()[:80], (0.0, 0))
+            by[e.name()[:80]] = (ms + e.duration_ns() / 1e6, n + 1)
+        out["top"] = [[k, ms / steps, n / steps] for k, (ms, n) in
+                      sorted(by.items(), key=lambda kv: -kv[1][0])[:top]]
+    return out
 
 
 def phase_serve():
@@ -3463,6 +3487,542 @@ def phase_moe_ep():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 14. training: gemma_2b at full width, its f32 step against f64, the
+#     fault-tolerance contract, deepseek_v3 reduced; 15. deepseek_v3 served
+# ---------------------------------------------------------------------------
+
+# the trainer's own shapes: 8 sequences of 256 tokens, 30 steps, no remat
+T_ARCH, T_STEPS, T_SEQ, T_BATCH = "gemma_2b", 30, 256, 8
+BF16_PEAK = 989e12       # H100 SXM dense bf16, NVIDIA data sheet
+# f32 against f64 on one step (TF32 off): the loss and the grad norm are
+# sums whose f32 rounding is about eps sqrt(terms) ~ 1e-5 of their scale
+# at the most (2,048 tokens of 256,000 logits); each gradient leaf's
+# relative L2 error 1e-4, ten times what f32 sums of K <= 16,384 terms give
+T_LOSS_RTOL, T_GRAD_TOL = 1e-5, 1e-4
+# train_recovery: train_100m's ~110M config, the verify recipe's chaos spec
+R_STEPS, R_CHAOS = 8, "seed=3,step=1.0@2,ckpt_save=1.0@1"
+# serve_deepseek: the first 4 layers (3 dense, then MoE: every layer kind)
+DS, DS_LAYERS = "deepseek_v3_671b", 4
+# the MLA layer in f32 against f64 (TF32 off), and decode through the
+# latent cache against a prefill of the same tokens in f32: sums of K <=
+# 16,384 terms round at about eps sqrt(K) ~ 1e-5 of their scale; 1e-4 of
+# the output's largest magnitude
+DS_MLA_TOL = 1e-4
+DS_MLA_PREFILL, DS_MLA_DECODE = 1024, 4
+
+
+@contextlib.contextmanager
+def _no_kernel_launched(what):
+    """The block must launch none of the port's kernels: training takes
+    the plain paths (no kernel has a backward), MLA the plain math."""
+    mods = (K, SK, FK, XK)
+    for mod in mods:
+        mod.reset_launches()
+    yield
+    ran = {k: v for mod in mods for k, v in mod.LAUNCHES.items() if v}
+    if ran:
+        raise AssertionError(f"{what} launched kernels: {ran}")
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.clamp(torch.linalg.vector_norm(b), min=1e-30))
+
+
+def _train_batch(vocab, step=0, seed=0):
+    """The trainer's batch (8 x 256) of step ``step`` over ``vocab``."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    return synthetic_batch(DataConfig(seq_len=T_SEQ, global_batch=T_BATCH,
+                                      vocab_size=vocab, seed=seed),
+                           step, device="cuda")
+
+
+def _profiled_train_step(cfg):
+    """The device's busy and idle time over one train step at full width
+    (the third; two warm up), and the step's kernel count."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    model = LM(cfg, seed=0, use_kernel=False, attn_impl="chunked",
+               remat_policy="none", loss_chunk=2048)
+    opt = AdamWConfig(warmup_steps=7, total_steps=T_STEPS)
+    step = make_train_step(model, opt)
+    box = {"params": dict(model.named_parameters())}
+    box["state"] = init_state(box["params"], opt)
+
+    def one(i):
+        batch = _train_batch(cfg.vocab_size, i)
+        box["params"], box["state"], m = step(box["params"], box["state"],
+                                              batch)
+        return float(m["loss"])
+
+    for i in range(2):
+        one(i)
+    trace = _device_trace(lambda: one(2), ("gemm", "nvjet"), top=12)
+    del model, box, step
+    torch.cuda.empty_cache()
+    return trace
+
+
+def phase_train_gemma():
+    """gemma_2b at full width through `launch.train.train(reduced=False)`:
+    bf16 parameters, f32 master and moments, 8 x 256 tokens, 30 steps, no
+    remat, no checkpoint directory; once with deterministic algorithms (the
+    trainer's default) and once without, for what exactness costs.  The
+    losses must be finite and the last 5 below the first 5; no kernel may
+    launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    cfg = get_config(T_ARCH)
+    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype) != (
+            18, 2048, 8, 1, 256, 16384, 256000, "bfloat16"):
+        raise AssertionError(f"not gemma_2b at full width: {cfg}")
+    n = cfg.param_count()
+    tokens = T_SEQ * T_BATCH
+    gib = 2 ** 30
+    logits = T_BATCH * T_SEQ * cfg.vocab_size * 4
+    reckoned = {"params_bf16": 2 * n / gib, "master_f32": 4 * n / gib,
+                "moments_f32": 8 * n / gib, "grads_bf16": 2 * n / gib,
+                "logits_chunk_f32": logits / gib,
+                "logits_grad_f32": logits / gib}
+    reckoned["total"] = sum(reckoned.values())
+    runs = {}
+    with _no_kernel_launched("train_gemma"):
+        for det in (True, False):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = train_mod.train(T_ARCH, steps=T_STEPS, seq_len=T_SEQ,
+                                  global_batch=T_BATCH, reduced=False,
+                                  remat_policy="none", log_every=1,
+                                  device="cuda", deterministic=det)
+            wall = time.perf_counter() - t0
+            hist = out["history"]
+            secs = [h["sec"] for h in hist]
+            step_s = float(np.median(secs[3:]))
+            runs["deterministic" if det else "default"] = dict(
+                losses=[h["loss"] for h in hist],
+                grad_norms=[h["grad_norm"] for h in hist],
+                step_ms=1e3 * step_s, step_ms_all=[1e3 * s for s in secs],
+                tokens_per_s=tokens / step_s,
+                train_mfu=6 * n * tokens / step_s / BF16_PEAK,
+                peak_gib=torch.cuda.max_memory_allocated() / gib,
+                wall_s=wall, steps_done=out["steps_done"])
+            del out
+        trace = _profiled_train_step(cfg)
+    det = runs["deterministic"]
+    losses = det["losses"]
+    if len(losses) != T_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train_gemma losses: {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"train_gemma: loss did not fall: {losses}")
+    emit("train_gemma", arch=T_ARCH, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, params=n,
+         mfu_counts=("6 N tokens / step time / 989 TFLOP/s: N every "
+                     "parameter, the tied embedding once (its head "
+                     "product); attention's score products not counted"),
+         steps=T_STEPS, seq_len=T_SEQ, global_batch=T_BATCH,
+         tokens_per_step=tokens, memory_reckoned_gib=reckoned,
+         exactness_cost=det["step_ms"] / runs["default"]["step_ms"],
+         profiled_step=trace, **runs)
+
+
+def _master_checks(a, b, opt, init, ndims):
+    """The f32 step's master weights (``a``) against (1) f64 AdamW applied
+    to the f32 step's own gradients, from the same weights widened: only
+    AdamW's f32 rounding separates them, so each leaf within 2 f32 ulps of
+    its largest weight plus 1e-6 of lr; and (2) the f64 step (``b``), each
+    element within what its gradient's f32 error moves Adam's step: at step
+    1 the step is g' / (|g'| + eps) with g' the clipped gradient, whose
+    slope is at most 1 / eps, so |master32 - master64| <= lr min(2,
+    |g'32 - g'64| / eps) + 2 ulps.  Returns (worst of (1) over its bound,
+    worst of (2) over its bound, the raw largest |master32 - master64|)."""
+    from repro_torch.optim.adamw import apply_updates, init_state
+    w64 = {n: t.double() for n, t in init.items()}
+    st = init_state(w64, opt)
+    _, st, _ = apply_updates(w64, {n: g.double() for n, g in
+                                   a["grads"].items()}, st, opt, ndims)
+    lr = a["lr"]
+    f32_eps = torch.finfo(torch.float32).eps
+    worst_opt = worst_step = raw = 0.0
+    sa = min(1.0, opt.grad_clip / max(a["grad_norm"], 1e-12))
+    sb = min(1.0, opt.grad_clip / max(b["grad_norm"], 1e-12))
+    for n, m32 in a["master"].items():
+        ulps = 2 * f32_eps * float(init[n].abs().max())
+        d_opt = float((m32.double() - st["master"][n]).abs().max())
+        worst_opt = max(worst_opt, d_opt / (ulps + 1e-6 * lr))
+        dm = (m32.double() - b["master"][n]).abs()
+        dg = (a["grads"][n].double() * sa - b["grads"][n] * sb).abs()
+        bound = lr * torch.clamp(dg / opt.eps, max=2.0) + ulps + 1e-6 * lr
+        worst_step = max(worst_step, float((dm / bound).max()))
+        raw = max(raw, float(dm.max()))
+        del dm, dg, bound
+    del st, w64
+    return worst_opt, worst_step, raw
+
+
+def phase_train_check():
+    """The same step in f32 against f64 on the card, at gemma_2b's full
+    width cut to 2 layers, TF32 off, deterministic algorithms on (so the
+    step's gradients are the ones computed beside it): one
+    `make_train_step` step on one batch; the loss, the grad norm and every
+    gradient leaf (relative L2), and the updated master weights
+    (`_master_checks`).  A control with the label mask dropped must fail
+    the gradient check."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step, reference_ndims
+    from repro_torch.launch.train import deterministic_algorithms
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    cfg = get_config(T_ARCH).replace(n_layers=2)
+    opt = AdamWConfig(warmup_steps=7, total_steps=T_STEPS)
+    batch = _train_batch(cfg.vocab_size)
+    unmasked = dict(batch, labels=batch["labels"].clamp(min=0))
+    res = {}
+    with _no_kernel_launched("train_check"), deterministic_algorithms(True):
+        for dt in ("float32", "float64"):
+            model = LM(cfg.replace(dtype=dt), seed=0, use_kernel=False,
+                       remat_policy="none", loss_chunk=2048)
+            if dt == "float64":    # the f32 weights, widened
+                with torch.no_grad():
+                    for name, p in model.named_parameters():
+                        p.copy_(res["float32"]["init"][name])
+            loss, grads = loss_and_grads(model, batch)
+            extra = {}
+            if dt == "float32":
+                extra["init"] = {n: p.detach().clone()
+                                 for n, p in model.named_parameters()}
+                extra["control"] = loss_and_grads(model, unmasked)[1]
+                ndims = reference_ndims(model)
+            step = make_train_step(model, opt)
+            params = dict(model.named_parameters())
+            _, state, m = step(params, init_state(params, opt), batch)
+            res[dt] = dict(loss=float(loss), grads=grads,
+                           grad_norm=float(m["grad_norm"]),
+                           lr=float(m["lr"]), master=state["master"],
+                           **extra)
+            del model, step, params, state
+            torch.cuda.empty_cache()
+        a, b = res["float32"], res["float64"]
+        opt_worst, step_worst, master_raw = _master_checks(
+            a, b, opt, a["init"], ndims)
+    grad_err = {n: _rel_l2(a["grads"][n], b["grads"][n]) for n in b["grads"]}
+    control_err = max(_rel_l2(a["control"][n], b["grads"][n])
+                      for n in b["grads"])
+    loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    norm_err = abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+    worst = max(grad_err, key=grad_err.get)
+    fields = dict(n_layers=cfg.n_layers, d_model=cfg.d_model,
+                  vocab=cfg.vocab_size, tokens=T_SEQ * T_BATCH,
+                  loss_f32=a["loss"], loss_f64=b["loss"],
+                  loss_rel_err=loss_err, grad_norm_rel_err=norm_err,
+                  grad_rel_l2_worst=grad_err[worst], grad_worst_leaf=worst,
+                  grad_rel_l2=grad_err, control_unmasked_rel_l2=control_err,
+                  master_max_abs_err=master_raw, lr=b["lr"],
+                  master_vs_f64_adamw_over_bound=opt_worst,
+                  master_vs_f64_step_over_bound=step_worst,
+                  tol=dict(loss=T_LOSS_RTOL, grad=T_GRAD_TOL))
+    del res, a, b
+    torch.cuda.empty_cache()
+    emit("train_check", **fields)
+    if loss_err > T_LOSS_RTOL or norm_err > T_LOSS_RTOL \
+            or fields["grad_rel_l2_worst"] > T_GRAD_TOL \
+            or opt_worst > 1 or step_worst > 1:
+        raise AssertionError("train_check: f32 off f64 beyond the "
+                             "tolerances")
+    if not control_err > T_GRAD_TOL:
+        raise AssertionError(f"train_check: the unmasked control passed "
+                             f"({control_err})")
+
+
+def _replay_breakers(cfg, deterministic):
+    """The leaves whose gradient bits differ between two runs of the same
+    loss on the same batch and weights (and the largest difference)."""
+    from repro_torch.launch.train import deterministic_algorithms
+    model = LM(cfg, seed=0, use_kernel=False, remat_policy="none",
+               loss_chunk=2048)
+    batch = _train_batch(cfg.vocab_size, seed=1)
+    with deterministic_algorithms(deterministic):
+        _, g1 = loss_and_grads(model, batch)
+        _, g2 = loss_and_grads(model, batch)
+    out = {n: _max_err(g1[n], g2[n]) for n in g1
+           if not torch.equal(g1[n], g2[n])}
+    del model, g1, g2
+    torch.cuda.empty_cache()
+    return out
+
+
+def _faa_replay(deterministic):
+    """`core.scatter_add_grads`, the embedding gradient's FAA batch, twice
+    on the same fp32 rows: 2,048 rows of 2,048 into gemma_2b's 256,000
+    (train_gemma's tokens, few collisions) and into 256 rows (8 ops a
+    slot): whether the two results are bit-equal."""
+    from repro_torch.core import scatter_add_grads
+    from repro_torch.launch.train import deterministic_algorithms
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ids = _train_batch(256000)["tokens"]
+    rows = torch.randn((*ids.shape, 2048), generator=gen, device="cuda")
+    out = {}
+    with deterministic_algorithms(deterministic):
+        for tag, m, i in (("vocab_256000", 256000, ids),
+                          ("hot_256", 256, ids % 256)):
+            table = torch.zeros((m, 2048), device="cuda")
+            a = scatter_add_grads(table, i, rows)
+            b = scatter_add_grads(table, i, rows)
+            out[tag] = bool(torch.equal(a, b))
+    return out
+
+
+def _final_checkpoint(path):
+    from repro_torch.checkpoint import ckpt as ckpt_lib
+    step = ckpt_lib.latest_step(path)
+    _, data = ckpt_lib._load_validated(ckpt_lib._step_path(path, step))
+    return step, data
+
+
+def phase_train_recovery():
+    """The fault-tolerance contract on the card: train_100m's ~110M config
+    (12 x 768 x 3072, vocab 32,768), 8 steps of 8 x 256 tokens, with a
+    checkpoint directory, once clean and once under `R_CHAOS`; failures >
+    0, and the final loss and every leaf of the final checkpoint
+    (parameters, master, moments) bit-equal.  First, which backward ops
+    break replay: the leaves whose gradients differ between two runs of
+    one batch, without and with deterministic algorithms, for this config
+    and for deepseek_v3's reduced one (MoE's gathers)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_reduced
+    from repro_torch.examples.train_100m import config_100m
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime.chaos import FaultPlan
+    cfg = config_100m(small=False)
+    breakers = {}
+    for name, c in (("train_100m", cfg),
+                    (DS, get_reduced(DS).replace(dtype="float32"))):
+        breakers[name] = {"default": _replay_breakers(c, False),
+                          "deterministic": _replay_breakers(c, True)}
+    faa_bit_equal = {"default": _faa_replay(False),
+                     "deterministic": _faa_replay(True)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    real = train_mod.get_config
+    train_mod.get_config = lambda arch: cfg
+    runs = {}
+    try:
+        with _no_kernel_launched("train_recovery"):
+            for tag, chaos in (("clean", None), ("chaos", R_CHAOS)):
+                t0 = time.perf_counter()
+                out = train_mod.train(
+                    "gemma_2b", steps=R_STEPS, seq_len=T_SEQ,
+                    global_batch=T_BATCH, reduced=False, log_every=1,
+                    ckpt_dir=os.path.join(tmp, tag), device="cuda",
+                    chaos=FaultPlan.from_spec(chaos) if chaos else None)
+                runs[tag] = dict(out, wall_s=time.perf_counter() - t0)
+        (sa, ca), (sb, cb) = (_final_checkpoint(os.path.join(tmp, t))
+                              for t in ("clean", "chaos"))
+        differ = sorted(k for k in ca if not np.array_equal(ca[k], cb[k]))
+        leaves = len(ca)
+    finally:
+        train_mod.get_config = real
+        shutil.rmtree(tmp, ignore_errors=True)
+    clean, chaos = runs["clean"], runs["chaos"]
+    if breakers["train_100m"]["deterministic"] or \
+            breakers[DS]["deterministic"] or \
+            not all(faa_bit_equal["deterministic"].values()):
+        raise AssertionError(f"deterministic gradients differ between "
+                             f"runs: {breakers}")
+    emit("train_recovery", config="train_100m (full, not --small)",
+         params=cfg.param_count(), steps=R_STEPS, chaos=R_CHAOS,
+         failures=chaos["failures"], backoff_s=chaos["backoff_total_s"],
+         final_loss=[clean["final_loss"], chaos["final_loss"]],
+         checkpoint_steps=[sa, sb], checkpoint_leaves=leaves,
+         leaves_differing=differ,
+         wall_s=[clean["wall_s"], chaos["wall_s"]],
+         replay_breakers=breakers, scatter_add_grads_bit_equal=faa_bit_equal)
+    if chaos["failures"] < 1 or clean["failures"] != 0:
+        raise AssertionError(f"train_recovery: failures {clean['failures']}"
+                             f" clean, {chaos['failures']} under chaos")
+    if clean["final_loss"] != chaos["final_loss"] or differ or sa != sb:
+        raise AssertionError(f"train_recovery: not bit-equal: losses "
+                             f"{clean['final_loss']} {chaos['final_loss']},"
+                             f" leaves {differ}")
+
+
+def phase_train_moe():
+    """The trainer on deepseek_v3's reduced config (MLA, a dense first
+    layer, MoE with a shared expert), 20 steps on the card at the
+    quickstart's learning rate for reduced configs (3e-3): the losses
+    finite and falling, the aux loss finite."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import train as train_mod
+    cfg = get_reduced(DS)
+    model = LM(cfg, seed=0, use_kernel=False)
+    with torch.no_grad():
+        x = model._embed_in(_train_batch(cfg.vocab_size))
+        _, _, aux = model._backbone(x, caches=None)
+    del model
+    with _no_kernel_launched("train_moe"):
+        out = train_mod.train(DS, steps=20, seq_len=T_SEQ,
+                              global_batch=T_BATCH, lr=3e-3, log_every=1,
+                              device="cuda")
+    losses = [h["loss"] for h in out["history"]]
+    emit("train_moe", arch=DS, reduced=True,
+         layers=[(b.kind, b.is_moe) for b in LM(cfg, device="meta").blocks],
+         losses=losses, aux_loss=float(aux),
+         step_ms=[1e3 * h["sec"] for h in out["history"]])
+    if not all(math.isfinite(v) for v in losses) or \
+            not math.isfinite(float(aux)):
+        raise AssertionError(f"train_moe: not finite: {losses}, {aux}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"train_moe: loss did not fall: {losses}")
+
+
+def _mla_check(cfg):
+    """The full-width MLA layer in f32 against f64 (TF32 off): a prefill of
+    `DS_MLA_PREFILL` tokens into the latent cache and `DS_MLA_DECODE`
+    decode steps; and, in f32, the decode steps against one prefill of all
+    the tokens.  Errors relative to the output's largest magnitude."""
+    from repro_torch.models import attention as attn_mod
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p64 = attn_mod.attn_init(gen, cfg, torch.float64)
+    p32 = attn_mod.attn_init(gen, cfg, torch.float32)
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(p32.named_parameters(),
+                                  p64.named_parameters()):
+            a.copy_(b)
+    s = DS_MLA_PREFILL + DS_MLA_DECODE
+    x64 = torch.randn((1, s, cfg.d_model), generator=gen, device="cuda",
+                      dtype=torch.float64)
+    outs = {}
+    with torch.no_grad():
+        for dt, p in ((torch.float32, p32), (torch.float64, p64)):
+            x = x64.to(dt)
+            cache = attn_mod.make_kv_cache(cfg, 1, s, dt, device="cuda")
+            o, cache = attn_mod.mla_forward(p, x[:, :DS_MLA_PREFILL], cfg,
+                                            cache=cache)
+            steps = [o]
+            for t in range(DS_MLA_PREFILL, s):
+                o, cache = attn_mod.mla_forward(p, x[:, t:t + 1], cfg,
+                                                cache=cache)
+                steps.append(o)
+            outs[dt] = torch.cat(steps, 1)
+            if dt == torch.float32:
+                outs["full"] = attn_mod.mla_forward(p, x, cfg)[0]
+    scale = float(outs[torch.float64].abs().max())
+    pre, dec = slice(0, DS_MLA_PREFILL), slice(DS_MLA_PREFILL, s)
+    res = dict(
+        mla_prefill_rows=DS_MLA_PREFILL, mla_decode_steps=DS_MLA_DECODE,
+        mla_f32_vs_f64_prefill=_max_err(outs[torch.float32][:, pre],
+                                        outs[torch.float64][:, pre]) / scale,
+        mla_f32_vs_f64_decode=_max_err(outs[torch.float32][:, dec],
+                                       outs[torch.float64][:, dec]) / scale,
+        mla_decode_vs_prefill_f32=_max_err(outs[torch.float32][:, dec],
+                                           outs["full"][:, dec]) / scale,
+        mla_tol=DS_MLA_TOL)
+    del p32, p64, outs
+    torch.cuda.empty_cache()
+    bad = {k: v for k, v in res.items()
+           if k.startswith("mla_f") or k.startswith("mla_decode_vs")}
+    if max(bad.values()) > DS_MLA_TOL:
+        raise AssertionError(f"serve_deepseek MLA check: {res}")
+    return res
+
+
+def phase_serve_deepseek():
+    """deepseek_v3 at full width (d 7168, 128 heads, MLA q_lora 1536,
+    kv_lora 512, rope 64, nope 128, v 128; 256 experts top 8 and a shared
+    one, d_ff_expert 2048, dense d_ff 18,432; vocab 129,280) cut to its
+    first 4 layers (3 dense, then MoE): the MLA layer's checks, then the 8
+    requests of the serving phases in bf16 through `BatchServer` (the
+    chunked attention math: MLA's expanded heads, 128 x 3,523^2 scores in
+    f32, do not fit as one block), with no kernel launched; then, the bf16
+    model freed, the served f32 logits (about 60 GB of weights) finite on
+    the first prompt."""
+    from repro_torch.configs import get_config
+    cfg = get_config(DS).replace(n_layers=DS_LAYERS)
+    m, moe = cfg.mla, cfg.moe
+    if (cfg.d_model, cfg.n_heads, m.q_lora_rank, m.kv_lora_rank,
+            m.qk_rope_head_dim, m.qk_nope_head_dim, m.v_head_dim,
+            moe.n_experts, moe.top_k, moe.n_shared_experts,
+            moe.d_ff_expert, moe.first_dense_layers, cfg.d_ff,
+            cfg.vocab_size, cfg.dtype) != (7168, 128, 1536, 512, 64, 128,
+                                           128, 256, 8, 1, 2048, 3, 18432,
+                                           129280, "bfloat16"):
+        raise AssertionError(f"not deepseek_v3 at full width: {cfg}")
+    fields = _mla_check(cfg.replace(dtype="float32"))
+    t0 = time.perf_counter()
+    with _served_config(cfg):
+        server = BatchServer(DS, reduced=False, slots=SERVE_SLOTS,
+                             s_max=G_S_MAX, seed=0, device="cuda")
+    server.model.attn_impl = "chunked"
+    sync()
+    init_s = time.perf_counter() - t0
+    kinds = [(b.kind, b.is_moe) for b in server.model.blocks]
+    if kinds != [("attn", False)] * 3 + [("attn", True)]:
+        raise AssertionError(f"deepseek's 4 layers: {kinds}")
+    rng = np.random.default_rng(0)
+    lengths = [int(v) for v in rng.integers(256, 4097, SERVE_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab_size, v).tolist() for v in lengths]
+    _prefill_logits(server.model, prompts[0][:300], G_S_MAX)   # warm-up
+    sync()
+    reqs = _requests(prompts)
+    with _no_kernel_launched("serve_deepseek"):
+        stats = server.run(reqs)
+    timing = dict(server.timing)
+    decode_tokens = SERVE_REQUESTS * (SERVE_MAX_NEW - 1)
+    if stats["completed"] != SERVE_REQUESTS or \
+            stats["tokens"] != decode_tokens:
+        raise AssertionError(f"serve_deepseek stats {stats}")
+    for r in reqs:
+        lg = r.prefill_logits
+        if lg.shape != (cfg.vocab_size,) or not torch.isfinite(lg).all():
+            raise AssertionError(f"serve_deepseek request {r.rid}: logits")
+    first = torch.tensor([prompts[0]], device="cuda")
+    box = {}
+
+    def prefill():
+        box["cache"] = server.model.prefill({"tokens": first}, G_S_MAX)[0]
+
+    def decode(steps=8):
+        tok = first[:, -1:]
+        for _ in range(steps):
+            server.model.decode_step(box["cache"], {"tokens": tok})
+
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in server.model.parameters())
+    expert_bytes = sum(p.numel() * p.element_size()
+                       for b in server.model.blocks if b.is_moe
+                       for n, p in b.moe.named_parameters()
+                       if n in ("w1", "w2", "w3"))
+    fields.update(
+        arch=DS, n_layers=cfg.n_layers, layers=kinds, d_model=cfg.d_model,
+        params=sum(p.numel() for p in server.model.parameters()),
+        weight_bytes=weight_bytes, expert_bytes=expert_bytes,
+        init_s=init_s, prompt_lengths=lengths, stats=stats,
+        prefill_ms_per_request=1e3 * timing["prefill_s"]
+        / timing["prefills"],
+        decode_ms_per_token=1e3 * timing["decode_s"]
+        / timing["decode_steps"],
+        decode_bytes_bound_ms=1e3 * weight_bytes / HBM_BPS,
+        prefill_trace=dict(prompt=lengths[0], **_device_trace(
+            prefill, ("gemm", "nvjet"), top=8)),
+        decode_trace_per_token=_device_trace(decode, ("gemm", "nvjet"),
+                                             steps=8, top=8))
+    del server, box
+    torch.cuda.empty_cache()
+    m32 = LM(cfg.replace(dtype="float32"), seed=0, attn_impl="chunked")
+    lg = _prefill_logits(m32, prompts[0], G_S_MAX)
+    fields["f32_logits"] = dict(
+        layers=cfg.n_layers, prompt=lengths[0],
+        finite=bool(torch.isfinite(lg).all()), std=float(lg.std()),
+        weight_gib=sum(p.numel() * 4 for p in m32.parameters()) / 2 ** 30)
+    del m32, lg
+    torch.cuda.empty_cache()
+    emit("serve_deepseek", **fields)
+    if not fields["f32_logits"]["finite"]:
+        raise AssertionError("serve_deepseek: f32 logits not finite")
+
+
 def main():
     # f32 products in full f32 on the card (the plain versions' matmuls)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3511,6 +4071,13 @@ def main():
     # ... then expert parallelism, whose ranks count the same way
     for k, v in phase_moe_ep().items():
         launches[k] += v
+    # training and deepseek_v3's serving launch no kernel (each phase
+    # checks that), so they come after every count is read
+    phase_train_gemma()
+    phase_train_check()
+    phase_train_recovery()
+    phase_train_moe()
+    phase_serve_deepseek()
     headline = {"rmw_table": ("faa", "uniform_bfs_n"),
                 "rmw_table_fetched": ("cas", "uniform_bfs_n"),
                 "slot_counts": ("count", "uniform_bfs_n"),

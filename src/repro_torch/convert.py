@@ -2,9 +2,16 @@
 
 The atomics tier's state is the atomic table (and the graph, which both
 packages draw from the same numpy generator) plus the cost model's
-:class:`HardwareSpec`; the model stack's is the LM's parameter tree.  These
-helpers take that state across as plain numpy arrays and dicts, so the port
-never imports the reference.
+:class:`HardwareSpec`; the model stack's is the LM's parameter tree, and
+training's the AdamW state over it.  These helpers take that state across
+as plain numpy arrays and dicts, so the port never imports the reference.
+
+The reference stacks each stage's parameters on a leading axis of
+``repeats``; the port keeps one block per layer.  `name_map` relates the
+two: port name -> (the reference's dotted tree path, repeat index or None),
+and `to_reference_layout` / `from_reference_layout` move a name-keyed dict
+of tensors (parameters, gradients, master weights, moments) between the two
+layouts, so tests compare them leaf by leaf.
 """
 
 from __future__ import annotations
@@ -64,13 +71,77 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def _leaves(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    for k, v in tree.items():
+def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(dotted path, leaf) of a tree of mappings and lists/tuples."""
+    items = (tree.items() if isinstance(tree, Mapping)
+             else enumerate(tree))
+    for k, v in items:
         name = f"{prefix}{k}"
-        if isinstance(v, Mapping):
+        if isinstance(v, (Mapping, list, tuple)):
             yield from _leaves(v, name + ".")
         else:
             yield name, v
+
+
+def flatten_reference(tree) -> Dict[str, np.ndarray]:
+    """The reference's tree (``LM.init``'s params, or a gradient or AdamW
+    leaf tree of the same structure) as {dotted path: numpy array}, the
+    stage lists indexed as ``stages.<i>.<j>.``."""
+    return {name: np.asarray(arr) for name, arr in _leaves(tree)}
+
+
+def name_map(model: LM) -> Dict[str, Tuple[str, Optional[int]]]:
+    """Port parameter name -> (reference dotted path, repeat index), the
+    index None outside the stages.  Repeat r of sub-layer j of stage i is
+    the port's block ``offset_i + r * len(sigs) + j`` (jamba's periodic
+    super-block maps the same way); names inside a block are the
+    reference's keys (an MoE channel's ``moe.router``, ``moe.w1`` ...,
+    MLA's ``attn.wq_a``, ``attn.q_norm.w`` ...)."""
+    out: Dict[str, Tuple[str, Optional[int]]] = {}
+    layer = 0
+    for i, (sigs, reps) in enumerate(model.stages):
+        for r in range(reps):
+            for j in range(len(sigs)):
+                for name, _ in model.blocks[layer].named_parameters():
+                    out[f"blocks.{layer}.{name}"] = (f"stages.{i}.{j}.{name}",
+                                                     r)
+                layer += 1
+    for name, _ in model.named_parameters():
+        if not name.startswith("blocks."):
+            out[name] = (name, None)
+    return out
+
+
+def from_reference_layout(flat: Mapping[str, Any], model: LM, *,
+                          device=None) -> Dict[str, torch.Tensor]:
+    """{port name: tensor} from the reference's {dotted path: array}
+    (`flatten_reference`), each repeat cut from its stage's stack; on
+    ``device`` (default: the model's)."""
+    device = model.device if device is None else device
+    out = {}
+    for name, (path, r) in name_map(model).items():
+        arr = np.asarray(flat[path])
+        out[name] = _tensor(arr if r is None else arr[r]).to(device)
+    return out
+
+
+def to_reference_layout(tensors: Mapping[str, torch.Tensor], model: LM
+                        ) -> Dict[str, np.ndarray]:
+    """{reference dotted path: numpy array} from {port name: tensor}: the
+    repeats of each stage stacked on a leading axis, as the reference holds
+    them.  bf16 comes back as f32 (exact)."""
+    by_path: Dict[str, Dict[int, np.ndarray]] = {}
+    out: Dict[str, np.ndarray] = {}
+    for name, (path, r) in name_map(model).items():
+        t = tensors[name].detach().cpu()
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        if r is None:
+            out[path] = arr
+        else:
+            by_path.setdefault(path, {})[r] = arr
+    for path, reps in by_path.items():
+        out[path] = np.stack([reps[r] for r in sorted(reps)])
+    return out
 
 
 def lm_params_from_reference(params: Mapping, cfg: ModelConfig, *,
@@ -79,23 +150,22 @@ def lm_params_from_reference(params: Mapping, cfg: ModelConfig, *,
     """Fill an :class:`LM` with the reference's ``LM.init`` tree (leaves as
     numpy arrays).  Builds the model on ``device`` unless one is given.
 
-    The reference stacks each stage's parameters on a leading axis of
-    ``repeats`` (``params["stages"][i][j]`` holds sub-layer j of stage i);
-    repeat r of sub-layer j is the port's block
-    ``offset_i + r * len(sigs) + j``; jamba's periodic super-block, whose
-    sub-layers alternate MoE and dense channels, maps the same way.  An MoE
-    channel's leaves (``moe.router``, ``moe.w1``/``w3``/``w2`` and
-    ``moe.shared.*``) go to the block's `models.moe.MoE` by name.  Every
-    parameter of the model must be filled, with its own shape and dtype, or
-    this raises."""
+    Leaves map by `name_map`.  Every parameter of the model must be filled,
+    with its own shape and dtype, and every leaf of the tree used, or this
+    raises."""
     model = LM(cfg, device=device) if model is None else model
-    own: Dict[str, torch.nn.Parameter] = dict(model.named_parameters())
-    filled = set()
-
-    def put(name, arr):
-        if name not in own:
-            raise KeyError(f"reference parameter {name} has no counterpart")
-        src = _tensor(arr)
+    flat = flatten_reference(params)
+    names = name_map(model)
+    unused = set(flat) - {path for path, _ in names.values()}
+    if unused:
+        raise KeyError(f"reference parameters with no counterpart: "
+                       f"{sorted(unused)}")
+    missing = sorted(n for n, (path, _) in names.items() if path not in flat)
+    if missing:
+        raise ValueError(f"parameters not in the reference tree: {missing}")
+    own = dict(model.named_parameters())
+    for name, src in from_reference_layout(flat, model,
+                                           device="cpu").items():
         if tuple(src.shape) != tuple(own[name].shape):
             raise ValueError(f"{name}: reference shape {tuple(src.shape)}, "
                              f"port {tuple(own[name].shape)}")
@@ -103,20 +173,28 @@ def lm_params_from_reference(params: Mapping, cfg: ModelConfig, *,
             raise TypeError(f"{name}: reference {src.dtype}, port "
                             f"{own[name].dtype}")
         own[name].data.copy_(src)
-        filled.add(name)
-
-    for name, arr in _leaves({k: v for k, v in params.items()
-                              if k != "stages"}):
-        put(name, arr)
-    layer = 0
-    for i, (sigs, reps) in enumerate(model.stages):
-        for r in range(reps):
-            for j in range(len(sigs)):
-                for name, arr in _leaves(params["stages"][i][j]):
-                    put(f"blocks.{layer}.{name}", np.asarray(arr)[r])
-                layer += 1
-    missing = set(own) - filled
-    if missing:
-        raise ValueError(f"parameters not in the reference tree: "
-                         f"{sorted(missing)}")
     return model
+
+
+def adamw_state_from_reference(state: Mapping, model: LM, *, device=None
+                               ) -> Dict[str, Any]:
+    """The port's AdamW state (`optim.adamw.init_state`'s layout) from the
+    reference's ``{"step", "master", "m", "v"}`` (leaves as numpy arrays;
+    bf16 moments stay bf16)."""
+    device = model.device if device is None else device
+    out: Dict[str, Any] = {"step": torch.tensor(
+        int(np.asarray(state["step"])), dtype=torch.int32, device=device)}
+    for key in ("master", "m", "v"):
+        out[key] = from_reference_layout(flatten_reference(state[key]),
+                                         model, device=device)
+    return out
+
+
+def adamw_state_to_reference(state: Mapping, model: LM
+                             ) -> Dict[str, Any]:
+    """The port's AdamW state in the reference's layout: {"step": int,
+    "master"/"m"/"v": {dotted path: numpy array}}."""
+    out: Dict[str, Any] = {"step": int(state["step"])}
+    for key in ("master", "m", "v"):
+        out[key] = to_reference_layout(state[key], model)
+    return out

@@ -365,3 +365,16 @@ def _cas_uniform(table: Tensor, indices: Tensor, values: Tensor,
     padded = _padded(table)
     padded[w] = val_s
     return RmwResult(padded[:m], fetched_s[inv], success_s[inv])
+
+
+def scatter_add_grads(grad_table: Tensor, token_ids: Tensor,
+                      grads: Tensor) -> Tensor:
+    """Embedding-gradient accumulation: ``grad_table`` with ``grads[i]``
+    added at row ``token_ids[i]``, a pure-FAA RMW batch (the reference's
+    ``grad_table.at[token_ids].add(grads)``).  ``token_ids`` may have any
+    shape, ``grads`` that shape plus the table's row shape; negative ids
+    wrap, as the reference's.  Returns a new table.  On a CUDA table the
+    rows are added with atomics, in no fixed order for fp32 (exact in any
+    order for integers), unless deterministic algorithms are on."""
+    return grad_table.index_put((token_ids.long(),), grads.to(
+        grad_table.dtype), accumulate=True)

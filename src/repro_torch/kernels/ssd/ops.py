@@ -12,6 +12,11 @@ B and C may come per group: a head axis of G for any G that divides H
 (head h reads group h // (H / G)); G = H is the reference's layout.  `ssd`
 hands the groups to the kernel as they are, `ssd_chunked` repeats them to
 the heads.
+
+The kernel has no backward, as the reference's `pallas_call` has no VJP:
+`ssd` calls it through an autograd function whose backward raises, and
+training takes `ssd_chunked` (``use_kernel=False``), as the reference
+trains through ``ssd_chunked_jnp``.
 """
 
 from __future__ import annotations
@@ -21,10 +26,24 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import NO_BACKWARD
 from repro_torch.kernels.ssd import kernel as _k
 from repro_torch.kernels.ssd import ref as _ref
 
 Tensor = torch.Tensor
+
+
+class _SsdChunk(torch.autograd.Function):
+    """`kernel.ssd_chunk` forward; a backward raises (no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, xdt, adt, B, C, chunk, heads_per_group):
+        return _k.ssd_chunk(xdt, adt, B, C, chunk=chunk,
+                            heads_per_group=heads_per_group)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(NO_BACKWARD.format("ssd_chunk"))
 
 
 def _pad_seq(pad: int, *ts: Tensor) -> Tuple[Tensor, ...]:
@@ -109,7 +128,7 @@ def ssd(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor, *,
     With return_final_state, also returns h_final (B,H,N,P) for decode.
     use_kernel: None = `kernel.ssd_chunk` on CUDA tensors, `ssd_chunked`
     on CPU ones; True = `kernel.ssd_chunk` (which runs its plain version on
-    CPU tensors); False = `ssd_chunked`."""
+    CPU tensors; a gradient through it raises); False = `ssd_chunked`."""
     if use_kernel is None:
         use_kernel = x.is_cuda
     if not use_kernel:
@@ -132,8 +151,7 @@ def ssd(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor, *,
     adt = flat((dt * A[None, None, :]).float())
     Bf, Cf = flat(B.float()), flat(C.float())                # (B*G, S, N)
 
-    y_intra, states = _k.ssd_chunk(xdt, adt, Bf, Cf, chunk=chunk,
-                                   heads_per_group=hpg)
+    y_intra, states = _SsdChunk.apply(xdt, adt, Bf, Cf, chunk, hpg)
 
     l = torch.cumsum(adt.reshape(b * h, nc, chunk), dim=-1)   # (BH,NC,Q)
     decay = torch.exp(l[..., -1])[..., None, None]            # (BH,NC,1,1)

@@ -1,0 +1,240 @@
+"""The trainer: --arch selectable, fault-tolerant, resumable.
+
+Port of `repro.launch.train`.  It runs real steps on one device (the card
+unless asked for the CPU): the model on its plain paths (the kernels have
+no backward), AdamW with f32 master weights, the deterministic data
+pipeline, the async checkpointer and the recovery loop, with a state
+*factory*, since the step updates its state in place (the reference's
+donation).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma_2b \\
+        --steps 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma_2b \\
+        --steps 8 --ckpt-dir CKPT --chaos "seed=3,step=1.0@2,ckpt_save=1.0@1"
+
+Replay is exact: the data are a pure function of (seed, step), and a run
+is made deterministic (``torch.use_deterministic_algorithms`` and
+``CUBLAS_WORKSPACE_CONFIG``) unless ``deterministic=False``.  On the card
+some backward ops otherwise add in atomic order (the embedding gradient,
+the gathers' backward), and a replayed step would not be bit-equal.
+
+Not ported yet, and each raises `NotImplementedError`: a mesh and its
+rules (sharded training, ROADMAP queue 1 item 5); the tuning controller
+and the ``REPRO_TUNING`` hook, telemetry (``--telemetry``,
+``REPRO_TELEMETRY``) and ``--profile-annotations`` (queue 1 item 7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import logging
+import os
+import time
+from typing import Any, Dict, Optional
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.checkpoint import ckpt as ckpt_lib
+from repro_torch.checkpoint.ckpt import AsyncCheckpointer
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.data.pipeline import (DataConfig, batch_kwargs_for,
+                                       synthetic_batch)
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models.model import build_model
+from repro_torch.optim.adamw import AdamWConfig, init_state
+from repro_torch.runtime.chaos import FaultPlan
+from repro_torch.runtime.fault_tolerance import (FaultConfig,
+                                                 StragglerMonitor,
+                                                 declare_donation,
+                                                 run_with_recovery)
+
+log = logging.getLogger("repro_torch.train")
+
+SHARDED = "sharded training (ROADMAP queue 1 item 5)"
+RUNTIME = "the tuning controller and telemetry (ROADMAP queue 1 item 7)"
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool):
+    """Deterministic kernels for the block (ops without one warn), with the
+    cuBLAS workspace setting they need; the previous mode is restored."""
+    if not on:
+        yield
+        return
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def train(arch: str, *, steps: int = 100, seq_len: int = 256,
+          global_batch: int = 8, reduced: bool = True,
+          ckpt_dir: Optional[str] = None, checkpoint_every: int = 50,
+          mesh=None, rules: Optional[Dict] = None, lr: float = 3e-4,
+          microbatches: int = 1, log_every: int = 10,
+          failure_injector=None, seed: int = 0,
+          remat_policy: str = "none",
+          chaos: Optional[FaultPlan] = None, tuning=None,
+          device="cuda", deterministic: bool = True) -> Dict[str, Any]:
+    """Returns the final metrics dict: ``history`` (the logged steps'
+    loss, lr, grad_norm and host seconds), ``steps_done``, ``failures``,
+    ``backoff_total_s`` and ``final_loss``.  Deterministic given (arch,
+    seed, steps), also under an injected fault schedule (``chaos``, or the
+    ``REPRO_CHAOS`` env hook when None): recovery restores the latest
+    *valid* checkpoint and replays, so the final state is bit-equal to a
+    fault-free run.  ``device="cuda"`` needs a card: it does not fall back
+    to the CPU."""
+    if mesh is not None or rules is not None:
+        raise NotImplementedError(f"mesh/rules: {SHARDED}")
+    if tuning is not None or os.environ.get("REPRO_TUNING"):
+        raise NotImplementedError(f"tuning / REPRO_TUNING: {RUNTIME}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("train(device='cuda') needs a CUDA card; pass "
+                           "device='cpu' to train on the CPU")
+    cfg = get_reduced(arch) if reduced else get_config(arch)
+    model = build_model(cfg, device=device, seed=seed, use_kernel=False,
+                        attn_impl="chunked", remat_policy=remat_policy,
+                        loss_chunk=2048)
+    opt_cfg = AdamWConfig(lr=lr, warmup_steps=min(20, steps // 5 + 1),
+                          total_steps=steps)
+    data_cfg = DataConfig(seq_len=seq_len, global_batch=global_batch,
+                          vocab_size=cfg.vocab_size, seed=seed)
+    bkw = batch_kwargs_for(cfg)
+    step_fn = make_train_step(model, opt_cfg, microbatches=microbatches)
+
+    # the step updates its state in place, so a post-failure restart from
+    # scratch must rebuild state: the first call hands out the model's own
+    # parameters, later ones redraw them from the same seed
+    first_init = [True]
+
+    def fresh_state():
+        if first_init:
+            first_init.pop()
+        else:
+            fresh = build_model(cfg, device=device, seed=seed,
+                                use_kernel=False)
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(dict(fresh.named_parameters())[name])
+            del fresh
+        params = dict(model.named_parameters())
+        return params, init_state(params, opt_cfg)
+
+    saver = AsyncCheckpointer(ckpt_dir, keep=3) if ckpt_dir else None
+    monitor = StragglerMonitor(n_hosts=1, cfg=FaultConfig())
+    history = []
+    live = {}
+
+    def one_step(step: int, state):
+        params, opt_state = state
+        batch = synthetic_batch(data_cfg, step, device=device, **bkw)
+        t0 = time.time()
+        with record_function(f"train.step/{step}"):
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}
+        dt = time.time() - t0
+        monitor.record(0, dt)
+        if step % log_every == 0 or step == steps - 1:
+            log.info("step %4d loss=%.4f lr=%.2e gnorm=%.3f %.2fs",
+                     step, metrics["loss"], metrics["lr"],
+                     metrics["grad_norm"], dt)
+            history.append({"step": step, **metrics, "sec": dt})
+        live["state"] = (params, opt_state)
+        return params, opt_state
+
+    # the state argument is updated in place each call: recovery needs the
+    # factory above, not the initial tensors
+    one_step = declare_donation(one_step, (1,))
+
+    def save_fn(step: int, state):
+        if saver is not None:
+            saver.save_async(step, {"params": state[0], "opt": state[1]},
+                             extra={"arch": arch, "seed": seed})
+
+    def restore_fn():
+        if not ckpt_dir:
+            return None
+        # a save whose background thread died surfaces here; the torn step
+        # is skipped by restore_latest_valid
+        if saver is not None:
+            try:
+                saver.wait()
+            except Exception as e:  # noqa: BLE001 — recovery handles it
+                log.warning("async save failed (%s); restoring the newest "
+                            "valid step instead", e)
+        params = dict(model.named_parameters())
+        # the live state gives the structure, devices and dtypes; before a
+        # first step there is none, and a fresh one stands in
+        opt = live["state"][1] if "state" in live \
+            else init_state(params, opt_cfg)
+        like = {"params": params, "opt": opt}
+        got = ckpt_lib.restore_latest_valid(ckpt_dir, like)
+        if got is None:
+            return None
+        last, tree, _extra = got
+        return last, (tree["params"], tree["opt"])
+
+    fault_cfg = FaultConfig(checkpoint_every=checkpoint_every)
+    with deterministic_algorithms(deterministic):
+        result = run_with_recovery(one_step, fresh_state, steps, fault_cfg,
+                                   save_fn, restore_fn,
+                                   failure_injector=failure_injector,
+                                   chaos=chaos)
+    if saver is not None:
+        saver.wait()
+    return {"history": history, "steps_done": result.steps_done,
+            "failures": result.failures,
+            "backoff_total_s": result.backoff_total_s,
+            "final_loss": history[-1]["loss"] if history else None}
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=256)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--full", action="store_true",
+                    help="full-size config; default reduced")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="fault-injection spec, e.g. 'seed=7,step=0.05,"
+                         "ckpt_save=0.1@2' (same syntax as REPRO_CHAOS)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; needs a card) or cpu")
+    ap.add_argument("--telemetry", default=None, metavar="SINK",
+                    help=f"not ported yet: {RUNTIME}")
+    ap.add_argument("--tuning", nargs="?", const="on", default=None,
+                    metavar="STATE", help=f"not ported yet: {RUNTIME}")
+    ap.add_argument("--profile-annotations", action="store_true",
+                    help=f"not ported yet: {RUNTIME}")
+    args = ap.parse_args(argv)
+    if args.telemetry or args.profile_annotations \
+            or os.environ.get("REPRO_TELEMETRY"):
+        raise NotImplementedError(
+            f"--telemetry / --profile-annotations / REPRO_TELEMETRY: "
+            f"{RUNTIME}")
+    chaos = FaultPlan.from_spec(args.chaos) if args.chaos else None
+    out = train(args.arch, steps=args.steps, seq_len=args.seq_len,
+                global_batch=args.global_batch, reduced=not args.full,
+                ckpt_dir=args.ckpt_dir, lr=args.lr,
+                microbatches=args.microbatches, chaos=chaos,
+                tuning=True if args.tuning is not None else None,
+                device=args.device)
+    print(json.dumps({k: v for k, v in out.items() if k != "history"}))
+
+
+if __name__ == "__main__":
+    main()

@@ -6,16 +6,19 @@ distributions (its `jax.random` bits are not reproducible here: the parity
 tests carry the reference's weights across with
 `repro_torch.convert.lm_params_from_reference`).  Norms compute in f32 and
 cast back to the input's dtype, as the reference does.  M-RoPE, sinusoidal
-positions and the chunked cross-entropy port with the slices that run them.
+positions port with the slices that run them.  The chunked cross-entropy
+recomputes each chunk's f32 logits in backward, as the reference's
+`jax.checkpoint` does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 Tensor = torch.Tensor
 
@@ -39,25 +42,32 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
                         dtype=torch.float32) * 0.02).to(dtype)
 
 
+def upcast(x: Tensor) -> Tensor:
+    """``x`` in f32, or as it is where it is wider (f64): the compute dtype
+    of the norms, the attention math and the loss, so an f64 model (the
+    card's f32-against-f64 checks) computes in f64 throughout."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x: Tensor, weight: Tensor, eps: float = 1e-5) -> Tensor:
-    xf = x.float()
+    xf = upcast(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * weight.float()
+    out = xf * torch.rsqrt(var + eps) * upcast(weight)
     return out.to(x.dtype)
 
 
 def layernorm(x: Tensor, weight: Tensor, bias: Optional[Tensor],
               eps: float = 1e-5) -> Tensor:
-    xf = x.float()
+    xf = upcast(x)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-    out = (xf - mu) * torch.rsqrt(var + eps) * weight.float()
+    out = (xf - mu) * torch.rsqrt(var + eps) * upcast(weight)
     if bias is not None:
-        out = out + bias.float()
+        out = out + upcast(bias)
     return out.to(x.dtype)
 
 
@@ -143,3 +153,45 @@ def rope_apply(x: Tensor, positions: Tensor, theta: float,
     o2 = x2 * cos + x1 * sin
     out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
     return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# chunked cross-entropy (bounded logit memory)
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(hx: Tensor, emb_out: Tensor, lx: Tensor,
+                logit_softcap: float) -> Tuple[Tensor, Tensor]:
+    """(summed CE, count of unmasked labels) of one sequence chunk."""
+    logits = upcast(hx @ emb_out)                         # (B, chunk, vocab)
+    if logit_softcap > 0:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.take_along_dim(
+        logits, torch.clamp(lx, min=0).long()[..., None], dim=-1)[..., 0]
+    mask = (lx >= 0).to(logits.dtype)
+    return torch.sum((lse - tgt) * mask), torch.sum(mask)
+
+
+def chunked_softmax_xent(h: Tensor, emb_out: Tensor, labels: Tensor,
+                         chunk: int = 4096,
+                         logit_softcap: float = 0.0) -> Tensor:
+    """Mean next-token CE over (B, S, d) hidden states against the head
+    ``emb_out`` (d, vocab), without the full (tokens, vocab) logits: a loop
+    over *sequence* chunks whose body is checkpointed, so one chunk's f32
+    logits are the only transient and none is saved for backward.  Labels
+    of -100 are masked; the target gather clamps them to 0 first, as the
+    reference does."""
+    b, s, d = h.shape
+    chunk = min(chunk, s)
+    dt = upcast(h[:0]).dtype
+    tot = torch.zeros((), dtype=dt, device=h.device)
+    cnt = torch.zeros((), dtype=dt, device=h.device)
+    for lo in range(0, s, chunk):
+        args = (h[:, lo:lo + chunk], emb_out, labels[:, lo:lo + chunk],
+                logit_softcap)
+        if torch.is_grad_enabled():
+            t, c = checkpoint(_xent_chunk, *args, use_reentrant=False)
+        else:
+            t, c = _xent_chunk(*args)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)

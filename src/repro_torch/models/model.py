@@ -1,15 +1,16 @@
-"""Unified LM API: init / prefill / decode_step.
+"""Unified LM API: init / loss / prefill / decode_step.
 
 Port of `repro.models.model`, as an ``nn.Module`` that holds its weights
-(the reference passes an explicit parameter pytree).  It serves the dense
-attention family (gemma_2b and the other GQA/MQA configs with RoPE), the
-SSM family (mamba2_780m), MoE (dbrx) and the hybrid of all three (jamba,
-without positions): token embedding, the block loop, the final norm and
-the tied (or separate) head, with f32 logits.  The blocks' MoE aux losses
-are summed as the reference's `_backbone` does; serving drops them.  MLA,
-M-RoPE, the encoder, learned positions, embedding inputs and the training
-loss port with their slices and raise here.  Batches hold ``tokens``
-(B, S) integer ids.
+(the reference passes an explicit parameter pytree).  It serves and trains
+the dense attention family (gemma_2b and the other GQA/MQA configs with
+RoPE), the SSM family (mamba2_780m), MoE (dbrx), MLA with MoE (deepseek_v3)
+and the hybrid of attention, SSM and MoE (jamba, without positions): token
+embedding, the block loop, the final norm and the tied (or separate) head,
+with f32 logits (f64 for an f64 model).  The blocks' MoE aux losses are
+summed as the reference's `_backbone` does; `loss` adds them to the
+chunked cross-entropy, serving drops them.  M-RoPE, the encoder, learned positions and embedding inputs
+port with their slices and raise here.  Batches hold ``tokens`` (B, S)
+integer ids and, for `loss`, ``labels`` (B, S) with -100 masked.
 """
 
 from __future__ import annotations
@@ -21,13 +22,25 @@ from torch import nn
 
 from repro_torch.models.attention import make_kv_cache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import embed_init, norm, norm_init
+from repro_torch.models.layers import (chunked_softmax_xent, embed_init,
+                                       norm, norm_init, upcast)
 from repro_torch.models.mamba import make_ssm_cache
-from repro_torch.models.transformer import Block, layer_sigs, plan_stages
+from repro_torch.models.transformer import (Block, layer_sigs, plan_stages,
+                                            remat)
 
 Tensor = torch.Tensor
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float64": torch.float64}
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device, so the initialisers
+    (which draw on ``gen.device``) build shapes and dtypes only."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
 
 
 class LM(nn.Module):
@@ -36,12 +49,18 @@ class LM(nn.Module):
     ``use_kernel`` goes to every mixer (`ops.ssd`, the attention's
     `_sdpa`): None = the Hopper kernels on CUDA, the plain paths on the CPU;
     True = the kernels' wrappers (their plain versions on the CPU); False =
-    the plain paths.  ``attn_impl`` is the reference's: the attention math
-    without the kernel, "ref" (full scores) or "chunked" (query blocks)."""
+    the plain paths.  The kernels have no backward, so a model that trains
+    takes ``use_kernel=False``.  ``attn_impl`` is the reference's: the
+    attention math without the kernel, "ref" (full scores), "chunked"
+    (query blocks) or "tri" (diagonal bands).  ``remat_policy`` ("none",
+    "full", "dots", "dots_no_batch") and ``loss_chunk`` are the
+    reference's training knobs.  ``device="meta"`` builds shapes and
+    dtypes only."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
                  use_kernel: Optional[bool] = None,
-                 attn_impl: str = "chunked"):
+                 attn_impl: str = "chunked", remat_policy: str = "full",
+                 loss_chunk: int = 4096):
         super().__init__()
         if cfg.encoder is not None:
             raise NotImplementedError("encoder-decoder models port with "
@@ -53,9 +72,12 @@ class LM(nn.Module):
         self.cfg = cfg
         self.use_kernel = use_kernel
         self.attn_impl = attn_impl
+        self.remat_policy = remat_policy
+        self.loss_chunk = loss_chunk
         self.stages = plan_stages(cfg)
         self.dtype = DTYPES[cfg.dtype]
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = (_MetaGenerator() if torch.device(device).type == "meta"
+               else torch.Generator(device=device)).manual_seed(seed)
         dt = self.dtype
         self.embed = nn.Parameter(embed_init(gen, cfg.vocab_size,
                                              cfg.d_model, dt))
@@ -85,9 +107,9 @@ class LM(nn.Module):
         aux = None
         new_caches = [] if caches is not None else None
         for i, block in enumerate(self.blocks):
-            x, nc, a = block(x, caches[i] if caches is not None else None,
-                             use_kernel=self.use_kernel,
-                             impl=self.attn_impl)
+            x, nc, a = remat(block, self.remat_policy)(
+                x, caches[i] if caches is not None else None,
+                use_kernel=self.use_kernel, impl=self.attn_impl)
             if a is not None:
                 aux = a if aux is None else aux + a
             if new_caches is not None:
@@ -100,7 +122,17 @@ class LM(nn.Module):
         return w.T  # (d, vocab)
 
     def _logits(self, h: Tensor) -> Tensor:
-        return h[:, -1].float() @ self._head().float()
+        return upcast(h[:, -1]) @ upcast(self._head())
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, batch: Dict[str, Tensor]) -> Tensor:
+        """Mean next-token CE over ``batch["labels"]`` (-100 masked), plus
+        the MoE blocks' aux loss where the model has MoE."""
+        h, _, aux = self._backbone(self._embed_in(batch), caches=None)
+        ce = chunked_softmax_xent(h, self._head(), batch["labels"],
+                                  chunk=self.loss_chunk,
+                                  logit_softcap=self.cfg.logit_softcap)
+        return ce if aux is None else ce + aux
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, s_max: int) -> Dict[str, Any]:

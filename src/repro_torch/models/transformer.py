@@ -10,15 +10,22 @@ Block = token mixer (GQA/MQA attention | Mamba-2 SSD) + channel mixer
 (dense MLP | MoE | none) with pre-norm residuals, or the parallel residual
 (command-r).  A block returns its MoE aux loss beside its output (None
 for a dense channel, which adds nothing), summed over the layers as the
-reference's `stage_forward` does.  Cross-attention raises until its slice ports it.
+reference's `stage_forward` does.  Cross-attention raises until its slice
+ports it.
+
+Training: `remat` wraps a block in the reference's rematerialisation
+policies (`torch.utils.checkpoint`), and `grad_barrier` is the identity.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import functools
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ModelConfig
@@ -29,6 +36,51 @@ from repro_torch.models.moe import moe_ffn, moe_init
 Tensor = torch.Tensor
 
 Sig = Tuple[str, bool]  # (kind: "attn"|"ssm", is_moe)
+
+REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch")
+
+
+def grad_barrier(x: Tensor) -> Tensor:
+    """The identity.  The reference's barrier stops XLA from hoisting the
+    norm's f32 upcast into a scan's carry buffer and from CSE across the
+    backward scan (an `optimization_barrier` with an identity gradient);
+    eager PyTorch does no CSE or hoisting, so there is nothing to stop."""
+    return x
+
+
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_SAVED_OPS = {"dots": _MM + (torch.ops.aten.bmm.default,),
+              "dots_no_batch": _MM}
+
+
+def _save_ops_policy(saved, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under the reference's remat policy (`transformer._remat`):
+    "none" = as it is; "full" = checkpointed, everything recomputed in
+    backward; "dots" = checkpointed, the matmul outputs (``aten.mm``,
+    ``addmm``, ``bmm``) saved and the rest recomputed; "dots_no_batch" =
+    the same without ``bmm``, the products with batch dims (jax's
+    `checkpoint_dots_with_no_batch_dims`).  Outside grad mode ``fn`` runs
+    as it is."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {policy!r} not in {REMAT_POLICIES}")
+    if policy == "none":
+        return fn
+    kw = {}
+    if policy in _SAVED_OPS:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_save_ops_policy, _SAVED_OPS[policy]))
+
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+    return run
 
 
 def plan_stages(cfg: ModelConfig) -> List[Tuple[List[Sig], int]]:

@@ -10,7 +10,10 @@ ulp at gemma_2b's shapes; decode split across CTAs, prefill on tensor
 cores) and a full-width two-layer gemma_2b prefill and decode against the
 plain attention path; the one-thread device loops (`serial_rmw` bit for
 bit against the host loop, on ±0, NaN and subnormals too; `chase` in its
-four modes against its plain version).
+four modes against its plain version); training and MLA: a full-width
+two-layer gemma_2b train step in f32 against f64, deepseek_v3's MLA layer
+at full width in f32 against f64, a backward through the flash and SSD
+kernels' wrappers raising, and deterministic backward passes bit-equal.
 This file imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \
@@ -34,6 +37,7 @@ from repro_torch.kernels.rmw import ref as tref
 from repro_torch.kernels.serial import kernel as XK
 from repro_torch.kernels.ssd import kernel as SK
 from repro_torch.kernels.ssd import ops as sops
+from repro_torch.launch.steps import loss_and_grads
 from repro_torch.models.model import LM
 
 OPS = ["faa", "swp", "min", "max", "cas"]
@@ -983,3 +987,170 @@ def test_jamba_on_the_kernels_matches_plain_path(cuda_device):
     for a, b in zip(out[None], out[False]):
         assert torch.isfinite(a).all()
         assert (a - b).abs().max() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# training and MLA on the card
+# ---------------------------------------------------------------------------
+
+def _no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return saved
+
+
+@pytest.mark.gpu
+def test_gemma_full_width_train_step_f32_matches_f64(cuda_device):
+    """gemma_2b at full width cut to 2 layers, TF32 off, deterministic
+    algorithms on, one batch of 2 x 128 tokens: the f32 loss within rtol
+    1e-5 of the f64 one, every gradient leaf within relative L2 1e-4, and
+    each element of the master weights after one `make_train_step` step
+    within what its gradient's f32 error moves Adam's first step (whose
+    slope in the clipped gradient is at most 1 / eps): lr min(2, |g'32 -
+    g'64| / eps) plus 2 f32 ulps of the leaf's largest weight
+    (`chip_smoke.py`'s `train_check` at the trainer's batch).  A control
+    with the label mask dropped fails the gradient check."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import deterministic_algorithms
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    saved = _no_tf32()
+    try:
+        cfg = get_config("gemma_2b").replace(n_layers=2)
+        batch = synthetic_batch(DataConfig(128, 2, cfg.vocab_size), 0,
+                                device=cuda_device)
+        opt = AdamWConfig(warmup_steps=2, total_steps=10)
+        res = {}
+        for dt in ("float32", "float64"):
+            model = LM(cfg.replace(dtype=dt), device=cuda_device, seed=0,
+                       use_kernel=False, remat_policy="none")
+            if dt == "float64":
+                with torch.no_grad():
+                    for n, p in model.named_parameters():
+                        p.copy_(res["float32"]["init"][n])
+            else:
+                init = {n: p.detach().clone()
+                        for n, p in model.named_parameters()}
+            with deterministic_algorithms(True):
+                loss, grads = loss_and_grads(model, batch)
+            ctrl = loss_and_grads(model, dict(
+                batch, labels=batch["labels"].clamp(min=0)))[1] \
+                if dt == "float32" else None
+            params = dict(model.named_parameters())
+            with deterministic_algorithms(True):
+                _, st, m = make_train_step(model, opt)(
+                    params, init_state(params, opt), batch)
+            res[dt] = dict(loss=float(loss), grads=grads, ctrl=ctrl,
+                           master=st["master"], lr=float(m["lr"]),
+                           scale=min(1.0, 1.0 / float(m["grad_norm"])),
+                           init=init if dt == "float32" else None)
+            del model, params, st
+        a, b = res["float32"], res["float64"]
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-5)
+
+        def rel(x, y):
+            x, y = x.double(), y.double()
+            return float((x - y).norm() / y.norm().clamp(min=1e-30))
+
+        assert max(rel(a["grads"][n], b["grads"][n]) for n in b["grads"]) \
+            <= 1e-4
+        assert max(rel(a["ctrl"][n], b["grads"][n]) for n in b["grads"]) \
+            > 1e-4
+        eps32 = torch.finfo(torch.float32).eps
+        for n in b["master"]:
+            dg = (a["grads"][n].double() * a["scale"]
+                  - b["grads"][n] * b["scale"]).abs()
+            bound = b["lr"] * torch.clamp(dg / opt.eps, max=2.0) \
+                + 2 * eps32 * float(a["init"][n].abs().max())
+            assert ((a["master"][n].double() - b["master"][n]).abs()
+                    <= bound).all(), n
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.gpu
+def test_mla_full_width_matches_f64(cuda_device):
+    """deepseek_v3's MLA layer at full width (d 7168, 128 heads, kv_lora
+    512), TF32 off: a 256-token prefill into the latent cache and two
+    decode steps in f32 against f64, within 1e-4 of the output's largest
+    magnitude; the decodes against one prefill of all 258 tokens too."""
+    from repro_torch.models import attention as tattn
+    saved = _no_tf32()
+    try:
+        cfg = get_config("deepseek_v3_671b")
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        p64 = tattn.attn_init(gen, cfg, torch.float64)
+        p32 = tattn.attn_init(gen, cfg, torch.float32)
+        with torch.no_grad():
+            for (_, a), (_, b) in zip(p32.named_parameters(),
+                                      p64.named_parameters()):
+                a.copy_(b)
+        x = torch.randn((1, 258, cfg.d_model), generator=gen,
+                        device=cuda_device, dtype=torch.float64)
+        outs = {}
+        with torch.no_grad():
+            for dt, p in ((torch.float32, p32), (torch.float64, p64)):
+                cache = tattn.make_kv_cache(cfg, 1, 258, dt,
+                                            device=cuda_device)
+                o, cache = tattn.mla_forward(p, x[:, :256].to(dt), cfg,
+                                             cache=cache)
+                steps = [o]
+                for t in (256, 257):
+                    o, cache = tattn.mla_forward(p, x[:, t:t + 1].to(dt),
+                                                 cfg, cache=cache)
+                    steps.append(o)
+                outs[dt] = torch.cat(steps, 1)
+            full = tattn.mla_forward(p32, x.float(), cfg)[0]
+        scale = float(outs[torch.float64].abs().max())
+        assert float((outs[torch.float32].double()
+                      - outs[torch.float64]).abs().max()) <= 1e-4 * scale
+        assert float((outs[torch.float32][:, 256:] - full[:, 256:])
+                     .abs().max()) <= 1e-4 * scale
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.gpu
+def test_kernel_backward_raises_on_the_card(cuda_device):
+    """A gradient through `ops.flash` or `ops.ssd`'s kernel raises: no
+    backward kernel exists, and neither wrapper falls back to its plain
+    version or detaches."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn((1, 2, 64, 64), generator=g, device=cuda_device,
+                    requires_grad=True)
+    k = torch.randn((1, 1, 64, 64), generator=g, device=cuda_device,
+                    requires_grad=True)
+    out = fops.flash(q, k, k, causal=True, scale=None, kv_valid=64,
+                     kv_offset=0)
+    assert out.requires_grad
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        out.sum().backward()
+    x = torch.randn((1, 256, 2, 64), generator=g, device=cuda_device,
+                    requires_grad=True)
+    dt = torch.full((1, 256, 2), 0.05, device=cuda_device)
+    B = torch.randn((1, 256, 1, 64), generator=g, device=cuda_device)
+    y = sops.ssd(x, dt, -torch.ones(2, device=cuda_device), B, B.clone(),
+                 chunk=256, use_kernel=True)
+    assert y.requires_grad
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        y.sum().backward()
+
+
+@pytest.mark.gpu
+def test_deterministic_backward_is_bit_equal(cuda_device):
+    """Under the trainer's deterministic algorithms, two backward passes of
+    one batch give bit-equal gradients on every leaf: the reduced
+    gemma_2b (embedding gradient) and deepseek_v3 (MoE's gathers)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch.train import deterministic_algorithms
+    for arch in ("gemma_2b", "deepseek_v3_671b"):
+        cfg = get_reduced(arch).replace(dtype="float32")
+        model = LM(cfg, device=cuda_device, seed=0, use_kernel=False)
+        batch = synthetic_batch(DataConfig(256, 8, cfg.vocab_size), 0,
+                                device=cuda_device)
+        with deterministic_algorithms(True):
+            _, g1 = loss_and_grads(model, batch)
+            _, g2 = loss_and_grads(model, batch)
+        for n in g1:
+            assert torch.equal(g1[n], g2[n]), (arch, n)
