@@ -75,7 +75,20 @@ layers; `train_recovery` finds which backward ops break replay and holds
 train_100m's config under chaos bit for bit to a clean run;
 `train_moe` trains deepseek_v3's reduced config; `serve_deepseek`
 checks the full-width MLA layer in f32 against f64 and serves
-deepseek_v3 at full width cut to its first 4 layers.
+deepseek_v3 at full width cut to its first 4 layers.  M-RoPE and the
+encoder: `flash_mm` holds the flash kernel to its plain version at
+qwen2_vl_2b's and whisper_small's calls (whisper's non-causal encoder,
+cross-attention prefill and split-KV decode), with timing rows for each;
+`serve_qwen2_vl` serves qwen2_vl_2b at full width and depth through
+`BatchServer` and from ``embeds`` with distinct M-RoPE positions;
+`serve_whisper` serves whisper_small at full width and depth with 1,500
+frames through `LM.prefill` / `LM.decode_step`, its launches counted per
+prefill and token; both gate their logits against the plain path;
+`train_mm` trains both at full width (no kernel launched).  Telemetry:
+the `telemetry_drift` suite runs among the suites, and `telemetry` checks
+its tiers, measured events and overhead gate, then a recovery run under
+chaos whose ring must hold each fired fault before its recovery event.
+A `timeline` line gives each phase's seconds.
 
 Phases print one JSON line each (`{"phase": ...}`); every phase raises on a
 failure.  The line before the last is the per-kernel record, and the last
@@ -1701,8 +1714,9 @@ def _fa_row(shape, args, kw, s, cached, hq, hkv, d):
     """One flash_attention call beside its bound, its plain version and
     SDPA, as device times (`graph_ms`; ``eager_ms`` with the wrapper's host
     time as the model pays it)."""
-    valid = kw["kv_valid"]
-    pairs = sum(min(i + cached + 1, valid) for i in range(s))
+    valid, causal = kw["kv_valid"], kw["causal"]
+    pairs = (sum(min(i + cached + 1, valid) for i in range(s)) if causal
+             else s * valid)
     # q k^T and p v, 2 operations per multiply-add each.  q k^T has bf16
     # operands, and a bf16 product is exact in f32: the bf16 rate.  p v
     # takes p in f32, as the TPU kernel keeps it.  p splits exactly into
@@ -1716,12 +1730,13 @@ def _fa_row(shape, args, kw, s, cached, hq, hkv, d):
     # rows; top-left causal alignment is ours only when square
     lq, lk, lv = (t[:, :, :valid].contiguous() for t in args)
     lib = lambda: F.scaled_dot_product_attention(
-        lq, lk, lv, is_causal=s > 1, enable_gqa=True)
+        lq, lk, lv, is_causal=causal and s > 1, enable_gqa=True)
     reps = 5 if s > 1 else 50
     return dict(
         kernel="flash_attention", op=shape,
         shape=f"B=1 Hq={hq} Hkv={hkv} Sq={s} kv_valid={valid} "
-              f"D={d} bf16 causal", bytes=nbytes, ops=ops_qk + ops_pv,
+              f"D={d} bf16 {'causal' if causal else 'non-causal'}",
+        bytes=nbytes, ops=ops_qk + ops_pv,
         ops_qk=ops_qk, ops_pv=ops_pv,
         bound_qk_ms=ops_qk / PEAK_BF16 * 1e3,
         bound_pv_ms=3 * ops_pv / PEAK_BF16 * 1e3,
@@ -1738,7 +1753,8 @@ def _fa_row(shape, args, kw, s, cached, hq, hkv, d):
 
 def flash_timing(gen):
     """flash_attention at gemma_2b's prefill call and its decode calls at
-    1,600 and 3,600 rows, beside its bound, its plain version and SDPA.
+    1,600 and 3,600 rows, then at qwen2_vl's and whisper's calls
+    (`MM_FLASH`), beside its bound, its plain version and SDPA.
     Times are device times (`graph_ms`); ``eager_ms`` adds the wrapper's
     host time per call as the model pays it (`time_ms`).  Decode rows also
     give the wrapper's host time per call (``host_us``) and, of it, what
@@ -1761,6 +1777,10 @@ def flash_timing(gen):
                 host_us=host_us(lambda: FK.flash_attention(*args, **kw)),
                 scratch_alloc_us=host_us(lambda: torch.empty(
                     floats, dtype=torch.float32, device="cuda")))
+    # qwen2_vl's and whisper's calls (`MM_FLASH`), each a row of its own
+    for name, args, kw, s, cached, hq, hkv, d in _mm_flash_calls(gen):
+        rows.append(dict(arch=name.split("_")[0], **_fa_row(
+            name, args, kw, s, cached, hq, hkv, d)))
     return rows
 
 
@@ -4023,12 +4043,555 @@ def phase_serve_deepseek():
         raise AssertionError("serve_deepseek: f32 logits not finite")
 
 
+# ---------------------------------------------------------------------------
+# 17. qwen2_vl (M-RoPE, embedding inputs) and whisper (the encoder)
+# ---------------------------------------------------------------------------
+
+# qwen2_vl_2b (configs/qwen2_vl_2b.py): 28 layers, d 1536, 12 query heads
+# over 2 KV heads of 128, qkv bias, M-RoPE sections (16, 24, 24), a tied
+# vocabulary of 151,936
+QW, QW_HQ, QW_HKV, QW_D = "qwen2_vl_2b", 12, 2, 128
+# the embeds prefill: 64 text tokens, an image of 16 x 16 patches, 32 text
+# tokens after it, then 4 decode steps
+QW_TEXT, QW_GRID, QW_TAIL, QW_DECODE = 64, (16, 16), 32, 4
+# whisper_small (configs/whisper_small.py): 12 encoder and 12 decoder
+# layers, d 768, 12 heads of 64 (group 1), 1,500 frames, a vocabulary of
+# 51,865; the decoder takes at most 448 positions, so a request's prompt
+# plus its 16 tokens stays within 448
+WH, WH_H, WH_D, WH_FRAMES, WH_MAX_POS = "whisper_small", 12, 64, 1500, 448
+WH_PROMPTS = (4, 37, 200, WH_MAX_POS - SERVE_MAX_NEW)
+# the calls the flash kernel is checked and timed at: (name, Sq, cached
+# rows before them, Skv, Hq, Hkv, D, causal); the qwen2_vl prefill is the
+# served mix's longest prompt, its decode at 1,600 rows of a 4,112-row
+# cache; whisper's cross-attention prefill at a 200-token prompt
+MM_FLASH = (("qwen2_vl_prefill", D_PREFILL, 0, G_S_MAX, QW_HQ, QW_HKV, QW_D,
+             True),
+            ("qwen2_vl_decode", 1, D_DECODE_VALID - 1, G_S_MAX, QW_HQ,
+             QW_HKV, QW_D, True),
+            ("whisper_encoder", WH_FRAMES, 0, WH_FRAMES, WH_H, WH_H, WH_D,
+             False),
+            ("whisper_cross_prefill", 200, 0, WH_FRAMES, WH_H, WH_H, WH_D,
+             False),
+            ("whisper_cross_decode", 1, 0, WH_FRAMES, WH_H, WH_H, WH_D,
+             False))
+MM_TRAIN_STEPS = 10
+
+
+def _mm_flash_calls(gen, dtype=torch.bfloat16):
+    """(name, args, kw, Sq, cached, Hq, Hkv, D) of each `MM_FLASH` call as
+    the models make it: qwen2_vl's through `_attention_args` (a KV cache,
+    NaN past the valid rows); whisper's with q (1, Sq, 12, 64) over k and
+    v (1, 1,500, 12, 64) projections, every row valid, not causal."""
+    out = []
+    for name, sq, cached, skv, hq, hkv, d, causal in MM_FLASH:
+        if causal:
+            args, kw = _attention_args(gen, sq, cached, hq, hkv, d, dtype)
+        else:
+            args = tuple(torch.randn((1, n, h, d), generator=gen,
+                                     device="cuda").to(dtype).transpose(1, 2)
+                         for n, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+            kw = dict(causal=False, kv_valid=skv, kv_offset=0)
+        out.append((name, args, kw, sq, cached, hq, hkv, d))
+    return out
+
+
+def phase_flash_mm(gen):
+    """flash_attention at every `MM_FLASH` call against its plain version:
+    bf16 within one bf16 ulp (`FA_GEMMA_BF16`), f32 within 3e-5.  Whisper's
+    calls are the first non-causal ones at these sizes: the encoder's
+    1,500 x 1,500 and the cross-attention's prefill on tensor cores, and
+    the cross-attention's decode (Sq 1, Skv 1,500, causal 0) through the
+    split-KV walk and combine; qwen2_vl's decode has 6 rows a KV head, the
+    split path too.  Each non-causal call's causal counterpart from key 0
+    (row i sees keys <= i) must differ from it, or the mask went
+    unchecked."""
+    errs = {}
+    f32_tol = dict(rtol=FA_TOL[torch.float32], atol=FA_TOL[torch.float32])
+    for dtype, tol in ((torch.bfloat16, FA_GEMMA_BF16),
+                       (torch.float32, f32_tol)):
+        for name, args, kw, *_ in _mm_flash_calls(gen, dtype):
+            got = FK.flash_attention(*args, **kw)
+            want = FK.flash_attention_plain(*args, **kw)
+            errs[f"{name}_{str(dtype)[6:]}"] = _check_fa(
+                got, want, f"{name} {dtype}", **tol)
+            if not kw["causal"]:
+                masked = FK.flash_attention(*args, **dict(kw, causal=True))
+                if torch.allclose(masked.float(), want.float(), **tol):
+                    raise AssertionError(f"flash_attention {name}: the "
+                                         f"causal call matches the "
+                                         f"non-causal plain version")
+    emit("flash_mm", calls=[dict(zip(("name", "sq", "cached", "skv", "hq",
+                                      "hkv", "d", "causal"), c))
+                            for c in MM_FLASH],
+         max_abs_err=errs)
+    return max(errs.values())
+
+
+def mm_positions3(b, n_text, grid, n_tail):
+    """(3, b, S) int64 M-RoPE ids: ``n_text`` text tokens at t = h = w = i,
+    an image of ``grid`` = (gh, gw) patches at t = n_text, h = n_text +
+    row, w = n_text + col, then ``n_tail`` text tokens from the image's
+    largest id on (Qwen2-VL's layout; three distinct axes)."""
+    gh, gw = grid
+    t = list(range(n_text))
+    h, w = list(t), list(t)
+    for r in range(gh):
+        for c in range(gw):
+            t.append(n_text)
+            h.append(n_text + r)
+            w.append(n_text + c)
+    nxt = n_text + max(gh, gw)
+    for i in range(n_tail):
+        for axis in (t, h, w):
+            axis.append(nxt + i)
+    return torch.tensor([t, h, w], device="cuda")[:, None].expand(
+        3, b, len(t)).contiguous()
+
+
+def _three_ways(model, run):
+    """``run(model)`` on the kernel path, on `_sdpa` (the plain path) and
+    with the kernel's own f32 function in the kernel's place (the floor):
+    (kernel, plain, floor) outputs; the plain and floor runs launch no
+    kernel."""
+    kern = run(model)
+    before = FK.LAUNCHES["flash_attention"]
+    model.use_kernel = False
+    plain = run(model)
+    model.use_kernel = None
+    with _attention_through_plain_version():
+        floor = run(model)
+    if FK.LAUNCHES["flash_attention"] != before:
+        raise AssertionError("the plain or floor run launched the kernel")
+    return kern, plain, floor
+
+
+def _floor_gate(name, kern, plain, floor):
+    """The bf16 gate of the serving phases: the kernel path within
+    `GEMMA_FLOOR_FACTOR` x the floor (the kernel's own f32 function in the
+    model against the plain path) of the plain path, logit for logit."""
+    if not all(torch.isfinite(a).all() for a in kern):
+        raise AssertionError(f"{name}: non-finite logits")
+    err = max(_max_err(a, b) for a, b in zip(kern, plain))
+    fl = max(_max_err(a, b) for a, b in zip(floor, plain))
+    if err > GEMMA_FLOOR_FACTOR * fl:
+        raise AssertionError(f"{name}: kernel path off the plain path by "
+                             f"{err} > {GEMMA_FLOOR_FACTOR} x floor {fl}")
+    return dict(max_abs_err=err, floor=fl, gate=GEMMA_FLOOR_FACTOR * fl,
+                plain_std=float(plain[0].std()))
+
+
+def _qw_embeds_run(p3, embeds):
+    """Prefill ``embeds`` with ``p3`` into a cache, then `QW_DECODE` steps
+    of the next embeddings with their ids: [prefill logits, step logits
+    ...] (each (B, vocab) f32)."""
+    n = embeds.shape[1] - QW_DECODE
+
+    def run(model):
+        cache, lg = model.prefill({"embeds": embeds[:, :n],
+                                   "positions3": p3[:, :, :n]},
+                                  embeds.shape[1])
+        out = [lg]
+        for t in range(n, embeds.shape[1]):
+            cache, lg = model.decode_step(cache, {
+                "embeds": embeds[:, t:t + 1],
+                "positions3": p3[:, :, t:t + 1]})
+            out.append(lg)
+        return out
+    return run
+
+
+def _qw_embeds(d, n, dtype):
+    return (torch.randn((1, n, d), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(7)) * 0.02).to(dtype)
+
+
+def _qw_f32_check(cfg):
+    """qwen2_vl at full width cut to 2 layers, f32: the embeds prefill and
+    decode with distinct positions3 through the kernel and the plain path
+    within `SERVE_F32_LOGIT_ATOL`."""
+    m32 = LM(cfg.replace(n_layers=2, dtype="float32"), seed=0,
+             attn_impl="ref")
+    p3 = mm_positions3(1, QW_TEXT, QW_GRID, QW_TAIL + QW_DECODE)
+    run = _qw_embeds_run(p3, _qw_embeds(cfg.d_model, p3.shape[-1],
+                                        torch.float32))
+    kern = run(m32)
+    m32.use_kernel = False
+    plain = run(m32)
+    del m32
+    torch.cuda.empty_cache()
+    err = max(_max_err(a, b) for a, b in zip(kern, plain))
+    if err > SERVE_F32_LOGIT_ATOL:
+        raise AssertionError(f"qwen2_vl f32 (2 layers): kernel path off the "
+                             f"plain path by {err} > {SERVE_F32_LOGIT_ATOL}")
+    return dict(layers=2, max_abs_err=err, atol=SERVE_F32_LOGIT_ATOL)
+
+
+def _serving_traces(model, prefill_batch, s_max, step_batch):
+    """The device trace of one prefill of ``prefill_batch`` and, per token,
+    of eight decode steps of ``step_batch`` from its cache."""
+    box = {}
+
+    def prefill():
+        box["cache"] = model.prefill(prefill_batch, s_max)[0]
+
+    def decode(steps=8):
+        for _ in range(steps):
+            model.decode_step(box["cache"], step_batch)
+
+    return dict(prefill_trace=_device_trace(prefill, FA_KERNELS),
+                decode_trace_per_token=_device_trace(decode, FA_KERNELS,
+                                                     steps=8))
+
+
+def phase_serve_qwen2_vl():
+    """qwen2_vl_2b at full width and depth in bf16: the serving phases' 8
+    prompts through `BatchServer` (4 slots, 16 new tokens; the server feeds
+    tokens, which the model embeds from its table, with 1-D positions on
+    M-RoPE's three axes, as the reference's server does), the flash
+    kernel's launches counted; the prefill logits of every prompt gated
+    against the plain path at 2x the floor; then a prefill from
+    ``embeds`` with distinct positions3 (64 text tokens, a 16 x 16 patch
+    grid, 32 text tokens) and 4 decode steps through `LM.prefill` and
+    `LM.decode_step`, gated the same way, and held to differ from the same
+    run with 1-D positions; the f32 check at 2 layers."""
+    from repro_torch.configs import get_config
+    cfg = get_config(QW)
+    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.mrope_sections,
+            cfg.qkv_bias, cfg.tie_embeddings, cfg.dtype) != (
+            28, 1536, QW_HQ, QW_HKV, QW_D, 8960, 151_936, (16, 24, 24), True,
+            True, "bfloat16"):
+        raise AssertionError(f"not qwen2_vl_2b at full width: {cfg}")
+    t0 = time.perf_counter()
+    server = BatchServer(QW, reduced=False, slots=SERVE_SLOTS,
+                         s_max=G_S_MAX, seed=0, device="cuda")
+    sync()
+    init_s = time.perf_counter() - t0
+    model = server.model
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    rng = np.random.default_rng(0)
+    lengths = [int(v) for v in rng.integers(256, 4097, SERVE_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab_size, v).tolist() for v in lengths]
+    _prefill_logits(model, prompts[0][:300], G_S_MAX)          # warm-up
+    sync()
+    reqs = _requests(prompts)
+    FK.reset_launches()                  # the serving path starts here
+    stats = server.run(reqs)
+    launches = dict(FK.LAUNCHES)         # ... and ends here
+    timing = dict(server.timing)
+    decode_tokens = SERVE_REQUESTS * (SERVE_MAX_NEW - 1)
+    want = cfg.n_layers * (SERVE_REQUESTS + decode_tokens)
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"qwen2_vl: flash_attention launched "
+                             f"{launches['flash_attention']} times, want "
+                             f"{want}")
+    if stats["completed"] != SERVE_REQUESTS or \
+            stats["tokens"] != decode_tokens:
+        raise AssertionError(f"serve_qwen2_vl stats {stats}")
+    served = [r.prefill_logits for r in reqs]
+    _, plain, floor = _three_ways(model, lambda m: [
+        _prefill_logits(m, p, G_S_MAX) for p in prompts])
+    tokens_gate = _floor_gate("qwen2_vl prefill logits", served, plain,
+                              floor)
+    # the embeds path with M-RoPE's distinct axes
+    p3 = mm_positions3(1, QW_TEXT, QW_GRID, QW_TAIL + QW_DECODE)
+    embeds = _qw_embeds(cfg.d_model, p3.shape[-1], torch.bfloat16)
+    before = FK.LAUNCHES["flash_attention"]
+    kern, plain_e, floor_e = _three_ways(model, _qw_embeds_run(p3, embeds))
+    if FK.LAUNCHES["flash_attention"] - before != cfg.n_layers * (
+            1 + QW_DECODE):
+        raise AssertionError("qwen2_vl embeds run: launch count")
+    embeds_gate = _floor_gate("qwen2_vl embeds + positions3 logits", kern,
+                              plain_e, floor_e)
+    flat = _qw_embeds_run(torch.arange(p3.shape[-1], device="cuda").expand(
+        3, 1, -1), embeds)(model)
+    moved = max(_max_err(a, b) for a, b in zip(flat, kern))
+    if moved <= embeds_gate["gate"]:
+        raise AssertionError(f"qwen2_vl: positions3 moved the logits by "
+                             f"{moved}, within the gate: M-RoPE's axes "
+                             f"are not reaching the attention")
+    first = torch.tensor([prompts[0]], device="cuda")
+    fields = dict(
+        arch=QW, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, params=sum(p.numel()
+                                         for p in model.parameters()),
+        weight_bytes=weight_bytes, init_s=init_s, prompt_lengths=lengths,
+        stats=stats, launches=launches,
+        prefill_ms_per_request=1e3 * timing["prefill_s"]
+        / timing["prefills"],
+        decode_ms_per_token=1e3 * timing["decode_s"]
+        / timing["decode_steps"],
+        decode_bytes_bound_ms=1e3 * weight_bytes / HBM_BPS,
+        tokens_prefill_gate=tokens_gate,
+        embeds=dict(positions=int(p3.shape[-1]), grid=QW_GRID,
+                    decode_steps=QW_DECODE, **embeds_gate,
+                    moved_by_positions3=moved),
+        trace_prompt=lengths[0],
+        **_serving_traces(model, {"tokens": first}, G_S_MAX,
+                          {"tokens": first[:, -1:]}))
+    del server, model
+    torch.cuda.empty_cache()
+    fields["f32"] = _qw_f32_check(cfg)
+    emit("serve_qwen2_vl", **fields)
+    return launches
+
+
+def _wh_frames(b, seed, d=768):
+    return torch.randn((b, WH_FRAMES, d), device="cuda",
+                       generator=torch.Generator(device="cuda")
+                       .manual_seed(seed)) * 0.02
+
+
+def _wh_serve(model, prompt, frames, tokens=None):
+    """One request: prefill the decoder prompt with the frames (the
+    encoder runs once, its output kept in the cache), then 15 greedy
+    decode steps (or the given ``tokens``, teacher-forced): ([16 logits],
+    [16 tokens], host seconds of the prefill, of the decode steps)."""
+    toks = torch.tensor([prompt], device="cuda")
+    t0 = time.perf_counter()
+    cache, lg = model.prefill({"tokens": toks, "frames": frames},
+                              len(prompt) + SERVE_MAX_NEW)
+    out_lg = [lg]
+    out_tok = [int(torch.argmax(lg, -1)[0]) if tokens is None
+               else tokens[0]]
+    t1 = time.perf_counter()
+    for i in range(1, SERVE_MAX_NEW):
+        cache, lg = model.decode_step(cache, {"tokens": torch.tensor(
+            [[out_tok[-1]]], device="cuda")})
+        out_lg.append(lg)
+        out_tok.append(int(torch.argmax(lg, -1)[0]) if tokens is None
+                       else tokens[i])
+    t2 = time.perf_counter()
+    return out_lg, out_tok, t1 - t0, t2 - t1
+
+
+def phase_serve_whisper():
+    """whisper_small at full width and depth in bf16, served through
+    `LM.prefill` and `LM.decode_step` with frames (the reference's
+    `BatchServer` feeds tokens only and cannot serve an encoder-decoder):
+    4 requests, decoder prompts of 4 to 432 tokens, 1,500 frames each from
+    the seed, 16 new tokens each.  The flash kernel launches, per prefill,
+    12 non-causal encoder calls and per decoder layer one causal and one
+    non-causal cross call, and per decode token the decoder's 12 + 12;
+    every logit (prefill and each step, the kernel path's tokens
+    teacher-forced on the others) gated against the plain path at 2x the
+    floor; the f32 check at 2 + 2 layers."""
+    from repro_torch.configs import get_config
+    cfg = get_config(WH)
+    enc = cfg.encoder
+    if (enc.n_layers, enc.n_frames, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.pos_emb, cfg.dtype) != (12, WH_FRAMES, 12, 768, WH_H, WH_H,
+                                        WH_D, 3072, 51_865, "learned",
+                                        "bfloat16"):
+        raise AssertionError(f"not whisper_small at full width: {cfg}")
+    t0 = time.perf_counter()
+    model = LM(cfg, seed=0, attn_impl="ref")
+    sync()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in WH_PROMPTS]
+    frames = [_wh_frames(1, i) for i in range(len(prompts))]
+    _wh_serve(model, prompts[0], frames[0])                    # warm-up
+    sync()
+    FK.reset_launches()                  # the serving path starts here
+    served = [_wh_serve(model, p, f) for p, f in zip(prompts, frames)]
+    launches = dict(FK.LAUNCHES)         # ... and ends here
+    per_prefill = enc.n_layers + 2 * cfg.n_layers
+    per_token = 2 * cfg.n_layers
+    want = len(prompts) * (per_prefill + (SERVE_MAX_NEW - 1) * per_token)
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"whisper: flash_attention launched "
+                             f"{launches['flash_attention']} times, want "
+                             f"{len(prompts)} x ({per_prefill} + "
+                             f"{SERVE_MAX_NEW - 1} x {per_token}) = {want}")
+    kern = [lg for s in served for lg in s[0]]
+    _, plain, floor = _three_ways(model, lambda m: [
+        lg for p, f, s in zip(prompts, frames, served)
+        for lg in _wh_serve(m, p, f, tokens=s[1])[0]])
+    gate = _floor_gate("whisper logits", kern, plain, floor)
+    tp = prompts[2]
+    fields = dict(
+        arch=WH, encoder_layers=enc.n_layers, decoder_layers=cfg.n_layers,
+        d_model=cfg.d_model, frames=WH_FRAMES, vocab=cfg.vocab_size,
+        params=sum(p.numel() for p in model.parameters()),
+        weight_bytes=sum(p.numel() * p.element_size()
+                         for p in model.parameters()),
+        init_s=init_s, prompt_lengths=list(WH_PROMPTS), launches=launches,
+        launches_per_prefill=per_prefill, launches_per_token=per_token,
+        prefill_ms_per_request=1e3 * sum(s[2] for s in served)
+        / len(served),
+        decode_ms_per_token=1e3 * sum(s[3] for s in served)
+        / (len(served) * (SERVE_MAX_NEW - 1)),
+        logits_gate=gate, trace_prompt=len(tp),
+        **_serving_traces(
+            model, {"tokens": torch.tensor([tp], device="cuda"),
+                    "frames": frames[2]}, len(tp) + SERVE_MAX_NEW,
+            {"tokens": torch.tensor([[tp[-1]]], device="cuda")}))
+    del model
+    torch.cuda.empty_cache()
+    # f32 at 2 encoder and 2 decoder layers: every logit within 1e-3, the
+    # plain path teacher-forced on the kernel path's tokens
+    m32 = LM(cfg.replace(n_layers=2, dtype="float32",
+                         encoder=dataclasses.replace(enc, n_layers=2)),
+             seed=0, attn_impl="ref")
+    k32 = [_wh_serve(m32, p, f) for p, f in zip(prompts, frames)]
+    m32.use_kernel = False
+    p32 = [_wh_serve(m32, p, f, tokens=k[1])
+           for p, f, k in zip(prompts, frames, k32)]
+    del m32
+    torch.cuda.empty_cache()
+    f32_err = max(_max_err(a, b) for k, q in zip(k32, p32)
+                  for a, b in zip(k[0], q[0]))
+    fields["f32"] = dict(layers="2 + 2", max_abs_err=f32_err,
+                         atol=SERVE_F32_LOGIT_ATOL)
+    emit("serve_whisper", **fields)
+    if f32_err > SERVE_F32_LOGIT_ATOL:
+        raise AssertionError(f"whisper f32 (2 + 2 layers): kernel path off "
+                             f"the plain path by {f32_err}")
+    return launches
+
+
+def phase_train_mm():
+    """The trainer on qwen2_vl_2b and whisper_small at full width, bf16
+    parameters with f32 master and moments, `MM_TRAIN_STEPS` steps each at
+    the trainer's default lr (3e-4) on its own batches (8 x 256: qwen2_vl's
+    are ``embeds`` with positions3, whisper's tokens with 1,500 frames):
+    losses finite, the last 3 below the first 3 on average; no kernel may
+    launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    out = {}
+    for arch in (QW, WH):
+        n = get_config(arch).param_count()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _no_kernel_launched(f"train_mm {arch}"):
+            res = train_mod.train(arch, steps=MM_TRAIN_STEPS, seq_len=T_SEQ,
+                                  global_batch=T_BATCH, reduced=False,
+                                  remat_policy="none", log_every=1,
+                                  device="cuda")
+        hist = res["history"]
+        losses = [h["loss"] for h in hist]
+        step_s = float(np.median([h["sec"] for h in hist[2:]]))
+        out[arch] = dict(
+            params=n, losses=losses, step_ms=1e3 * step_s,
+            tokens_per_s=T_SEQ * T_BATCH / step_s,
+            train_mfu=6 * n * T_SEQ * T_BATCH / step_s / BF16_PEAK,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            wall_s=time.perf_counter() - t0)
+        del res
+        if len(losses) != MM_TRAIN_STEPS or \
+                not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"train_mm {arch}: losses {losses}")
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError(f"train_mm {arch}: loss did not fall: "
+                                 f"{losses}")
+    emit("train_mm", steps=MM_TRAIN_STEPS, seq_len=T_SEQ,
+         global_batch=T_BATCH, **out)
+
+
+# ---------------------------------------------------------------------------
+# 18. telemetry
+# ---------------------------------------------------------------------------
+
+TM_CHAOS = "seed=7,step=1.0@1,ckpt_save=1.0@1,straggler_delay=1.0@1"
+
+
+def phase_telemetry(drift_result):
+    """The telemetry layer on the card: the `telemetry_drift` suite's
+    result (run in `suites`): every tier drifted, every local
+    `atomics.execute` event under sync measured and naming its backend,
+    ``cuda`` among them, the overhead gate held; then `run_with_recovery`
+    over an FAA step on a CUDA table under `TM_CHAOS` with a ring sink:
+    `RunResult.telemetry_ring` must hold every ``chaos.fire`` and
+    ``recovery.*`` event, the recovery events equal to `RunResult.events`
+    in order, each raised fault right after the fire that caused it."""
+    from repro_torch import telemetry
+    from repro_torch.runtime.chaos import FaultPlan
+    from repro_torch.runtime.fault_tolerance import (FaultConfig,
+                                                     run_with_recovery)
+    r = drift_result
+    if r["tiers_covered"] != ["local", "migration", "sharded"]:
+        raise AssertionError(f"telemetry_drift tiers: {r['tiers_covered']}")
+    if not r["local_all_measured"] or "cuda" not in r["local_backends"]:
+        raise AssertionError(f"telemetry_drift local events: backends "
+                             f"{r['local_backends']}, all measured "
+                             f"{r['local_all_measured']}")
+    if not r["overhead"]["overhead"] < r["overhead"]["gate"]:
+        raise AssertionError(f"telemetry overhead {r['overhead']}")
+    store = {}
+
+    def step(s, table):
+        idx = (torch.arange(64, device="cuda", dtype=torch.int32) * (s + 1)
+               ) % 1024
+        return atomics.execute(table, atomics.Faa(
+            idx, torch.ones(64, dtype=torch.int32, device="cuda"))).table
+
+    def restore():
+        if not store:
+            return None
+        last = max(store)
+        return last, atomics.AtomicTable(store[last].clone())
+
+    plan = FaultPlan.from_spec(TM_CHAOS, sleep_fn=lambda d: None)
+    telemetry.enable(telemetry.RingBuffer(capacity=1 << 14), sync=True)
+    try:
+        res = run_with_recovery(
+            step, lambda: atomics.make_table(1024, torch.int32), 8,
+            FaultConfig(checkpoint_every=2, backoff_base_s=0.0),
+            lambda s, t: store.__setitem__(s, t.data.clone()), restore,
+            chaos=plan, sleep_fn=lambda d: None)
+    finally:
+        telemetry.disable()
+    ring = res.telemetry_ring
+    names = [e["event"] for e in ring]
+    fires = [e for e in ring if e["event"] == "chaos.fire"]
+    rec = [{k: v for k, v in e.items() if k != "t"} for e in ring
+           if e["event"].startswith("recovery.")]
+    if len(fires) != plan.total_fired or plan.total_fired < 3:
+        raise AssertionError(f"telemetry ring: {len(fires)} chaos.fire "
+                             f"events, the plan fired {plan.total_fired}")
+    if rec != res.events:
+        raise AssertionError("telemetry ring: the recovery events differ "
+                             "from RunResult.events")
+    for i, e in enumerate(ring):
+        if e["event"] == "chaos.fire" and e["kind"] == "raise" and \
+                names[i + 1] != "recovery.fault":
+            raise AssertionError(f"telemetry ring: {e} not followed by its "
+                                 f"recovery.fault ({names[i + 1]})")
+    execs = [e for e in ring if e["event"] == "atomics.execute"]
+    if not execs or not all(e.get("measured_s", 0) > 0 for e in execs):
+        raise AssertionError("telemetry ring: unmeasured execute events")
+    emit("telemetry", drift_rows=r["drift"], spec_update=r["spec_update"],
+         spec_update_skipped=r["spec_update_skipped"],
+         overhead=r["overhead"], n_events=r["n_events"],
+         local_backends=r["local_backends"],
+         recovery=dict(plan=TM_CHAOS, failures=res.failures,
+                       fired=plan.total_fired, ring_events=len(ring),
+                       sequence=[n for n in names
+                                 if n != "atomics.execute"]))
+
+
 def main():
     # f32 products in full f32 on the card (the plain versions' matmuls)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    timeline = {}
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the last lap, kept under ``name``."""
+        now = time.perf_counter()
+        timeline[name] = timeline.get(name, 0.0) + now - mark[0]
+        mark[0] = now
+
     phase_device()
     phase_build()
+    lap("device_build")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     errs = {"rmw_table": 0.0, "rmw_table_fetched": 0.0, "slot_counts": 0.0,
@@ -4037,7 +4600,8 @@ def main():
     phase_serial_kernels(gen, errs)
     errs["ssd_chunk"] = phase_ssd_kernel(gen)
     errs["flash_attention"] = max(phase_flash_kernel(gen),
-                                  phase_flash_dbrx(gen))
+                                  phase_flash_dbrx(gen), phase_flash_mm(gen))
+    lap("kernel_checks")
 
     K.reset_launches()                   # the main path starts here
     phase_atomics(gen)
@@ -4049,35 +4613,46 @@ def main():
                              f"{missing}")
     phase_bfs_search(*bfs_graph)
     bfs_n, bfs_m = bfs_graph[0].shape[0], 1 << SCALE
+    lap("atomics_bfs")
 
     launches.update(phase_serve())       # resets and reads its own count
+    lap("serve")
     launches.update(phase_serve_gemma())  # the same
-    for phase in (phase_serve_dbrx, phase_serve_jamba):   # the same, added
+    lap("serve_gemma")
+    for phase in (phase_serve_dbrx, phase_serve_jamba,    # the same, added
+                  phase_serve_qwen2_vl, phase_serve_whisper):
         for k, v in phase().items():
             launches[k] += v
+        lap(phase.__name__[len("phase_"):])
 
     rows = phase_timing(gen, bfs_n, bfs_m)
+    lap("timing")
     suite_results, suite_launches = phase_suites()  # its own main path
     launches.update(suite_launches)
     rows += serial_timing(gen, suite_results["latency"])
+    lap("suites")
+    phase_telemetry(suite_results["telemetry_drift"])
+    lap("telemetry")
     # the sharded tier last, on the local BFS's graph: its main path runs
     # inside its ranks, which reset and read their own counts, and their
     # sums join the kernels line
     for k, v in phase_sharded(*bfs_graph).items():
         launches[k] += v
+    lap("sharded")
     # ... then the elastic tier, whose ranks count the same way
     for k, v in phase_elastic().items():
         launches[k] += v
+    lap("elastic")
     # ... then expert parallelism, whose ranks count the same way
     for k, v in phase_moe_ep().items():
         launches[k] += v
+    lap("moe_ep")
     # training and deepseek_v3's serving launch no kernel (each phase
     # checks that), so they come after every count is read
-    phase_train_gemma()
-    phase_train_check()
-    phase_train_recovery()
-    phase_train_moe()
-    phase_serve_deepseek()
+    for phase in (phase_train_gemma, phase_train_check, phase_train_recovery,
+                  phase_train_moe, phase_train_mm, phase_serve_deepseek):
+        phase()
+        lap(phase.__name__[len("phase_"):])
     headline = {"rmw_table": ("faa", "uniform_bfs_n"),
                 "rmw_table_fetched": ("cas", "uniform_bfs_n"),
                 "slot_counts": ("count", "uniform_bfs_n"),
@@ -4126,6 +4701,7 @@ def main():
     # the chase's ns per op at every tier and mode of the latency suite
     ch = next(k for k in kernels if k["name"] == "chase")
     ch["latency_ns"] = suite_results["latency"]
+    emit("timeline", seconds=timeline, total_s=sum(timeline.values()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,23 +16,39 @@ Port of `repro.atomics.execute`.  Dispatch:
    locally, and across shards through the owner-side oracle pass.
 
 Every path returns results equal to `core.rmw.rmw_serialized` on the same
-batch (sharded: on the rank-ordered concatenation).  (The reference's
-telemetry branch comes with its own slice.)
+batch (sharded: on the rank-ordered concatenation).
+
+Telemetry: with the stream on, each op batch records one
+``atomics.execute`` event — tier, the backend or strategy the selectors
+pick, op, n, m, and the selector's ``predicted_s`` — and, under ``sync``,
+``measured_s``: the host clock from a synchronised device to the result
+synchronised (`torch.cuda.synchronize` on the table's card; a CPU table
+needs none) on the local tier; a sharded batch's time is measured by
+`execute_until`'s round event, as in the reference.  The decision fields
+are cached per shape, spec and spec epoch.  ``traced`` is always False
+(eager torch has no trace time; the field keeps one schema with the
+reference's events).  A local batch that collected stats also records
+``contention.stats`` under ``sync``.
 """
 
 from __future__ import annotations
 
+import math
+import time
 from typing import Any, NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import telemetry
 from repro_torch.atomics import contracts as _contracts
 from repro_torch.atomics import stats as _cstats
+from repro_torch.atomics.layout import norm_axes
 from repro_torch.atomics.ops import AtomicOp
 from repro_torch.atomics.table import AtomicTable
 from repro_torch.core import rmw as rmw_mod
 from repro_torch.core import rmw_engine
+from repro_torch.telemetry import core as _tcore
 
 Tensor = torch.Tensor
 
@@ -76,19 +92,10 @@ def _local_exec_stats(table: Tensor, indices: Tensor, values: Tensor,
     return res, _cstats.stats_from_occupancy(occ, n_ops)
 
 
-def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
-                 backend: str, strategy: str, spec,
-                 distinct_slots: Optional[int], reverse_ranks: bool,
-                 collect_stats: bool):
-    if not isinstance(op, AtomicOp):
-        raise TypeError(
-            f"ops must be atomics.Faa/Swp/Min/Max/Cas instances, "
-            f"got {type(op).__name__}")
-    if _contracts._observer is not None:
-        _contracts.notify(
-            "execute", table=table, op=op, need_fetched=need_fetched,
-            backend=backend, strategy=strategy,
-            distinct_slots=distinct_slots, reverse_ranks=reverse_ranks)
+def _dispatch_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
+                  backend: str, strategy: str, spec,
+                  distinct_slots: Optional[int], reverse_ranks: bool,
+                  collect_stats: bool):
     stats = None
     if table.is_sharded:
         if table.mesh is None or not dist.is_initialized():
@@ -142,6 +149,171 @@ def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
             table.data, op.indices, op.values, op.kind, op.expected,
             backend=backend, spec=spec, need_fetched=need_fetched)
     return table.with_data(res.table), res.fetched, res.success, stats
+
+
+# ---------------------------------------------------------------------------
+# Telemetry: one decision event per executed op batch
+# ---------------------------------------------------------------------------
+
+def _decision_fields(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
+                     backend: str, strategy: str, spec,
+                     distinct_slots: Optional[int]) -> dict:
+    """Mirror the dispatch ladder's selection (same deterministic inputs ->
+    same choice) into one flat event record: tier, choice, and the
+    selector's predicted cost — the prediction half of the drift tracker.
+    Never raises: a selection that cannot be priced records ``None``."""
+    n = int(op.indices.shape[0])
+    perop_cas = op.kind == "cas" and not op.uniform_expected
+    fields = dict(op=op.kind, n=n, need_fetched=need_fetched,
+                  distinct_slots=distinct_slots)
+    dev = table.device
+    try:
+        if table.is_sharded:
+            from repro_torch.core import rmw_sharded as rs
+            shard_axes = norm_axes(table.axis)
+            sizes = [table.mesh.size(a) for a in shard_axes]
+            m_global = int(table.data.shape[0]) * math.prod(sizes)
+            axes = rs._mesh_axes(shard_axes, sizes, None)
+            fields.update(tier="sharded", m=m_global,
+                          n_shards=math.prod(sizes), backend=backend)
+            if perop_cas:
+                # un-combined owner-oracle path: strategy does not apply
+                # and the exchange cost model declines to price it
+                fields.update(strategy="perop_oracle", predicted_s=None)
+            elif strategy == "auto":
+                rep = norm_axes(table.replica_axes)
+                sel = rs.select_exchange_with_cost(
+                    op.kind, n, m_global, axes, spec=spec,
+                    need_fetched=need_fetched, uniform_expected=True,
+                    replicas=table.mesh.size(rep) if rep else 1,
+                    distinct_slots=distinct_slots, device=dev)
+                fields.update(strategy=sel.choice,
+                              predicted_s=sel.predicted_s)
+            else:
+                used = strategy
+                if strategy == "hierarchical" and len(shard_axes) < 2:
+                    used = "oneshot"    # the executor's documented demotion
+                fields.update(strategy=used, predicted_s=rs.EXCHANGE_COSTS[
+                    used](spec or rmw_engine.default_spec(dev), op.kind, n,
+                          m_global, axes, need_fetched,
+                          distinct_slots=distinct_slots,
+                          device_type=dev.type))
+        else:
+            m = int(table.data.shape[0])
+            fields.update(tier="local", m=m, strategy=None)
+            if backend == "auto":
+                sel = rmw_engine.select_backend_with_cost(
+                    op.kind, n, m, spec, uniform_expected=not perop_cas,
+                    dtype=table.dtype, need_fetched=need_fetched,
+                    device=dev)
+                fields.update(backend=sel.choice, predicted_s=sel.predicted_s)
+            else:
+                b = rmw_engine.BACKENDS.get(backend)
+                fields.update(backend=backend, predicted_s=(
+                    b.cost(spec or rmw_engine.default_spec(dev), op.kind, n,
+                           m, need_fetched, dev.type)
+                    if b is not None else None))
+    except Exception:  # noqa: BLE001 — observability must not break dispatch
+        fields.setdefault("tier", "sharded" if table.is_sharded else "local")
+        fields.setdefault("predicted_s", None)
+    return fields
+
+
+#: decision-field templates by (op, shapes, choice inputs, spec, epoch);
+#: cleared when full
+_DECISION_CACHE: dict = {}
+_DECISION_CACHE_MAX = 1024
+
+
+def _measured(table: AtomicTable, op: AtomicOp, kw: dict):
+    """(`_dispatch_one`'s result, its host seconds between two
+    synchronisations of the table's card)."""
+    data = table.data
+    if data.is_cuda:
+        torch.cuda.synchronize(data.device)
+    t0 = time.perf_counter()
+    out = _dispatch_one(table, op, **kw)
+    if data.is_cuda:
+        torch.cuda.synchronize(data.device)
+    return out, time.perf_counter() - t0
+
+
+def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
+                 backend: str, strategy: str, spec,
+                 distinct_slots: Optional[int], reverse_ranks: bool,
+                 collect_stats: bool):
+    if not isinstance(op, AtomicOp):
+        raise TypeError(
+            f"ops must be atomics.Faa/Swp/Min/Max/Cas instances, "
+            f"got {type(op).__name__}")
+    if _contracts._observer is not None:
+        _contracts.notify(
+            "execute", table=table, op=op, need_fetched=need_fetched,
+            backend=backend, strategy=strategy,
+            distinct_slots=distinct_slots, reverse_ranks=reverse_ranks)
+    kw = dict(need_fetched=need_fetched, backend=backend, strategy=strategy,
+              spec=spec, distinct_slots=distinct_slots,
+              reverse_ranks=reverse_ranks, collect_stats=collect_stats)
+    # _tcore flag reads instead of the telemetry.*_enabled() accessors:
+    # this is the hottest record site
+    if not _tcore._enabled or (table.is_sharded and (
+            table.mesh is None or not dist.is_initialized())):
+        # off, or a dispatch that raises its guidance un-instrumented
+        return _dispatch_one(table, op, **kw)
+    sharded = table.axis is not None
+    # a sharded batch is measured by the caller that owns the round
+    # (`execute_until`), as in the reference, whose sharded events are
+    # trace-time ones
+    measure = _tcore._sync and not sharded
+    measured_s = None
+    # the batch is launched before the event is built, so the instrument's
+    # host work overlaps the card's
+    if _tcore._annotate:
+        with telemetry.annotation(
+                f"atomics.execute/{'sharded' if sharded else 'local'}"):
+            if measure:
+                out, measured_s = _measured(table, op, kw)
+            else:
+                out = _dispatch_one(table, op, **kw)
+    elif measure:
+        out, measured_s = _measured(table, op, kw)
+    else:
+        out = _dispatch_one(table, op, **kw)
+    data = table.data
+    # the cheapest reads that fix the decision: numel of the 1-D indices
+    # and table (faster than shape[0]), the raw dtype object and
+    # ``is_cuda`` (``data.device`` builds an object per call)
+    kind = op.kind
+    key = (kind, op.indices.numel(), data.numel(), backend, strategy,
+           need_fetched, id(spec), distinct_slots, data.dtype, data.is_cuda,
+           rmw_engine._SPEC_EPOCH)
+    if kind == "cas":
+        key += (op.uniform_expected,)
+    if sharded:
+        key += (table.axis, table.replica_axes, id(table.mesh))
+    fields = _DECISION_CACHE.get(key)
+    if fields is None:
+        fields = _decision_fields(
+            table, op, need_fetched=need_fetched, backend=backend,
+            strategy=strategy, spec=spec, distinct_slots=distinct_slots)
+        # a pre-stamped template
+        fields.update(event="atomics.execute", traced=False)
+        if len(_DECISION_CACHE) >= _DECISION_CACHE_MAX:
+            _DECISION_CACHE.clear()
+        _DECISION_CACHE[key] = fields
+    fields = fields.copy()           # the cached template stays pristine
+    if measured_s is not None:
+        fields["measured_s"] = measured_s
+    # the copy becomes the event itself (record_event skips the kwargs
+    # rebuild that `record` pays)
+    telemetry.record_event(fields)
+    if out[3] is not None and measure:
+        # contention.* events only at sync boundaries: the stats leaves
+        # are ready, so the host readout costs no extra wait
+        telemetry.record_event(_cstats.stats_to_fields(
+            out[3], tier=fields.get("tier"), op=op.kind,
+            n=fields.get("n"), m=fields.get("m"), traced=False))
+    return out
 
 
 def execute(table: Union[AtomicTable, Tensor],

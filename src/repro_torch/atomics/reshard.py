@@ -33,21 +33,25 @@ Entry points: :func:`plan_reshard` (a :class:`ReshardPlan`, path and
 predicted costs, touching no data), :meth:`ReshardPlan.execute`,
 :func:`migrate` (both in one call; what `runtime.elastic` uses),
 :func:`restore_table` (the checkpoint half, under `launch.mesh.active_mesh`)
-and :func:`cost_replay` (what migration is priced against).  The
-reference's telemetry span around `migrate` waits for the port's telemetry
-stream.
+and :func:`cost_replay` (what migration is priced against).  With the
+telemetry stream on, `migrate` records one ``atomics.reshard.migrate``
+event — the path, every path's prediction and the measured seconds (the
+card synchronised on both sides) — inside an ``atomics.reshard.migrate/
+<path>`` annotation.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import telemetry
 from repro_torch.atomics.layout import TableLayout, norm_axes
 from repro_torch.atomics.table import AtomicTable
 
@@ -375,7 +379,27 @@ def migrate(table: AtomicTable, dst_mesh, *, axis: object = "auto",
     plan = plan_reshard(src, dst, dst_mesh=dst_mesh, src_mesh=src_mesh,
                         live=True, path=path, spec=spec,
                         device=table.device)
-    return plan.execute(table)
+    if not telemetry.enabled():
+        return plan.execute(table)
+    cuda = table.device.type == "cuda"
+    with telemetry.annotation(f"atomics.reshard.migrate/{plan.path}"):
+        if cuda:
+            torch.cuda.synchronize(table.device)
+        t0 = time.perf_counter()
+        out = plan.execute(table)
+        if cuda:
+            torch.cuda.synchronize(table.device)
+        dt = time.perf_counter() - t0
+    telemetry.record(
+        "atomics.reshard.migrate", path=plan.path,
+        tier="migration", n_slots=src.num_slots,
+        src_shards=src.n_shards, dst_shards=dst.n_shards,
+        src_replicas=src.n_replicas, dst_replicas=dst.n_replicas,
+        predicted_s=plan.predicted_s.get(plan.path),
+        predicted_all={k: v for k, v in plan.predicted_s.items()
+                       if math.isfinite(v)},
+        measured_s=dt)
+    return out
 
 
 def restore_table(host_data, *, like: Optional[AtomicTable] = None,

@@ -26,8 +26,13 @@ tiers.  Within a round, ops execute in batch order (on a mesh, the rank
 concatenation re-creates it), so the local and sharded tiers produce
 identical round histories.
 
-(The reference's per-round telemetry events and the tuning controller's
-contention estimator come with their own slices.)
+Telemetry: with the stream on, every round records ``atomics.retry.round``
+(pending, issued and resolved counts, the tier's choice and its
+``predicted_s``, the round's ``measured_s`` — its fetched and success
+reads wait for the device — and round 0's observed distinct slots), and
+every call ends with ``atomics.retry.done`` and its round-count histogram,
+the contention signal.  (The tuning controller's contention estimator,
+which reads them in the reference, comes with its own slice.)
 """
 
 from __future__ import annotations
@@ -39,10 +44,13 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.atomics import contracts as _contracts
+from repro_torch.atomics import stats as _cstats
 from repro_torch.atomics.layout import norm_axes
 from repro_torch.atomics.ops import OP_KINDS, AtomicOp, Cas
 from repro_torch.atomics.table import AtomicTable
+from repro_torch.telemetry import core as _tcore
 
 Tensor = torch.Tensor
 
@@ -196,7 +204,33 @@ def _exec_round_sharded(table: AtomicTable, kind: str, idx, vals, exp, *,
                         res.success.to(torch.int32)], -1)
     rows = mesh.all_gather(rows, axes).cpu()
     fetched = rows[:k, 0].contiguous().view(table.dtype).numpy()
-    return res.table, fetched, rows[:k, 1].numpy().astype(bool), res.stats
+    info = None
+    if telemetry.enabled():
+        # the prediction half of the round event: per-op CAS routes to the
+        # owner-oracle pass (unpriced); everything else is a combinable
+        # exchange the selector can price per strategy
+        shard_axes = norm_axes(table.axis)
+        info = {"tier": "sharded", "n_exec": per, "m": m_global,
+                "n_shards": mesh.size(shard_axes),
+                "strategy": "perop_oracle", "predicted_s": None}
+        if kind != "cas":
+            try:
+                from repro_torch.core import rmw_sharded as rs
+                if strategy == "auto":
+                    sel = rs.select_exchange_with_cost(
+                        kind, per, m_global, rs._mesh_axes(
+                            shard_axes, [mesh.size(a) for a in shard_axes],
+                            None),
+                        spec=spec, need_fetched=True,
+                        distinct_slots=distinct_slots, device=dev)
+                    info.update(strategy=sel.choice,
+                                predicted_s=sel.predicted_s)
+                else:
+                    info.update(strategy=strategy)
+            except Exception:  # noqa: BLE001 — never break the round
+                pass
+    return (res.table, fetched, rows[:k, 1].numpy().astype(bool), info,
+            res.stats)
 
 
 def _exec_round(table: AtomicTable, kind: str, idx, vals, exp, *,
@@ -213,10 +247,26 @@ def _exec_round(table: AtomicTable, kind: str, idx, vals, exp, *,
         dt or table.dtype)
     op = _op(kind, t(idx, torch.int32), t(vals),
              t(exp) if kind == "cas" else None)
+    info = None
+    if telemetry.enabled():
+        from repro_torch.core import rmw_engine
+        m = int(table.data.shape[0])
+        info = {"tier": "local", "n_exec": len(idx), "m": m,
+                "strategy": None, "predicted_s": None}
+        try:
+            if backend == "auto":
+                sel = rmw_engine.select_backend_with_cost(
+                    kind, len(idx), m, spec, uniform_expected=kind != "cas",
+                    dtype=table.dtype, device=dev)
+                info.update(backend=sel.choice, predicted_s=sel.predicted_s)
+            else:
+                info.update(backend=backend)
+        except Exception:  # noqa: BLE001 — never break the round
+            pass
     res = execute(table, op, need_fetched=True, backend=backend, spec=spec,
                   collect_stats=collect_stats)
     return (res.table, res.fetched.cpu().numpy(),
-            res.success.cpu().numpy().astype(bool), res.stats)
+            res.success.cpu().numpy().astype(bool), info, res.stats)
 
 
 # ---------------------------------------------------------------------------
@@ -321,13 +371,33 @@ def execute_until(table: Union[AtomicTable, Tensor],
                     expected[pending] = observed[pending]
         k = max(1, min(pol.batch_size(len(pending), rnd), len(pending)))
         issue, defer = pending[:k], pending[k:]
-        table, fetched, ok, st = _exec_round(
+        collect_now = collect_stats and rnd == 0
+        distinct_obs = None
+        if rnd == 0 and not collect_now and telemetry.enabled():
+            # round 0's distinct slots from the host copy of the slots;
+            # the device pass supersedes it when stats are collected
+            distinct_obs = int(np.unique(slots[issue]).size)
+        t0 = time.perf_counter()
+        table, fetched, ok, info, st = _exec_round(
             table, kind, slots[issue], values[issue],
             expected[issue] if is_cas else None, backend=backend,
             strategy=strategy, spec=spec, distinct_slots=distinct_slots,
-            collect_stats=collect_stats and rnd == 0)
+            collect_stats=collect_now)
         if st is not None:
             stats0 = st
+            distinct_obs = int(st.distinct_slots)
+        if info is not None:
+            if distinct_obs is not None:
+                info["distinct_observed"] = distinct_obs
+            # one event per round: the pending-count trajectory is the
+            # contention signal, and (predicted_s, measured_s) feed the
+            # drift tracker (the round's fetched and success reads wait for
+            # the device, so the wall covers dispatch and execution)
+            telemetry.record(
+                "atomics.retry.round", op=kind, policy=pol.name, round=rnd,
+                pending=len(pending), issued=int(k),
+                resolved=int(ok.sum()),
+                measured_s=time.perf_counter() - t0, **info)
         observed[issue] = fetched
         rounds[issue] += 1
         success[issue] = ok
@@ -336,6 +406,24 @@ def execute_until(table: Union[AtomicTable, Tensor],
         # deferred ops (stale pre-images under a shrinking policy) trail
         pending = np.concatenate([issue[~ok], defer])
         n_rounds += 1
+    if telemetry.enabled():
+        tier = "sharded" if table.is_sharded else "local"
+        # rounds[i] = attempts op i took; bincount over it is the per-call
+        # contention histogram (index = attempt count, 0 = never issued)
+        hist = np.bincount(rounds, minlength=n_rounds + 1).tolist()
+        telemetry.record("atomics.retry.done", op=kind, policy=pol.name,
+                         n=n, n_rounds=n_rounds, tier=tier,
+                         resolved=int(success.sum()),
+                         unresolved=int(len(pending)),
+                         attempts=int(rounds.sum()), round_histogram=hist)
+        if stats0 is not None and (table.is_sharded or not _tcore._sync):
+            # the loop's own sync boundary; a local batch under sync is the
+            # one case `execute` already recorded: one event per batch
+            m = int(table.data.shape[0])
+            if table.is_sharded:
+                m *= table.mesh.size(table.axis)
+            telemetry.record_event(_cstats.stats_to_fields(
+                stats0, tier=tier, op=kind, n=n, m=m, round=0))
     return RetryResult(table=table, fetched=observed, success=success,
                        rounds=rounds, n_rounds=n_rounds,
                        pending=np.sort(pending), stats=stats0)

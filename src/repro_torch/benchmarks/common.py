@@ -6,18 +6,21 @@ measurement, result collection (median of k).  On a CUDA device each rep is
 timed with CUDA events recorded around the call after a
 `torch.cuda.synchronize()`, so the time is the device's from the call's
 first enqueued work to its last, host enqueue included where the device
-waits on it; on the CPU, with the host clock.  The reference's
-``telemetry.span`` is kept as the ``name`` argument only: the port has no
-telemetry stream yet.
+waits on it; on the CPU, with the host clock of a ``telemetry.span``
+around the call.  Each rep runs inside a ``telemetry.span(name, rep=i)``,
+so with the telemetry stream on it also lands there as a ``bench.rep``
+event (its ``wall_s`` the host clock, the device synchronised at the end),
+and a captured benchmark run feeds the same drift report as other traffic.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, List
 
 import numpy as np
 import torch
+
+from repro_torch import telemetry
 
 WARMUP = 2
 REPS = 5
@@ -28,25 +31,25 @@ def time_s(fn: Callable[[], object], reps: int = REPS,
            device="cuda") -> float:
     """Median seconds of one ``fn()`` call on ``device`` (see the module
     docstring for the clock).  A CUDA device that is missing raises."""
-    del name                             # the span's name, for telemetry
     cuda = torch.device(device).type == "cuda"
     for _ in range(warmup):
         fn()
     out: List[float] = []
-    for _ in range(reps):
+    for rep in range(reps):
         if cuda:
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
+            with telemetry.span(name, rep=rep):
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
             out.append(start.elapsed_time(end) / 1e3)
         else:
-            t0 = time.perf_counter()
-            fn()
-            out.append(time.perf_counter() - t0)
+            with telemetry.span(name, rep=rep) as sp:
+                fn()
+            out.append(sp.wall_s)
     return float(np.median(out))
 
 

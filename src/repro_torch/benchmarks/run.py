@@ -17,6 +17,9 @@ figure, in the reference's order (`benchmarks/run.py`):
                                                 writes rmw_sharded.json)
   reshard           elastic migration against full replay (4 ranks)
   fault_recovery    recovery under seeded faults + bounded retry
+  telemetry_drift   predicted vs measured per selector tier, the spec
+                    proposal, the <5% overhead gate (writes
+                    telemetry_drift.json under --out only)
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--only a,b]
         [--fast] [--device cuda|cpu] [--out DIR]
@@ -41,12 +44,13 @@ from repro_torch.benchmarks import (bandwidth, bfs, calibrate, contention,
                                     fault_recovery, latency,
                                     model_validation, operand_size,
                                     operands_fetched, reshard, rmw_backends,
-                                    rmw_sharded)
+                                    rmw_sharded, telemetry_drift)
 from repro_torch.benchmarks.common import Csv
 
 SUITES = ("latency", "bandwidth", "contention", "operand_size",
           "operands_fetched", "bfs", "rmw_backends", "calibrate",
-          "model_validation", "rmw_sharded", "reshard", "fault_recovery")
+          "model_validation", "rmw_sharded", "reshard", "fault_recovery",
+          "telemetry_drift")
 
 
 def run_suites(only: Optional[Sequence[str]] = None, fast: bool = False,
@@ -83,6 +87,9 @@ def run_suites(only: Optional[Sequence[str]] = None, fast: bool = False,
         "reshard": lambda: reshard.run(csv, fast=fast, device=device),
         "fault_recovery": lambda: fault_recovery.run(csv, fast=fast,
                                                      device=device),
+        "telemetry_drift": lambda: telemetry_drift.run(
+            csv, fast=fast, device=device, out_path=None if out_dir is None
+            else os.path.join(out_dir, "telemetry_drift.json")),
     }
     failures = []
     for name in SUITES:

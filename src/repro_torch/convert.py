@@ -96,7 +96,10 @@ def name_map(model: LM) -> Dict[str, Tuple[str, Optional[int]]]:
     the port's block ``offset_i + r * len(sigs) + j`` (jamba's periodic
     super-block maps the same way); names inside a block are the
     reference's keys (an MoE channel's ``moe.router``, ``moe.w1`` ...,
-    MLA's ``attn.wq_a``, ``attn.q_norm.w`` ...)."""
+    MLA's ``attn.wq_a``, ``attn.q_norm.w`` ..., a decoder block's
+    ``ln_cross.w`` and ``cross.wq`` ...).  The encoder's block ``r`` is
+    repeat r of the reference's one encoder stage, ``enc_stages.0.0``;
+    ``pos_embed``, ``enc_norm`` and ``enc_pos`` keep their names."""
     out: Dict[str, Tuple[str, Optional[int]]] = {}
     layer = 0
     for i, (sigs, reps) in enumerate(model.stages):
@@ -107,7 +110,10 @@ def name_map(model: LM) -> Dict[str, Tuple[str, Optional[int]]]:
                                                      r)
                 layer += 1
     for name, _ in model.named_parameters():
-        if not name.startswith("blocks."):
+        if name.startswith("enc_blocks."):
+            _, r, rest = name.split(".", 2)
+            out[name] = (f"enc_stages.0.0.{rest}", int(r))
+        elif not name.startswith("blocks."):
             out[name] = (name, None)
     return out
 

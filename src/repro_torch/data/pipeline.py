@@ -14,8 +14,11 @@ persist.  Two sources:
     the reference draws them, so its batches are identical to the
     reference's.
 
-Batches of embeddings, encoder frames and M-RoPE positions raise until
-their models' slices.
+A synthetic batch carries, on request, the inputs of the multimodal
+configs as the reference's does: ``embeds`` (B, S, d) f32 in place of
+``tokens`` (the labels stay the token stream's), encoder ``frames``
+(B, F, d) f32, both N(0, 1) * 0.02 from the same generator, and
+``positions3`` (3, B, S), one arange on all three axes.
 """
 
 from __future__ import annotations
@@ -54,15 +57,14 @@ def synthetic_batch(cfg: DataConfig, step: int, d_model: int = 0,
                     with_positions3: bool = False,
                     device="cuda") -> Dict[str, Tensor]:
     """A pure function of (seed, step) -> {"tokens", "labels"} (B, S) int32
-    on ``device``; labels are the tokens shifted by one, -100 last.
+    on ``device``; labels are the tokens shifted by one, -100 last.  With
+    ``with_embeds`` the tokens give way to ``embeds`` (B, S, d_model);
+    ``with_frames`` = F adds ``frames`` (B, F, d_model); ``with_positions3``
+    adds ``positions3`` (3, B, S) int32.
 
     Tokens follow a seed-fixed bigram permutation with 20% uniform noise: a
     stream with a learnable signal (IID tokens have irreducible loss
     ln(V)), yet a pure function of (seed, step)."""
-    if with_embeds or with_frames or with_positions3:
-        raise NotImplementedError(
-            "embedding, frame and M-RoPE position batches port with their "
-            "models' slices (ROADMAP queue 1 item 6)")
     b, s, v = cfg.global_batch, cfg.seq_len, cfg.vocab_size
     perm = torch.randperm(v, generator=torch.Generator().manual_seed(
         cfg.seed ^ 0x5EED))
@@ -74,8 +76,17 @@ def synthetic_batch(cfg: DataConfig, step: int, d_model: int = 0,
     for t in range(1, s):
         cols.append(torch.where(noisy[:, t], resample[:, t], perm[cols[-1]]))
     tokens = torch.stack(cols, dim=1).to(torch.int32)
-    return {"tokens": tokens.to(device),
-            "labels": _shifted_labels(tokens).to(device)}
+    batch = {"tokens": tokens, "labels": _shifted_labels(tokens)}
+    if with_embeds:
+        batch["embeds"] = torch.randn((b, s, d_model), generator=gen) * 0.02
+        del batch["tokens"]
+    if with_frames:
+        batch["frames"] = torch.randn((b, with_frames, d_model),
+                                      generator=gen) * 0.02
+    if with_positions3:
+        batch["positions3"] = torch.arange(s, dtype=torch.int32).expand(
+            3, b, s).contiguous()
+    return {k: x.to(device) for k, x in batch.items()}
 
 
 class MemmapSource:

@@ -18,10 +18,16 @@ is made deterministic (``torch.use_deterministic_algorithms`` and
 some backward ops otherwise add in atomic order (the embedding gradient,
 the gathers' backward), and a replayed step would not be bit-equal.
 
+Telemetry: each step is a ``train.step`` span (its wall seconds land in
+the event stream when it is on) inside a ``train.step/<i>`` profiler range
+when annotations are on.  The CLI's ``--telemetry ring|PATH`` (or
+``REPRO_TELEMETRY``) turns the stream on, ``--profile-annotations`` the
+ranges; render a JSONL capture with ``python -m
+repro_torch.telemetry.report PATH``.
+
 Not ported yet, and each raises `NotImplementedError`: a mesh and its
 rules (sharded training, ROADMAP queue 1 item 5); the tuning controller
-and the ``REPRO_TUNING`` hook, telemetry (``--telemetry``,
-``REPRO_TELEMETRY``) and ``--profile-annotations`` (queue 1 item 7).
+and the ``REPRO_TUNING`` hook (the tuning slice, queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -35,8 +41,8 @@ import time
 from typing import Any, Dict, Optional
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch import telemetry
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.checkpoint.ckpt import AsyncCheckpointer
 from repro_torch.configs import get_config, get_reduced
@@ -54,7 +60,8 @@ from repro_torch.runtime.fault_tolerance import (FaultConfig,
 log = logging.getLogger("repro_torch.train")
 
 SHARDED = "sharded training (ROADMAP queue 1 item 5)"
-RUNTIME = "the tuning controller and telemetry (ROADMAP queue 1 item 7)"
+TUNING = "the tuning controller ports with the tuning slice (ROADMAP " \
+    "queue 1 item 7)"
 
 
 @contextlib.contextmanager
@@ -94,7 +101,7 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
     if mesh is not None or rules is not None:
         raise NotImplementedError(f"mesh/rules: {SHARDED}")
     if tuning is not None or os.environ.get("REPRO_TUNING"):
-        raise NotImplementedError(f"tuning / REPRO_TUNING: {RUNTIME}")
+        raise NotImplementedError(f"tuning / REPRO_TUNING: {TUNING}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train(device='cuda') needs a CUDA card; pass "
@@ -137,7 +144,11 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
         params, opt_state = state
         batch = synthetic_batch(data_cfg, step, device=device, **bkw)
         t0 = time.time()
-        with record_function(f"train.step/{step}"):
+        # the span is the per-step profiler hook: wall_s lands in the event
+        # stream, and under enable(annotate=True) the step is a named range
+        # in a torch.profiler trace
+        with telemetry.annotation(f"train.step/{step}"), \
+                telemetry.span("train.step", step=step, arch=arch):
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}
         dt = time.time() - t0
@@ -215,24 +226,33 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; needs a card) or cpu")
     ap.add_argument("--telemetry", default=None, metavar="SINK",
-                    help=f"not ported yet: {RUNTIME}")
+                    help="'ring' or a JSONL path: enable the "
+                         "repro_torch.telemetry event stream (same as "
+                         "REPRO_TELEMETRY); render a capture with `python "
+                         "-m repro_torch.telemetry.report`")
     ap.add_argument("--tuning", nargs="?", const="on", default=None,
-                    metavar="STATE", help=f"not ported yet: {RUNTIME}")
+                    metavar="STATE", help=f"not ported yet: {TUNING}")
     ap.add_argument("--profile-annotations", action="store_true",
-                    help=f"not ported yet: {RUNTIME}")
+                    help="open torch.profiler ranges around steps, atomics "
+                         "dispatch and migrations (needs --telemetry)")
     args = ap.parse_args(argv)
-    if args.telemetry or args.profile_annotations \
-            or os.environ.get("REPRO_TELEMETRY"):
-        raise NotImplementedError(
-            f"--telemetry / --profile-annotations / REPRO_TELEMETRY: "
-            f"{RUNTIME}")
+    if args.telemetry:
+        sink = (telemetry.RingBuffer() if args.telemetry == "ring"
+                else telemetry.JsonlWriter(args.telemetry))
+        telemetry.enable(sink, annotate=args.profile_annotations)
+    else:
+        telemetry.enable_from_env()
     chaos = FaultPlan.from_spec(args.chaos) if args.chaos else None
-    out = train(args.arch, steps=args.steps, seq_len=args.seq_len,
-                global_batch=args.global_batch, reduced=not args.full,
-                ckpt_dir=args.ckpt_dir, lr=args.lr,
-                microbatches=args.microbatches, chaos=chaos,
-                tuning=True if args.tuning is not None else None,
-                device=args.device)
+    try:
+        out = train(args.arch, steps=args.steps, seq_len=args.seq_len,
+                    global_batch=args.global_batch, reduced=not args.full,
+                    ckpt_dir=args.ckpt_dir, lr=args.lr,
+                    microbatches=args.microbatches, chaos=chaos,
+                    tuning=True if args.tuning is not None else None,
+                    device=args.device)
+    finally:
+        if telemetry.enabled():
+            telemetry.disable()      # flush and close the JSONL capture
     print(json.dumps({k: v for k, v in out.items() if k != "history"}))
 
 

@@ -25,9 +25,13 @@ raises, where the reference's `dynamic_update_slice` would clamp the write.
 
 MLA expands the latent cache per head as the reference's baseline does (no
 absorbed matmul) and always runs `_sdpa`'s plain math, as the reference
-runs MLA on its jnp math: the kernel takes Dv = D only.  M-RoPE raises
-`NotImplementedError` until its slice; cross-attention ports with the
-encoder-decoder slice (`LM` refuses encoder configs).
+runs MLA on its jnp math: the kernel takes Dv = D only.
+
+M-RoPE (qwen2-vl) rotates q and k by ``positions3`` (3, B, S); without
+them the three axes take the 1-D positions.  Cross-attention (the whisper
+decoder) attends, non-causally, to every encoder row; like the reference
+it recomputes K and V from the encoder's output at every call, decode
+steps included (there is no cross-K/V cache).
 """
 
 from __future__ import annotations
@@ -40,8 +44,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (dense_init, norm, norm_init,
-                                       rope_apply, upcast)
+from repro_torch.models.layers import (dense_init, mrope_apply, norm,
+                                       norm_init, rope_apply, upcast)
 
 Tensor = torch.Tensor
 
@@ -231,13 +235,16 @@ def _positions(cache_len: int, batch: int, seq: int, device) -> Tensor:
     return base.expand(batch, seq)
 
 
-def _apply_pos(q: Tensor, k: Tensor, cfg: ModelConfig, positions: Tensor
-               ) -> Tuple[Tensor, Tensor]:
+def _apply_pos(q: Tensor, k: Tensor, cfg: ModelConfig, positions: Tensor,
+               positions3: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
     if cfg.pos_emb == "rope":
         q = rope_apply(q, positions, cfg.rope_theta, cfg.rope_fraction)
         k = rope_apply(k, positions, cfg.rope_theta, cfg.rope_fraction)
     elif cfg.pos_emb == "mrope":
-        raise NotImplementedError("M-RoPE ports with the qwen2-vl slice")
+        p3 = positions3 if positions3 is not None else \
+            positions[None].expand((3,) + tuple(positions.shape))
+        q = mrope_apply(q, p3, cfg.rope_theta, cfg.mrope_sections)
+        k = mrope_apply(k, p3, cfg.rope_theta, cfg.mrope_sections)
     return q, k
 
 
@@ -247,10 +254,12 @@ def _apply_pos(q: Tensor, k: Tensor, cfg: ModelConfig, positions: Tensor
 
 def gqa_forward(params: nn.ParameterDict, x: Tensor, cfg: ModelConfig, *,
                 causal: bool = True, cache: Optional[dict] = None,
+                positions3: Optional[Tensor] = None,
                 impl: str = "chunked", use_kernel: Optional[bool] = None
                 ) -> Tuple[Tensor, Optional[dict]]:
     """x (B, S, d) -> (out (B, S, d), cache').  With a cache, the step's k
-    and v go into its rows [len, len + s) in place."""
+    and v go into its rows [len, len + s) in place.  ``positions3``
+    (3, B, S): M-RoPE's ids for these tokens (M-RoPE configs only)."""
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ params["wq"]
@@ -264,7 +273,7 @@ def gqa_forward(params: nn.ParameterDict, x: Tensor, cfg: ModelConfig, *,
 
     cache_len = cache["len"] if cache is not None else 0
     pos = _positions(cache_len, b, s, x.device)
-    q, k = _apply_pos(q, k, cfg, pos)
+    q, k = _apply_pos(q, k, cfg, pos, positions3)
 
     if cache is not None:
         kc, vc = cache["k"], cache["v"]
@@ -348,8 +357,41 @@ def mla_forward(params: MLA, x: Tensor, cfg: ModelConfig, *,
     return out.reshape(b, s, h * dv) @ params["wo"], new_cache
 
 
+# ---------------------------------------------------------------------------
+# cross attention (whisper decoder): k/v from the encoder, no causal mask
+# ---------------------------------------------------------------------------
+
+def cross_attn_init(gen: torch.Generator, cfg: ModelConfig, dtype
+                    ) -> nn.ParameterDict:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return nn.ParameterDict({
+        "wq": nn.Parameter(dense_init(gen, d, h * hd, dtype)),
+        "wk": nn.Parameter(dense_init(gen, d, h * hd, dtype)),
+        "wv": nn.Parameter(dense_init(gen, d, h * hd, dtype)),
+        "wo": nn.Parameter(dense_init(gen, h * hd, d, dtype))})
+
+
+def cross_attn_forward(params: nn.ParameterDict, x: Tensor, enc_out: Tensor,
+                       cfg: ModelConfig, impl: str = "chunked",
+                       use_kernel: Optional[bool] = None) -> Tensor:
+    """x (B, S, d) over the encoder's output (B, Se, d) -> (B, S, d):
+    every query row sees all Se rows (``kv_len = Se``, not causal).  K and
+    V are recomputed from ``enc_out`` at every call, as the reference
+    does."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    se = enc_out.shape[1]
+    q = (x @ params["wq"]).reshape(b, s, h, hd)
+    k = (enc_out @ params["wk"]).reshape(b, se, h, hd)
+    v = (enc_out @ params["wv"]).reshape(b, se, h, hd)
+    out = _sdpa(q, k, v, causal=False, kv_len=se, q_offset=0,
+                scale=hd ** -0.5, impl=impl, use_kernel=use_kernel)
+    return out.reshape(b, s, h * hd) @ params["wo"]
+
+
 def attn_forward(params: nn.ParameterDict, x: Tensor, cfg: ModelConfig,
                  **kw) -> Tuple[Tensor, Optional[dict]]:
     if cfg.mla is not None:
+        kw.pop("positions3", None)
         return mla_forward(params, x, cfg, **kw)
     return gqa_forward(params, x, cfg, **kw)

@@ -5,8 +5,9 @@ Initialisers draw from an explicit ``torch.Generator`` with the reference's
 distributions (its `jax.random` bits are not reproducible here: the parity
 tests carry the reference's weights across with
 `repro_torch.convert.lm_params_from_reference`).  Norms compute in f32 and
-cast back to the input's dtype, as the reference does.  M-RoPE, sinusoidal
-positions port with the slices that run them.  The chunked cross-entropy
+cast back to the input's dtype, as the reference does.  RoPE and M-RoPE
+rotate interleaved pairs (``x[..., ::2]``, ``x[..., 1::2]``) with angles in
+f32, as the reference does.  The chunked cross-entropy
 recomputes each chunk's f32 logits in backward, as the reference's
 `jax.checkpoint` does.
 """
@@ -125,7 +126,7 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, act: str,
 
 
 # ---------------------------------------------------------------------------
-# rotary position embeddings (RoPE / partial RoPE)
+# rotary position embeddings (RoPE / partial RoPE / M-RoPE)
 # ---------------------------------------------------------------------------
 
 def _rope_freqs(dim: int, theta: float, device=None) -> Tensor:
@@ -153,6 +154,32 @@ def rope_apply(x: Tensor, positions: Tensor, theta: float,
     o2 = x2 * cos + x1 * sin
     out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
     return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+def mrope_apply(x: Tensor, positions3: Tensor, theta: float,
+                sections: Tuple[int, ...]) -> Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, S, H, D); positions3: (3, B, S)
+    temporal, height and width ids.  ``sections`` splits the half-dim
+    frequency bands among the three axes (band i takes its positions from
+    ``positions3[i]``), so ``sum(sections)`` must be D / 2.  Interleaved
+    pairs, angles in f32, the result in x's dtype."""
+    d = x.shape[-1]
+    half = d // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} sum to "
+                         f"{sum(sections)}, not head_dim / 2 = {half}")
+    freqs = _rope_freqs(d, theta, x.device)               # (half,)
+    band_axis = torch.cat([torch.full((s,), i, dtype=torch.long)
+                           for i, s in enumerate(sections)]).to(x.device)
+    # positions per element of the half-dim: (B, S, half)
+    pos = positions3.float()[band_axis].permute(1, 2, 0)
+    ang = pos * freqs
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

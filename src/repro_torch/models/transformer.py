@@ -8,10 +8,11 @@ by sub-layer) and loops over it, since torch has no scan.
 
 Block = token mixer (GQA/MQA attention | Mamba-2 SSD) + channel mixer
 (dense MLP | MoE | none) with pre-norm residuals, or the parallel residual
-(command-r).  A block returns its MoE aux loss beside its output (None
-for a dense channel, which adds nothing), summed over the layers as the
-reference's `stage_forward` does.  Cross-attention raises until its slice
-ports it.
+(command-r); a decoder block of an encoder-decoder model (whisper) adds
+cross-attention over the encoder's output between the two.  A block
+returns its MoE aux loss beside its output (None for a dense channel,
+which adds nothing), summed over the layers as the reference's
+`stage_forward` does.  The encoder's blocks run with ``causal=False``.
 
 Training: `remat` wraps a block in the reference's rematerialisation
 policies (`torch.utils.checkpoint`), and `grad_barrier` is the identity.
@@ -112,13 +113,14 @@ def layer_sigs(cfg: ModelConfig) -> List[Sig]:
 
 class Block(nn.Module):
     """Pre-norm residual block (`block_init` + `block_forward` of the
-    reference): x + mixer(norm(x)), then + channel(norm(x)) where the
+    reference): x + mixer(norm(x)), then + cross(norm(x), enc_out) in a
+    decoder block with ``cross``, then + channel(norm(x)) where the
     config has a channel (a dense MLP, or MoE on the layers the config
     marks); or x + mixer(h) + channel(h) on the same h = norm(x) with the
     parallel residual."""
 
     def __init__(self, cfg: ModelConfig, sig: Sig, gen: torch.Generator,
-                 dtype):
+                 dtype, cross: bool = False):
         super().__init__()
         kind, is_moe = sig
         self.cfg = cfg
@@ -130,6 +132,10 @@ class Block(nn.Module):
             self.attn = attn_mod.attn_init(gen, cfg, dtype)
         else:
             self.ssm = Mamba2(cfg, gen, dtype)
+        if cross:
+            self.ln_cross = norm_init(cfg.d_model, cfg.norm, dtype, dev)
+            self.cross = attn_mod.cross_attn_init(gen, cfg, dtype)
+        self.has_cross = cross
         self.has_mlp = not is_moe and cfg.d_ff > 0
         if is_moe or self.has_mlp:
             self.ln2 = norm_init(cfg.d_model, cfg.norm, dtype, dev)
@@ -148,24 +154,32 @@ class Block(nn.Module):
         return torch.zeros_like(h), None
 
     def forward(self, x: Tensor, cache: Optional[dict] = None, *,
-                use_kernel: Optional[bool] = None, impl: str = "chunked"
+                use_kernel: Optional[bool] = None, impl: str = "chunked",
+                enc_out: Optional[Tensor] = None,
+                positions3: Optional[Tensor] = None, causal: bool = True
                 ) -> Tuple[Tensor, Optional[dict], Optional[Tensor]]:
         """(x', cache', MoE aux loss or None).  ``use_kernel`` goes to the
-        mixer (None:
-        its kernel on CUDA); ``impl`` is the attention path without the
-        kernel ("ref" or "chunked")."""
+        mixers (None: their kernels on CUDA); ``impl`` is the attention
+        path without the kernel ("ref" or "chunked"); ``enc_out`` is what a
+        cross block attends to; ``positions3`` M-RoPE's ids; ``causal``
+        False in the encoder."""
         cfg = self.cfg
         h = norm(x, self.ln1, cfg.norm, cfg.norm_eps)
         if self.kind == "attn":
             mix, new_cache = attn_mod.attn_forward(
-                self.attn, h, cfg, causal=True, cache=cache, impl=impl,
-                use_kernel=use_kernel)
+                self.attn, h, cfg, causal=causal, cache=cache,
+                positions3=positions3, impl=impl, use_kernel=use_kernel)
         else:
             mix, new_cache = self.ssm(h, cache, use_kernel=use_kernel)
         if cfg.parallel_residual:
             out, aux = self._channel(h)
             return x + mix + out, new_cache, aux
         x = x + mix
+        if self.has_cross:
+            hc = norm(x, self.ln_cross, cfg.norm, cfg.norm_eps)
+            x = x + attn_mod.cross_attn_forward(
+                self.cross, hc, enc_out, cfg, impl=impl,
+                use_kernel=use_kernel)
         if self.is_moe or self.has_mlp:
             out, aux = self._channel(norm(x, self.ln2, cfg.norm,
                                           cfg.norm_eps))

@@ -2,8 +2,8 @@
 
 Port of `repro.runtime.chaos`, a copy of its numpy code: the same seed and
 spec fault the same visits in either package, and ``REPRO_CHAOS`` faults
-both.  A fired fault is logged; the reference also records it on its
-telemetry stream, which the port does not have yet.
+both.  A fired fault is logged and recorded on the telemetry stream as
+``chaos.fire`` (site, occurrence, step, kind).
 
 The recovery state machine (`runtime.fault_tolerance`) used to be driven by
 ad-hoc hand-written ``failure_injector`` callbacks: each test invented its
@@ -49,6 +49,8 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
+
+from repro_torch import telemetry
 
 log = logging.getLogger("repro_torch.runtime")
 
@@ -203,10 +205,16 @@ class FaultPlan:
             return
         if site == "straggler_delay":
             delay = self.sites[site].delay_s
+            telemetry.record("chaos.fire", site=site,
+                             occurrence=self._fired[site], step=step,
+                             kind="stall", delay_s=delay)
             log.info("chaos: injected %.3fs straggler stall at step %s",
                      delay, step)
             self._sleep(delay)
             return
+        telemetry.record("chaos.fire", site=site,
+                         occurrence=self._fired[site], step=step,
+                         kind="raise")
         log.info("chaos: fault #%d at site %r, step %s", self._fired[site],
                  site, step)
         raise ChaosError(site, self._fired[site], step)

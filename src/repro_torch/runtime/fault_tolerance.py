@@ -1,10 +1,10 @@
 """Fault tolerance: retrying step executor, straggler detection, elasticity.
 
 Port of `repro.runtime.fault_tolerance`.  `RunResult.events` (and
-`event_counts`) carry the run's recovery trace as in the reference; the
-reference also sends each event to its global telemetry stream and keeps
-the stream's last-N ring in ``RunResult.telemetry_ring``, which stays
-empty here until the port has that stream.
+`event_counts`) carry the run's recovery trace as in the reference; each
+event also goes to the global telemetry stream, whose last-N ring (when a
+`telemetry.RingBuffer` sink is installed) comes back in
+``RunResult.telemetry_ring`` and is flushed to disk on a fatal fault.
 
 On a real multi-pod deployment, chip/host loss surfaces as a Python exception
 from the collective runtime; the recovery sequence is: tear down, re-init the
@@ -41,6 +41,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Tuple
 
+from repro_torch import telemetry
 from repro_torch.runtime.chaos import FaultPlan
 
 log = logging.getLogger("repro_torch.runtime")
@@ -152,8 +153,10 @@ class RunResult:
     occurrence, in order, always populated (telemetry enabled or not) so
     tests and callers assert on fields instead of parsing log text.
 
-    ``telemetry_ring`` is the reference's last-N global event stream; it
-    stays empty until the port has a telemetry stream.
+    ``telemetry_ring`` is the last-N global event stream at run end when a
+    `telemetry.RingBuffer` sink is installed (``REPRO_TELEMETRY=ring``) —
+    empty otherwise.  The same snapshot is flushed to disk on the fatal
+    fault path (`telemetry.flush_ring`).
     """
 
     steps_done: int
@@ -216,6 +219,8 @@ def run_with_recovery(step_fn: Callable[[int, Any], Any],
         # scratch restart would replay aliased garbage.  Deliberately NOT
         # in the run-local events trace (RunResult.event_counts is API) —
         # it is a static property of the call, not a recovery occurrence.
+        telemetry.record("recovery.donation_hazard",
+                         donate_argnums=tuple(donated))
         log.warning(
             "step_fn declares donate_argnums=%s but init_state is a "
             "captured value — pass a zero-arg factory so post-failure "
@@ -228,8 +233,18 @@ def run_with_recovery(step_fn: Callable[[int, Any], Any],
     events: List[dict] = []
 
     def _emit(event: str, **fields) -> None:
-        # the run-local trace is ALWAYS kept (RunResult.events is API)
+        # the run-local trace is ALWAYS kept (RunResult.events is API);
+        # the global stream only sees it when telemetry is enabled
         events.append({"event": event, **fields})
+        telemetry.record(event, **fields)
+
+    def _flush_ring(reason: str) -> None:
+        # the fault is about to propagate out of the recovery loop: land
+        # the last-N ring events on disk next to the recovery.fault event
+        # (a no-op without a ring sink; never raises)
+        n = telemetry.flush_ring()
+        if n:
+            log.error("flushed %d telemetry ring events (%s)", n, reason)
 
     def _absorb(e: BaseException, what: str) -> None:
         """Count a failure; re-raise fatal/over-budget, else back off."""
@@ -239,6 +254,7 @@ def run_with_recovery(step_fn: Callable[[int, Any], Any],
                   message=str(e), attempt=failures + 1, fatal=True)
             log.error("%s failed with fatal %s: %s — not retrying",
                       what, type(e).__name__, e)
+            _flush_ring(f"fatal fault at {what}")
             raise e
         failures += 1
         _emit("recovery.fault", site=what, error=type(e).__name__,
@@ -247,9 +263,11 @@ def run_with_recovery(step_fn: Callable[[int, Any], Any],
         log.warning("%s failed (%s: %s); recovery %d/%d", what,
                     type(e).__name__, e, failures, cfg.max_failures)
         if failures > cfg.max_failures:
+            _flush_ring(f"failure budget exhausted at {what}")
             raise e
         elapsed = time.monotonic() - t_start
         if cfg.deadline_s is not None and elapsed > cfg.deadline_s:
+            _flush_ring(f"recovery deadline exceeded at {what}")
             raise TimeoutError(
                 f"recovery deadline {cfg.deadline_s:.3f}s exceeded "
                 f"({elapsed:.3f}s elapsed, {failures} failures); "
@@ -314,4 +332,5 @@ def run_with_recovery(step_fn: Callable[[int, Any], Any],
             step, state = _recover("restore")
     return RunResult(steps_done=step, failures=failures,
                      restored_from=restored,
-                     backoff_total_s=backoff_total, events=events)
+                     backoff_total_s=backoff_total, events=events,
+                     telemetry_ring=telemetry.ring_events())

@@ -108,11 +108,29 @@ def test_tokens_follow_a_noisy_bigram():
 
 
 def test_unported_inputs_raise():
+    """The multimodal inputs, once refused, now follow the reference's
+    contract: each option gives the reference's keys with the reference's
+    shapes and dtypes (embeds replace tokens, labels stay), and the
+    embeddings and frames are a pure function of (seed, step)."""
     cfg = tpipe.DataConfig(seq_len=8, global_batch=2, vocab_size=50)
-    for kw in (dict(with_embeds=True, d_model=4), dict(with_frames=3),
-               dict(with_positions3=True)):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            tpipe.synthetic_batch(cfg, 0, device="cpu", **kw)
+    jcfg = jpipe.DataConfig(seq_len=8, global_batch=2, vocab_size=50)
+    for kw in (dict(with_embeds=True, d_model=4),
+               dict(with_frames=3, d_model=4), dict(with_positions3=True)):
+        got = tpipe.synthetic_batch(cfg, 0, device="cpu", **kw)
+        want = jpipe.synthetic_batch(jcfg, 0, **kw)
+        assert set(got) == set(want), kw
+        for key in want:
+            assert tuple(got[key].shape) == want[key].shape, (kw, key)
+            assert str(got[key].dtype).split(".")[-1] == \
+                str(want[key].dtype), (kw, key)
+        again = tpipe.synthetic_batch(cfg, 0, device="cpu", **kw)
+        for key in got:
+            assert torch.equal(got[key], again[key])
+    p3 = tpipe.synthetic_batch(cfg, 1, device="cpu",
+                               with_positions3=True)["positions3"]
+    np.testing.assert_array_equal(
+        p3.numpy(), np.asarray(jpipe.synthetic_batch(
+            jcfg, 1, with_positions3=True)["positions3"]))
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

@@ -13,7 +13,10 @@ bit against the host loop, on ±0, NaN and subnormals too; `chase` in its
 four modes against its plain version); training and MLA: a full-width
 two-layer gemma_2b train step in f32 against f64, deepseek_v3's MLA layer
 at full width in f32 against f64, a backward through the flash and SSD
-kernels' wrappers raising, and deterministic backward passes bit-equal.
+kernels' wrappers raising, and deterministic backward passes bit-equal;
+the flash kernel at qwen2_vl_2b's and whisper_small's shapes (non-causal
+encoder, cross-attention prefill and split-KV decode), and telemetry's
+measured time of a ``cuda``-backend `execute` against the kernel's.
 This file imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \
@@ -1154,3 +1157,91 @@ def test_deterministic_backward_is_bit_equal(cuda_device):
             _, g2 = loss_and_grads(model, batch)
         for n in g1:
             assert torch.equal(g1[n], g2[n]), (arch, n)
+
+
+# ---------------------------------------------------------------------------
+# qwen2_vl and whisper: the flash kernel at their shapes; telemetry's clock
+# ---------------------------------------------------------------------------
+
+def _whisper_call(dev, sq, skv, dtype, b=1, seed=0):
+    """whisper_small's attention: 12 heads of 64 over 12 KV heads, q
+    (B, sq, 12, 64) against (B, skv, 12, 64) keys as the model hands them
+    over (transposed views of contiguous projections), not causal."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((b, s, 12, 64), generator=g, device=dev)
+               .to(dtype).transpose(1, 2) for s in (sq, skv, skv))
+    return (q, k, v), dict(causal=False, kv_valid=skv, kv_offset=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("what,sq,skv", [("encoder", 1500, 1500),
+                                         ("cross_prefill", 37, 1500),
+                                         ("cross_decode", 1, 1500)])
+def test_flash_attention_whisper_shapes_match_plain_version(
+        cuda_device, what, sq, skv, dtype):
+    """The encoder's 1,500 x 1,500 at D 64, the cross-attention at
+    prefill (Sq 37) and at decode (Sq 1: the split-KV path with
+    causal=0), all non-causal, batch 2: within 3e-5 in f32 and one bf16
+    ulp in bf16 of the plain version."""
+    args, kw = _whisper_call(cuda_device, sq, skv, dtype, b=2,
+                             seed=sq + skv)
+    FK.reset_launches()
+    got = FK.flash_attention(*args, **kw)
+    assert FK.LAUNCHES == {"flash_attention": 1}
+    want = FK.flash_attention_plain(*args, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **_gemma_tol(dtype))
+    # control: the causal call from key 0 differs (row i sees keys <= i),
+    # so the mask is not applied silently
+    causal = FK.flash_attention(*args, **dict(kw, causal=True))
+    assert not torch.allclose(causal.float(), want.float(),
+                              **_gemma_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,s,cached", [("prefill", 1024, 0),
+                                            ("decode", 1, 1599)])
+def test_flash_attention_qwen2_vl_shapes_match_plain_version(
+        cuda_device, shape, s, cached, dtype):
+    """qwen2_vl_2b's attention (12 query heads over 2 KV heads of 128: 6
+    rows a KV head at decode, the split path): a 1,024-token prefill and a
+    decode call at 1,600 rows of a 4,112-row cache."""
+    args, kw = _gemma_call(cuda_device, s, cached, dtype, hq=12, hkv=2,
+                           d=128)
+    got = FK.flash_attention(*args, **kw)
+    want = FK.flash_attention_plain(*args, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **_gemma_tol(dtype))
+
+
+@pytest.mark.gpu
+def test_execute_measured_time_covers_the_kernel(cuda_device):
+    """Under ``capture(sync=True)`` a ``cuda``-backend `execute` records
+    ``measured_s`` of at least the device time of the kernels it launched
+    (their CUPTI durations in a torch.profiler trace of the same calls:
+    the card is synchronised on both sides of the clock, so every kernel
+    of a call runs inside its measured interval)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import telemetry
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    n, m = 1 << 22, 1 << 20
+    idx = torch.randint(0, m, (n,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    val = torch.ones((n,), dtype=torch.int32, device=cuda_device)
+    tbl = atomics.make_table(m, torch.int32, device=cuda_device)
+    atomics.execute(tbl, atomics.Faa(idx, val), backend="cuda")   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            telemetry.capture(sync=True) as buf:
+        for _ in range(3):
+            atomics.execute(tbl, atomics.Faa(idx, val), backend="cuda")
+    kernel_s = sum(e.duration_ns() for e in prof.profiler.kineto_results
+                   .events() if e.device_type() ==
+                   torch.autograd.DeviceType.CUDA) / 1e9
+    evs = [e for e in buf.events if e["event"] == "atomics.execute"]
+    assert len(evs) == 3 and all(e["backend"] == "cuda" for e in evs)
+    measured = sum(e["measured_s"] for e in evs)
+    assert measured >= kernel_s > 0, (measured, kernel_s)
+    assert all(e["predicted_s"] > 0 for e in evs)

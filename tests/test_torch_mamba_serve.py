@@ -177,11 +177,19 @@ def test_weights_carry_over_exactly_and_mismatches_raise():
 
 
 def test_unported_layer_kinds_raise():
-    """M-RoPE and the encoder raise; MoE (dbrx, jamba) and MLA with MoE
-    (deepseek_v3) build."""
-    for arch in ("qwen2_vl_2b", "whisper_small"):
-        with pytest.raises(NotImplementedError):
-            LM(get_reduced(arch), device="cpu")
+    """No layer kind is refused any more: M-RoPE (qwen2_vl) and the
+    encoder with learned positions (whisper) build with their parameters;
+    MoE (dbrx, jamba) and MLA with MoE (deepseek_v3) build."""
+    qwen = LM(get_reduced("qwen2_vl_2b"), device="cpu")
+    assert not hasattr(qwen, "enc_blocks") and not hasattr(qwen,
+                                                           "pos_embed")
+    cfg = get_reduced("whisper_small")
+    whisper = LM(cfg, device="cpu")
+    assert len(whisper.enc_blocks) == cfg.encoder.n_layers
+    assert tuple(whisper.enc_pos.shape) == (cfg.encoder.n_frames,
+                                            cfg.d_model)
+    assert tuple(whisper.pos_embed.shape) == (cfg.max_seq_len, cfg.d_model)
+    assert all(b.has_cross for b in whisper.blocks)
     for arch in ("dbrx_132b", "jamba_1_5_large_398b", "deepseek_v3_671b"):
         assert any(b.is_moe for b in LM(get_reduced(arch),
                                         device="cpu").blocks)

@@ -368,9 +368,8 @@ def test_unported_options_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 7"):
         ttrain.train("gemma_2b", steps=1, device="cpu")
     monkeypatch.delenv("REPRO_TUNING")
-    for flag in (["--telemetry", "ring"], ["--profile-annotations"]):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ttrain.main(["--arch", "gemma_2b", "--device", "cpu"] + flag)
+    with pytest.raises(NotImplementedError, match="tuning slice"):
+        ttrain.main(["--arch", "gemma_2b", "--device", "cpu", "--tuning"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA card"):
         ttrain.train("gemma_2b", steps=1)
