@@ -88,6 +88,16 @@ prefill and token; both gate their logits against the plain path;
 the `telemetry_drift` suite runs among the suites, and `telemetry` checks
 its tiers, measured events and overhead gate, then a recovery run under
 chaos whose ring must hold each fired fault before its recovery event.
+Tuning (`tuning`, its own main path, the launch counters reset before and
+read after): the `contention_observe` and `tuning` suites on the card
+(bit identity with stats on and off, locally and on 4 ranks; the noise,
+retry and live-controller overhead gates; the estimator fed by the
+``slot_counts`` kernel; writers per slot against the contention model;
+convergence, rollback and quarantine; tuned int32 runs bit-equal to
+untuned runs that took other backends, locally and on 4 ranks), then a
+default controller over the telemetry suite's local traffic for 12
+update windows (`tuning_probe`: each window's outcome, the fields tuned
+at the end, and what auto picks before and after).
 A `timeline` line gives each phase's seconds.
 
 Phases print one JSON line each (`{"phase": ...}`); every phase raises on a
@@ -1788,20 +1798,33 @@ def flash_timing(gen):
 # 11. the paper's measurement suites (this slice's main path)
 # ---------------------------------------------------------------------------
 
-def phase_suites():
-    """`repro_torch.benchmarks.run`'s suites on the card, each printing its
-    rows, with the launch counters reset just before and read just after;
-    raises if a suite failed or a one-thread kernel never launched."""
-    t0 = time.perf_counter()
-    XK.reset_launches()
-    K.reset_launches()
-    csv, results, failures = suites.run_suites(device="cuda")
-    launches = dict(XK.LAUNCHES)
-    for name in suites.SUITES:
+#: the suites of the tuning slice, run by `phase_tuning`
+TUNING_SUITES = ("contention_observe", "tuning")
+
+
+def _run_suites(names):
+    """`repro_torch.benchmarks.run`'s suites ``names`` on the card, each
+    printing its rows; raises if one failed."""
+    csv, results, failures = suites.run_suites(names, device="cuda")
+    for name in names:
         emit("suites", suite=name, rows=[
             r for r in csv.rows if r["name"].split(".")[0] == name])
     if failures:
         raise AssertionError(f"suites failed: {failures}")
+    return results
+
+
+def phase_suites():
+    """`repro_torch.benchmarks.run`'s suites on the card (all but the
+    tuning slice's), with the launch counters reset just before and read
+    just after; raises if a suite failed or a one-thread kernel never
+    launched."""
+    t0 = time.perf_counter()
+    XK.reset_launches()
+    K.reset_launches()
+    results = _run_suites([n for n in suites.SUITES
+                           if n not in TUNING_SUITES])
+    launches = dict(XK.LAUNCHES)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"never launched by the suites: {missing}")
@@ -4499,6 +4522,133 @@ def phase_train_mm():
 # ---------------------------------------------------------------------------
 
 TM_CHAOS = "seed=7,step=1.0@1,ckpt_save=1.0@1,straggler_delay=1.0@1"
+#: the live probe's update windows (of `TuningConfig.min_events` events)
+TN_WINDOWS = 12
+
+
+def _tuning_probe():
+    """A default controller on the card over the telemetry suite's local
+    drift traffic (every backend forced and as the selector picks, FAA
+    spread and on 8 slots and uniform CAS, 4 to 4,096 ops over 1,024
+    slots), until `TN_WINDOWS` update cycles ran: each window's outcome,
+    every ``tuning.*`` event, the fields active at the end, and what auto
+    picks for the traffic's batches before and after."""
+    from repro_torch import telemetry
+    from repro_torch.benchmarks import telemetry_drift as td
+    from repro_torch.tuning import SpecController
+
+    class Log(telemetry.RingBuffer):
+        """The controller's events and the measured calls: like the
+        controller's tap it reads measured events only, so it adds no
+        event to an unmeasured call."""
+        measured_only = True
+
+        def emit(self, event):
+            if "measured_s" in event or event["event"].startswith("tuning."):
+                super().emit(event)
+
+    rng = np.random.default_rng(0)
+    tbl = atomics.make_table(td.LOCAL_M, torch.int32)
+    work = [(b, op) for n in (4, 64, 512, td.GATE_N)
+            for op in td._local_batches(n, "cuda", rng)
+            for b in td._backends("cuda")]
+    for b, op in work:                   # warm
+        atomics.execute(tbl, op, backend=b)
+    sync()
+    windows, auto = [], []
+    t0 = time.perf_counter()
+    with telemetry.capture(Log(capacity=1 << 16)) as buf:
+        with SpecController(device="cuda") as ctrl:
+            while len(windows) < TN_WINDOWS:
+                for b, op in work:
+                    atomics.execute(tbl, op, backend=b)
+                    out = ctrl.step()
+                    if out is not None:
+                        windows.append(out)
+                        if len(windows) == TN_WINDOWS:
+                            break
+            stats = ctrl.stats()
+            final = ctrl.active
+    seconds = time.perf_counter() - t0
+    measured = [e for e in buf.events
+                if e["event"] == "atomics.execute" and "measured_s" in e]
+    from repro_torch.core import rmw_engine
+    # what auto picks for the traffic's batches, before and after
+    auto = {}
+    for n in (4, 64, 512, td.GATE_N):
+        for kind, uniform in (("faa", True), ("cas", True)):
+            auto[f"{kind}.{n}"] = [rmw_engine.select_backend(
+                kind, n, td.LOCAL_M, spec, uniform_expected=uniform,
+                dtype=torch.int32, device="cuda")
+                for spec in (rmw_engine.calibrated_spec("cuda"), final)]
+    events = [{k: v for k, v in e.items() if k != "t"} for e in buf.events
+              if e["event"].startswith("tuning.")]
+    quarantined = sorted({f for e in events
+                          if e["event"] == "tuning.quarantine"
+                          for f in e["fields"]})
+    applied = [sorted(e["fields"]) for e in events
+               if e["event"] == "tuning.apply"]
+    return dict(windows=windows, stats=stats, seconds=seconds,
+                batches=len(measured),
+                measured_kinds=len({(e["op"], e["n"], e["backend"])
+                                    for e in measured}),
+                auto_before_after=auto,
+                quarantined=quarantined,
+                applied=applied, events=events,
+                tuned_fields=stats["tuned_fields"])
+
+
+def phase_tuning():
+    """The tuning slice on the card, its own main path: the launch
+    counters reset, the `contention_observe` and `tuning` suites (their
+    gates raise inside the suites), their results checked and printed,
+    then `_tuning_probe`; the counters read after.  Raises if the
+    estimator was not fed from the device, a bit-identity run took the
+    untuned run's choices on every batch, or `slot_counts`,
+    `rmw_table_fetched` or `serial_rmw` never launched."""
+    t0 = time.perf_counter()
+    XK.reset_launches()
+    K.reset_launches()
+    results = _run_suites(list(TUNING_SUITES))
+    probe = _tuning_probe()
+    launches = {**dict(K.LAUNCHES), **dict(XK.LAUNCHES)}
+    co, tn = results["contention_observe"], results["tuning"]
+    est = co["estimator_feed"]
+    if not (est["n_updates_device"] >= 1 and est["slot_counts_launches"]
+            >= 1 and est["same_site_keys"]):
+        raise AssertionError(f"estimator feed: {est}")
+    bit = tn["bit_identity"]
+    for tier in ("local", "sharded"):
+        if not (bit[tier]["bit_equal"]
+                and bit[tier]["batches_choice_differs"] >= 1):
+            raise AssertionError(f"tuning bit identity {tier}: {bit[tier]}")
+    missing = [k for k in ("slot_counts", "rmw_table_fetched", "serial_rmw")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"never launched by the tuning phase: "
+                             f"{missing}")
+    if len(probe["windows"]) != TN_WINDOWS:
+        raise AssertionError(f"tuning probe: {probe['windows']}")
+    emit("tuning", seconds=time.perf_counter() - t0, launches=launches,
+         contention_overhead=co["overhead"], estimator_feed=est,
+         sharded_observe={k: v for k, v in co["sharded"].items()
+                          if k not in ("level_ops_in", "level_ops_out")},
+         writers_per_slot=[{k: r[k] for k in (
+             "writers_per_slot", "backend", "measured_wall_us", "kernels_us",
+             "measured_bytes_per_s", "measured_max_occupancy",
+             "predicted_serialized_bytes_per_s",
+             "predicted_combining_bytes_per_s")}
+             for r in co["model_vs_measured"]["rows"]],
+         collapse=co["model_vs_measured"]["measured_collapse_factor"],
+         convergence={k: tn["convergence"][k] for k in (
+             "windows_to_converge", "outcomes", "fields",
+             "selection_probe")},
+         rollback=tn["rollback"], quarantine=tn["quarantine"],
+         tuning_overhead={k: v for k, v in tn["overhead"].items()
+                          if k != "controller"},
+         bit_identity=bit)
+    emit("tuning_probe", **probe)
+    return launches
 
 
 def phase_telemetry(drift_result):
@@ -4633,6 +4783,10 @@ def main():
     lap("suites")
     phase_telemetry(suite_results["telemetry_drift"])
     lap("telemetry")
+    # the tuning slice's suites and live probe: its own counts, added
+    for k, v in phase_tuning().items():
+        launches[k] += v
+    lap("tuning")
     # the sharded tier last, on the local BFS's graph: its main path runs
     # inside its ranks, which reset and read their own counts, and their
     # sums join the kernels line

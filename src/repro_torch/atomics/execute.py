@@ -11,7 +11,10 @@ Port of `repro.atomics.execute`.  Dispatch:
 2. **Strategy/backend** — the cost models pick the implementation:
    `select_backend` over the engine backends for the table's device,
    `select_exchange` over the exchange strategies; ``backend=`` and
-   ``strategy=`` override them.
+   ``strategy=`` override them.  Both price with `rmw_engine.default_spec`
+   when no ``spec`` is passed, so a tuning controller's live spec steers
+   them; ``distinct_slots`` feeds the exchange selector's contention
+   hint, estimator-backed under a running controller (`execute_until`).
 3. **Semantics** — per-op-expected CAS runs on the serialized oracle
    locally, and across shards through the owner-side oracle pass.
 
@@ -22,10 +25,11 @@ Telemetry: with the stream on, each op batch records one
 ``atomics.execute`` event — tier, the backend or strategy the selectors
 pick, op, n, m, and the selector's ``predicted_s`` — and, under ``sync``,
 ``measured_s``: the host clock from a synchronised device to the result
-synchronised (`torch.cuda.synchronize` on the table's card; a CPU table
-needs none) on the local tier; a sharded batch's time is measured by
-`execute_until`'s round event, as in the reference.  The decision fields
-are cached per shape, spec and spec epoch.  ``traced`` is always False
+synchronised (`torch.cuda.synchronize` on the table's card, on the calls
+the stream's sampling period picks, `telemetry.core.sync_due`; a CPU
+table needs none) on the local tier; a sharded batch's time is measured
+by `execute_until`'s round event, as in the reference.  The decision
+fields are cached per shape, spec and spec epoch.  ``traced`` is always False
 (eager torch has no trace time; the field keeps one schema with the
 reference's events).  A local batch that collected stats also records
 ``contention.stats`` under ``sync``.
@@ -76,14 +80,15 @@ class AtomicResult(NamedTuple):
 
 def _local_exec_stats(table: Tensor, indices: Tensor, values: Tensor,
                       expected, *, op: str, backend: str, need_fetched: bool):
-    """Local execution + contention stats.  ``backend`` arrives resolved:
-    when the kernels ran the batch, the occupancy comes from the counters
-    kernel, else from the engine's bincount pass."""
+    """Local execution + contention stats.  ``backend`` arrives resolved.
+    On a card the occupancy comes from the counters kernel (``slot_counts``)
+    whichever backend ran the batch — it is the tuning estimator's device
+    feed — and on the CPU from the engine's bincount pass."""
     res = rmw_engine.execute_backend(table, indices, values, op, expected,
                                      backend=backend,
                                      need_fetched=need_fetched)
     m = table.shape[0]
-    if backend == "cuda":
+    if table.is_cuda:
         from repro_torch.kernels.rmw import ops as _kops
         occ = _kops.slot_occupancy(indices, m)
     else:
@@ -263,8 +268,11 @@ def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
     sharded = table.axis is not None
     # a sharded batch is measured by the caller that owns the round
     # (`execute_until`), as in the reference, whose sharded events are
-    # trace-time ones
-    measure = _tcore._sync and not sharded
+    # trace-time ones; on the card the calls `sync_due` samples are
+    # measured, and every call that collects stats (its contention event
+    # needs the sync boundary)
+    measure = _tcore._sync and not sharded and (
+        collect_stats or not table.data.is_cuda or _tcore.sync_due())
     measured_s = None
     # the batch is launched before the event is built, so the instrument's
     # host work overlaps the card's
@@ -279,6 +287,10 @@ def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
         out, measured_s = _measured(table, op, kw)
     else:
         out = _dispatch_one(table, op, **kw)
+    if measured_s is None and not _tcore._every_event:
+        # only measured-only sinks listen (the tuning controller's tap):
+        # an unmeasured decision event would carry nothing they read
+        return out
     data = table.data
     # the cheapest reads that fix the decision: numel of the 1-D indices
     # and table (faster than shape[0]), the raw dtype object and
@@ -344,7 +356,10 @@ def execute(table: Union[AtomicTable, Tensor],
       spec: `perf_model.HardwareSpec` override for the cost models.
       distinct_slots: sharded tier only — an observed estimate of the
         distinct slots a batch touches, the exchange selector's contention
-        hint (selection only).
+        hint (selection only).  Optional: while a
+        `repro_torch.tuning.SpecController` runs, repeated `execute_until`
+        call sites get it from the contention estimator (an EWMA over
+        their observed collision counts); pass it only to override that.
       reverse_ranks: sharded tier only — serialize ranks in *descending*
         order (the arrival order reversed at every exchange level).
       collect_stats: True additionally computes the batch's

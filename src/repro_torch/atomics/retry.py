@@ -31,8 +31,16 @@ Telemetry: with the stream on, every round records ``atomics.retry.round``
 ``predicted_s``, the round's ``measured_s`` — its fetched and success
 reads wait for the device — and round 0's observed distinct slots), and
 every call ends with ``atomics.retry.done`` and its round-count histogram,
-the contention signal.  (The tuning controller's contention estimator,
-which reads them in the reference, comes with its own slice.)
+the contention signal.
+
+Contention estimator: while a `repro_torch.tuning.SpecController` runs, each
+call feeds its site's EWMA (`tuning.estimator`, keyed by op, tier and the
+power-of-two buckets of the table's *global* slots and the batch) with
+round 0's distinct slots — from the round-0 device pass
+(`ContentionStats`, the ``slot_counts`` kernel on the card) by default, or
+from the host's ``np.unique`` — and, for CAS, with the ops resolved on
+their first attempt; a sharded call without a ``distinct_slots`` hint
+takes the estimator's.  Without a controller nothing of this runs.
 """
 
 from __future__ import annotations
@@ -144,8 +152,9 @@ class RetryResult(NamedTuple):
     whether it resolved within the round budget; ``rounds[i]`` how many
     attempts it took (1 = first try); ``pending`` the original positions
     still unresolved.  ``stats`` is round 0's
-    :class:`~repro_torch.atomics.stats.ContentionStats` when the loop was
-    asked for it (``collect_stats=True``), else None.
+    :class:`~repro_torch.atomics.stats.ContentionStats` when the loop ran
+    the device pass (``collect_stats=True``, or by default while a tuning
+    controller runs), else None.
     """
 
     table: AtomicTable
@@ -177,7 +186,7 @@ def _exec_round_sharded(table: AtomicTable, kind: str, idx, vals, exp, *,
     mesh = table.mesh
     axes = norm_axes(table.replica_axes) + norm_axes(table.axis)
     n_dev = mesh.size(axes)
-    m_global = int(table.data.shape[0]) * mesh.size(table.axis)
+    m_global = _global_m(table)
     dev = table.device
     k = len(idx)
     # a power of two a rank bounds the distinct shapes as the pending set
@@ -279,13 +288,40 @@ def _host(x, dtype) -> np.ndarray:
     return np.asarray(x).astype(dtype)
 
 
+def _host_distinct(x: np.ndarray) -> int:
+    """Round 0's distinct slots counted on the host — the estimator's
+    observation when the device pass is off (a seam tests patch to show
+    the default path skips it)."""
+    return int(np.unique(x).size)
+
+
+def _active_estimator():
+    """The running tuning controller's contention estimator, or None.
+    Probing ``sys.modules`` (not importing) keeps `repro_torch.atomics`
+    free of the tuning package unless a controller was started."""
+    import sys
+    mod = sys.modules.get("repro_torch.tuning.controller")
+    if mod is None:
+        return None
+    return mod.active_estimator()
+
+
+def _global_m(table: AtomicTable) -> int:
+    """The table's slots over the whole mesh (a sharded table's ``data``
+    is this rank's shard)."""
+    m = int(table.data.shape[0])
+    if table.is_sharded:
+        m *= table.mesh.size(table.axis)
+    return m
+
+
 def execute_until(table: Union[AtomicTable, Tensor],
                   make_ops: Callable, *,
                   max_rounds: int = 16,
                   policy: Union[str, RetryPolicy] = "immediate",
                   backend: str = "auto", strategy: str = "auto",
                   spec=None, distinct_slots: Optional[int] = None,
-                  collect_stats: bool = False,
+                  collect_stats: Optional[bool] = None,
                   sleep_fn: Callable[[float], None] = time.sleep
                   ) -> RetryResult:
     """Drive a batch of CAS loops to convergence in ``<= max_rounds`` rounds.
@@ -303,8 +339,21 @@ def execute_until(table: Union[AtomicTable, Tensor],
     The table may be local or sharded; on a sharded table every rank of
     its mesh calls `execute_until` with the same ``make_ops`` and gets the
     same result.  ``strategy`` and ``distinct_slots`` apply to the sharded
-    tier.  ``collect_stats=True`` returns round 0's contention stats in
-    ``result.stats``.
+    tier.
+
+    ``distinct_slots`` (the exchange selector's contention hint) is
+    estimator-backed: when a `repro_torch.tuning.SpecController` is running
+    and the caller passes None on a sharded table, the hint is the
+    contention estimator's EWMA over this call site's observed counts
+    (round-0 distinct slots and CAS first-attempt winners).  An explicit
+    value overrides it; without a controller None means no hint.
+
+    ``collect_stats`` controls the round-0 device pass
+    (:class:`~repro_torch.atomics.stats.ContentionStats`, returned in
+    ``result.stats``): True forces it, False forces it off, and the default
+    None turns it on exactly when an estimator is active, which then reads
+    ``distinct_slots`` from the device pass and skips the host count.
+    Results are identical in every mode.
     """
     pol = _resolve_policy(policy)
     if max_rounds < 1:
@@ -322,6 +371,19 @@ def execute_until(table: Union[AtomicTable, Tensor],
             f"atomics.Cas(indices, values, expected=...)")
     kind = op0.kind
     n = int(op0.indices.shape[0])
+    # the contention estimator, when a controller runs: the site's hint
+    # for a sharded call that passed none (selection only, like the hint)
+    est = _active_estimator()
+    est_key = None
+    if est is not None:
+        from repro_torch.tuning.estimator import site_key
+        est_key = site_key(kind, "sharded" if table.is_sharded else "local",
+                           _global_m(table), n)
+        if distinct_slots is None and table.is_sharded:
+            distinct_slots = est.hint(est_key)
+    # the device pass by default exactly when an estimator consumes it
+    use_device = collect_stats if collect_stats is not None \
+        else est is not None
     dt = torch.empty((), dtype=table.dtype).numpy().dtype
     slots = _host(op0.indices, np.int64).copy()
     values = _host(op0.values, dt).copy()
@@ -371,12 +433,15 @@ def execute_until(table: Union[AtomicTable, Tensor],
                     expected[pending] = observed[pending]
         k = max(1, min(pol.batch_size(len(pending), rnd), len(pending)))
         issue, defer = pending[:k], pending[k:]
-        collect_now = collect_stats and rnd == 0
+        collect_now = use_device and rnd == 0
         distinct_obs = None
-        if rnd == 0 and not collect_now and telemetry.enabled():
+        if rnd == 0 and not use_device and (est is not None
+                                            or telemetry.enabled()):
             # round 0's distinct slots from the host copy of the slots;
             # the device pass supersedes it when stats are collected
-            distinct_obs = int(np.unique(slots[issue]).size)
+            distinct_obs = _host_distinct(slots[issue])
+            if est is not None:
+                est.update(est_key, distinct_obs)
         t0 = time.perf_counter()
         table, fetched, ok, info, st = _exec_round(
             table, kind, slots[issue], values[issue],
@@ -385,7 +450,11 @@ def execute_until(table: Union[AtomicTable, Tensor],
             collect_stats=collect_now)
         if st is not None:
             stats0 = st
+            # the round's fetched and success reads waited for the device:
+            # this is one scalar copy
             distinct_obs = int(st.distinct_slots)
+            if est is not None:
+                est.update(est_key, distinct_obs, source="device")
         if info is not None:
             if distinct_obs is not None:
                 info["distinct_observed"] = distinct_obs
@@ -406,6 +475,11 @@ def execute_until(table: Union[AtomicTable, Tensor],
         # deferred ops (stale pre-images under a shrinking policy) trail
         pending = np.concatenate([issue[~ok], defer])
         n_rounds += 1
+    if est is not None and is_cas and n_rounds >= 1:
+        # the round histogram's view of the same quantity: ops resolved on
+        # their first attempt = one winner per contended slot + every
+        # uncontended op (CAS only: other ops resolve in one round anyway)
+        est.update(est_key, int(((rounds == 1) & success).sum()))
     if telemetry.enabled():
         tier = "sharded" if table.is_sharded else "local"
         # rounds[i] = attempts op i took; bincount over it is the per-call
@@ -419,11 +493,9 @@ def execute_until(table: Union[AtomicTable, Tensor],
         if stats0 is not None and (table.is_sharded or not _tcore._sync):
             # the loop's own sync boundary; a local batch under sync is the
             # one case `execute` already recorded: one event per batch
-            m = int(table.data.shape[0])
-            if table.is_sharded:
-                m *= table.mesh.size(table.axis)
             telemetry.record_event(_cstats.stats_to_fields(
-                stats0, tier=tier, op=kind, n=n, m=m, round=0))
+                stats0, tier=tier, op=kind, n=n, m=_global_m(table),
+                round=0))
     return RetryResult(table=table, fetched=observed, success=success,
                        rounds=rounds, n_rounds=n_rounds,
                        pending=np.sort(pending), stats=stats0)

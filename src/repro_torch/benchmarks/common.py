@@ -15,6 +15,7 @@ and a captured benchmark run feeds the same drift report as other traffic.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -72,3 +73,55 @@ def on_device(x, device, dtype=None) -> torch.Tensor:
     """A numpy array (the reference's seeded inputs) as a tensor on
     ``device``."""
     return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
+
+
+def kernel_us(fn: Callable[[], object], reps: int = REPS) -> float:
+    """Device µs a ``fn()`` call spends in CUDA kernels: the sum of the
+    kernels' durations in a `torch.profiler` trace of ``reps`` calls, over
+    ``reps`` (the host's share left out, unlike `time_s`)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / reps
+
+
+def paired_ratio(call_a: Callable[[], object], call_b: Callable[[], object],
+                 *, batch: int, n_batches: int,
+                 setup_a: Callable[[], object] = lambda: None,
+                 teardown_a: Callable[[], object] = lambda: None
+                 ) -> Dict[str, float]:
+    """Per-call host seconds of ``call_a`` against ``call_b``:
+    ``n_batches`` pairs of batches of ``batch`` calls, the two halves of a
+    pair back to back and which runs first alternating, so load drift and
+    order hit both alike.  ``overhead`` is the median over pairs of a / b
+    - 1 (host time on a machine that shares its cores wanders by tens of
+    percent between batches, far more than the costs these gates bound,
+    and a ratio within a pair cancels that); the least batch mean of each
+    side and their ratio are reported beside it.  ``setup_a`` /
+    ``teardown_a`` run around each batch of ``call_a``, outside its clock
+    (`telemetry_drift._timed_pair`'s protocol, for any two calls)."""
+    times: Dict[bool, List[float]] = {True: [], False: []}
+    for i in range(n_batches):
+        for first in ((True, False) if i % 2 == 0 else (False, True)):
+            call = call_a if first else call_b
+            if first:
+                setup_a()
+            try:
+                t0 = time.perf_counter()
+                for _ in range(batch):
+                    call()
+                times[first].append((time.perf_counter() - t0) / batch)
+            finally:
+                if first:
+                    teardown_a()
+    ratios = [a / b for a, b in zip(times[True], times[False])]
+    return {"a_us": min(times[True]) * 1e6, "b_us": min(times[False]) * 1e6,
+            "overhead": float(np.median(ratios)) - 1.0,
+            "overhead_of_minima": min(times[True]) / min(times[False]) - 1.0,
+            "pairs": n_batches, "batch": batch}

@@ -20,6 +20,15 @@ figure, in the reference's order (`benchmarks/run.py`):
   telemetry_drift   predicted vs measured per selector tier, the spec
                     proposal, the <5% overhead gate (writes
                     telemetry_drift.json under --out only)
+  contention_observe  `collect_stats=` end to end: bit identity local and
+                    on 4 ranks, the <3% noise and <5% retry overhead gates,
+                    the estimator's device feed, writers per slot against
+                    the contention model (writes contention_observe.json
+                    under --out only)
+  tuning            the guarded spec controller: convergence, rollback and
+                    quarantine, the <5% live-controller overhead gate,
+                    tuned-vs-untuned bit identity local and (full runs) on
+                    4 ranks (writes tuning.json under --out only)
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--only a,b]
         [--fast] [--device cuda|cpu] [--out DIR]
@@ -41,16 +50,16 @@ import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.benchmarks import (bandwidth, bfs, calibrate, contention,
-                                    fault_recovery, latency,
-                                    model_validation, operand_size,
+                                    contention_observe, fault_recovery,
+                                    latency, model_validation, operand_size,
                                     operands_fetched, reshard, rmw_backends,
-                                    rmw_sharded, telemetry_drift)
+                                    rmw_sharded, telemetry_drift, tuning)
 from repro_torch.benchmarks.common import Csv
 
 SUITES = ("latency", "bandwidth", "contention", "operand_size",
           "operands_fetched", "bfs", "rmw_backends", "calibrate",
           "model_validation", "rmw_sharded", "reshard", "fault_recovery",
-          "telemetry_drift")
+          "telemetry_drift", "contention_observe", "tuning")
 
 
 def run_suites(only: Optional[Sequence[str]] = None, fast: bool = False,
@@ -90,6 +99,12 @@ def run_suites(only: Optional[Sequence[str]] = None, fast: bool = False,
         "telemetry_drift": lambda: telemetry_drift.run(
             csv, fast=fast, device=device, out_path=None if out_dir is None
             else os.path.join(out_dir, "telemetry_drift.json")),
+        "contention_observe": lambda: contention_observe.run(
+            csv, fast=fast, device=device, out_path=None if out_dir is None
+            else os.path.join(out_dir, "contention_observe.json")),
+        "tuning": lambda: tuning.run(
+            csv, fast=fast, device=device, out_path=None if out_dir is None
+            else os.path.join(out_dir, "tuning.json")),
     }
     failures = []
     for name in SUITES:

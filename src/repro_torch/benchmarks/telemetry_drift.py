@@ -33,14 +33,13 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import atomics, telemetry
-from repro_torch.benchmarks.common import Csv
+from repro_torch.benchmarks.common import Csv, paired_ratio
 from repro_torch.core import rmw_engine
 from repro_torch.telemetry import drift as drift_lib
 
@@ -169,24 +168,12 @@ def _timed_pair(call, *, batch: int, n_batches: int) -> Dict[str, float]:
     for _ in range(batch):           # warm
         call()
     ring = telemetry.RingBuffer(capacity=16)
-    times: Dict[bool, List[float]] = {True: [], False: []}
-    try:
-        for i in range(n_batches):
-            for on in ((True, False) if i % 2 == 0 else (False, True)):
-                if on:
-                    telemetry.enable(ring)
-                t0 = time.perf_counter()
-                for _ in range(batch):
-                    call()
-                times[on].append((time.perf_counter() - t0) / batch)
-                telemetry.disable()
-    finally:
-        telemetry.disable()
-    ratios = [a / b for a, b in zip(times[True], times[False])]
-    return {"enabled_us": min(times[True]) * 1e6,
-            "disabled_us": min(times[False]) * 1e6,
-            "overhead": float(np.median(ratios)) - 1.0,
-            "overhead_of_minima": min(times[True]) / min(times[False]) - 1.0}
+    pair = paired_ratio(call, call, batch=batch, n_batches=n_batches,
+                        setup_a=lambda: telemetry.enable(ring),
+                        teardown_a=telemetry.disable)
+    return {"enabled_us": pair["a_us"], "disabled_us": pair["b_us"],
+            "overhead": pair["overhead"],
+            "overhead_of_minima": pair["overhead_of_minima"]}
 
 
 def overhead(device, fast: bool) -> Dict[str, object]:

@@ -25,9 +25,14 @@ when annotations are on.  The CLI's ``--telemetry ring|PATH`` (or
 ranges; render a JSONL capture with ``python -m
 repro_torch.telemetry.report PATH``.
 
-Not ported yet, and each raises `NotImplementedError`: a mesh and its
-rules (sharded training, ROADMAP queue 1 item 5); the tuning controller
-and the ``REPRO_TUNING`` hook (the tuning slice, queue 1 item 7).
+Tuning: ``tuning=`` (or ``--tuning [STATE]``, or ``REPRO_TUNING``) runs
+the steps under a `repro_torch.tuning.SpecController` on the trainer's
+device, stepped once per training step and stopped when `train` returns;
+the spec steers dispatch selection only, so losses and gradient norms are
+bit-equal to an untuned run.
+
+Not ported yet, and it raises `NotImplementedError`: a mesh and its rules
+(sharded training, ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -60,8 +65,6 @@ from repro_torch.runtime.fault_tolerance import (FaultConfig,
 log = logging.getLogger("repro_torch.train")
 
 SHARDED = "sharded training (ROADMAP queue 1 item 5)"
-TUNING = "the tuning controller ports with the tuning slice (ROADMAP " \
-    "queue 1 item 7)"
 
 
 @contextlib.contextmanager
@@ -97,11 +100,15 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
     ``REPRO_CHAOS`` env hook when None): recovery restores the latest
     *valid* checkpoint and replays, so the final state is bit-equal to a
     fault-free run.  ``device="cuda"`` needs a card: it does not fall back
-    to the CPU."""
+    to the CPU.
+
+    ``tuning``: a `repro_torch.tuning.SpecController` (started or not),
+    True for a default one on ``device``, or None to consult the
+    ``REPRO_TUNING`` env hook.  The controller is stepped once per
+    training step and stopped on exit; the result then carries its
+    ``stats()`` under ``"tuning"``."""
     if mesh is not None or rules is not None:
         raise NotImplementedError(f"mesh/rules: {SHARDED}")
-    if tuning is not None or os.environ.get("REPRO_TUNING"):
-        raise NotImplementedError(f"tuning / REPRO_TUNING: {TUNING}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train(device='cuda') needs a CUDA card; pass "
@@ -165,6 +172,12 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
     # factory above, not the initial tensors
     one_step = declare_donation(one_step, (1,))
 
+    controller = _resolve_tuning(tuning, device)
+    if controller is not None:
+        controller.start()
+        # wrap_step keeps the donation metadata declared above
+        one_step = controller.wrap_step(one_step)
+
     def save_fn(step: int, state):
         if saver is not None:
             saver.save_async(step, {"params": state[0], "opt": state[1]},
@@ -194,17 +207,39 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
         return last, (tree["params"], tree["opt"])
 
     fault_cfg = FaultConfig(checkpoint_every=checkpoint_every)
-    with deterministic_algorithms(deterministic):
-        result = run_with_recovery(one_step, fresh_state, steps, fault_cfg,
-                                   save_fn, restore_fn,
-                                   failure_injector=failure_injector,
-                                   chaos=chaos)
+    try:
+        with deterministic_algorithms(deterministic):
+            result = run_with_recovery(one_step, fresh_state, steps,
+                                       fault_cfg, save_fn, restore_fn,
+                                       failure_injector=failure_injector,
+                                       chaos=chaos)
+    finally:
+        if controller is not None:
+            controller.stop()        # detach, clear the live spec, persist
     if saver is not None:
         saver.wait()
-    return {"history": history, "steps_done": result.steps_done,
-            "failures": result.failures,
-            "backoff_total_s": result.backoff_total_s,
-            "final_loss": history[-1]["loss"] if history else None}
+    out = {"history": history, "steps_done": result.steps_done,
+           "failures": result.failures,
+           "backoff_total_s": result.backoff_total_s,
+           "final_loss": history[-1]["loss"] if history else None}
+    if controller is not None:
+        out["tuning"] = controller.stats()
+    return out
+
+
+def _resolve_tuning(tuning, device):
+    """None → the ``REPRO_TUNING`` env hook; True → a default controller;
+    a `SpecController` passes through.  The tuning package is imported
+    only when one is asked for."""
+    if tuning is None:
+        if not os.environ.get("REPRO_TUNING", "").strip():
+            return None
+        from repro_torch.tuning import from_env
+        return from_env(device=device)
+    if tuning is True:
+        from repro_torch.tuning import SpecController
+        return SpecController(device=device)
+    return tuning
 
 
 def main(argv=None) -> None:
@@ -231,7 +266,12 @@ def main(argv=None) -> None:
                          "REPRO_TELEMETRY); render a capture with `python "
                          "-m repro_torch.telemetry.report`")
     ap.add_argument("--tuning", nargs="?", const="on", default=None,
-                    metavar="STATE", help=f"not ported yet: {TUNING}")
+                    metavar="STATE",
+                    help="run under a repro_torch.tuning.SpecController "
+                         "(guarded live HardwareSpec updates from the run's "
+                         "own drift telemetry); optional value = state file "
+                         "the tuned spec persists/restores through (same as "
+                         "REPRO_TUNING)")
     ap.add_argument("--profile-annotations", action="store_true",
                     help="open torch.profiler ranges around steps, atomics "
                          "dispatch and migrations (needs --telemetry)")
@@ -243,13 +283,18 @@ def main(argv=None) -> None:
     else:
         telemetry.enable_from_env()
     chaos = FaultPlan.from_spec(args.chaos) if args.chaos else None
+    tuning = None
+    if args.tuning is not None:
+        from repro_torch.tuning import SpecController
+        tuning = SpecController(
+            state_path=None if args.tuning == "on" else args.tuning,
+            device=args.device)
     try:
         out = train(args.arch, steps=args.steps, seq_len=args.seq_len,
                     global_batch=args.global_batch, reduced=not args.full,
                     ckpt_dir=args.ckpt_dir, lr=args.lr,
                     microbatches=args.microbatches, chaos=chaos,
-                    tuning=True if args.tuning is not None else None,
-                    device=args.device)
+                    tuning=tuning, device=args.device)
     finally:
         if telemetry.enabled():
             telemetry.disable()      # flush and close the JSONL capture

@@ -22,9 +22,8 @@ Sites (the first five are visited by ``run_with_recovery`` in loop order;
     ckpt_restore      before restore_fn: a restore attempt that dies
     reshard           before reshard_fn: elastic migration failure
     spec_perturb      tuning update cycle: poison the live HardwareSpec /
-                      skew the drift window (the reference's
-                      `repro.tuning.SpecController`; the port's tuning
-                      layer waits)
+                      skew the drift window
+                      (`repro_torch.tuning.SpecController`)
 
 Determinism contract: whether visit ``k`` of site ``s`` fires is a pure
 function of ``(seed, s, k)`` — every site draws from its own independent

@@ -14,8 +14,8 @@ atomics stack, the recovery loop and the trainer report into:
   capture.
 
 Event catalogue, the reference's (the port emits every event whose
-producer it has; ``analysis.finding`` and ``tuning.*`` come from the
-reference's static analysis and tuning controller):
+producer it has; ``analysis.finding`` comes from the reference's static
+analysis, ``tuning.*`` from `repro_torch.tuning.SpecController`):
 
 ====================  =====================================================
 ``atomics.execute``   one per `atomics.execute` op batch: tier,

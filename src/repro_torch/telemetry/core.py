@@ -25,6 +25,18 @@ Eager PyTorch has no trace time: every instrumented call is a host-side
 call, so events carry ``traced=False`` (the field is kept so both packages'
 events share one schema), and measured wall times come from the call sites
 under ``sync``, which synchronise the card before reading the clock.
+A measured call costs an H100's host 65-85 µs more than an unmeasured
+one (two synchronisations, and the event built after the device finished
+instead of beside it), so a sink installed with sync may ask for one call
+on the card in ``Sink.sync_every`` to be measured (`sync_due`: one call at
+a seeded random place in each run of ``k``, so traffic that repeats with a
+period is sampled whole); the stream takes the least period among the
+sinks installed with sync.  A consumer that leaves the stream on (the
+tuning controller) asks for more than 1; a plain sink, and so every
+capture, for every call.  A CPU call needs no synchronisation and is
+always measured.  Building an event costs the card's host a few µs too,
+so while every installed sink is ``Sink.measured_only`` an unmeasured call
+builds none.
 
 Thread safety: sink dispatch holds one module lock; sinks themselves need
 no internal locking.  Enabling/disabling swaps the sink tuple atomically.
@@ -37,6 +49,7 @@ import contextlib
 import io
 import json
 import os
+import random
 import threading
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
@@ -49,7 +62,29 @@ _lock = threading.Lock()
 _sinks: Tuple["Sink", ...] = ()
 _enabled: bool = False          # the one hot-path guard
 _sync: bool = False             # synchronise the device around measured calls
+_synced: Tuple["Sink", ...] = ()  # the sinks installed with sync
+_sync_every: int = 1            # ... measure one call on the card in this many
+_sync_tick: int = 0             # place in the current run of _sync_every
+_sync_pick: int = 0             # ... and the place measured in it
+_sampler = random.Random(0)
+_every_event: bool = False      # some sink reads unmeasured events too
 _annotate: bool = False         # torch.profiler ranges at dispatch
+
+
+def _wants_every(sinks) -> bool:
+    return any(not getattr(s, "measured_only", False) for s in sinks)
+
+
+def _set_period(synced) -> None:
+    """Recompute the sampling period from the sinks installed with sync
+    (caller holds the lock)."""
+    global _synced, _sync_every, _sync_tick, _sync_pick
+    _synced = tuple(synced)
+    every = min((max(1, int(getattr(s, "sync_every", 1))) for s in _synced),
+                default=1)
+    if every != _sync_every:
+        _sync_every, _sync_tick = every, 0
+        _sync_pick = _sampler.randrange(every)
 
 
 # ---------------------------------------------------------------------------
@@ -60,7 +95,16 @@ class Sink:
     """One consumer of the event stream.  ``emit`` is called under the
     module lock with a flat dict (the caller owns the dict; copy if you
     retain it past the call — the built-in sinks retain it as-is since
-    instrumentation never mutates an emitted event)."""
+    instrumentation never mutates an emitted event).
+
+    ``measured_only`` declares a sink that reads only events carrying a
+    measured time (the tuning controller's tap): while every installed
+    sink says so, an eager `execute` that was not measured skips building
+    its decision event.  ``sync_every``: installed with sync, the sink asks
+    for one call on the card in this many to be measured."""
+
+    measured_only = False
+    sync_every = 1
 
     def emit(self, event: Dict[str, Any]) -> None:
         raise NotImplementedError
@@ -195,6 +239,21 @@ def sync_enabled() -> bool:
     return _enabled and _sync
 
 
+def sync_due() -> bool:
+    """Whether to measure this call on the card (the caller asks only under
+    sync): one call in each run of ``_sync_every`` asking calls, at a place
+    drawn from a seeded generator for each run."""
+    global _sync_tick, _sync_pick
+    if _sync_every <= 1:
+        return True
+    due = _sync_tick == _sync_pick
+    _sync_tick += 1
+    if _sync_tick >= _sync_every:
+        _sync_tick = 0
+        _sync_pick = _sampler.randrange(_sync_every)
+    return due
+
+
 def annotations_enabled() -> bool:
     """True when dispatch sites should open ``torch.profiler`` ranges
     (named regions in a profiler trace)."""
@@ -211,17 +270,19 @@ def enable(*sinks: Sink, sync: bool = False, annotate: bool = False) -> None:
     ranges around engine dispatch / exchange collectives / migrations /
     train steps.
     """
-    global _sinks, _enabled, _sync, _annotate
+    global _sinks, _enabled, _sync, _annotate, _every_event
     with _lock:
         _sinks = tuple(sinks) or (RingBuffer(),)
+        _every_event = _wants_every(_sinks)
         _sync = bool(sync)
+        _set_period(_sinks if sync else ())
         _annotate = bool(annotate)
         _enabled = True
 
 
 def disable() -> None:
     """Turn the stream off and close the installed sinks."""
-    global _sinks, _enabled, _sync, _annotate
+    global _sinks, _enabled, _sync, _annotate, _every_event
     with _lock:
         for s in _sinks:
             try:
@@ -229,8 +290,10 @@ def disable() -> None:
             except Exception:  # noqa: BLE001 — teardown must not raise
                 pass
         _sinks = ()
+        _every_event = False
         _enabled = False
         _sync = False
+        _set_period(())
         _annotate = False
 
 
@@ -240,13 +303,17 @@ def add_sink(sink: Sink, *, sync: Optional[bool] = None,
     on (contrast `enable`, which replaces the sink set).  ``sync``/
     ``annotate`` only ever widen the current flags — a live consumer (the
     tuning controller) must not silently strip another consumer's settings.
-    Pair with `remove_sink`."""
-    global _sinks, _enabled, _sync, _annotate
+    With ``sync`` the sink's ``sync_every`` joins the sampling period (the
+    least among the sinks installed with sync).  Pair with `remove_sink`."""
+    global _sinks, _enabled, _sync, _annotate, _every_event
     with _lock:
         if sink not in _sinks:
             _sinks = _sinks + (sink,)
-        if sync is not None:
-            _sync = _sync or bool(sync)
+        _every_event = _wants_every(_sinks)
+        if sync:
+            _sync = True
+            if sink not in _synced:
+                _set_period(_synced + (sink,))
         if annotate is not None:
             _annotate = _annotate or bool(annotate)
         _enabled = True
@@ -256,10 +323,12 @@ def remove_sink(sink: Sink, *, close: bool = False) -> bool:
     """Detach one sink installed via `add_sink`/`enable`.  When the last
     sink goes, the stream turns fully off (flags reset).  Returns True if
     the sink was installed."""
-    global _sinks, _enabled, _sync, _annotate
+    global _sinks, _enabled, _sync, _annotate, _every_event
     with _lock:
         had = any(s is sink for s in _sinks)
         _sinks = tuple(s for s in _sinks if s is not sink)
+        _every_event = _wants_every(_sinks)
+        _set_period(s for s in _synced if s is not sink)
         if not _sinks:
             _enabled = False
             _sync = False
@@ -287,11 +356,14 @@ def capture(sink: Optional[Sink] = None, *, sync: bool = False,
             atomics.execute(...)
         events = buf.events
     """
-    global _sinks, _enabled, _sync, _annotate
+    global _sinks, _enabled, _sync, _annotate, _every_event
     target = sink if sink is not None else RingBuffer()
     with _lock:
-        prev = (_sinks, _enabled, _sync, _annotate)
+        prev = (_sinks, _enabled, _sync, _annotate, _synced, _every_event)
         _sinks = prev[0] + (target,)
+        _every_event = _wants_every(_sinks)
+        if sync:
+            _set_period(_synced + (target,))
         _sync = bool(sync) or _sync
         _annotate = bool(annotate) or _annotate
         _enabled = True
@@ -299,7 +371,8 @@ def capture(sink: Optional[Sink] = None, *, sync: bool = False,
         yield target
     finally:
         with _lock:
-            _sinks, _enabled, _sync, _annotate = prev
+            _sinks, _enabled, _sync, _annotate, _, _every_event = prev
+            _set_period(prev[4])
         if sink is None:
             pass                      # caller keeps the buffer; nothing to close
         # an explicitly passed sink stays open — its owner closes it

@@ -15,8 +15,11 @@ two-layer gemma_2b train step in f32 against f64, deepseek_v3's MLA layer
 at full width in f32 against f64, a backward through the flash and SSD
 kernels' wrappers raising, and deterministic backward passes bit-equal;
 the flash kernel at qwen2_vl_2b's and whisper_small's shapes (non-causal
-encoder, cross-attention prefill and split-KV decode), and telemetry's
-measured time of a ``cuda``-backend `execute` against the kernel's.
+encoder, cross-attention prefill and split-KV decode), telemetry's
+measured time of a ``cuda``-backend `execute` against the kernel's; and
+tuning: tuned int32 runs under a live controller bit-equal to untuned ones
+that took other backends, the estimator fed from the ``slot_counts``
+kernel, and a swap moving the next `execute`'s auto decision.
 This file imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \
@@ -1245,3 +1248,131 @@ def test_execute_measured_time_covers_the_kernel(cuda_device):
     measured = sum(e["measured_s"] for e in evs)
     assert measured >= kernel_s > 0, (measured, kernel_s)
     assert all(e["predicted_s"] > 0 for e in evs)
+
+
+def _tuned_workload(device, controller):
+    """int32 FAA with a fetched sum (16 ops over 64 slots a step, probes
+    forced onto ``onehot`` and ``serialized``) plus a contended CAS loop
+    (256 ops over 32 slots) twice, under ``controller`` when given."""
+    import hashlib
+
+    from repro_torch.benchmarks import tuning as T
+    table, acc = T.workload(controller, device)
+    idx = torch.as_tensor(np.tile(np.arange(32, dtype=np.int32), 8),
+                          device=device)
+
+    def make_ops(slots, observed):
+        if slots is None:
+            return atomics.Cas(idx, torch.ones_like(idx),
+                               expected=torch.zeros_like(idx))
+        return observed + 1
+
+    h = hashlib.sha256(table.tobytes())
+    tab = atomics.make_table(64, torch.int32, device=device)
+    for _ in range(2):
+        res = atomics.execute_until(tab, make_ops, max_rounds=16)
+        tab = res.table
+        for a in (res.fetched, res.success, res.rounds):
+            h.update(np.ascontiguousarray(a).tobytes())
+        if controller is not None:
+            controller.step()
+    h.update(tab.data.cpu().numpy().tobytes())
+    return h.hexdigest(), acc
+
+
+@pytest.mark.gpu
+def test_tuned_int32_runs_bit_equal_to_untuned_on_the_card(cuda_device,
+                                                           tmp_path):
+    """A live controller on the card (restored from a state that moves
+    the FAA batch's backend, then swapping on its windows): the results
+    bit-equal to an untuned run's, another backend on at least one batch,
+    the estimator fed from the device with `slot_counts` launched."""
+    from repro_torch import telemetry
+    from repro_torch.benchmarks import tuning as T
+    from repro_torch.tuning import SpecController, TuningConfig
+    path = str(tmp_path / "flip.json")
+    T.flip_state(path, "cuda", [("faa", 16, 64)])
+    _tuned_workload("cuda", None)                 # warm: kernels built
+    with telemetry.capture() as base_buf:
+        base = _tuned_workload("cuda", None)
+    counts = K.LAUNCHES["slot_counts"]
+    cfg = TuningConfig(min_events=8, min_samples=1, cooldown_updates=0)
+    with telemetry.capture(sync=True) as buf:     # every call measured
+        with SpecController(cfg, state_path=path, device="cuda") as ctrl:
+            tuned = _tuned_workload("cuda", ctrl)
+            est = ctrl.estimator
+            stats = ctrl.stats()
+    assert tuned == base
+    a, b = T._choices(base_buf.events), T._choices(buf.events)
+    assert len(a) == len(b) and sum(x != y for x, y in zip(a, b)) >= 1
+    assert est.n_updates_device >= 2 and len(est) == 1
+    assert K.LAUNCHES["slot_counts"] - counts >= 2
+    assert stats["updates"] >= 4           # live windows, not only the restore
+    assert stats["applied"] >= 1           # ... and at least one live swap
+
+
+@pytest.mark.gpu
+def test_swap_changes_the_next_auto_decision_on_the_card(cuda_device):
+    """FAA 256 over 64 slots picks ``sort`` under the H100 priors; one
+    applied window of ``onehot`` drift 2x slow doubles `gather_elem_s`,
+    and the next `execute` on the card picks another backend."""
+    import dataclasses
+
+    from repro_torch import telemetry
+    from repro_torch.core import rmw_engine
+    from repro_torch.tuning import SpecController, TuningConfig
+    tbl = atomics.make_table(64, torch.int32, device=cuda_device)
+    op = atomics.Faa(torch.arange(256, device=cuda_device,
+                                  dtype=torch.int32) % 64,
+                     torch.ones(256, device=cuda_device, dtype=torch.int32))
+    want = atomics.execute(tbl, op, backend="sort")
+    cfg = TuningConfig(min_events=8, min_samples=2, cooldown_updates=0)
+    with telemetry.capture() as buf:
+        with SpecController(cfg, device="cuda") as ctrl:
+            first = atomics.execute(tbl, op)
+            for _ in range(8):
+                telemetry.record("atomics.execute", tier="local",
+                                 backend="onehot", op="faa", n=256,
+                                 predicted_s=1e-5, measured_s=2e-5)
+            assert ctrl.step() == "apply"
+            assert ctrl.active == dataclasses.replace(
+                ctrl.base, gather_elem_s=2 * ctrl.base.gather_elem_s)
+            second = atomics.execute(tbl, op)
+    evs = [e for e in buf.events if e["event"] == "atomics.execute"
+           and e.get("traced") is False]         # the real calls
+    assert len(evs) == 2 and evs[0]["backend"] == "sort"
+    assert evs[-1]["backend"] != "sort"
+    assert evs[-1]["backend"] == rmw_engine.select_backend(
+        "faa", 256, 64, ctrl.active, dtype=torch.int32, device="cuda")
+    for got in (first, second):
+        assert torch.equal(got.table.data, want.table.data)
+        assert torch.equal(got.fetched, want.fetched)
+
+
+@pytest.mark.gpu
+def test_sync_every_measures_one_call_in_k_on_the_card(cuda_device):
+    """Beside a sink of ``sync_every`` 4, 8 eager calls on the card record
+    8 decision events, one measured in each run of 4; a call that collects
+    stats is always measured (its contention event needs the sync
+    boundary)."""
+    from repro_torch import telemetry
+    from repro_torch.telemetry import core
+    tbl = atomics.make_table(64, torch.int32, device=cuda_device)
+    op = atomics.Faa(torch.arange(16, device=cuda_device,
+                                  dtype=torch.int32),
+                     torch.ones(16, device=cuda_device, dtype=torch.int32))
+    ring = telemetry.RingBuffer()
+    ring.sync_every = 4
+    telemetry.add_sink(ring, sync=True)
+    assert core._sync_every == 4 and core._sync_tick == 0
+    try:
+        for _ in range(8):
+            atomics.execute(tbl, op)
+        atomics.execute(tbl, op, collect_stats=True)
+    finally:
+        telemetry.remove_sink(ring)
+    execs = [e for e in ring.events if e["event"] == "atomics.execute"]
+    assert len(execs) == 9
+    measured = [("measured_s" in e) for e in execs]
+    assert sum(measured[:4]) == sum(measured[4:8]) == 1 and measured[8]
+    assert [e["event"] for e in ring.events].count("contention.stats") == 1

@@ -359,17 +359,24 @@ def test_chaos_run_is_bit_equal_to_a_clean_one(tmp_path):
         np.testing.assert_array_equal(ca[key], cb[key], err_msg=key)
 
 
-def test_unported_options_raise(monkeypatch):
+def test_unported_options_raise(monkeypatch, capsys):
+    """A mesh and its rules still raise (sharded training, item 5); the
+    tuning options, which raised until the tuning slice, now run: a
+    controller per call, its stats in the result, no live spec left."""
+    from repro_torch.core import rmw_engine
     with pytest.raises(NotImplementedError, match="item 5"):
         ttrain.train("gemma_2b", steps=1, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttrain.train("gemma_2b", steps=1, tuning=True, device="cpu")
+    kw = dict(steps=1, seq_len=8, global_batch=2, device="cpu")
+    assert "tuning" in ttrain.train("gemma_2b", tuning=True, **kw)
     monkeypatch.setenv("REPRO_TUNING", "on")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttrain.train("gemma_2b", steps=1, device="cpu")
+    assert "tuning" in ttrain.train("gemma_2b", **kw)
     monkeypatch.delenv("REPRO_TUNING")
-    with pytest.raises(NotImplementedError, match="tuning slice"):
-        ttrain.main(["--arch", "gemma_2b", "--device", "cpu", "--tuning"])
+    assert "tuning" not in ttrain.train("gemma_2b", **kw)
+    ttrain.main(["--arch", "gemma_2b", "--device", "cpu", "--tuning",
+                 "--steps", "1", "--seq-len", "8", "--global-batch", "2"])
+    got = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert got["tuning"]["updates"] >= 0
+    assert rmw_engine.live_spec() is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA card"):
         ttrain.train("gemma_2b", steps=1)
