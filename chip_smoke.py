@@ -97,7 +97,16 @@ convergence, rollback and quarantine; tuned int32 runs bit-equal to
 untuned runs that took other backends, locally and on 4 ranks), then a
 default controller over the telemetry suite's local traffic for 12
 update windows (`tuning_probe`: each window's outcome, the fields tuned
-at the end, and what auto picks before and after).
+at the end, and what auto picks before and after).  Last, sharded
+training (`train_sharded`, no kernel launched): 4 ranks sharing the card
+on a 2x2 ``("data", "model")`` mesh over gloo, gemma_2b at full width,
+8 x 256 tokens; 3 sharded steps in f32 at 2 layers held to the local
+step (losses and grad norms, every gathered parameter, clipping in a
+step), one step on an unevenly masked batch beside a mean-of-means
+control that must fail, `train(mesh=...)` in bf16 at 4 layers (step ms
+by gather, compute and reduce; host-staged collectives; peak memory per
+rank), and `train(mesh=...)` under chaos bit-equal to a clean sharded
+run.
 A `timeline` line gives each phase's seconds.
 
 Phases print one JSON line each (`{"phase": ...}`); every phase raises on a
@@ -4518,6 +4527,339 @@ def phase_train_mm():
 
 
 # ---------------------------------------------------------------------------
+# 17b. sharded training: 4 ranks sharing the card on a 2x2 mesh
+# ---------------------------------------------------------------------------
+
+# gemma_2b at full width on 2x2 ("data", "model"): fsdp splits over data,
+# heads / ffn / vocab over model where they divide (its one KV head does
+# not: wk and wv stay whole along model); the global batch 8 x 256 splits
+# over data, 4 sequences a rank
+TS_WORLD, TS_SHAPE, TS_AXES = 4, (2, 2), ("data", "model")
+TS_F32_LAYERS, TS_STEPS = 2, 3
+TS_BF16_LAYERS, TS_BF16_STEPS = 4, 3
+# sharded against local in f32 (TF32 off, deterministic algorithms): the
+# loss and the grad norm are sums in another order (rtol 1e-5, as
+# `train_check`), each gathered parameter leaf after 3 steps within
+# relative L2 1e-4 (`train_check`'s per-leaf bound)
+TS_RTOL, TS_LEAF_TOL = 1e-5, 1e-4
+TS_CHAOS = "seed=3,step=1.0@2,ckpt_save=1.0@1"
+TS_CHAOS_STEPS = 6
+
+
+def _ts_cfg(dtype, layers):
+    from repro_torch.configs import get_config
+    return get_config(T_ARCH).replace(dtype=dtype, n_layers=layers)
+
+
+def _ts_opt(steps):
+    """`launch.train.train`'s AdamW for a run of ``steps``."""
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(lr=3e-4, warmup_steps=min(20, steps // 5 + 1),
+                       total_steps=steps)
+
+
+def _ts_masked(batch):
+    """The batch with its first half of rows 90% masked: on 2x2 the cut of
+    data index 0 holds about a tenth of the other's valid labels."""
+    labels = batch["labels"].clone()
+    b, s = labels.shape
+    labels[: b // 2, : (9 * s) // 10] = -100
+    return dict(batch, labels=labels)
+
+
+def _ts_model(cfg):
+    return LM(cfg, device="cuda", seed=0, use_kernel=False,
+              attn_impl="chunked", remat_policy="none", loss_chunk=2048)
+
+
+def _ts_bytes(specs, model, mesh, opt_bytes):
+    """GiB a rank holds: the whole parameters (the gathered workspace),
+    their f32 gradients, and its blocks of the parameters plus master and
+    moments (``opt_bytes`` a parameter element)."""
+    whole = blocks = grads = 0
+    for name, p in model.named_parameters():
+        n = p.numel()
+        split = math.prod(mesh.size(e) for e in specs[name] if e)
+        whole += n * p.element_size()
+        grads += n * 4
+        blocks += n // split * (p.element_size() + opt_bytes)
+    return {"params_whole": whole / 2 ** 30, "grads_f32": grads / 2 ** 30,
+            "blocks": blocks / 2 ** 30,
+            "total": (whole + grads + blocks) / 2 ** 30}
+
+
+def _train_sharded_rank(mesh, tmp):
+    """One rank of `train_sharded`: (a) 3 sharded steps in f32 at 2 layers
+    (`make_sharded_train_step`, the trainer's step), each gathered
+    parameter held by rank 0 against the local run's (``tmp/local.pt``),
+    then one step on the masked batch from the same weights, weighted by
+    counts and as a mean of the ranks' means; (b) `train(mesh=...)` in
+    bf16 at `TS_BF16_LAYERS` layers; (c) `train(mesh=...)` on the reduced
+    config with checkpoints, clean and under `TS_CHAOS`."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import gather_full, shard_of
+    from repro_torch.launch.shardings import arch_rules, params_shardings
+    from repro_torch.launch.steps import make_sharded_train_step
+    from repro_torch.optim.adamw import init_state
+    from repro_torch.runtime.chaos import FaultPlan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = dict(rank=mesh.rank, host_staged=list(mesh.probe(dev)))
+    for mod in (K, SK, FK, XK):
+        mod.reset_launches()
+    # (a) f32 against the local step
+    cfg = _ts_cfg("float32", TS_F32_LAYERS)
+    opt = _ts_opt(TS_STEPS)
+    rules = arch_rules(cfg, mesh, "train")
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    with train_mod.deterministic_algorithms(True):
+        model = _ts_model(cfg)
+        step = make_sharded_train_step(model, opt, mesh, rules)
+        specs = step.specs
+        init = {n: shard_of(p.detach(), specs[n], mesh)
+                for n, p in model.named_parameters()}
+
+        def fresh():
+            params = {n: b.clone() for n, b in init.items()}
+            return params, init_state(params, opt)
+
+        params, state = fresh()
+        hist = []
+        for i in range(TS_STEPS):
+            params, state, m = step(params, state,
+                                    _train_batch(cfg.vocab_size, i))
+            hist.append({k: float(v) for k, v in m.items()})
+        del state
+        torch.cuda.empty_cache()
+        # each leaf gathered, and held by rank 0 against the local one (f32
+        # norms: a 2 GiB leaf in f64 twice would not fit beside the ranks)
+        local = (torch.load(os.path.join(tmp, "local.pt"), mmap=True)
+                 if mesh.rank == 0 else None)
+        leaf_err = {}
+        for name in list(params):
+            whole = gather_full(params[name], specs[name], mesh)
+            if local is not None:
+                ref_leaf = local[name].to(dev)
+                leaf_err[name] = float(
+                    torch.linalg.vector_norm(whole - ref_leaf)
+                    / torch.linalg.vector_norm(ref_leaf))
+                del ref_leaf
+            del whole
+        del params, local
+        control = {}
+        masked = _ts_masked(_train_batch(cfg.vocab_size, 0))
+        for tag, mm in (("masked", False), ("mean_of_means", True)):
+            params, state = fresh()
+            one = make_sharded_train_step(model, opt, mesh, rules,
+                                          mean_of_means=mm)
+            m = one(params, state, masked)[2]
+            control[tag] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+            del params, state, one, m
+        out["f32"] = dict(history=hist, leaf_rel_l2=leaf_err,
+                          control=control, specs={
+                              n: [list(e) if isinstance(e, tuple) else e
+                                  for e in s] for n, s in specs.items()},
+                          memory_reckoned_gib=_ts_bytes(specs, model, mesh,
+                                                        12),
+                          peak_gib=torch.cuda.max_memory_allocated()
+                          / 2 ** 30)
+        del model, step, init
+    torch.cuda.empty_cache()
+    seconds = {"f32": time.perf_counter() - start}
+    # (b) bf16 through the trainer
+    real = train_mod.get_config
+    train_mod.get_config = lambda arch: _ts_cfg("bfloat16", TS_BF16_LAYERS)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ex0 = mesh.exchange_s
+        t0 = time.perf_counter()
+        got = train_mod.train(T_ARCH, steps=TS_BF16_STEPS, seq_len=T_SEQ,
+                              global_batch=T_BATCH, reduced=False, mesh=mesh,
+                              log_every=1, device="cuda")
+        out["bf16"] = dict(history=got["history"],
+                           wall_s=time.perf_counter() - t0,
+                           exchange_s=mesh.exchange_s - ex0,
+                           peak_gib=torch.cuda.max_memory_allocated()
+                           / 2 ** 30)
+        del got
+    finally:
+        train_mod.get_config = real
+    model = LM(_ts_cfg("bfloat16", TS_BF16_LAYERS), device="meta")
+    out["bf16"]["memory_reckoned_gib"] = _ts_bytes(
+        params_shardings(model.cfg, dict(model.named_parameters()), mesh,
+                         arch_rules(model.cfg, mesh)), model, mesh, 12)
+    del model
+    torch.cuda.empty_cache()
+    seconds["bf16"] = time.perf_counter() - start - seconds["f32"]
+    # (c) chaos against clean, the reduced config, checkpoints every 2 steps
+    for tag, chaos in (("clean", None), ("chaos", TS_CHAOS)):
+        got = train_mod.train(
+            T_ARCH, steps=TS_CHAOS_STEPS, seq_len=T_SEQ,
+            global_batch=T_BATCH, mesh=mesh, log_every=1, device="cuda",
+            ckpt_dir=os.path.join(tmp, tag), checkpoint_every=2,
+            chaos=FaultPlan.from_spec(chaos) if chaos else None)
+        out[tag] = {k: got[k] for k in ("final_loss", "failures",
+                                         "steps_done")}
+    out["launches"] = {k: v for mod in (K, SK, FK, XK)
+                       for k, v in mod.LAUNCHES.items() if v}
+    seconds["chaos"] = time.perf_counter() - start - sum(seconds.values())
+    out["seconds"] = seconds
+    return out
+
+
+def phase_train_sharded():
+    """Sharded training on 4 ranks sharing the card (gloo) on a 2x2
+    ``("data", "model")`` mesh, gemma_2b at full width (d_model 2048, ffn
+    16,384, vocab 256,000), the global batch 8 x 256.  (a) f32 at 2
+    layers, 3 steps: the losses and grad norms within `TS_RTOL` of the
+    local step's on the same weights and batches, every gathered
+    parameter within relative L2 `TS_LEAF_TOL`, clipping active in a
+    step; one step on a batch whose first half of rows is 90% masked,
+    weighted by the all-reduced counts, must pass the same loss and
+    grad-norm check, and the control (a mean of the ranks' means) must
+    fail it.  (b) `train(mesh=...)` in bf16 at `TS_BF16_LAYERS` layers:
+    step ms split into gather, compute and reduce, the host-staged
+    collectives, peak memory per rank, losses finite and falling.  (c)
+    `train(mesh=...)` on the reduced config under `TS_CHAOS`: failures,
+    and every leaf of the final checkpoint bit-equal to a clean sharded
+    run's.  No kernel may launch, here or in the ranks."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import ranks
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import deterministic_algorithms
+    from repro_torch.optim.adamw import init_state
+    cfg = _ts_cfg("float32", TS_F32_LAYERS)
+    opt = _ts_opt(TS_STEPS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        t0 = time.perf_counter()
+        with _no_kernel_launched("train_sharded"), \
+                deterministic_algorithms(True):
+            model = _ts_model(cfg)
+            init = {n: p.detach().clone()
+                    for n, p in model.named_parameters()}
+            step = make_train_step(model, opt)
+            params = dict(model.named_parameters())
+            state = init_state(params, opt)
+            local = []
+            for i in range(TS_STEPS):
+                params, state, m = step(params, state,
+                                        _train_batch(cfg.vocab_size, i))
+                local.append({k: float(m[k])
+                              for k in ("loss", "grad_norm", "lr")})
+            torch.save({n: p.detach().cpu() for n, p in params.items()},
+                       os.path.join(tmp, "local.pt"))
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(init[n])
+            del init, state
+            m = step(params, init_state(params, opt),
+                     _ts_masked(_train_batch(cfg.vocab_size, 0)))[2]
+            local_masked = {k: float(m[k]) for k in ("loss", "grad_norm")}
+            del model, step, params, m
+        local_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        parent_gib = torch.cuda.memory_allocated() / 2 ** 30
+        t1 = time.perf_counter()
+        # four ranks' transients on one card: grow segments, not new ones
+        env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            out = ranks.launch(f"{os.path.abspath(__file__)}:"
+                               f"_train_sharded_rank", TS_WORLD,
+                               mesh=(TS_SHAPE, TS_AXES), device="cuda",
+                               args=(tmp,), timeout=900)
+        finally:
+            if env is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+        ranks_s = time.perf_counter() - t1
+        ckpts = {tag: _final_checkpoint(os.path.join(tmp, tag))
+                 for tag in ("clean", "chaos")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = []
+    a = out[0]["f32"]
+    for o in out:
+        if o["launches"]:
+            bad.append(f"rank {o['rank']} launched kernels: {o['launches']}")
+        if [h["loss"] for h in o["f32"]["history"]] != \
+                [h["loss"] for h in a["history"]]:
+            bad.append(f"rank {o['rank']}'s losses differ from rank 0's")
+
+    def off(got, want):
+        return [k for k in ("loss", "grad_norm")
+                if abs(got[k] - want[k]) > TS_RTOL * abs(want[k])]
+
+    step_off = {i: off(g, w) for i, (g, w) in enumerate(zip(a["history"],
+                                                            local))}
+    if any(step_off.values()):
+        bad.append(f"sharded steps off the local ones: {step_off}")
+    worst = max(a["leaf_rel_l2"], key=a["leaf_rel_l2"].get)
+    if a["leaf_rel_l2"][worst] > TS_LEAF_TOL:
+        bad.append(f"gathered {worst} off the local run by "
+                   f"{a['leaf_rel_l2'][worst]}")
+    clipped = [h["grad_norm"] > _ts_opt(TS_STEPS).grad_clip
+               for h in a["history"]]
+    if not any(clipped):
+        bad.append(f"no step clipped: {[h['grad_norm'] for h in local]}")
+    masked_off = off(a["control"]["masked"], local_masked)
+    control_off = off(a["control"]["mean_of_means"], local_masked)
+    if masked_off:
+        bad.append(f"masked batch off the local step: {masked_off}")
+    if not control_off:
+        bad.append("the mean-of-means control passed")
+    b = out[0]["bf16"]
+    losses = [h["loss"] for h in b["history"]]
+    if len(losses) != TS_BF16_STEPS or not all(map(math.isfinite, losses)) \
+            or not losses[-1] < losses[0]:
+        bad.append(f"bf16 losses: {losses}")
+    (sa, ca), (sb, cb) = ckpts["clean"], ckpts["chaos"]
+    differ = sorted(k for k in ca if not np.array_equal(ca[k], cb[k]))
+    clean, chaos = out[0]["clean"], out[0]["chaos"]
+    if chaos["failures"] < 1 or clean["failures"] != 0 or differ \
+            or sa != sb or clean["final_loss"] != chaos["final_loss"]:
+        bad.append(f"chaos not bit-equal to clean: {clean} {chaos} "
+                   f"leaves {differ}")
+    hist = b["history"][1:]          # the first step warms up
+    split = {k[:-2]: 1e3 * float(np.median([h[k] for h in hist]))
+             for k in ("gather_s", "compute_s", "reduce_s")}
+    emit("train_sharded", arch=T_ARCH, mesh=dict(zip(TS_AXES, TS_SHAPE)),
+         ranks=TS_WORLD, d_model=cfg.d_model, ffn=cfg.d_ff,
+         vocab=cfg.vocab_size, seq_len=T_SEQ, global_batch=T_BATCH,
+         host_staged=out[0]["host_staged"],
+         f32=dict(n_layers=TS_F32_LAYERS, steps=TS_STEPS,
+                  sharded=a["history"], local=local,
+                  steps_off=step_off, clipped=clipped,
+                  leaf_rel_l2_worst=a["leaf_rel_l2"][worst],
+                  leaf_worst=worst, leaf_rel_l2=a["leaf_rel_l2"],
+                  masked_local=local_masked, masked=a["control"]["masked"],
+                  mean_of_means=a["control"]["mean_of_means"],
+                  control_off=control_off, specs=a["specs"],
+                  peak_gib=[o["f32"]["peak_gib"] for o in out],
+                  memory_reckoned_gib=a["memory_reckoned_gib"],
+                  tol=dict(rtol=TS_RTOL, leaf=TS_LEAF_TOL)),
+         bf16=dict(n_layers=TS_BF16_LAYERS, steps=TS_BF16_STEPS,
+                   losses=losses,
+                   step_ms=[1e3 * h["sec"] for h in b["history"]],
+                   split_ms_median=split,
+                   exchange_s=[o["bf16"]["exchange_s"] for o in out],
+                   wall_s=b["wall_s"],
+                   peak_gib=[o["bf16"]["peak_gib"] for o in out],
+                   memory_reckoned_gib=b["memory_reckoned_gib"]),
+         chaos=dict(spec=TS_CHAOS, steps=TS_CHAOS_STEPS, clean=clean,
+                    chaos=chaos, checkpoint_steps=[sa, sb],
+                    checkpoint_leaves=len(ca), leaves_differing=differ),
+         parent_gib_at_launch=parent_gib, local_s=local_s, ranks_s=ranks_s,
+         rank0_s=out[0]["seconds"])
+    if bad:
+        raise AssertionError("train_sharded: " + "; ".join(bad))
+
+
+# ---------------------------------------------------------------------------
 # 18. telemetry
 # ---------------------------------------------------------------------------
 
@@ -4804,7 +5146,8 @@ def main():
     # training and deepseek_v3's serving launch no kernel (each phase
     # checks that), so they come after every count is read
     for phase in (phase_train_gemma, phase_train_check, phase_train_recovery,
-                  phase_train_moe, phase_train_mm, phase_serve_deepseek):
+                  phase_train_moe, phase_train_mm, phase_serve_deepseek,
+                  phase_train_sharded):
         phase()
         lap(phase.__name__[len("phase_"):])
     headline = {"rmw_table": ("faa", "uniform_bfs_n"),

@@ -320,9 +320,11 @@ def restore(ckpt_dir: str, step: int, like: PyTree,
             *, validate: bool = True) -> Tuple[PyTree, Dict]:
     """Restore into the structure of ``like``.
 
-    ``sharding_fn(key, ref)`` may return a device per leaf: the
-    reshard-on-load hook, leaves placed where the *current* run wants them
-    whatever wrote the checkpoint.  `AtomicTable` leaves in ``like`` bypass
+    ``sharding_fn(key, ref)`` may return a device per leaf, or a function
+    that makes the leaf from the stored host tensor (this rank's block,
+    `runtime.elastic.placement`): the reshard-on-load hook, leaves placed
+    where the *current* run wants them whatever wrote the checkpoint.
+    `AtomicTable` leaves in ``like`` bypass
     it (it is never called for them): they restore through
     `reshard.restore_table` under the active mesh, on their ``like``
     handle's device.  Other leaves land on their ``like`` tensor's device
@@ -356,6 +358,9 @@ def restore(ckpt_dir: str, step: int, like: PyTree,
             continue
         if sharding_fn is not None:
             where = sharding_fn(key, ref)
+            if callable(where):
+                new_leaves.append(where(_tensor(arr, logical)))
+                continue
             if where is not None:
                 new_leaves.append(_tensor(arr, logical).to(where))
                 continue

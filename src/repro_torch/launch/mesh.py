@@ -27,9 +27,10 @@ collective of the whole world; a rank outside it holds no shard of its
 tables (`is_member` is False) and joins only the world-level collective
 (`all_gather_world`) that a migration between two meshes uses.
 
-`use_mesh` installs a mesh as the active one and `active_mesh` returns it
-(`repro.sharding.use_mesh` / `active_mesh`, for the mesh only: the port
-has no logical-axis rules yet); `atomics.reshard.restore_table` reads it.
+`use_mesh` installs a mesh as the active one and `active_mesh` returns it;
+`atomics.reshard.restore_table`, `models.moe` and the checkpoint read it.
+`repro_torch.sharding.use_mesh` installs the logical-axis rules beside it,
+in the same state (`active_rules`), so the two never disagree.
 """
 
 from __future__ import annotations
@@ -304,6 +305,55 @@ class Mesh:
 
 
 # ---------------------------------------------------------------------------
+# Blocks of a leaf by a partition spec (`repro_torch.sharding`)
+# ---------------------------------------------------------------------------
+
+def _sharded_dims(spec) -> list:
+    """(dim, axis names) of each dim that ``spec`` shards."""
+    return [(d, _names(e)) for d, e in enumerate(spec) if e]
+
+
+def shard_of(full: Tensor, spec, mesh: Mesh) -> Tensor:
+    """This rank's block of ``full`` under ``spec`` (one entry per leading
+    dim: None, an axis name, or a tuple of them, major to minor), a
+    contiguous copy: what ``jax.device_put(full, NamedSharding(mesh,
+    spec))`` keeps on this rank's device.  Each sharded dim must divide
+    by its axes' size."""
+    out = full
+    for dim, axes in _sharded_dims(spec):
+        n = mesh.size(axes)
+        if out.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(full.shape)} does not "
+                             f"divide over {axes} ({n})")
+        size = out.shape[dim] // n
+        out = out.narrow(dim, mesh.index(axes) * size, size)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def gather_full(shard: Tensor, spec, mesh: Mesh) -> Tensor:
+    """The whole leaf on every rank from each rank's `shard_of` block:
+    one all-gather over every axis ``spec`` names, the blocks then laid
+    back in place.  A leaf ``spec`` does not shard comes back as it is
+    (no copy)."""
+    dims = _sharded_dims(spec)
+    if not dims:
+        return shard
+    counts = [mesh.size(axes) for _, axes in dims]
+    out = mesh.all_gather(shard.unsqueeze(0),
+                          tuple(a for _, axes in dims for a in axes))
+    out = out.reshape(*counts, *shard.shape)
+    where = {dim: k for k, (dim, _) in enumerate(dims)}
+    order, shape = [], []
+    for dim in range(shard.ndim):
+        if dim in where:
+            order.append(where[dim])
+        order.append(len(counts) + dim)
+        shape.append(shard.shape[dim] * counts[where[dim]]
+                     if dim in where else shard.shape[dim])
+    return out.permute(order).reshape(shape)
+
+
+# ---------------------------------------------------------------------------
 # The active mesh (reference: repro.sharding.use_mesh / active_mesh)
 # ---------------------------------------------------------------------------
 
@@ -311,16 +361,23 @@ _state = threading.local()
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: Optional[Mesh]):
-    """Install ``mesh`` as the active mesh for the block."""
-    prev = getattr(_state, "mesh", None)
-    _state.mesh = mesh
+def use_mesh(mesh: Optional[Mesh], rules: Optional[Dict] = None):
+    """Install ``mesh`` as the active mesh for the block, with the
+    logical-axis ``rules`` (`repro_torch.sharding`; none by default)."""
+    prev = (getattr(_state, "mesh", None), getattr(_state, "rules", {}))
+    _state.mesh, _state.rules = mesh, dict(rules or {})
     try:
         yield mesh
     finally:
-        _state.mesh = prev
+        _state.mesh, _state.rules = prev
 
 
 def active_mesh() -> Optional[Mesh]:
     """The mesh `use_mesh` installed, or None."""
     return getattr(_state, "mesh", None)
+
+
+def active_rules() -> Dict:
+    """The logical-axis rules installed with the active mesh ({} if
+    none)."""
+    return getattr(_state, "rules", {})

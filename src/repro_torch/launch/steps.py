@@ -6,14 +6,21 @@ explicit parameter pytrees; the port's model holds its weights, so a train
 step takes the name-keyed parameter dict (`LM.named_parameters()`'s), loads
 any tensor that is not the model's own into it (a restored checkpoint's),
 differentiates `LM.loss` with autograd and applies AdamW in place.
+
+`make_sharded_train_step` is the same step on every rank of a mesh, each
+rank holding only its blocks of the parameters and of AdamW's state
+(`launch.shardings`), the reference's jitted step under its shardings.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.launch.mesh import gather_full, shard_of
+from repro_torch.launch.shardings import batch_shardings, params_shardings
 from repro_torch.models.model import LM
 from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
 
@@ -104,6 +111,94 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig,
         metrics["loss"] = loss
         return new_params, new_state, metrics
 
+    return step
+
+
+def _clock(device: torch.device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
+                            rules: Dict[str, Any], microbatches: int = 1,
+                            *, mean_of_means: bool = False) -> Callable:
+    """(param blocks, AdamW-state blocks, global batch) -> (param blocks,
+    state, metrics), called by every rank of ``mesh``; ``.specs`` holds
+    each parameter's partition spec (`launch.shardings.params_shardings`).
+
+    The rank gathers the whole parameters into ``model`` (`gather_full`),
+    computes the loss and its gradients on its cut of each microbatch (the
+    global batch's *i*-th cut, split by `batch_shardings`), weights them
+    by its share of the microbatch's valid labels (the counts all-reduced),
+    sums them over the axes the batch is split on, keeps its block of each
+    and applies AdamW to its blocks, the clipping norm summed over the
+    blocks (`optim.adamw.global_norm`).  So each rank's gradient block is
+    the block of the global batch's gradient, the loss the mean over its
+    valid labels: the local step's function.  Ranks that differ only
+    along axes the batch is not split on compute the same cut, and hold
+    the same bits of a block they share only under deterministic
+    algorithms (`launch.train.deterministic_algorithms`), which `train`
+    requires under a mesh.  ``mean_of_means`` weights every cut alike
+    instead, which is wrong once the cuts' counts differ (the control of
+    the tests).
+
+    metrics: {"loss", "lr", "grad_norm"} as 0-dim tensors, and the host
+    seconds (the card synchronised) of the step's three parts:
+    ``gather_s``, ``compute_s`` (the label counts, forward and backward)
+    and ``reduce_s`` (gradients, norm and AdamW)."""
+    specs = params_shardings(model.cfg, dict(model.named_parameters()), mesh,
+                             rules)
+    ndims = reference_ndims(model)
+    wide = torch.promote_types(model.dtype, torch.float32)
+
+    def step(params, opt_state, batch):
+        own = dict(model.named_parameters())
+        t0 = _clock(model.device)
+        with torch.no_grad():
+            for name, p in own.items():
+                p.copy_(gather_full(params[name], specs[name], mesh))
+        t1 = _clock(model.device)
+        parts = _split(batch, microbatches) if microbatches > 1 else [batch]
+        cut = batch_shardings(parts[0], mesh, rules)
+        local = [{k: shard_of(x, cut[k], mesh) for k, x in part.items()}
+                 for part in parts]
+        red = cut["labels"][0] if cut["labels"] else ()
+        counts = torch.stack([torch.sum(b["labels"] >= 0) for b in local]
+                             ).to(wide)
+        weights = (torch.full_like(counts, 1.0 / mesh.size(red))
+                   if mean_of_means else
+                   counts / torch.clamp(mesh.all_reduce(counts, red),
+                                        min=1.0))
+        loss, grads = None, None
+        for w, part in zip(weights, local):
+            l, g = loss_and_grads(model, part)
+            l = l.to(wide) * w
+            for n in g:              # one leaf at a time: no second copy
+                g[n] = g[n].to(wide).mul_(w)
+            if grads is None:
+                loss, grads = l, g
+            else:
+                loss = loss + l
+                for n, x in g.items():
+                    grads[n] += x
+            del g
+        t2 = _clock(model.device)
+        loss = mesh.all_reduce(loss, red) / microbatches
+        blocks = {}
+        for name in list(grads):
+            full = mesh.all_reduce(grads.pop(name), red) / microbatches
+            blocks[name] = shard_of(full, specs[name], mesh)
+            del full
+        new_params, new_state, metrics = apply_updates(
+            params, blocks, opt_state, opt_cfg, ndims, mesh=mesh,
+            specs=specs)
+        t3 = _clock(model.device)
+        metrics.update(loss=loss, gather_s=t1 - t0, compute_s=t2 - t1,
+                       reduce_s=t3 - t2)
+        return new_params, new_state, metrics
+
+    step.specs = specs
     return step
 
 

@@ -31,8 +31,28 @@ device, stepped once per training step and stopped when `train` returns;
 the spec steers dispatch selection only, so losses and gradient norms are
 bit-equal to an untuned run.
 
-Not ported yet, and it raises `NotImplementedError`: a mesh and its rules
-(sharded training, ROADMAP queue 1 item 5).
+Sharded training: ``mesh=`` (a `launch.mesh.Mesh`; every rank of a
+`launch.ranks` world calls `train` alike) runs the step of
+`launch.steps.make_sharded_train_step` under ``rules`` (default
+`launch.shardings.arch_rules(cfg, mesh, "train")`): each rank holds its
+blocks of the parameters, master weights and moments
+(`params_shardings` / `opt_state_shardings`), gathers the whole
+parameters for the forward and backward, and takes its cut of each global
+batch (`batch_shardings`).  The model computes on whole leaves (no tensor-
+parallel compute): ranks along axes the batch is not split on compute the
+same cut, and must get the same bits of it, so a mesh needs
+``deterministic``.  A save gathers every leaf and rank 0 writes the
+reference's format; a restore places each rank's blocks
+(`runtime.elastic.placement`), whatever mesh wrote the checkpoint.  A
+config with MoE layers, or a mesh with an axis the rules do not name,
+raises `NotImplementedError`: the MoE layer under a mesh takes the global
+tokens on every rank and has no backward through the mesh's collectives
+(ROADMAP queue 1, "sharded MoE training").
+
+    PYTHONPATH=src python -c "from repro_torch.launch import ranks; \
+        print(ranks.launch('repro_torch.launch.train:train_on_mesh', 4, \
+        mesh=((2, 2), ('data', 'model')), device='cpu', \
+        args=('gemma_2b', dict(steps=8, device='cpu')))[0])"
 """
 
 from __future__ import annotations
@@ -46,6 +66,7 @@ import time
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import telemetry
 from repro_torch.checkpoint import ckpt as ckpt_lib
@@ -53,18 +74,24 @@ from repro_torch.checkpoint.ckpt import AsyncCheckpointer
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.data.pipeline import (DataConfig, batch_kwargs_for,
                                        synthetic_batch)
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.mesh import gather_full, shard_of, use_mesh
+from repro_torch.launch.shardings import arch_rules
+from repro_torch.launch.steps import (make_sharded_train_step,
+                                      make_train_step)
 from repro_torch.models.model import build_model
+from repro_torch.models.transformer import layer_sigs
 from repro_torch.optim.adamw import AdamWConfig, init_state
+from repro_torch.runtime import elastic
 from repro_torch.runtime.chaos import FaultPlan
 from repro_torch.runtime.fault_tolerance import (FaultConfig,
                                                  StragglerMonitor,
                                                  declare_donation,
                                                  run_with_recovery)
+from repro_torch.sharding import rule_axes
 
 log = logging.getLogger("repro_torch.train")
 
-SHARDED = "sharded training (ROADMAP queue 1 item 5)"
+SHARDED_MOE = "sharded MoE training (ROADMAP queue 1)"
 
 
 @contextlib.contextmanager
@@ -106,14 +133,27 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
     True for a default one on ``device``, or None to consult the
     ``REPRO_TUNING`` env hook.  The controller is stepped once per
     training step and stopped on exit; the result then carries its
-    ``stats()`` under ``"tuning"``."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(f"mesh/rules: {SHARDED}")
+    ``stats()`` under ``"tuning"`` (under a mesh, a controller built here
+    is given it).
+
+    ``mesh``: sharded training (module docstring), every rank of the
+    mesh's world calling `train` with the same arguments; each returns
+    the same metrics.  It needs ``deterministic`` (the ranks along axes
+    the batch is not split on must compute the same gradient bits)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train(device='cuda') needs a CUDA card; pass "
                            "device='cpu' to train on the CPU")
     cfg = get_reduced(arch) if reduced else get_config(arch)
+    if mesh is not None:
+        rules = _mesh_rules(cfg, mesh, rules)
+        if not deterministic:
+            raise ValueError(
+                "train(mesh=...) needs deterministic=True: ranks that "
+                "compute the same batch cut must get the same gradient "
+                "bits, or the copies of a block they share drift apart")
+    elif rules is not None:
+        raise ValueError("train(rules=...) needs a mesh")
     model = build_model(cfg, device=device, seed=seed, use_kernel=False,
                         attn_impl="chunked", remat_policy=remat_policy,
                         loss_chunk=2048)
@@ -122,7 +162,20 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
     data_cfg = DataConfig(seq_len=seq_len, global_batch=global_batch,
                           vocab_size=cfg.vocab_size, seed=seed)
     bkw = batch_kwargs_for(cfg)
-    step_fn = make_train_step(model, opt_cfg, microbatches=microbatches)
+    if mesh is None:
+        step_fn = make_train_step(model, opt_cfg, microbatches=microbatches)
+    else:
+        if device.type == "cuda":
+            mesh.probe(device)       # what gloo refuses goes through the host
+        step_fn = make_sharded_train_step(model, opt_cfg, mesh, rules,
+                                          microbatches=microbatches)
+
+    def blocks(params):
+        """Under a mesh, this rank's blocks of the whole parameters."""
+        if mesh is None:
+            return params
+        return {n: shard_of(p.detach(), step_fn.specs[n], mesh)
+                for n, p in params.items()}
 
     # the step updates its state in place, so a post-failure restart from
     # scratch must rebuild state: the first call hands out the model's own
@@ -139,7 +192,7 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
                 for name, p in model.named_parameters():
                     p.copy_(dict(fresh.named_parameters())[name])
             del fresh
-        params = dict(model.named_parameters())
+        params = blocks(dict(model.named_parameters()))
         return params, init_state(params, opt_cfg)
 
     saver = AsyncCheckpointer(ckpt_dir, keep=3) if ckpt_dir else None
@@ -172,16 +225,20 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
     # factory above, not the initial tensors
     one_step = declare_donation(one_step, (1,))
 
-    controller = _resolve_tuning(tuning, device)
+    controller = _resolve_tuning(tuning, device, mesh)
     if controller is not None:
         controller.start()
         # wrap_step keeps the donation metadata declared above
         one_step = controller.wrap_step(one_step)
 
     def save_fn(step: int, state):
-        if saver is not None:
-            saver.save_async(step, {"params": state[0], "opt": state[1]},
-                             extra={"arch": arch, "seed": seed})
+        if saver is None:
+            return
+        tree = {"params": state[0], "opt": state[1]}
+        if mesh is not None:
+            tree = _gathered(tree, step_fn.specs, mesh)
+        if tree is not None:
+            saver.save_async(step, tree, extra={"arch": arch, "seed": seed})
 
     def restore_fn():
         if not ckpt_dir:
@@ -194,13 +251,20 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
             except Exception as e:  # noqa: BLE001 — recovery handles it
                 log.warning("async save failed (%s); restoring the newest "
                             "valid step instead", e)
-        params = dict(model.named_parameters())
         # the live state gives the structure, devices and dtypes; before a
         # first step there is none, and a fresh one stands in
-        opt = live["state"][1] if "state" in live \
-            else init_state(params, opt_cfg)
+        if "state" in live:
+            params, opt = live["state"]
+        else:
+            params = blocks(dict(model.named_parameters()))
+            opt = init_state(params, opt_cfg)
         like = {"params": params, "opt": opt}
-        got = ckpt_lib.restore_latest_valid(ckpt_dir, like)
+        place = None
+        if mesh is not None:
+            dist.barrier()           # rank 0's last write has landed
+            place = elastic.placement(like, mesh, cfg=cfg, rules=rules)
+        got = ckpt_lib.restore_latest_valid(ckpt_dir, like,
+                                            sharding_fn=place)
         if got is None:
             return None
         last, tree, _extra = got
@@ -208,7 +272,9 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
 
     fault_cfg = FaultConfig(checkpoint_every=checkpoint_every)
     try:
-        with deterministic_algorithms(deterministic):
+        with deterministic_algorithms(deterministic), (
+                use_mesh(mesh, rules) if mesh is not None
+                else contextlib.nullcontext()):
             result = run_with_recovery(one_step, fresh_state, steps,
                                        fault_cfg, save_fn, restore_fn,
                                        failure_injector=failure_injector,
@@ -218,6 +284,8 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
             controller.stop()        # detach, clear the live spec, persist
     if saver is not None:
         saver.wait()
+    if mesh is not None:
+        dist.barrier()               # every rank returns after the last write
     out = {"history": history, "steps_done": result.steps_done,
            "failures": result.failures,
            "backoff_total_s": result.backoff_total_s,
@@ -227,19 +295,69 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
     return out
 
 
-def _resolve_tuning(tuning, device):
+def _resolve_tuning(tuning, device, mesh=None):
     """None → the ``REPRO_TUNING`` env hook; True → a default controller;
-    a `SpecController` passes through.  The tuning package is imported
-    only when one is asked for."""
+    a `SpecController` passes through.  A controller built here under a
+    mesh is given it, so every rank installs one spec.  The tuning
+    package is imported only when one is asked for."""
     if tuning is None:
         if not os.environ.get("REPRO_TUNING", "").strip():
             return None
         from repro_torch.tuning import from_env
-        return from_env(device=device)
+        return from_env(device=device, mesh=mesh)
     if tuning is True:
         from repro_torch.tuning import SpecController
-        return SpecController(device=device)
+        return SpecController(device=device, mesh=mesh)
     return tuning
+
+
+def _mesh_rules(cfg, mesh, rules: Optional[Dict]) -> Dict:
+    """The rules sharded training runs under (default `arch_rules`); raises
+    `NotImplementedError` for what it does not cover, before any rank
+    starts work."""
+    if any(is_moe for _, is_moe in layer_sigs(cfg)):
+        raise NotImplementedError(
+            f"{cfg.name}: its MoE layers take the global tokens on every "
+            f"rank of a mesh and have no backward through the mesh's "
+            f"collectives: {SHARDED_MOE}")
+    rules = arch_rules(cfg, mesh, "train") if rules is None else rules
+    unknown = [a for a in mesh.axis_names if a not in rule_axes(rules)]
+    if unknown:
+        raise NotImplementedError(
+            f"mesh axes {unknown} are named by no logical-axis rule "
+            f"({sorted(rule_axes(rules))}); sharded training places "
+            f"nothing on them")
+    return rules
+
+
+def _gathered(tree: Dict, specs: Dict, mesh) -> Optional[Dict]:
+    """The whole state on the host from every rank's blocks, one leaf at
+    a time; every rank calls it (one gather per sharded leaf), and only
+    rank 0, the checkpoint's writer, keeps the result (None elsewhere)."""
+    keep = dist.get_rank() == 0
+
+    def full(leaves):
+        out = {}
+        for name, x in leaves.items():
+            whole = gather_full(x, specs[name], mesh)
+            if keep:
+                out[name] = whole.to("cpu", copy=True)
+            del whole
+        return out
+
+    opt = tree["opt"]
+    out = {"params": full(tree["params"]),
+           "opt": {"step": opt["step"], **{k: full(opt[k])
+                                           for k in ("master", "m", "v")}}}
+    return out if keep else None
+
+
+def train_on_mesh(mesh, arch: str, kwargs: Optional[Dict] = None
+                  ) -> Dict[str, Any]:
+    """`train(arch, mesh=mesh, **kwargs)`: the target of
+    `launch.ranks.launch` (``"repro_torch.launch.train:train_on_mesh"``),
+    which calls it on every rank with the rank's mesh."""
+    return train(arch, mesh=mesh, **(kwargs or {}))
 
 
 def main(argv=None) -> None:

@@ -46,6 +46,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, mrope_apply, norm,
                                        norm_init, rope_apply, upcast)
+from repro_torch.sharding import hint
 
 Tensor = torch.Tensor
 
@@ -196,6 +197,9 @@ def _sdpa_tri(q: Tensor, k: Tensor, v: Tensor, *, kv_len: int,
     qb = upcast(q.reshape(b, nb, block, hkv, group, dh))
     kb = upcast(k.reshape(b, nb, block, hkv, dh))
     vb = v.reshape(b, nb, block, hkv, dv)
+    qb = hint(qb, "batch", None, None, "kv_heads", None, None)
+    kb = hint(kb, "batch", None, None, "kv_heads", None)
+    vb = hint(vb, "batch", None, None, "kv_heads", None)
 
     ct = qb.dtype
     m = torch.full((b, nb, block, hkv, group), _NEG, dtype=ct, device=dev)

@@ -36,6 +36,7 @@ from repro_torch.models.layers import (chunked_softmax_xent, embed_init,
 from repro_torch.models.mamba import make_ssm_cache
 from repro_torch.models.transformer import (Block, layer_sigs, plan_stages,
                                             remat)
+from repro_torch.sharding import hint
 
 #: the encoder's blocks: attention and a dense channel
 ENC_SIG = ("attn", False)
@@ -125,7 +126,7 @@ class LM(nn.Module):
                 raise ValueError(f"positions [{cache_len}, {cache_len + s}) "
                                  f"past max_seq_len {cfg.max_seq_len}")
             x = x + self.pos_embed[cache_len:cache_len + s]
-        return x
+        return hint(x, "batch", "act_seq", "embed")
 
     def _encode(self, frames: Tensor) -> Tensor:
         """The encoder: frames (B, F, d) plus learned positions through the

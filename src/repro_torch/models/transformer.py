@@ -33,6 +33,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_init, norm, norm_init
 from repro_torch.models.mamba import Mamba2
 from repro_torch.models.moe import moe_ffn, moe_init
+from repro_torch.sharding import hint
 
 Tensor = torch.Tensor
 
@@ -171,17 +172,19 @@ class Block(nn.Module):
                 positions3=positions3, impl=impl, use_kernel=use_kernel)
         else:
             mix, new_cache = self.ssm(h, cache, use_kernel=use_kernel)
+        aux = None
         if cfg.parallel_residual:
             out, aux = self._channel(h)
-            return x + mix + out, new_cache, aux
-        x = x + mix
-        if self.has_cross:
-            hc = norm(x, self.ln_cross, cfg.norm, cfg.norm_eps)
-            x = x + attn_mod.cross_attn_forward(
-                self.cross, hc, enc_out, cfg, impl=impl,
-                use_kernel=use_kernel)
-        if self.is_moe or self.has_mlp:
-            out, aux = self._channel(norm(x, self.ln2, cfg.norm,
-                                          cfg.norm_eps))
-            return x + out, new_cache, aux
-        return x, new_cache, None
+            x = x + mix + out
+        else:
+            x = x + mix
+            if self.has_cross:
+                hc = norm(x, self.ln_cross, cfg.norm, cfg.norm_eps)
+                x = x + attn_mod.cross_attn_forward(
+                    self.cross, hc, enc_out, cfg, impl=impl,
+                    use_kernel=use_kernel)
+            if self.is_moe or self.has_mlp:
+                out, aux = self._channel(norm(x, self.ln2, cfg.norm,
+                                              cfg.norm_eps))
+                x = x + out
+        return hint(x, "batch", "act_seq", "embed"), new_cache, aux

@@ -80,28 +80,50 @@ def init_state(params: Mapping[str, Tensor], cfg: AdamWConfig
             "v": {n: zeros(p) for n, p in params.items()}}
 
 
-def global_norm(tree: Mapping[str, Tensor]) -> Tensor:
-    """sqrt of the sum of every leaf's sum of squares, in f32 (or wider)."""
-    leaves = [torch.sum(torch.square(x.to(_wide(x.dtype, torch.float32))))
-              for x in tree.values()]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def _sum_squares(x: Tensor) -> Tensor:
+    return torch.sum(torch.square(x.to(_wide(x.dtype, torch.float32))))
+
+
+def global_norm(tree: Mapping[str, Tensor], mesh=None,
+                specs: Optional[Mapping[str, tuple]] = None) -> Tensor:
+    """sqrt of the sum of every leaf's sum of squares, in f32 (or wider).
+
+    Under ``mesh`` the leaves are this rank's blocks by ``specs``
+    (`repro_torch.sharding` partition specs): each leaf's squares are
+    summed over the mesh axes its spec shards it on, and over no other
+    axis, so a leaf replicated along an axis counts once."""
+    if mesh is None:
+        return torch.sqrt(torch.sum(torch.stack(
+            [_sum_squares(x) for x in tree.values()])))
+    by_axes: Dict[tuple, list] = {}
+    for name, x in tree.items():
+        on = {a for e in specs[name] if e
+              for a in ((e,) if isinstance(e, str) else e)}
+        axes = tuple(a for a in mesh.axis_names if a in on)
+        by_axes.setdefault(axes, []).append(_sum_squares(x))
+    total = [mesh.all_reduce(torch.sum(torch.stack(parts)), axes)
+             for axes, parts in sorted(by_axes.items())]
+    return torch.sqrt(torch.sum(torch.stack(total)))
 
 
 @torch.no_grad()
 def apply_updates(params: Mapping[str, Tensor], grads: Mapping[str, Tensor],
                   state: Dict[str, object], cfg: AdamWConfig,
-                  ndims: Optional[Mapping[str, int]] = None
+                  ndims: Optional[Mapping[str, int]] = None, *, mesh=None,
+                  specs: Optional[Mapping[str, tuple]] = None
                   ) -> Tuple[Mapping[str, Tensor], Dict[str, object],
                              Dict[str, Tensor]]:
     """One AdamW step.  Returns (params, new state, {"lr", "grad_norm"});
     the parameters, master weights and moments are updated in place.
     Weight decay applies to leaves of rank >= 2; ``ndims`` gives the rank
     to test where it is not the tensor's own (`launch.steps` passes the
-    ranks of the reference's stacked layout)."""
+    ranks of the reference's stacked layout).  Under ``mesh`` every tensor
+    is this rank's block by ``specs``, and the clipping norm is the whole
+    gradient's (`global_norm`)."""
     step = state["step"] + 1
     dev = step.device
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     if cfg.grad_clip > 0:
         scale = torch.clamp(_f32(cfg.grad_clip, dev)
                             / torch.clamp(gnorm, min=1e-12), max=1.0)

@@ -1,9 +1,11 @@
 """Elastic scaling: move state onto a different mesh.
 
 Port of `repro.runtime.elastic`.  When ranks are lost (or added), the run
-restarts on a new mesh.  A checkpoint stores the whole table on the host
-with its layout, so restoring is placement under the *new* mesh, with no
-dependence on the writer's topology (:func:`reshard_restore`).  Live
+restarts on a new mesh.  A checkpoint stores every leaf whole on the host
+(a table with its layout), so restoring is placement under the *new* mesh,
+with no dependence on the writer's topology (:func:`reshard_restore`,
+:func:`placement`): each rank keeps its block of every parameter by
+`launch.shardings.params_shardings`, of a table by its own contract.  Live
 tables — no checkpoint in the loop — migrate with :func:`reshard_tables`
 (`atomics.reshard.migrate` over a state tree), which the recovery loop
 (`runtime.fault_tolerance`) calls on an elastic restart.
@@ -18,14 +20,18 @@ from __future__ import annotations
 
 import logging
 import math
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
+import torch
 import torch.distributed as dist
 
 from repro_torch import tree as tree_util
 from repro_torch.atomics.table import AtomicTable
 from repro_torch.checkpoint import ckpt as ckpt_lib
-from repro_torch.launch.mesh import Mesh, use_mesh
+from repro_torch.launch import shardings as sh
+from repro_torch.launch.mesh import Mesh, shard_of, use_mesh
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import LM
 
 log = logging.getLogger("repro_torch.runtime")
 
@@ -43,18 +49,71 @@ def _is_table(x) -> bool:
     return isinstance(x, AtomicTable)
 
 
-def reshard_restore(ckpt_dir: str, step: int, like: Any, new_mesh: Mesh):
+def placement(like: Any, new_mesh: Mesh, *, cfg: ModelConfig,
+              rules: Optional[Dict] = None, shape_kind: str = "train"
+              ) -> Callable:
+    """``ckpt.restore``'s ``sharding_fn`` that keeps this rank's block of
+    each leaf of ``like``'s structure under ``new_mesh``, on the ``like``
+    leaf's device and in its dtype.
+
+    A leaf whose key is a parameter's name (``like["params"][name]``, and
+    the master weights and moments AdamW keys by the same names) takes
+    that parameter's spec by `launch.shardings.params_shardings` against
+    the NEW mesh (`opt_state_shardings`).  Any other leaf takes, as the
+    reference's shape heuristic, the spec of the first parameter of its
+    stored shape and dtype (or of that shape in f32), and lands whole on
+    every rank where none matches.  Table leaves never reach it."""
+    rules = rules if rules is not None else sh.arch_rules(cfg, new_mesh,
+                                                          shape_kind)
+    abstract = dict(LM(cfg, device="meta").named_parameters())
+    specs = sh.params_shardings(cfg, abstract, new_mesh, rules)
+    by_shape: Dict[tuple, tuple] = {}
+    for name, p in abstract.items():
+        by_shape.setdefault((tuple(p.shape), p.dtype), specs[name])
+    paths = [path for path, _ in tree_util.flatten_with_path(
+        like, is_leaf=_is_table)]
+
+    def sharding_fn(key: str, ref) -> Callable:
+        name = paths[int(key.rsplit("_", 1)[1])][-1]
+
+        def place(host: torch.Tensor) -> torch.Tensor:
+            shape = tuple(host.shape)
+            spec = specs.get(name) if isinstance(name, str) else None
+            if spec is None:
+                spec = (by_shape.get((shape, host.dtype))
+                        or by_shape.get((shape, torch.float32)) or ())
+            block = shard_of(host, spec, new_mesh)
+            if isinstance(ref, torch.Tensor):
+                block = block.to(device=ref.device, dtype=ref.dtype)
+            return block
+        return place
+
+    return sharding_fn
+
+
+def reshard_restore(ckpt_dir: str, step: int, like: Any, new_mesh: Mesh, *,
+                    cfg: Optional[ModelConfig] = None,
+                    rules: Optional[Dict] = None,
+                    shape_kind: str = "train"):
     """Restore ``like``-structured state under ``new_mesh``.
 
-    `AtomicTable` leaves restore through `atomics.reshard.restore_table`
-    under the new mesh (each rank keeps its shard); every other leaf lands
-    whole on every rank, on its ``like`` tensor's device — the reference's
-    placement for a leaf with no matching sharding.  The reference's
-    per-parameter shardings (``cfg``, ``rules``) wait for the port's
-    training stack.  Returns ``(state, extra)``.
+    With ``cfg``, every rank keeps its block of each leaf by
+    :func:`placement` (the parameters, and AdamW's state by name, by
+    ``params_shardings`` against the new mesh under ``rules``, default
+    ``arch_rules(cfg, new_mesh, shape_kind)``); without it every leaf lands
+    whole on every rank.  Either way a leaf lands on its ``like`` tensor's
+    device, and `AtomicTable` leaves restore through
+    `atomics.reshard.restore_table` under the new mesh (each rank keeps
+    its shard).  Returns ``(state, extra)``.
     """
-    with use_mesh(new_mesh):
-        return ckpt_lib.restore(ckpt_dir, step, like)
+    if cfg is None:
+        with use_mesh(new_mesh):
+            return ckpt_lib.restore(ckpt_dir, step, like)
+    rules = rules if rules is not None else sh.arch_rules(cfg, new_mesh,
+                                                          shape_kind)
+    with use_mesh(new_mesh, rules):
+        return ckpt_lib.restore(ckpt_dir, step, like, sharding_fn=placement(
+            like, new_mesh, cfg=cfg, rules=rules))
 
 
 def reshard_tables(state: Any, new_mesh: Mesh, *, path: str = "auto",

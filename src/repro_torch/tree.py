@@ -10,7 +10,7 @@ whatever ``is_leaf`` accepts, checked first).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List, Optional
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 IsLeaf = Optional[Callable[[Any], bool]]
 
@@ -31,6 +31,23 @@ def flatten(tree: Any, is_leaf: IsLeaf = None) -> List[Any]:
     if tree is None:
         return []
     return [tree]
+
+
+def flatten_with_path(tree: Any, is_leaf: IsLeaf = None,
+                      path: Tuple = ()) -> List[Tuple[Tuple, Any]]:
+    """(key path, leaf) of every leaf, in `flatten`'s order: dict keys and
+    list / tuple indices from the root down."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(path, tree)]
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in flatten_with_path(tree[k], is_leaf, path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, x in enumerate(tree)
+                for item in flatten_with_path(x, is_leaf, path + (i,))]
+    if tree is None:
+        return []
+    return [(path, tree)]
 
 
 def _rebuild(like: Any, it: Iterator, is_leaf: IsLeaf) -> Any:

@@ -636,13 +636,14 @@ class SpecController:
                          estimator_sites=len(self.estimator))
 
 
-def from_env(device="cuda") -> Optional[SpecController]:
+def from_env(device="cuda", mesh=None) -> Optional[SpecController]:
     """The ``REPRO_TUNING`` hook: unset/falsy → None; ``"1"/"on"/"true"``
-    → a default controller on ``device``; any other value is a state path
-    the controller persists/restores the tuned spec through."""
+    → a default controller on ``device`` (on ``mesh``, when given); any
+    other value is a state path the controller persists/restores the
+    tuned spec through."""
     val = os.environ.get(TUNING_ENV, "").strip()
     if not val or val.lower() in ("0", "off", "false", "no"):
         return None
     if val.lower() in ("1", "on", "true", "yes"):
-        return SpecController(device=device)
-    return SpecController(state_path=val, device=device)
+        return SpecController(device=device, mesh=mesh)
+    return SpecController(state_path=val, device=device, mesh=mesh)

@@ -19,7 +19,8 @@ encoder, cross-attention prefill and split-KV decode), telemetry's
 measured time of a ``cuda``-backend `execute` against the kernel's; and
 tuning: tuned int32 runs under a live controller bit-equal to untuned ones
 that took other backends, the estimator fed from the ``slot_counts``
-kernel, and a swap moving the next `execute`'s auto decision.
+kernel, and a swap moving the next `execute`'s auto decision; sharded
+training on 4 ranks sharing the card against the local trainer.
 This file imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \
@@ -1376,3 +1377,31 @@ def test_sync_every_measures_one_call_in_k_on_the_card(cuda_device):
     measured = [("measured_s" in e) for e in execs]
     assert sum(measured[:4]) == sum(measured[4:8]) == 1 and measured[8]
     assert [e["event"] for e in ring.events].count("contention.stats") == 1
+
+
+@pytest.mark.gpu
+def test_sharded_training_2x2_matches_local_on_the_card(cuda_device,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """Four gloo ranks sharing the card train reduced gemma_2b in f32 on a
+    2x2 ``("data", "model")`` mesh for 3 steps (`train(mesh=...)`), against
+    the local trainer on the card: losses and gradient norms within rtol
+    1e-5, the final checkpoint's leaves within the worker's bounds
+    (`tests/_torch_train_sharded_worker.py`)."""
+    import _torch_train_sharded_worker as W
+    from repro_torch.launch import ranks
+    from repro_torch.launch import train as ttrain
+    torch.cuda.empty_cache()     # the earlier tests' cached blocks: the
+    #                              ranks allocate on the same card
+    sharded = ranks.launch(f"{W.__file__}:run_card", 4,
+                           mesh=((2, 2), ("data", "model")), device="cuda",
+                           args=(str(tmp_path),), timeout=600)
+    assert all(o == sharded[0] for o in sharded)
+    monkeypatch.setattr(ttrain, "get_reduced", W.f32)
+    path = str(tmp_path / "local")
+    got = ttrain.train("gemma_2b", ckpt_dir=path, checkpoint_every=3,
+                       **{**W.TRAIN, "device": "cuda"})
+    local = ([{k: h[k] for k in ("loss", "grad_norm", "lr")}
+              for h in got["history"]], got["failures"], path)
+    assert W.runs_off((*sharded[0], W.ckpt_dir(str(tmp_path), "card")),
+                      local) == []
