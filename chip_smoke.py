@@ -64,9 +64,17 @@ mesh, held to the local path where nothing drops, its global arrival
 ranks to a host recount, what it kept to its capacities, its aux loss to
 the local one, its time split by the layer's profiler ranges (weight
 gather, exchange, atomics, expert products), the RMW kernels' launches
-inside the ranks counted.  The suites include `rmw_sharded` (8 ranks on
-the card).  Last, training and MLA, which launch no kernel (each phase
-fails if one launches; no kernel has a backward): `train_gemma` trains
+inside the ranks counted.  Then sharded MoE training
+(`train_sharded_moe`, on the same 4 ranks and mesh): dbrx's MoE layer at
+full width, forward and backward through the layer's training variant
+on the trainer's batch (8 x 256 tokens), timed by stage in bf16 and held
+in f32 to the same layer run locally; `train(mesh=...)` on reduced
+deepseek_v3 and jamba against the local trainer, at their own capacity
+(finite, falling losses) and under chaos; only `rmw_table` and
+`rmw_table_fetched` launch, counted inside the ranks.  The suites
+include `rmw_sharded` (8 ranks on the card).  Last, training and MLA,
+which launch no kernel (each phase fails if one launches; no kernel has
+a backward): `train_gemma` trains
 gemma_2b at full width through `launch.train.train` (8 x 256 tokens, 30
 steps, with deterministic algorithms and without: step ms, tokens/s,
 MFU, peak memory, a profiled step's idle share and kernels by time);
@@ -4860,6 +4868,386 @@ def phase_train_sharded():
 
 
 # ---------------------------------------------------------------------------
+# 17b. sharded MoE training: the expert-parallel layer's training variant
+# ---------------------------------------------------------------------------
+
+MT_WORLD, MT_SHAPE, MT_AXES = 4, (2, 2), ("data", "model")
+# dbrx's MoE layer at full width on the trainer's batch (8 x 256 tokens):
+# f32 at the no-drop factor E / k (the layer's function is then the local
+# one's), held to the local layer within relative L2 `MT_TOL` on the
+# output, dx, the router's gradient and the first `MT_ROWS` rows of each
+# of a rank's experts' gradients: f32 sums of K <= 10,752 terms in
+# another order round at about eps sqrt(K) ~ 1e-5 of their scale
+MT_NO_DROP, MT_TOL, MT_ROWS = 4.0, 1e-4, 64
+# the reduced configs through `train(mesh=...)`: 3 steps in f32 at the
+# no-drop factor against the local trainer (the CPU tests' bounds), then
+# `MT_FALL_STEPS` at their own capacity at the reduced configs' lr, and
+# one run under chaos against a clean one
+MT_ARCHS = ("deepseek_v3_671b", "jamba_1_5_large_398b")
+MT_STEPS, MT_FALL_STEPS, MT_FALL_LR = 3, 10, 3e-3
+MT_RTOL, MT_LEAF_TOL = 1e-5, 1e-4
+MT_CHAOS, MT_CHAOS_STEPS = "seed=3,step=1.0@2,ckpt_save=1.0@1", 6
+
+
+def _mt_no_drop(cfg):
+    m = cfg.moe
+    return cfg.replace(moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
+def _mt_inputs(d, dtype=torch.float32):
+    """The layer's input and its output's cotangent, (8, 256, d) each,
+    from seeds: the trainer's batch of tokens at dbrx's width."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((T_BATCH, T_SEQ, d), generator=g, device="cuda")
+    ct = torch.randn((T_BATCH, T_SEQ, d), generator=g, device="cuda")
+    return x.to(dtype), ct.to(dtype)
+
+
+def _mt_meta(cfg):
+    """The whole expert weights' shapes (what `_ep_train` reads of the
+    parameters beside the rank's blocks), on the meta device."""
+    m, d = cfg.moe, cfg.d_model
+    e, f = m.n_experts, m.d_ff_expert
+    return {"w1": torch.empty((e, d, f), device="meta"),
+            "w3": torch.empty((e, d, f), device="meta"),
+            "w2": torch.empty((e, f, d), device="meta")}
+
+
+def _mt_local_layer():
+    """The f32 layer locally (one process, no mesh) at the no-drop
+    factor: the output, dx, the router's gradient, and for each data cut
+    j the first `MT_ROWS` of its rows of every expert's gradient (on the
+    host)."""
+    from repro_torch.models import moe as moe_mod
+    cfg = _ep_config(MT_NO_DROP, "swp_drop_newest")
+    e = cfg.moe.n_experts
+    params = _ep_params(cfg, range(e), lambda n: slice(0, n))
+    for p in params.values():
+        p.requires_grad_()
+    x, ct = _mt_inputs(cfg.d_model)
+    x.requires_grad_()
+    y, aux = moe_mod.moe_ffn(params, x, cfg)
+    grads = torch.autograd.grad((y * ct).sum() + aux,
+                                [x, params["router"], params["w1"],
+                                 params["w3"], params["w2"]])
+    out = dict(y=y.detach().cpu(), dx=grads[0].cpu(),
+               router=grads[1].cpu(), aux=float(aux.detach()))
+    for name, g in zip(("w1", "w3", "w2"), grads[2:]):
+        half = g.shape[1] // MT_SHAPE[0]
+        out[name] = [g[:, j * half:j * half + MT_ROWS].cpu()
+                     for j in range(MT_SHAPE[0])]
+    del params, x, ct, y, aux, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mt_layer(mesh, cfg, dtype, timed):
+    """The training variant of dbrx's layer on this rank: its data cut of
+    x and of the cotangent, its blocks of the experts (`_ep_params`), one
+    forward and backward (three when ``timed``: a warm-up, one timed with
+    the mesh's collectives synchronised, one profiled by stage).  Returns
+    the pieces the f32 check reads, or the times."""
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import moe as moe_mod
+    ep, dp = mesh.shape["model"], mesh.size("data")
+    i, j = mesh.index("model"), mesh.index("data")
+    e_loc = cfg.moe.n_experts // ep
+    full = _ep_params(cfg, range(i * e_loc, (i + 1) * e_loc),
+                      lambda n: slice(j * n // dp, (j + 1) * n // dp))
+    router = full.pop("router").requires_grad_()
+    blocks = {k: w.to(dtype).requires_grad_() for k, w in full.items()}
+    del full
+    params = {"router": router, **_mt_meta(cfg)}
+    x, ct = _mt_inputs(cfg.d_model, dtype)
+    rows = slice(j * T_BATCH // dp, (j + 1) * T_BATCH // dp)
+    x, ct = x[rows].clone().requires_grad_(), ct[rows].clone()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+
+    def fwd():
+        with use_mesh(mesh), moe_mod.training_blocks([(params, blocks)],
+                                                     ("data",)):
+            y, aux = moe_mod.moe_ffn(params, x, cfg)
+        return y, (y.float() * ct.float()).sum() + aux / dp
+
+    def bwd(obj):
+        return torch.autograd.grad(obj, [x, router, *blocks.values()])
+
+    if not timed:
+        y, obj = fwd()
+        g = bwd(obj)
+        out = dict(y=y.detach().cpu(), dx=g[0].cpu(),
+                   router=mesh.all_reduce(g[1], "data").cpu(),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        for name, gw in zip(blocks, g[2:]):
+            out[name] = gw[:, :MT_ROWS].cpu()
+        del y, obj, g
+    else:
+        bwd(fwd()[1])                       # warm
+        mesh.sync_timing = True
+        sync()
+        ex0, t0 = mesh.exchange_s, time.perf_counter()
+        obj = fwd()[1]
+        sync()
+        ex1, t1 = mesh.exchange_s, time.perf_counter()
+        bwd(obj)
+        sync()
+        ex2, t2 = mesh.exchange_s, time.perf_counter()
+        mesh.sync_timing = False
+        del obj
+        host, devt = _moe_ranges(lambda: bwd(fwd()[1]))
+        out = dict(fwd_ms=1e3 * (t1 - t0), bwd_ms=1e3 * (t2 - t1),
+                   fwd_exchange_ms=1e3 * (ex1 - ex0),
+                   bwd_exchange_ms=1e3 * (ex2 - ex1),
+                   stage_host_ms=host, stage_device_ms=devt,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del x, ct, blocks, router, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mt_train(mesh, tmp, arch, tag, **kw):
+    """`train(mesh=...)` on the reduced ``arch`` (the trainer's shapes),
+    its checkpoints under ``tmp/tag``: the history's (loss, grad_norm,
+    lr), failures and final loss."""
+    from repro_torch.launch import train as train_mod
+    got = train_mod.train(arch, seq_len=T_SEQ, global_batch=T_BATCH,
+                          log_every=1, device="cuda", mesh=mesh,
+                          ckpt_dir=os.path.join(tmp, tag),
+                          **{"steps": MT_STEPS, "checkpoint_every": MT_STEPS,
+                             **kw})
+    return dict(history=[{k: h[k] for k in ("loss", "grad_norm", "lr")}
+                         for h in got["history"]],
+                failures=got["failures"], final_loss=got["final_loss"])
+
+
+@contextlib.contextmanager
+def _mt_configs(no_drop):
+    """The trainer's reduced configs in f32, at the no-drop factor or at
+    their own capacity."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import train as train_mod
+    real = train_mod.get_reduced
+
+    def f32(arch):
+        cfg = get_reduced(arch).replace(dtype="float32")
+        return _mt_no_drop(cfg) if no_drop else cfg
+
+    train_mod.get_reduced = f32
+    try:
+        yield
+    finally:
+        train_mod.get_reduced = real
+
+
+def _train_sharded_moe_rank(mesh, tmp):
+    """One rank of `train_sharded_moe`: (a) dbrx's layer in bf16 at its
+    own capacity (times), then in f32 at the no-drop factor under
+    swp_drop_newest (the pieces of the check); (b) `train(mesh=...)` on
+    the reduced configs: at the no-drop factor, at their own capacity,
+    and under chaos against clean."""
+    from repro_torch.runtime.chaos import FaultPlan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = dict(rank=mesh.rank, host_staged=list(mesh.probe(dev)))
+    for mod in (K, SK, FK, XK):
+        mod.reset_launches()
+    start = time.perf_counter()
+    bf16 = _ep_config(1.25, "cas_keep_top_gate").replace(dtype="bfloat16")
+    out["bf16"] = _mt_layer(mesh, bf16, torch.bfloat16, timed=True)
+    out["f32"] = _mt_layer(mesh, _ep_config(MT_NO_DROP, "swp_drop_newest"),
+                           torch.float32, timed=False)
+    seconds = {"layer": time.perf_counter() - start}
+    train = {}
+    with _mt_configs(no_drop=True):
+        for arch in MT_ARCHS:
+            train[arch] = _mt_train(mesh, tmp, arch, arch)
+        for tag, chaos in (("clean", None), ("chaos", MT_CHAOS)):
+            train[tag] = _mt_train(
+                mesh, tmp, MT_ARCHS[0], tag, steps=MT_CHAOS_STEPS,
+                checkpoint_every=2,
+                chaos=FaultPlan.from_spec(chaos) if chaos else None)
+    with _mt_configs(no_drop=False):
+        for arch in MT_ARCHS:
+            train[f"own/{arch}"] = _mt_train(
+                mesh, tmp, arch, f"own-{arch}", steps=MT_FALL_STEPS,
+                lr=MT_FALL_LR, checkpoint_every=MT_FALL_STEPS)
+    out["train"] = train
+    seconds["train"] = time.perf_counter() - start - seconds["layer"]
+    out["seconds"] = seconds
+    out["launches"] = {k: v for mod in (K, SK, FK, XK)
+                       for k, v in mod.LAUNCHES.items()}
+    return out
+
+
+def phase_train_sharded_moe():
+    """Sharded MoE training on 4 ranks sharing the card (gloo), 2x2
+    ``("data", "model")``.  (a) dbrx's MoE layer at full width (d_model
+    6,144, 16 experts top 4, d_ff_expert 10,752, swiglu), forward and
+    backward through the training variant (`moe._ep_train`) on the
+    trainer's batch (8 x 256 tokens): in bf16 at the config's capacity,
+    ms by stage and the exchange, peak memory per rank; in f32 at the
+    no-drop factor, the output rows, dx, the router's gradient and the
+    first `MT_ROWS` rows of each expert's gradient within relative L2
+    `MT_TOL` of the same layer run locally before the ranks start.  (b)
+    `train(mesh=...)` on reduced deepseek_v3 and jamba in f32: at the
+    no-drop factor, 3 steps, losses and grad norms within `MT_RTOL` of
+    the local trainer's, every leaf of the final checkpoint within
+    relative L2 `MT_LEAF_TOL`; at their own capacity, `MT_FALL_STEPS`
+    steps, losses finite and falling; one run under `MT_CHAOS`, bit-equal
+    to a clean one.  Only `rmw_table` and `rmw_table_fetched` may launch
+    (the counts and the arrival ranks' sharded FAA).  Returns their
+    launches inside the ranks, summed."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import ranks
+    from repro_torch.launch import train as train_mod
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_train_")
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        local_layer = _mt_local_layer()
+        local_layer["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        local = {}
+        with _mt_configs(no_drop=True), \
+                _no_kernel_launched("train_sharded_moe's local runs"):
+            for arch in MT_ARCHS:
+                got = train_mod.train(
+                    arch, steps=MT_STEPS, seq_len=T_SEQ,
+                    global_batch=T_BATCH, log_every=1, device="cuda",
+                    ckpt_dir=os.path.join(tmp, f"local-{arch}"),
+                    checkpoint_every=MT_STEPS)
+                local[arch] = [{k: h[k] for k in ("loss", "grad_norm")}
+                               for h in got["history"]]
+        torch.cuda.empty_cache()
+        local_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            out = ranks.launch(f"{os.path.abspath(__file__)}:"
+                               f"_train_sharded_moe_rank", MT_WORLD,
+                               mesh=(MT_SHAPE, MT_AXES), device="cuda",
+                               args=(tmp,), timeout=900)
+        finally:
+            if env is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+        ranks_s = time.perf_counter() - t1
+        ckpts = {tag: _final_checkpoint(os.path.join(tmp, tag))
+                 for tag in ("clean", "chaos",
+                             *MT_ARCHS, *(f"local-{a}" for a in MT_ARCHS))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = []
+    # (a) the f32 check: every rank's pieces against the local layer's
+    err = {"y": 0.0, "dx": 0.0, "router": 0.0, "w1": 0.0, "w3": 0.0,
+           "w2": 0.0}
+    e_loc = _ep_config(MT_NO_DROP, "swp_drop_newest").moe.n_experts \
+        // MT_SHAPE[1]
+    for o in out:
+        f = o["f32"]
+        j, i = o["rank"] // MT_SHAPE[1], o["rank"] % MT_SHAPE[1]
+        rows = slice(j * T_BATCH // MT_SHAPE[0],
+                     (j + 1) * T_BATCH // MT_SHAPE[0])
+        err["y"] = max(err["y"], _rel_l2(f["y"], local_layer["y"][rows]))
+        err["dx"] = max(err["dx"], _rel_l2(f["dx"], local_layer["dx"][rows]))
+        err["router"] = max(err["router"],
+                            _rel_l2(f["router"], local_layer["router"]))
+        for name in ("w1", "w3", "w2"):
+            want = local_layer[name][j][i * e_loc:(i + 1) * e_loc]
+            err[name] = max(err[name], _rel_l2(f[name], want))
+    if max(err.values()) > MT_TOL:
+        bad.append(f"f32 layer off the local one: {err}")
+    # (b) the steps against the local trainer's, the leaves, the runs
+    tr = out[0]["train"]
+    for o in out:
+        if o["train"] != tr:
+            bad.append(f"rank {o['rank']}'s runs differ from rank 0's")
+    steps_off, leaf_worst = {}, {}
+    for arch in MT_ARCHS:
+        steps_off[arch] = [
+            (i, k) for i, (g, w) in enumerate(zip(tr[arch]["history"],
+                                                  local[arch]))
+            for k in ("loss", "grad_norm")
+            if abs(g[k] - w[k]) > MT_RTOL * abs(w[k])]
+        (sa, a), (sb, b) = ckpts[arch], ckpts[f"local-{arch}"]
+        errs = {k: _rel_l2(torch.from_numpy(np.asarray(a[k])),
+                           torch.from_numpy(np.asarray(b[k])))
+                for k in b}
+        worst = max(errs, key=errs.get)
+        leaf_worst[arch] = (worst, errs[worst], len(errs))
+        if steps_off[arch] or sa != sb or errs[worst] > MT_LEAF_TOL:
+            bad.append(f"{arch}: steps off {steps_off[arch]}, leaf "
+                       f"{worst} {errs[worst]}")
+    falling = {}
+    for arch in MT_ARCHS:
+        losses = [h["loss"] for h in tr[f"own/{arch}"]["history"]]
+        falling[arch] = losses
+        if len(losses) != MT_FALL_STEPS \
+                or not all(map(math.isfinite, losses)) \
+                or not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            bad.append(f"{arch} at its own capacity: {losses}")
+    (sa, ca), (sb, cb) = ckpts["clean"], ckpts["chaos"]
+    differ = sorted(k for k in ca if not np.array_equal(ca[k], cb[k]))
+    clean, chaos = tr["clean"], tr["chaos"]
+    if chaos["failures"] < 1 or clean["failures"] != 0 or differ \
+            or sa != sb or clean["final_loss"] != chaos["final_loss"]:
+        bad.append(f"chaos not bit-equal to clean: {clean['failures']} "
+                   f"{chaos['failures']} leaves {differ}")
+    launches = {k: sum(o["launches"][k] for o in out)
+                for k in out[0]["launches"]}
+    for k in ("rmw_table", "rmw_table_fetched"):
+        if launches[k] == 0:
+            bad.append(f"{k} never launched inside the ranks")
+    others = {k: v for k, v in launches.items()
+              if v and k not in ("rmw_table", "rmw_table_fetched")}
+    if others:
+        bad.append(f"other kernels launched: {others}")
+    b16 = [o["bf16"] for o in out]
+    stage = {f: {k: max((b[f][k] for b in b16 if b[f][k] is not None),
+                        default=None) for k in b16[0][f]}
+             for f in ("stage_host_ms", "stage_device_ms")}
+    total = [b["fwd_ms"] + b["bwd_ms"] for b in b16]
+    exchange = [b["fwd_exchange_ms"] + b["bwd_exchange_ms"] for b in b16]
+    emit("train_sharded_moe", ranks=MT_WORLD,
+         mesh=dict(zip(MT_AXES, MT_SHAPE)), transport="gloo",
+         host_staged=out[0]["host_staged"],
+         layer=dict(arch=DBRX, d_model=6144, experts=16, top_k=4,
+                    d_ff_expert=10752, tokens=[T_BATCH, T_SEQ],
+                    tokens_per_rank=T_BATCH * T_SEQ // MT_WORLD),
+         bf16=dict(capacity_factor=1.25, policy="cas_keep_top_gate",
+                   fwd_ms=[b["fwd_ms"] for b in b16],
+                   bwd_ms=[b["bwd_ms"] for b in b16],
+                   fwd_exchange_ms=[b["fwd_exchange_ms"] for b in b16],
+                   bwd_exchange_ms=[b["bwd_exchange_ms"] for b in b16],
+                   exchange_share=[x / t for x, t in zip(exchange, total)],
+                   stage_ms_max_over_ranks=stage,
+                   peak_gib=[b["peak_gib"] for b in b16]),
+         f32=dict(capacity_factor=MT_NO_DROP, policy="swp_drop_newest",
+                  rel_l2=err, tol=MT_TOL, rows=MT_ROWS,
+                  peak_gib=[o["f32"]["peak_gib"] for o in out],
+                  local_peak_gib=local_layer["peak_gib"]),
+         train=dict(archs=MT_ARCHS, steps=MT_STEPS, rtol=MT_RTOL,
+                    leaf_tol=MT_LEAF_TOL, sharded={
+                        a: tr[a]["history"] for a in MT_ARCHS},
+                    local=local, steps_off=steps_off,
+                    leaf_worst=leaf_worst, falling=falling,
+                    chaos=dict(spec=MT_CHAOS, clean=clean["failures"],
+                               chaos=chaos["failures"],
+                               leaves=len(ca), differ=differ)),
+         launches=launches, local_s=local_s, ranks_s=ranks_s,
+         rank_seconds=[o["seconds"] for o in out],
+         seconds=time.perf_counter() - t0, bad=bad[:10])
+    if bad:
+        raise AssertionError("train_sharded_moe: " + "; ".join(bad))
+    return {k: launches[k] for k in ("rmw_table", "rmw_table_fetched")}
+
+
+# ---------------------------------------------------------------------------
 # 18. telemetry
 # ---------------------------------------------------------------------------
 
@@ -5143,6 +5531,10 @@ def main():
     for k, v in phase_moe_ep().items():
         launches[k] += v
     lap("moe_ep")
+    # ... then sharded MoE training, whose ranks count the same way
+    for k, v in phase_train_sharded_moe().items():
+        launches[k] += v
+    lap("train_sharded_moe")
     # training and deepseek_v3's serving launch no kernel (each phase
     # checks that), so they come after every count is read
     for phase in (phase_train_gemma, phase_train_check, phase_train_recovery,

@@ -24,11 +24,16 @@ batch (sharded: on the rank-ordered concatenation).
 Telemetry: with the stream on, each op batch records one
 ``atomics.execute`` event — tier, the backend or strategy the selectors
 pick, op, n, m, and the selector's ``predicted_s`` — and, under ``sync``,
-``measured_s``: the host clock from a synchronised device to the result
-synchronised (`torch.cuda.synchronize` on the table's card, on the calls
-the stream's sampling period picks, `telemetry.core.sync_due`; a CPU
-table needs none) on the local tier; a sharded batch's time is measured
-by `execute_until`'s round event, as in the reference.  The decision
+``measured_s`` on the local tier: on the card, on the calls the stream's
+sampling period picks (`telemetry.core.sync_due`), the device time
+between two CUDA events recorded around the dispatch on the current
+stream, pending (`telemetry.DeviceSeconds`) until the stream resolves it
+after the fact, with no synchronisation in the call; on the CPU, every
+call, the host clock.  A call that collects stats is always measured,
+between two synchronisations of the card, since its
+``contention.stats`` event reads the stats then.
+A sharded batch's time is measured by `execute_until`'s round event, as
+in the reference.  The decision
 fields are cached per shape, spec and spec epoch.  ``traced`` is always False
 (eager torch has no trace time; the field keeps one schema with the
 reference's events).  A local batch that collected stats also records
@@ -224,16 +229,56 @@ def _decision_fields(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
     return fields
 
 
+#: measure every eager call on the card between two synchronisations
+#: instead of by CUDA events (what `tools/tuning_probe.py` compares)
+_SYNC_MEASURE = False
+
 #: decision-field templates by (op, shapes, choice inputs, spec, epoch);
 #: cleared when full
 _DECISION_CACHE: dict = {}
 _DECISION_CACHE_MAX = 1024
 
 
-def _measured(table: AtomicTable, op: AtomicOp, kw: dict):
-    """(`_dispatch_one`'s result, its host seconds between two
-    synchronisations of the table's card)."""
+#: timing events by device index, given back by `telemetry.resolve`; the
+#: current stream's object by its (id, device, type); and the events'
+#: base ``record``, which skips the wrapper's stream lookup.  Creating two
+#: events and recording them through the wrappers cost an H100's host
+#: about 30 µs a call.
+_EVENT_POOLS: dict = {}
+_STREAMS: dict = {}
+_record = None
+
+
+def _timing_pair(device: int):
+    """(start, end, the pool they return to, the device's current
+    stream)."""
+    global _record
+    if _record is None:
+        _record = torch._C._CudaEventBase.record
+    key = torch._C._cuda_getCurrentStream(device)
+    stream = _STREAMS.get(key)
+    if stream is None:
+        stream = _STREAMS[key] = torch.cuda.Stream(
+            stream_id=key[0], device_index=key[1], device_type=key[2])
+    pool = _EVENT_POOLS.setdefault(device, [])
+    if len(pool) >= 2:
+        return pool.pop(), pool.pop(), pool, stream
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True), pool, stream)
+
+
+def _measured(table: AtomicTable, op: AtomicOp, kw: dict, synced: bool):
+    """(`_dispatch_one`'s result, its time): on the card a pending
+    `telemetry.DeviceSeconds` between two events on the current stream,
+    or with ``synced`` the host seconds between two synchronisations of
+    the card; on the CPU the host seconds."""
     data = table.data
+    if data.is_cuda and not synced:
+        start, end, pool, stream = _timing_pair(data.get_device())
+        _record(start, stream)
+        out = _dispatch_one(table, op, **kw)
+        _record(end, stream)
+        return out, _tcore.DeviceSeconds(start, end, pool)
     if data.is_cuda:
         torch.cuda.synchronize(data.device)
     t0 = time.perf_counter()
@@ -269,8 +314,8 @@ def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
     # a sharded batch is measured by the caller that owns the round
     # (`execute_until`), as in the reference, whose sharded events are
     # trace-time ones; on the card the calls `sync_due` samples are
-    # measured, and every call that collects stats (its contention event
-    # needs the sync boundary)
+    # measured, and every call that collects stats (between two
+    # synchronisations: its contention event needs them)
     measure = _tcore._sync and not sharded and (
         collect_stats or not table.data.is_cuda or _tcore.sync_due())
     measured_s = None
@@ -280,11 +325,13 @@ def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
         with telemetry.annotation(
                 f"atomics.execute/{'sharded' if sharded else 'local'}"):
             if measure:
-                out, measured_s = _measured(table, op, kw)
+                out, measured_s = _measured(
+                    table, op, kw, collect_stats or _SYNC_MEASURE)
             else:
                 out = _dispatch_one(table, op, **kw)
     elif measure:
-        out, measured_s = _measured(table, op, kw)
+        out, measured_s = _measured(table, op, kw,
+                                    collect_stats or _SYNC_MEASURE)
     else:
         out = _dispatch_one(table, op, **kw)
     if measured_s is None and not _tcore._every_event:
@@ -316,6 +363,8 @@ def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
     fields = fields.copy()           # the cached template stays pristine
     if measured_s is not None:
         fields["measured_s"] = measured_s
+        if type(measured_s) is _tcore.DeviceSeconds:
+            _tcore.pend(fields)
     # the copy becomes the event itself (record_event skips the kwargs
     # rebuild that `record` pays)
     telemetry.record_event(fields)

@@ -27,6 +27,13 @@ collective of the whole world; a rank outside it holds no shard of its
 tables (`is_member` is False) and joins only the world-level collective
 (`all_gather_world`) that a migration between two meshes uses.
 
+The differentiable collectives (`cut_duplicated`, `gather_duplicated`,
+`gather_summed`, `all_to_all_grad`, `sum_grad`, `all_reduce_grad`) wrap
+these calls in `torch.autograd.Function`s whose backward is derived for
+the sharded train step, where ranks along an axis the batch is not cut
+on duplicate the work; the expert-parallel layer's training variant
+(`models.moe._ep_train`) runs on them.
+
 `use_mesh` installs a mesh as the active one and `active_mesh` returns it;
 `atomics.reshard.restore_table`, `models.moe` and the checkpoint read it.
 `repro_torch.sharding.use_mesh` installs the logical-axis rules beside it,
@@ -302,6 +309,87 @@ class Mesh:
                  else "outside it")
         return (f"Mesh({dict(self.shape)} over ranks {list(self.ranks)}, "
                 f"rank {self.rank} {where}, {self.backend})")
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives (sharded training's expert-parallel layer)
+# ---------------------------------------------------------------------------
+#
+# In the sharded train step every rank along an axis the batch is not cut
+# on ("model") computes the same loss on the same rows: the work is
+# *duplicated* along it.  Each backward below is the transpose of its
+# forward for that layout, so that after backward a rank holds the
+# gradient of its own data cut's loss, equal along the duplicating axes.
+# All of them cut and gather along dim 0.  The serving path keeps the
+# plain `Mesh` calls.
+
+class _Collective(torch.autograd.Function):
+    """``forward(x)`` on the value, ``backward(g)`` on its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, forward, backward):
+        ctx.backward_fn = backward
+        return forward(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.backward_fn(grad.contiguous()), None, None
+
+
+def _own_chunk(x: Tensor, mesh: Mesh, axes: AxisNames) -> Tensor:
+    """This rank's chunk of ``x``'s dim 0 by its index along ``axes``."""
+    n = mesh.size(axes)
+    size = x.shape[0] // n
+    return x.narrow(0, mesh.index(axes) * size, size).contiguous()
+
+
+def cut_duplicated(x: Tensor, mesh: Mesh, axes: AxisNames) -> Tensor:
+    """This rank's chunk of an ``x`` that every rank along ``axes`` holds
+    alike; backward all-gathers the chunks' gradients, so the upstream
+    gradient is whole and equal along ``axes``."""
+    return _Collective.apply(x, lambda t: _own_chunk(t, mesh, axes),
+                             lambda g: mesh.all_gather(g, axes))
+
+
+def gather_duplicated(x: Tensor, mesh: Mesh, axes: AxisNames) -> Tensor:
+    """`Mesh.all_gather` into a computation every rank along ``axes``
+    then duplicates; backward keeps the rank's chunk of the (equal)
+    gradient.  A `reduce_scatter` there would count it ``size(axes)``
+    times."""
+    return _Collective.apply(x, lambda t: mesh.all_gather(t, axes),
+                             lambda g: _own_chunk(g, mesh, axes))
+
+
+def gather_summed(x: Tensor, mesh: Mesh, axes: AxisNames) -> Tensor:
+    """`Mesh.all_gather` into computations that differ along ``axes``
+    (each rank its own data); backward `reduce_scatter`s, so each rank's
+    chunk gets the sum of every rank's gradient for it."""
+    return _Collective.apply(x, lambda t: mesh.all_gather(t, axes),
+                             lambda g: mesh.reduce_scatter(g, axes))
+
+
+def all_to_all_grad(x: Tensor, mesh: Mesh, axes: AxisNames) -> Tensor:
+    """`Mesh.all_to_all`; its transpose is the same exchange."""
+    return _Collective.apply(x, lambda t: mesh.all_to_all(t, axes),
+                             lambda g: mesh.all_to_all(g, axes))
+
+
+def sum_grad(x: Tensor, mesh: Mesh, axes: AxisNames) -> Tensor:
+    """The identity, whose backward all-reduces the gradient over
+    ``axes``: for a replicated leaf each rank along ``axes`` applies to
+    its own part of the data, so each holds a partial gradient."""
+    return _Collective.apply(x, torch.clone,
+                             lambda g: mesh.all_reduce(g, axes))
+
+
+def all_reduce_grad(x: Tensor, mesh: Mesh, axes: AxisNames,
+                    grad_axes: AxisNames) -> Tensor:
+    """`Mesh.all_reduce` over ``axes`` whose backward all-reduces over
+    ``grad_axes`` only: the axes of ``axes`` left out are ones whose ranks
+    duplicate the downstream, where the gradients are equal and count
+    once."""
+    return _Collective.apply(x, lambda t: mesh.all_reduce(t, axes),
+                             lambda g: mesh.all_reduce(g, grad_axes))
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.launch.mesh import gather_full, shard_of
 from repro_torch.launch.shardings import batch_shardings, params_shardings
+from repro_torch.models import moe
 from repro_torch.models.model import LM
 from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
 
@@ -128,14 +129,24 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
     each parameter's partition spec (`launch.shardings.params_shardings`).
 
     The rank gathers the whole parameters into ``model`` (`gather_full`),
-    computes the loss and its gradients on its cut of each microbatch (the
-    global batch's *i*-th cut, split by `batch_shardings`), weights them
-    by its share of the microbatch's valid labels (the counts all-reduced),
-    sums them over the axes the batch is split on, keeps its block of each
-    and applies AdamW to its blocks, the clipping norm summed over the
-    blocks (`optim.adamw.global_norm`).  So each rank's gradient block is
-    the block of the global batch's gradient, the loss the mean over its
-    valid labels: the local step's function.  Ranks that differ only
+    computes the loss on its cut of each microbatch (the global batch's
+    *i*-th cut, split by `batch_shardings`), weighted by its share of the
+    microbatch's valid labels (the counts all-reduced) before the
+    backward, sums the gradients over the axes the batch is split on,
+    keeps its block of each and applies AdamW to its blocks, the clipping
+    norm summed over the blocks (`optim.adamw.global_norm`).
+
+    Expert weights differ where the mesh runs expert parallelism
+    (`models.moe.expert_parallel`): they are never gathered whole.  The
+    layer takes the rank's blocks (`models.moe.training_blocks`), gathers
+    their rows over the batch's axes itself, and its backward sums their
+    gradient over those axes and cuts it back to the block, so the step
+    neither all-reduces nor cuts it.  That sum is why the weight must
+    scale the loss, not the gradients after the backward.
+
+    So each rank's gradient block is the block of the global batch's
+    gradient, the loss the mean over its valid labels: the local step's
+    function.  Ranks that differ only
     along axes the batch is not split on compute the same cut, and hold
     the same bits of a block they share only under deterministic
     algorithms (`launch.train.deterministic_algorithms`), which `train`
@@ -151,19 +162,28 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
                              rules)
     ndims = reference_ndims(model)
     wide = torch.promote_types(model.dtype, torch.float32)
+    experts = _expert_leaves(model, mesh, specs)
 
     def step(params, opt_state, batch):
         own = dict(model.named_parameters())
+        dense = [n for n in own if n not in experts]
         t0 = _clock(model.device)
         with torch.no_grad():
-            for name, p in own.items():
-                p.copy_(gather_full(params[name], specs[name], mesh))
+            for name in dense:
+                own[name].copy_(gather_full(params[name], specs[name], mesh))
         t1 = _clock(model.device)
         parts = _split(batch, microbatches) if microbatches > 1 else [batch]
         cut = batch_shardings(parts[0], mesh, rules)
         local = [{k: shard_of(x, cut[k], mesh) for k, x in part.items()}
                  for part in parts]
-        red = cut["labels"][0] if cut["labels"] else ()
+        red = _axes(cut["labels"][0] if cut["labels"] else None)
+        for n in experts:
+            if _axes(specs[n][1] if len(specs[n]) > 1 else None) \
+                    not in ((), red):
+                raise NotImplementedError(
+                    f"{n}: its rows are cut over {specs[n][1]}, the batch "
+                    f"over {red}; the layer sums the block's gradient over "
+                    f"the batch's axes")
         counts = torch.stack([torch.sum(b["labels"] >= 0) for b in local]
                              ).to(wide)
         weights = (torch.full_like(counts, 1.0 / mesh.size(red))
@@ -172,26 +192,41 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
                                         min=1.0))
         loss, grads = None, None
         for w, part in zip(weights, local):
-            l, g = loss_and_grads(model, part)
-            l = l.to(wide) * w
-            for n in g:              # one leaf at a time: no second copy
-                g[n] = g[n].to(wide).mul_(w)
+            # the weight scales the loss before the backward, whose
+            # collectives sum the expert blocks' gradients over the ranks
+            blocks = {n: params[n].detach().requires_grad_()
+                      for n in experts}
+            by_module = {}
+            for n, (module, key) in experts.items():
+                by_module.setdefault(module, {})[key] = blocks[n]
+            with moe.training_blocks(by_module.items(), red):
+                l = model.loss(part).to(wide) * (w / microbatches)
+            g = torch.autograd.grad(
+                l, [own[n] for n in dense] + list(blocks.values()),
+                allow_unused=True, materialize_grads=True)
+            g = dict(zip(dense + list(blocks), g))
+            del blocks
             if grads is None:
-                loss, grads = l, g
+                loss = l.detach()
+                grads = {n: x.to(wide) for n, x in g.items()}
             else:
-                loss = loss + l
+                loss = loss + l.detach()
                 for n, x in g.items():
                     grads[n] += x
             del g
         t2 = _clock(model.device)
-        loss = mesh.all_reduce(loss, red) / microbatches
-        blocks = {}
+        loss = mesh.all_reduce(loss, red)
+        out = {}
         for name in list(grads):
-            full = mesh.all_reduce(grads.pop(name), red) / microbatches
-            blocks[name] = shard_of(full, specs[name], mesh)
-            del full
+            g = grads.pop(name)
+            if name in experts:      # the block's, summed in the backward
+                out[name] = g
+                continue
+            full = mesh.all_reduce(g, red)
+            out[name] = shard_of(full, specs[name], mesh)
+            del full, g
         new_params, new_state, metrics = apply_updates(
-            params, blocks, opt_state, opt_cfg, ndims, mesh=mesh,
+            params, out, opt_state, opt_cfg, ndims, mesh=mesh,
             specs=specs)
         t3 = _clock(model.device)
         metrics.update(loss=loss, gather_s=t1 - t0, compute_s=t2 - t1,
@@ -200,6 +235,31 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
 
     step.specs = specs
     return step
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    """A spec entry's axis names as a tuple (() for None)."""
+    if not entry:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _expert_leaves(model: LM, mesh, specs) -> Dict[str, Tuple[Any, str]]:
+    """{name: (its MoE module, "w1" / "w3" / "w2")} of every expert weight
+    the layer runs expert parallelism on under ``mesh``: the leaves the
+    step keeps as blocks."""
+    if not moe.expert_parallel(model.cfg, mesh):
+        return {}
+    out = {}
+    for name in specs:
+        head, _, key = name.rpartition(".")
+        if key in ("w1", "w3", "w2") and head.endswith(".moe"):
+            if _axes(specs[name][0] if specs[name] else None) != ("model",):
+                raise NotImplementedError(
+                    f"{name}: expert parallelism needs the experts over "
+                    f"'model', the spec is {specs[name]}")
+            out[name] = (model.get_submodule(head), key)
+    return out
 
 
 def make_prefill_step(model: LM, s_max: int) -> Callable:

@@ -44,10 +44,13 @@ same cut, and must get the same bits of it, so a mesh needs
 ``deterministic``.  A save gathers every leaf and rank 0 writes the
 reference's format; a restore places each rank's blocks
 (`runtime.elastic.placement`), whatever mesh wrote the checkpoint.  A
-config with MoE layers, or a mesh with an axis the rules do not name,
-raises `NotImplementedError`: the MoE layer under a mesh takes the global
-tokens on every rank and has no backward through the mesh's collectives
-(ROADMAP queue 1, "sharded MoE training").
+config with MoE layers runs its expert parallelism on the mesh's
+``"model"`` axis where that axis divides the experts
+(`models.moe._ep_train`): each rank keeps its experts' blocks, gathers
+their rows over the batch's axes inside the layer and gets their
+gradient back as blocks through the layer's collectives, and cuts its
+data cut's sequence over ``"model"``, so ``seq_len`` must divide over it.
+A mesh with an axis the rules do not name raises `NotImplementedError`.
 
     PYTHONPATH=src python -c "from repro_torch.launch import ranks; \
         print(ranks.launch('repro_torch.launch.train:train_on_mesh', 4, \
@@ -78,6 +81,7 @@ from repro_torch.launch.mesh import gather_full, shard_of, use_mesh
 from repro_torch.launch.shardings import arch_rules
 from repro_torch.launch.steps import (make_sharded_train_step,
                                       make_train_step)
+from repro_torch.models import moe
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import layer_sigs
 from repro_torch.optim.adamw import AdamWConfig, init_state
@@ -90,9 +94,6 @@ from repro_torch.runtime.fault_tolerance import (FaultConfig,
 from repro_torch.sharding import rule_axes
 
 log = logging.getLogger("repro_torch.train")
-
-SHARDED_MOE = "sharded MoE training (ROADMAP queue 1)"
-
 
 @contextlib.contextmanager
 def deterministic_algorithms(on: bool):
@@ -146,7 +147,7 @@ def train(arch: str, *, steps: int = 100, seq_len: int = 256,
                            "device='cpu' to train on the CPU")
     cfg = get_reduced(arch) if reduced else get_config(arch)
     if mesh is not None:
-        rules = _mesh_rules(cfg, mesh, rules)
+        rules = _mesh_rules(cfg, mesh, rules, seq_len)
         if not deterministic:
             raise ValueError(
                 "train(mesh=...) needs deterministic=True: ranks that "
@@ -311,15 +312,17 @@ def _resolve_tuning(tuning, device, mesh=None):
     return tuning
 
 
-def _mesh_rules(cfg, mesh, rules: Optional[Dict]) -> Dict:
+def _mesh_rules(cfg, mesh, rules: Optional[Dict], seq_len: int) -> Dict:
     """The rules sharded training runs under (default `arch_rules`); raises
     `NotImplementedError` for what it does not cover, before any rank
     starts work."""
-    if any(is_moe for _, is_moe in layer_sigs(cfg)):
+    ep = mesh.shape.get("model", 1)
+    if any(is_moe for _, is_moe in layer_sigs(cfg)) \
+            and moe.expert_parallel(cfg, mesh) and seq_len % ep:
         raise NotImplementedError(
-            f"{cfg.name}: its MoE layers take the global tokens on every "
-            f"rank of a mesh and have no backward through the mesh's "
-            f"collectives: {SHARDED_MOE}")
+            f"{cfg.name}: sharded MoE training cuts each data cut's "
+            f"sequence over 'model', and seq_len {seq_len} does not divide "
+            f"over its {ep} ranks")
     rules = arch_rules(cfg, mesh, "train") if rules is None else rules
     unknown = [a for a in mesh.axis_names if a not in rule_axes(rules)]
     if unknown:

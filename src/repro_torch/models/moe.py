@@ -34,6 +34,18 @@ output shards are gathered back, so `moe_ffn` returns the global output
 on every rank, as the reference's global array.  Without such a mesh the
 same routing runs on one device.
 
+Training takes the rank's cut instead.  The sharded train step
+(`launch.steps.make_sharded_train_step`) selects it explicitly with
+`training_blocks`: each rank then hands `moe_ffn` its own data cut of the
+activations and holds only its experts' blocks, and `_ep_train` runs the
+same body with a backward through the mesh's collectives
+(`launch.mesh.cut_duplicated`, `gather_duplicated`, `gather_summed`,
+`all_to_all_grad`, `sum_grad`, `all_reduce_grad`): the blocks come out of
+the backward with the whole batch's gradient, the router's and the
+activations' gradients are the rank's data cut's, equal along
+``"model"``.  On a mesh without expert parallelism each cut runs the
+local layer (`_cut_train`), its aux loss from every cut's.
+
 Each stage runs in a `torch.profiler.record_function` range named
 ``moe.<stage>`` (route, rank, atomics, scatter, exchange, experts,
 combine, weight_gather), so a profiler's trace splits the layer's time.
@@ -41,7 +53,9 @@ combine, weight_gather), so a profiler's trace splits the layer's time.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -51,6 +65,8 @@ from torch.profiler import record_function
 
 from repro_torch import atomics
 from repro_torch.core.rmw import segmented_scan
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import active_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
@@ -145,9 +161,11 @@ def _priority_rank(expert_ids: Tensor, gates: Tensor, policy: str,
 def _dispatch_compute(x2d: Tensor, params_local, cfg: ModelConfig,
                       n_shards: int, capacity: int, axis: Optional[str],
                       act: str, replica_axes: Tuple[str, ...] = (),
-                      global_capacity: Optional[int] = None, *, mesh=None):
+                      global_capacity: Optional[int] = None, *, mesh=None,
+                      exchange=None):
     """x2d: (T, d) local tokens; ``params_local`` hold E / n_shards experts.
-    With ``axis`` set, runs the EP all_to_all over that axis of ``mesh``.
+    With ``axis`` set, runs the EP all_to_all over that axis of ``mesh``
+    (``exchange(x, axis)``, default `Mesh.all_to_all`).
 
     ``replica_axes`` are data-parallel axes whose ranks hold *distinct*
     tokens (writers into the shared expert counters); ``global_capacity``
@@ -158,6 +176,8 @@ def _dispatch_compute(x2d: Tensor, params_local, cfg: ModelConfig,
     e_loc = m.n_experts // n_shards
     k = m.top_k
     dev = x2d.device
+    if axis is not None and exchange is None:
+        exchange = mesh.all_to_all
 
     with record_function("moe.route"):
         gates, ids, aux = _route(x2d, params_local["router"], m)
@@ -210,7 +230,7 @@ def _dispatch_compute(x2d: Tensor, params_local, cfg: ModelConfig,
     wire_dt = torch.bfloat16 if x2d.dtype == torch.bfloat16 else x2d.dtype
     if axis is not None:
         with record_function("moe.exchange"):
-            recv = mesh.all_to_all(send.reshape(
+            recv = exchange(send.reshape(
                 n_shards, e_loc * capacity, d).to(wire_dt), axis)
     else:
         recv = send.reshape(1, e_loc * capacity, d).to(wire_dt)
@@ -232,8 +252,8 @@ def _dispatch_compute(x2d: Tensor, params_local, cfg: ModelConfig,
 
     if axis is not None:
         with record_function("moe.exchange"):
-            back = mesh.all_to_all(out.reshape(n_shards, e_loc * capacity,
-                                               d), axis)
+            back = exchange(out.reshape(n_shards, e_loc * capacity, d),
+                            axis)
     else:
         back = out.reshape(1, e_loc * capacity, d)
 
@@ -367,17 +387,148 @@ def _ep_ffn(params, x: Tensor, cfg: ModelConfig, mesh):
 
 
 # ---------------------------------------------------------------------------
+# expert parallelism in sharded training: this rank's cut and blocks
+# ---------------------------------------------------------------------------
+
+#: private test hooks: "gather_reduce_scatter" gives the output's gather
+#: a `reduce_scatter` backward, "router_partial" leaves the router's
+#: gradient partial over "model"; each must break the sharded step
+_CONTROLS: frozenset = frozenset()
+
+_training = threading.local()
+
+
+def expert_parallel(cfg: ModelConfig, mesh) -> bool:
+    """Whether `moe_ffn` runs expert parallelism on ``mesh``: a ``model``
+    axis larger than 1 that divides the experts."""
+    ep = mesh.shape.get("model", 1) if mesh is not None else 1
+    return cfg.moe is not None and ep > 1 and cfg.moe.n_experts % ep == 0
+
+
+@contextlib.contextmanager
+def training_blocks(blocks, batch_axes: Tuple[str, ...]):
+    """Select the training variant for the block: ``blocks`` pairs the
+    parameters `moe_ffn` is given (an `MoE` module) with this rank's
+    block of each expert weight under P("model", fsdp, None) ({"w1",
+    "w3", "w2"}); under an expert-parallel mesh, `moe_ffn` on those
+    parameters takes the rank's cut of the batch (cut over
+    ``batch_axes``) and runs `_ep_train` on the blocks."""
+    prev = getattr(_training, "state", None)
+    _training.state = ({id(p): b for p, b in blocks}, tuple(batch_axes))
+    try:
+        yield
+    finally:
+        _training.state = prev
+
+
+def _gather_rows_grad(w: Tensor, mesh, axes: Tuple[str, ...]) -> Tensor:
+    """`_gather_rows` whose backward sums every rank's gradient of the
+    rows over ``axes`` and keeps the block's (a `reduce_scatter`)."""
+    if not axes:
+        return w
+    n = mesh.size(axes)
+    full = mesh_lib.gather_summed(w, mesh, axes).reshape(n, *w.shape)
+    return full.transpose(0, 1).reshape(w.shape[0], n * w.shape[1],
+                                        *w.shape[2:])
+
+
+def _ep_train(params, blocks: Dict[str, Tensor], x: Tensor,
+              cfg: ModelConfig, mesh, batch_axes: Tuple[str, ...]):
+    """One rank's expert-parallel layer in the sharded train step, with a
+    backward through the mesh's collectives.
+
+    ``x`` (b, s, d) is the rank's data cut, the same on every rank along
+    ``"model"``, which all compute the same loss; ``blocks`` hold the
+    rank's experts under P("model", fsdp, None).  It runs the reference's
+    ``shard_fn`` on the rank's cut: its sequence chunk of ``x`` (backward:
+    the chunks' gradients all-gathered), the blocks' rows gathered over
+    the batch's axes (backward: summed over them and cut back to the
+    block's, so the blocks come out with the whole batch's gradient), the
+    router through an identity whose backward all-reduces over
+    ``"model"`` (each rank routes its own chunk), the dispatch and return
+    as differentiable all-to-alls, the mean probabilities averaged over
+    every axis with a backward summed over the batch's axes only (the
+    data cuts' weighted losses add up to the global one), and the output
+    gathered over ``"model"`` (backward: the rank's chunk).  Returns (the
+    cut's output (b, s, d), aux loss)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    ep = mesh.shape["model"]
+    if s % ep:
+        raise NotImplementedError(
+            f"sharded MoE training cuts the sequence over 'model': "
+            f"{s} tokens do not divide over {ep} ranks")
+    dp_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    t_loc = b * (s // ep)
+    xs = mesh_lib.cut_duplicated(x.transpose(0, 1), mesh, "model") \
+        .transpose(0, 1)                                   # (b, s/ep, d)
+    router = params["router"]
+    if "router_partial" not in _CONTROLS:
+        router = mesh_lib.sum_grad(router, mesh, "model")
+    with record_function("moe.weight_gather"):
+        p_local = {"router": router}
+        for name in ("w1", "w3", "w2"):
+            # a block's rows are cut over the batch's axes, or not at all
+            w = blocks[name]
+            p_local[name] = _gather_rows_grad(
+                w, mesh, () if w.shape[1] == params[name].shape[1]
+                else batch_axes)
+    out2d, (mp, cnt) = _dispatch_compute(
+        xs.reshape(t_loc, d), p_local, cfg, ep, _capacity(t_loc, m, ep),
+        "model", cfg.mlp_act, replica_axes=batch_axes,
+        global_capacity=_capacity(t_loc * ep * mesh.size(batch_axes), m, 1),
+        mesh=mesh,
+        exchange=lambda t, axis: mesh_lib.all_to_all_grad(t, mesh, axis))
+    del p_local
+    axes = ("model",) + dp_axes
+    mp = mesh_lib.all_reduce_grad(mp, mesh, axes, batch_axes) \
+        / mesh.size(axes)
+    gather = (mesh_lib.gather_summed if "gather_reduce_scatter" in _CONTROLS
+              else mesh_lib.gather_duplicated)
+    with record_function("moe.exchange"):
+        out = gather(out2d.reshape(b, s // ep, d).transpose(0, 1)
+                     .contiguous(), mesh, "model").transpose(0, 1)
+    return out, _aux_loss(mp, cnt, m)
+
+
+def _cut_train(params, x: Tensor, cfg: ModelConfig, mesh,
+               batch_axes: Tuple[str, ...]):
+    """The layer in the sharded train step on a mesh without expert
+    parallelism: the local dispatch on the rank's cut, each cut with its
+    own capacity, and the aux loss from every cut's mean probabilities
+    (backward summed over the batch's axes) and top-1 counts, as the
+    local layer's on the whole batch."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    out2d, (mp, cnt) = _dispatch_compute(x.reshape(t, d), params, cfg, 1,
+                                         _capacity(t, m, 1), None,
+                                         cfg.mlp_act)
+    mp = mesh_lib.all_reduce_grad(mp, mesh, batch_axes, batch_axes) \
+        / mesh.size(batch_axes)
+    cnt = mesh.all_reduce(cnt, batch_axes)
+    return out2d.reshape(b, s, d), _aux_loss(mp, cnt, m)
+
+
+# ---------------------------------------------------------------------------
 # public entry
 # ---------------------------------------------------------------------------
 
 def moe_ffn(params, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
-    """x: (B, S, d) -> (out (B, S, d), aux_loss scalar)."""
+    """x: (B, S, d) -> (out (B, S, d), aux_loss scalar).  Inside
+    `training_blocks` under a mesh, ``x`` is the rank's cut and so is the
+    output (`_ep_train`, or `_cut_train` without expert parallelism)."""
     m = cfg.moe
     mesh = active_mesh()
     b, s, d = x.shape
-    if mesh is None or "model" not in mesh.shape \
-            or m.n_experts % mesh.shape["model"] != 0 \
-            or mesh.shape["model"] == 1:
+    state = getattr(_training, "state", None)
+    if state is not None and mesh is not None:
+        if expert_parallel(cfg, mesh):
+            out, loss = _ep_train(params, state[0][id(params)], x, cfg,
+                                  mesh, state[1])
+        else:
+            out, loss = _cut_train(params, x, cfg, mesh, state[1])
+    elif not expert_parallel(cfg, mesh):
         t = b * s
         cap = _capacity(t, m, 1)
         out2d, aux = _dispatch_compute(x.reshape(t, d), params, cfg, 1, cap,

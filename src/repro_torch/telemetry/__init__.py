@@ -57,21 +57,24 @@ analysis, ``tuning.*`` from `repro_torch.tuning.SpecController`):
 ====================  =====================================================
 """
 
-from repro_torch.telemetry.core import (Counters, JsonlWriter, RingBuffer,
-                                        Sink, Span, add_sink, annotation,
+from repro_torch.telemetry.core import (Counters, DeviceSeconds,
+                                        JsonlWriter, RingBuffer, Sink,
+                                        Span, add_sink, annotation,
                                         annotations_enabled, capture,
                                         disable, enable, enable_from_env,
                                         enabled, flush_ring, read_jsonl,
                                         record, record_event, remove_sink,
-                                        ring_events, sinks, span,
+                                        resolve, ring_events, sinks, span,
                                         sync_enabled, telemetry_dir,
                                         TELEMETRY_DIR_ENV, TELEMETRY_ENV)
 
 __all__ = [
-    "Counters", "JsonlWriter", "RingBuffer", "Sink", "Span",
+    "Counters", "DeviceSeconds", "JsonlWriter", "RingBuffer", "Sink",
+    "Span",
     "add_sink", "annotation", "annotations_enabled", "capture", "disable",
     "enable", "enable_from_env", "enabled", "flush_ring", "read_jsonl",
-    "record", "record_event", "remove_sink", "ring_events", "sinks",
+    "record", "record_event", "remove_sink", "resolve", "ring_events",
+    "sinks",
     "span", "sync_enabled", "telemetry_dir",
     "TELEMETRY_DIR_ENV", "TELEMETRY_ENV",
 ]

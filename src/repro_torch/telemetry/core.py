@@ -24,19 +24,26 @@ stream:
 Eager PyTorch has no trace time: every instrumented call is a host-side
 call, so events carry ``traced=False`` (the field is kept so both packages'
 events share one schema), and measured wall times come from the call sites
-under ``sync``, which synchronise the card before reading the clock.
-A measured call costs an H100's host 65-85 µs more than an unmeasured
-one (two synchronisations, and the event built after the device finished
-instead of beside it), so a sink installed with sync may ask for one call
-on the card in ``Sink.sync_every`` to be measured (`sync_due`: one call at
-a seeded random place in each run of ``k``, so traffic that repeats with a
-period is sampled whole); the stream takes the least period among the
-sinks installed with sync.  A consumer that leaves the stream on (the
-tuning controller) asks for more than 1; a plain sink, and so every
-capture, for every call.  A CPU call needs no synchronisation and is
-always measured.  Building an event costs the card's host a few µs too,
-so while every installed sink is ``Sink.measured_only`` an unmeasured call
-builds none.
+under ``sync``.  A call on the card is measured by two CUDA events
+recorded around it on its stream, with no synchronisation: its event
+carries a :class:`DeviceSeconds` in ``measured_s`` until `resolve`
+replaces it with the seconds between the two events, after one wait for
+the newest.  That happens where the wait costs nothing extra: at a
+consumer's window boundary (the tuning controller's update cycle), when a
+`capture` ends or the stream is disabled, and when a `RingBuffer`'s events
+are read; a sink that writes events out as they come (`JsonlWriter`,
+`Counters`) resolves each one it is given.  A measured call still costs
+an H100's host about 15 µs more than an unmeasured one (recording the
+two events, and reading them back; two synchronisations cost 65-85 µs),
+so a sink installed with sync may ask for one call on the card in
+``Sink.sync_every`` to be measured (`sync_due`: one call at a seeded
+random place in each run of ``k``, so traffic that repeats with a period
+is sampled whole); the stream takes the least period among the sinks
+installed with sync.  A consumer that leaves the stream on (the tuning
+controller) asks for more than 1; a plain sink, and so every capture,
+for every call.  A CPU call is measured by the host clock, always.
+Building an event costs the card's host a few µs too, so while every
+installed sink is ``Sink.measured_only`` an unmeasured call builds none.
 
 Thread safety: sink dispatch holds one module lock; sinks themselves need
 no internal locking.  Enabling/disabling swaps the sink tuple atomically.
@@ -61,7 +68,7 @@ TELEMETRY_ENV = "REPRO_TELEMETRY"
 _lock = threading.Lock()
 _sinks: Tuple["Sink", ...] = ()
 _enabled: bool = False          # the one hot-path guard
-_sync: bool = False             # synchronise the device around measured calls
+_sync: bool = False             # measure eager calls' device time
 _synced: Tuple["Sink", ...] = ()  # the sinks installed with sync
 _sync_every: int = 1            # ... measure one call on the card in this many
 _sync_tick: int = 0             # place in the current run of _sync_every
@@ -69,6 +76,7 @@ _sync_pick: int = 0             # ... and the place measured in it
 _sampler = random.Random(0)
 _every_event: bool = False      # some sink reads unmeasured events too
 _annotate: bool = False         # torch.profiler ranges at dispatch
+_pending: List[Dict[str, Any]] = []  # events whose measured_s is pending
 
 
 def _wants_every(sinks) -> bool:
@@ -87,6 +95,54 @@ def _set_period(synced) -> None:
         _sync_pick = _sampler.randrange(every)
 
 
+class DeviceSeconds:
+    """A measured time on the card, pending: the two CUDA events recorded
+    around a call on its stream.  `seconds` waits for the end event.
+    ``pool``, where given, takes both events back once `resolve` has read
+    them, for the next call to record again."""
+
+    __slots__ = ("start", "end", "pool")
+
+    def __init__(self, start, end, pool=None):
+        self.start, self.end, self.pool = start, end, pool
+
+    def seconds(self) -> float:
+        self.end.synchronize()
+        return self.start.elapsed_time(self.end) / 1e3
+
+
+#: pending events past this many are resolved at the next `pend`
+PENDING_CAP = 4096
+
+
+def pend(ev: Dict[str, Any]) -> None:
+    """Register an event whose ``measured_s`` is a `DeviceSeconds`, for
+    `resolve`."""
+    _pending.append(ev)
+    if len(_pending) > PENDING_CAP:
+        resolve()
+
+
+def resolve() -> None:
+    """Replace the ``measured_s`` of every pending event with its seconds:
+    one wait for the newest end event, then each pair's elapsed time."""
+    global _pending
+    if not _pending:
+        return
+    batch, _pending = _pending, []
+    for ev in reversed(batch):       # the newest first: one real wait
+        meas = ev.get("measured_s")
+        if isinstance(meas, DeviceSeconds):
+            ev["measured_s"] = meas.seconds()
+            if meas.pool is not None:
+                meas.pool += (meas.start, meas.end)
+
+
+def _seconds(x):
+    """``x``, or its seconds where it is a pending `DeviceSeconds`."""
+    return x.seconds() if isinstance(x, DeviceSeconds) else x
+
+
 # ---------------------------------------------------------------------------
 # Sinks
 # ---------------------------------------------------------------------------
@@ -101,7 +157,8 @@ class Sink:
     measured time (the tuning controller's tap): while every installed
     sink says so, an eager `execute` that was not measured skips building
     its decision event.  ``sync_every``: installed with sync, the sink asks
-    for one call on the card in this many to be measured."""
+    for one call on the card in this many to be measured.  An event's
+    ``measured_s`` may be a pending `DeviceSeconds` until `resolve`."""
 
     measured_only = False
     sync_every = 1
@@ -124,6 +181,8 @@ class RingBuffer(Sink):
 
     @property
     def events(self) -> List[Dict[str, Any]]:
+        """The events, their pending times resolved."""
+        resolve()
         return list(self._buf)
 
     def __len__(self) -> int:
@@ -169,7 +228,7 @@ class JsonlWriter(Sink):
         if self._f is None:
             return
         self._f.write(json.dumps(
-            {k: _jsonable(v) for k, v in event.items()}) + "\n")
+            {k: _jsonable(_seconds(v)) for k, v in event.items()}) + "\n")
 
     def close(self) -> None:
         if self._f is not None:
@@ -200,6 +259,7 @@ class Counters(Sink):
         name = str(event.get("event"))
         self.counts[name] += 1
         for k, v in event.items():
+            v = _seconds(v)
             if k in ("event", "t") or isinstance(v, bool) \
                     or not isinstance(v, (int, float)):
                 continue
@@ -233,9 +293,9 @@ def enabled() -> bool:
 
 
 def sync_enabled() -> bool:
-    """True when measured call sites should synchronise the device before
-    reading the clock, so wall times mean device time, not dispatch time
-    (drift captures need this)."""
+    """True when measured call sites should measure device time, not
+    dispatch time (drift captures need this): CUDA events around a call
+    on the card, read after the fact (`resolve`)."""
     return _enabled and _sync
 
 
@@ -263,9 +323,9 @@ def annotations_enabled() -> bool:
 def enable(*sinks: Sink, sync: bool = False, annotate: bool = False) -> None:
     """Install ``sinks`` (replacing any current set) and turn the stream on.
 
-    ``sync=True`` makes instrumented dispatch sites synchronise the device
-    before reading the clock — accurate measured-vs-predicted events at the
-    price of de-pipelining; leave False in production.
+    ``sync=True`` makes instrumented dispatch sites measure the device
+    time of eager calls (CUDA events, read after the fact) — the
+    measured-vs-predicted events drift captures need.
     ``annotate=True`` additionally opens ``torch.profiler.record_function``
     ranges around engine dispatch / exchange collectives / migrations /
     train steps.
@@ -281,8 +341,10 @@ def enable(*sinks: Sink, sync: bool = False, annotate: bool = False) -> None:
 
 
 def disable() -> None:
-    """Turn the stream off and close the installed sinks."""
+    """Turn the stream off (pending times resolved) and close the
+    installed sinks."""
     global _sinks, _enabled, _sync, _annotate, _every_event
+    resolve()
     with _lock:
         for s in _sinks:
             try:
@@ -350,7 +412,8 @@ def capture(sink: Optional[Sink] = None, *, sync: bool = False,
             annotate: bool = False):
     """Scoped enable: install ``sink`` (default: a fresh :class:`RingBuffer`)
     *in addition to* any already-installed sinks, yield it, and restore the
-    previous state on exit.  The standard test/benchmark spelling::
+    previous state on exit, every pending time resolved.  The standard
+    test/benchmark spelling::
 
         with telemetry.capture(sync=True) as buf:
             atomics.execute(...)
@@ -370,6 +433,7 @@ def capture(sink: Optional[Sink] = None, *, sync: bool = False,
     try:
         yield target
     finally:
+        resolve()
         with _lock:
             _sinks, _enabled, _sync, _annotate, _, _every_event = prev
             _set_period(prev[4])

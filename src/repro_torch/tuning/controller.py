@@ -102,12 +102,13 @@ STATE_VERSION = 1
 
 #: the controller's sink asks for one eager `execute` on the card in this
 #: many to be measured (`telemetry.Sink.sync_every`): a measured call costs
-#: an H100's host 65-85 µs more than an unmeasured one, most of an eager
-#: batch.  Not in the reference, which measures every call; a
-#: ``telemetry.capture(sync=True)`` beside the controller measures every
-#: call again.  A CPU call is always measured.
+#: an H100's host about 15 µs more than an unmeasured one (two CUDA
+#: events recorded and read back), and the update cycle a window of
+#: `TuningConfig.min_events` measured calls about 100 µs, against about
+#: 90 µs for an eager FAA of 4,096 ops.  Not in the reference, which
+#: measures every call; a ``telemetry.capture(sync=True)`` beside the
+#: controller measures every call again.  A CPU call is always measured.
 SYNC_EVERY = 64
-
 
 @dataclasses.dataclass(frozen=True)
 class TuningConfig:
@@ -150,7 +151,9 @@ class _ControllerSink(telemetry.Sink):
     """The controller's tap on the event stream.  ``emit`` runs under the
     telemetry lock: buffer only, never record (re-entering the stream from
     a sink would deadlock).  It reads measured events only, so while it is
-    the only sink an unmeasured `execute` builds no event."""
+    the only sink an unmeasured `execute` builds no event.  A measured
+    call on the card carries CUDA events, its seconds pending until the
+    window closes (`SpecController.step` resolves them with one wait)."""
 
     measured_only = True
 
@@ -163,6 +166,12 @@ class _ControllerSink(telemetry.Sink):
 
     def emit(self, event: Dict[str, Any]) -> None:
         self._controller._observe(event)
+
+
+def _timed(meas) -> bool:
+    """A measured time the drift fit can take: a positive finite float."""
+    return isinstance(meas, (int, float)) and not isinstance(meas, bool) \
+        and 0 < meas < math.inf
 
 
 #: the running controller (at most one per process — it owns the
@@ -290,18 +299,36 @@ class SpecController:
         # called under the telemetry lock: filter + buffer only.  Unlike
         # the reference, a time that is not finite is dropped too (the
         # ``cuda`` backend forced on a CPU table is priced at inf), so it
-        # cannot reach `drift.aggregate`'s log
+        # cannot reach `drift.aggregate`'s log; a pending device time is
+        # checked when the window closes (`_take_window`)
         meas = ev.get("measured_s")
         if meas is None or ev.get("event") not in drift.DRIFT_EVENTS:
             return
         pred = ev.get("predicted_s")
         if not isinstance(pred, (int, float)) or isinstance(pred, bool) \
-                or not isinstance(meas, (int, float)) \
-                or isinstance(meas, bool) or not 0 < pred < math.inf \
-                or not 0 < meas < math.inf:
+                or not 0 < pred < math.inf or not (
+                    type(meas) is telemetry.DeviceSeconds or _timed(meas)):
             return
         with self._wlock:
             self._window.append(ev)
+
+    def _take_window(self) -> Optional[List[Dict[str, Any]]]:
+        """The window's events once ``min_events`` of them carry a time:
+        their pending device times resolved here, with one wait (the
+        window boundary), those not positive and finite dropped; None
+        (the window kept) while fewer remain."""
+        with self._wlock:
+            if len(self._window) < self.cfg.min_events:
+                return None
+            window = list(self._window)
+            self._window.clear()
+        telemetry.resolve()
+        window = [ev for ev in window if _timed(ev["measured_s"])]
+        if len(window) >= self.cfg.min_events:
+            return window
+        with self._wlock:
+            self._window.extendleft(reversed(window))
+        return None
 
     def window_size(self) -> int:
         with self._wlock:
@@ -320,11 +347,9 @@ class SpecController:
             return self._step_mesh()
         if len(self._window) < self.cfg.min_events:
             return None              # a deque's len needs no lock
-        with self._wlock:
-            if len(self._window) < self.cfg.min_events:
-                return None
-            window = list(self._window)
-            self._window.clear()
+        window = self._take_window()
+        if window is None:
+            return None
         outcome = self._update(window)
         self.last_outcome = outcome
         return outcome
@@ -543,11 +568,8 @@ class SpecController:
     def _step_mesh(self) -> Optional[str]:
         root = self._is_root()
         window = None
-        if root:
-            with self._wlock:
-                if len(self._window) >= self.cfg.min_events:
-                    window = list(self._window)
-                    self._window.clear()
+        if root and len(self._window) >= self.cfg.min_events:
+            window = self._take_window()
         if not self._flag(window is not None):
             return None
         if root:

@@ -1380,6 +1380,65 @@ def test_sync_every_measures_one_call_in_k_on_the_card(cuda_device):
 
 
 @pytest.mark.gpu
+def test_every_eager_call_is_measured_by_events_on_the_card(cuda_device):
+    """Beside a sink installed with sync, 8 eager calls on the card record
+    8 decision events, each measured by CUDA events: pending
+    (`telemetry.DeviceSeconds`) while the ring is not read, positive
+    seconds once it is; a call that collects stats is timed between two
+    synchronisations (a float at once) and records its contention
+    event."""
+    from repro_torch import telemetry
+    tbl = atomics.make_table(64, torch.int32, device=cuda_device)
+    op = atomics.Faa(torch.arange(16, device=cuda_device,
+                                  dtype=torch.int32),
+                     torch.ones(16, device=cuda_device, dtype=torch.int32))
+    ring = telemetry.RingBuffer()
+    telemetry.add_sink(ring, sync=True)
+    try:
+        for _ in range(8):
+            atomics.execute(tbl, op)
+        atomics.execute(tbl, op, collect_stats=True)
+        pending = [type(e.get("measured_s")) for e in ring._buf
+                   if e["event"] == "atomics.execute"]
+    finally:
+        telemetry.remove_sink(ring)
+    assert pending == [telemetry.DeviceSeconds] * 8 + [float]
+    execs = [e for e in ring.events if e["event"] == "atomics.execute"]
+    assert len(execs) == 9
+    assert all(type(e["measured_s"]) is float and e["measured_s"] > 0
+               for e in execs)
+    assert [e["event"] for e in ring.events].count("contention.stats") == 1
+
+
+@pytest.mark.gpu
+def test_sharded_moe_training_2x2_matches_local_on_the_card(cuda_device,
+                                                            tmp_path,
+                                                            monkeypatch):
+    """Four gloo ranks sharing the card train reduced deepseek_v3 in f32
+    on a 2x2 ``("data", "model")`` mesh through the expert-parallel
+    layer's training variant, at the no-drop capacity factor, for 3 steps,
+    against the local trainer on the card: losses and gradient norms
+    within rtol 1e-5, every leaf of the final checkpoint within relative
+    L2 1e-4 (`tests/_torch_train_sharded_moe_worker.py`)."""
+    import _torch_train_sharded_moe_worker as MW
+    from repro_torch.launch import ranks
+    from repro_torch.launch import train as ttrain
+    torch.cuda.empty_cache()
+    sharded = ranks.launch(f"{MW.__file__}:run_card", 4,
+                           mesh=((2, 2), ("data", "model")), device="cuda",
+                           args=(str(tmp_path),), timeout=600)
+    assert all(o == sharded[0] for o in sharded)
+    monkeypatch.setattr(ttrain, "get_reduced", MW.no_drop)
+    path = str(tmp_path / "local")
+    got = ttrain.train(MW.ARCHS[0], ckpt_dir=path, checkpoint_every=3,
+                       **{**MW.TRAIN, "device": "cuda"})
+    local = ([{k: h[k] for k in ("loss", "grad_norm", "lr")}
+              for h in got["history"]], got["failures"], path)
+    assert MW.runs_off((*sharded[0], MW.ckpt_dir(str(tmp_path), "card")),
+                       local, MW.ARCHS[0]) == []
+
+
+@pytest.mark.gpu
 def test_sharded_training_2x2_matches_local_on_the_card(cuda_device,
                                                         tmp_path,
                                                         monkeypatch):

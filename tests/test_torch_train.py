@@ -360,17 +360,19 @@ def test_chaos_run_is_bit_equal_to_a_clean_one(tmp_path):
 
 
 def test_unported_options_raise(monkeypatch, capsys):
-    """A mesh raises for a config with MoE layers (sharded MoE training;
-    sharded dense training runs, `test_torch_train_sharded.py`); the
-    tuning options, which raised until the tuning slice, now run: a
-    controller per call, its stats in the result, no live spec left."""
+    """A mesh raises for a config with MoE layers only where its
+    expert-parallel layer cannot cut the sequence over "model" (sharded
+    MoE training runs, `test_torch_train_sharded_moe.py`; sharded dense
+    training, `test_torch_train_sharded.py`); the tuning options, which
+    raised until the tuning slice, now run: a controller per call, its
+    stats in the result, no live spec left."""
     from repro_torch.core import rmw_engine
 
     class _Mesh:
-        axis_names, shape = ("data",), {"data": 2}
+        axis_names, shape = ("data", "model"), {"data": 1, "model": 2}
 
     with pytest.raises(NotImplementedError, match="sharded MoE training"):
-        ttrain.train("deepseek_v3_671b", steps=1, mesh=_Mesh(),
+        ttrain.train("deepseek_v3_671b", steps=1, seq_len=15, mesh=_Mesh(),
                      device="cpu")
     kw = dict(steps=1, seq_len=8, global_batch=2, device="cpu")
     assert "tuning" in ttrain.train("gemma_2b", tuning=True, **kw)

@@ -286,9 +286,13 @@ class _Mesh:
 @pytest.mark.parametrize("arch", ["deepseek_v3_671b",
                                   "jamba_1_5_large_398b", "dbrx_132b"])
 def test_moe_configs_under_a_mesh_raise(arch):
+    """MoE configs train under a mesh (`tests/test_torch_train_sharded_moe
+    .py`), but the expert-parallel layer cuts each data cut's sequence
+    over "model": a sequence that does not divide over it raises before
+    any rank starts work."""
     with pytest.raises(NotImplementedError, match="sharded MoE training"):
-        ttrain.train(arch, steps=1, mesh=_Mesh((2, 2), ("data", "model")),
-                     device="cpu")
+        ttrain.train(arch, steps=1, seq_len=15,
+                     mesh=_Mesh((2, 2), ("data", "model")), device="cpu")
 
 
 def test_unknown_mesh_axes_and_rules_without_mesh_raise():

@@ -394,6 +394,94 @@ def test_swap_moves_every_selector_at_the_next_call():
     assert (mig0, mig1) == ("device_put", "exchange")
 
 
+class _FakeEvent:
+    """A CUDA event's interface on the host: ``synchronize`` counts the
+    waits, ``elapsed_time`` gives milliseconds from a fixed start."""
+
+    def __init__(self, ms, waits):
+        self.ms, self.waits = ms, waits
+
+    def synchronize(self):
+        self.waits.append(self.ms)
+
+    def elapsed_time(self, end):
+        return end.ms - self.ms
+
+
+def test_every_eager_call_is_measured():
+    """With a controller running and no other sink, every eager `execute`
+    on a CPU table reaches its window measured (the host clock, a float),
+    as in the reference (the sampling period applies to calls on the
+    card); a sink without sync measures nothing."""
+    from repro_torch.telemetry import core
+    tbl = atomics.make_table(16, device="cpu")
+    op = atomics.Faa(torch.arange(4, dtype=torch.int32),
+                     torch.ones(4, dtype=torch.int32))
+    big = dataclasses.replace(CFG, min_events=10 ** 6)
+    with SpecController(big, device="cpu") as ctrl:
+        assert core._sync
+        for _ in range(100):
+            atomics.execute(tbl, op)
+        assert ctrl.window_size() == 100
+        assert all(type(e["measured_s"]) is float and e["measured_s"] > 0
+                   for e in ctrl._window)
+    ring = telemetry.RingBuffer()
+    telemetry.add_sink(ring)
+    try:
+        atomics.execute(tbl, op)
+    finally:
+        telemetry.remove_sink(ring)
+    assert [("measured_s" in e) for e in ring.events] == [False]
+
+
+@pytest.mark.parametrize("where", ["window", "capture", "ring"])
+def test_pending_device_seconds_resolve_after_the_fact(where):
+    """Events whose ``measured_s`` is a pending `telemetry.DeviceSeconds`
+    (the card's CUDA events around a call; here host stand-ins) stay
+    pending until the window closes (`SpecController.step`), a capture
+    ends, or a ring's events are read; then every one holds its seconds,
+    after one wait on the newest end event and none before."""
+    from repro_torch.telemetry import core
+    waits = []
+
+    def measured(i):
+        ev = {"event": "atomics.execute", "tier": "local", "op": "faa",
+              "backend": "cuda", "n": 4096, "predicted_s": 1e-5,
+              "measured_s": telemetry.DeviceSeconds(
+                  _FakeEvent(10.0 * i, waits),
+                  _FakeEvent(10.0 * i + 0.02 * (i + 1), waits))}
+        core.pend(ev)
+        telemetry.record_event(ev)
+        return ev
+
+    n = CFG.min_events
+    if where == "window":
+        with SpecController(CFG, device="cpu") as ctrl:
+            evs = [measured(i) for i in range(n - 1)]
+            assert ctrl.step() is None and waits == []
+            assert all(type(e["measured_s"]) is telemetry.DeviceSeconds
+                       for e in evs)
+            evs.append(measured(n - 1))
+            assert ctrl.step() is not None
+    elif where == "capture":
+        with telemetry.capture(sync=True):
+            evs = [measured(i) for i in range(n)]
+            assert waits == []
+    else:
+        ring = telemetry.RingBuffer()
+        telemetry.add_sink(ring, sync=True)
+        try:
+            evs = [measured(i) for i in range(n)]
+            assert waits == []
+            assert ring.events == evs
+        finally:
+            telemetry.remove_sink(ring)
+    assert waits[0] == 10.0 * (n - 1) + 0.02 * n        # the newest first
+    assert [e["measured_s"] for e in evs] == pytest.approx(
+        [0.02e-3 * (i + 1) for i in range(n)])
+    assert core._pending == []
+
+
 def test_sync_every_samples_and_widens():
     """The sampling period is the least ``Sink.sync_every`` among the sinks
     installed with sync, worked out again as sinks come and go: a sink

@@ -7,31 +7,40 @@ controller costs eager `execute` on one card, part by part.
     python3 tools/tuning_probe.py parts   # per-call µs of each layer
     python3 tools/tuning_probe.py pairs   # paired overhead per variant
     python3 tools/tuning_probe.py sampling  # the live probe, every call
-                                            # measured against 1 in 64
+                                            # measured by CUDA events,
+                                            # every call synced, and 1 in
+                                            # 64 by events
 
 Run from the repository root on a machine with one CUDA card.  The calls
 are the `tuning` suite's overhead workload: FAA of n = 4,096 ops over
 1,024 int32 slots on the ``cuda`` backend, the card synchronised after
 each.  ``parts`` prints, as one JSON object, the least mean µs over 5
 blocks of: an idle `torch.cuda.synchronize` (with and without a device),
-a stream query, the call with the stream off, with a ring sink (no sync,
-and sync on every call), with a controller started (no step, and
-stepped), and one controller tap, `drift.aggregate`, `fit_spec_update`
-and update cycle on a 32-event window.  ``pairs`` prints one JSON line
-per variant, its paired overhead against the stream off
+a stream query, a pair of CUDA events made and recorded (and the pair
+`atomics.execute` records: pooled, its stream looked up once), the call
+with the stream
+off, with a ring sink (no sync; sync, every call measured by events; and
+every call synced), with a controller started (no step, and stepped),
+and one controller tap, `drift.aggregate`, `fit_spec_update` and update
+cycle on a 32-event window.  ``pairs`` prints one JSON line per variant,
+its paired overhead against the stream off
 (`benchmarks.common.paired_ratio`, 60 pairs of 32-call batches): a ring
-sink without and with sync one call in 32, a controller measuring one
-call in 32, 64 and never, each without and with `step()`, a controller
-without sync, and the call against itself (the protocol's noise).
-``sampling`` builds the kernels, then runs `chip_smoke.py`'s live probe
-(a default controller over the drift traffic for 12 windows) six times,
-its sink measuring every call (``SYNC_EVERY`` 1) or one in 64, in the
-order 1, 64, 64, 1, 1, 64: one JSON line per run with its windows, the
-fields quarantined and applied, the active tuned fields at the end, what
-auto picks after, the measured calls, the distinct (op, n, backend) among
-them, and its seconds.
+sink without and with sync, a controller measuring every call by events,
+every call synced (`atomics.execute._SYNC_MEASURE`) and one call in 64
+(`tuning.controller.SYNC_EVERY`) each way, each without and with
+`step()`, a controller without sync, and the call against itself (the
+protocol's noise).  ``sampling`` builds the kernels, then runs
+`chip_smoke.py`'s live probe (a default controller over the drift
+traffic for 12 windows) six times, every call measured by CUDA events
+(``events``), every call between two synchronisations (``synced``), or
+one call in 64 by events (``sampled``), in the order events, synced,
+sampled, sampled, synced, events: one JSON line per run with its
+windows, the fields quarantined and applied, the active tuned fields at
+the end, what auto picks after, the measured calls, the distinct (op, n,
+backend) among them, and its seconds.
 """
 
+import importlib
 import json
 import os
 import sys
@@ -50,6 +59,9 @@ from repro_torch.core import rmw_engine  # noqa: E402
 from repro_torch.telemetry import drift  # noqa: E402
 from repro_torch.tuning import SpecController, TuningConfig  # noqa: E402
 from repro_torch.tuning import controller as tc  # noqa: E402
+
+#: the module (`repro_torch.atomics` exports its function of that name)
+ex = importlib.import_module("repro_torch.atomics.execute")
 
 
 def _workload():
@@ -85,15 +97,21 @@ def parts() -> dict:
     dev = torch.device("cuda", torch.cuda.current_device())
     out = {"sync_idle_us": _per_us(torch.cuda.synchronize),
            "sync_dev_idle_us": _per_us(lambda: torch.cuda.synchronize(dev)),
-           "query_us": _per_us(lambda: torch.cuda.current_stream().query())}
+           "query_us": _per_us(lambda: torch.cuda.current_stream().query()),
+           "event_pair_us": _per_us(_event_pair),
+           "pooled_pair_us": _per_us(_pooled_pair)}
     tc.SYNC_EVERY = 1
     ctrl = SpecController(device="cuda")
     for rnd in range(3):
         r = {"base": _per_us(call)}
-        for name, sync in (("ring_nosync", False), ("ring_sync", True)):
+        for name, sync, synced in (("ring_nosync", False, False),
+                                   ("ring_events", True, False),
+                                   ("ring_synced", True, True)):
+            ex._SYNC_MEASURE = synced
             telemetry.enable(telemetry.RingBuffer(16), sync=sync)
             r[name] = _per_us(call)
             telemetry.disable()
+            ex._SYNC_MEASURE = False
         ctrl.start()
         r["ctrl_nostep"] = _per_us(call)
         r["ctrl_step"] = _per_us(lambda: (call(), ctrl.step()))
@@ -116,6 +134,22 @@ def parts() -> dict:
     return out
 
 
+def _event_pair():
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    end.record()
+
+
+def _pooled_pair():
+    """What `execute` pays for its two events: pooled, the stream's
+    object cached, the base ``record``."""
+    start, end, pool, stream = ex._timing_pair(torch.cuda.current_device())
+    ex._record(start, stream)
+    ex._record(end, stream)
+    pool += (start, end)
+
+
 def pairs() -> dict:
     call = _workload()
     out = {}
@@ -131,14 +165,16 @@ def pairs() -> dict:
     ring = telemetry.RingBuffer(16)
     run("ring_nosync", lambda: telemetry.add_sink(ring),
         lambda: telemetry.remove_sink(ring))
-    ring.sync_every = 32
-    run("ring_sync32", lambda: telemetry.add_sink(ring, sync=True),
+    run("ring_events", lambda: telemetry.add_sink(ring, sync=True),
         lambda: telemetry.remove_sink(ring))
-    for every in (32, 64, 10 ** 9):
+    for every in (1, 64):
         tc.SYNC_EVERY = every
-        c = SpecController(device="cuda")
-        run(f"ctrl{every}_nostep", c.start, c.stop)
-        run(f"ctrl{every}_step", c.start, c.stop, c.step)
+        for mode in ("events", "synced"):
+            ex._SYNC_MEASURE = mode == "synced"
+            c = SpecController(device="cuda")
+            run(f"ctrl{every}_{mode}_nostep", c.start, c.stop)
+            run(f"ctrl{every}_{mode}_step", c.start, c.stop, c.step)
+    ex._SYNC_MEASURE = False
     tc.SYNC_EVERY = 64
     c = SpecController(TuningConfig(sync=False), device="cuda")
     run("ctrl_nosync_step", c.start, c.stop, c.step)
@@ -151,14 +187,17 @@ def sampling() -> dict:
     C.phase_device()
     C.phase_build()
     out = []
-    for every in (1, 64, 64, 1, 1, 64):
-        tc.SYNC_EVERY = every
+    for mode in ("events", "synced", "sampled", "sampled", "synced",
+                 "events"):
+        ex._SYNC_MEASURE = mode == "synced"
+        tc.SYNC_EVERY = 64 if mode == "sampled" else 1
         p = C._tuning_probe()
-        row = {"sync_every": every, **{k: p[k] for k in (
+        row = {"measure": mode, **{k: p[k] for k in (
             "windows", "quarantined", "applied", "tuned_fields",
             "auto_before_after", "batches", "measured_kinds", "seconds")}}
         print(json.dumps(row), flush=True)
         out.append(row)
+    ex._SYNC_MEASURE = False
     tc.SYNC_EVERY = 64
     return {"runs": len(out)}
 
