@@ -11,11 +11,15 @@ attention kernel from
 `src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`, the
 one-thread serialized executor and pointer chase from
 `src/repro_torch/kernels/serial/csrc/serial.cu`, whose SASS it writes
-beside the library), holds each kernel against its plain PyTorch version
-(`serial_rmw` bit for bit against the host loop on every op, int32 and
+beside the library, and the timing events' ring of
+`src/repro_torch/telemetry/csrc/event_ring.cu`), holds each kernel
+against its plain PyTorch version (`serial_rmw` bit for bit against the host loop on every op, int32 and
 fp32, ±0, NaN and subnormals included; `chase` in its four modes; the
 table-only RMW kernel
-in every regime it can take, at each regime's shapes; the fetched RMW
+in every regime it can take, at each regime's shapes, and at every L2
+window and load depth the `unaligned` and `prefetcher` suites run, beside
+a control that leaves a window boundary's line out and must fail; the
+fetched RMW
 kernel also at its edge shapes, twice; fp32 MIN/MAX also on ±0 and NaN; the
 SSD kernel with B and C per group of heads and per head, beside a control
 that rounds its products' operands to TF32 once), drives the port's three
@@ -27,12 +31,13 @@ search alone with the edges already on the card, and times each kernel
 beside its bound, its plain version and the PyTorch library call that
 computes the same function, where there is one.  Last, the paper's
 measurement suites (`python -m repro_torch.benchmarks.run`: latency by
-tier, bandwidth, contention, operand size, two fetched operands, BFS, the
-backend shoot-out, calibration into `build/repro_torch/calibrated_spec.json`
-and the Table 2/3 fit with its NRMSE), with the one-thread kernels'
+tier, bandwidth, contention, operand size, two fetched operands, the
+table kernel's window on and off the L2 line (`unaligned`) and its load
+depth (`prefetcher`), BFS, the backend shoot-out, calibration into
+`build/repro_torch/calibrated_spec.json` and the Table 2/3 fit with its NRMSE), with the one-thread kernels'
 launch counters reset before and read after.  Last, the sharded tier
 (`sharded`): 4 ranks sharing the card on a 2x2 ``("pod", "dev")`` mesh
-over gloo, 2^22 ops a rank over 2^24 int32 slots, every exchange strategy
+over gloo, 2^21 ops a rank over 2^24 int32 slots, every exchange strategy
 and op (per-op CAS, dense, replicas, ``reverse_ranks``; int32 and fp32)
 against the serialized oracle in rank order, `bfs_sharded` at the BFS
 phase's scale against its parents, `execute_until` with every policy
@@ -40,7 +45,7 @@ against the local tier's round history, ms per batch split into the
 exchange and the ranks' kernels, the kernels' launches inside the ranks;
 then a world-size-1 NCCL run, and two NCCL ranks on the one card, whose
 refusal it records.  Last, the elastic tier (`elastic`): on the same 4
-ranks, a 2^24-slot table built by 4 FAA batches of 2^22 ops a rank moves
+ranks, a 2^24-slot table built by 4 FAA batches of 2^21 ops a rank moves
 by the exchange path ((pod, dev)-sharded -> dev-sharded, pod replicas),
 then by device_put onto `survivors_mesh` (2 ranks) and back, each bit for
 bit; after each move three batches (fetched FAA with stats, per-op CAS,
@@ -111,10 +116,21 @@ on a 2x2 ``("data", "model")`` mesh over gloo, gemma_2b at full width,
 8 x 256 tokens; 3 sharded steps in f32 at 2 layers held to the local
 step (losses and grad norms, every gathered parameter, clipping in a
 step), one step on an unevenly masked batch beside a mean-of-means
-control that must fail, `train(mesh=...)` in bf16 at 4 layers (step ms
+control that must fail, `train(mesh=...)` in bf16 at 2 layers (step ms
 by gather, compute and reduce; host-staged collectives; peak memory per
 rank), and `train(mesh=...)` under chaos bit-equal to a clean sharded
 run.
+Last, the dry run (`dryrun`): `launch.dryrun` in child processes on the
+host, started right after the device check so they run beside the build
+and the first phases, fake tensors on the card's device type (nothing
+allocated): gemma_2b's
+local train step at `train_gemma`'s shape, whose predicted peak must lie
+within 10% of the `max_memory_allocated` `train_gemma` measured, its
+roofline time beside the measured step; and gemma_2b's train_4k,
+prefill_32k and decode_32k and dbrx's train_4k on the single production
+mesh (gemma's train cell cut to 2 layers, its prefill to 9, dbrx's train
+cell to 1, with the full configs' microbatches), each record printed with its roofline row (the `roofline`
+suite runs among the suites, with no rows where no record is written).
 A `timeline` line gives each phase's seconds.
 
 Phases print one JSON line each (`{"phase": ...}`); every phase raises on a
@@ -123,6 +139,7 @@ line is ``{"ok": true, "device": {...}}``.  Without a card the script exits
 non-zero before printing any result.
 """
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -161,6 +178,7 @@ from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.launch.serve import BatchServer, Request  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.telemetry import events as TE  # noqa: E402
 
 OPS = ("faa", "swp", "min", "max", "cas")
 HBM_BPS = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
@@ -273,7 +291,7 @@ def _build_one(library):
 def phase_build():
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    libraries = (K.LIBRARY, SK.LIBRARY, FK.LIBRARY, XK.LIBRARY)
+    libraries = (K.LIBRARY, SK.LIBRARY, FK.LIBRARY, XK.LIBRARY, TE.LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:
         done = list(pool.map(_build_one, libraries))
     for built, secs in done:
@@ -562,6 +580,121 @@ def _check_table_regimes(gen, errs):
     return done
 
 
+def _line_control(tab, idx, val, window, want):
+    """The control of `_check_table_sweep`: the ops on the L2 line that
+    ``window``'s first boundary splits (the 32 slots from the boundary
+    rounded down to the line) taken out of the batch; the result must
+    differ from ``want``, or the check could not see a boundary's ops."""
+    line = (window // 32) * 32
+    keep = (idx < line) | (idx >= line + 32)
+    got = K.table_combine(tab.clone(), idx[keep].contiguous(),
+                          val[keep].contiguous(), "faa", "windows",
+                          window=window)
+    sync()
+    return not torch.equal(got, want)
+
+
+def _check_table_sweep(gen, errs):
+    """Every window and load depth the `unaligned` and `prefetcher` suites
+    run, held against the plain version: int32 FAA, SWP, MIN and MAX (and
+    integer-valued fp32: every sum exact) bit for bit, normal fp32 FAA
+    within rtol 1e-5, atol 1e-5 sqrt(max occupancy) of a float64 sum, at
+    the suites' shapes and patterns; a control (the ops on a boundary's
+    line left out) must fail; a depth the library does not build must be
+    refused before any launch.  A launch fault raises."""
+    from repro_torch.benchmarks import prefetcher, unaligned
+    cases = []
+    # unaligned: windows at every depth (FAA), every op at the default
+    n, m = unaligned.N_OPS, unaligned.TABLE
+    idx = torch.randint(0, m, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    atol = 1e-5 * math.sqrt(max(int(K.slot_counts_plain(idx, m).max()), 1))
+    controls = {}
+    for dtype in (torch.int32, torch.float32):
+        tab, _, val = _inputs(gen, n, m, dtype, drops=False)
+        for op in ("faa", "swp", "min", "max"):
+            want = ref.rmw_table_ref(tab, idx, val, op)
+            for w in unaligned.WINDOWS:
+                for depth in (K.DEPTHS if op == "faa" else (K.UNROLL,)):
+                    got = K.table_combine(tab.clone(), idx, val, op,
+                                          "windows", window=w, depth=depth)
+                    sync()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"table_combine {op} {dtype} window {w} depth "
+                            f"{depth}: differs from the plain version in "
+                            f"{int((got != want).sum())} places")
+                    cases.append(f"unaligned.{op}.{dtype}.w{w}.d{depth}")
+            if op == "faa" and dtype == torch.int32:
+                for w in unaligned.WINDOWS:
+                    controls[f"window_{w}"] = _line_control(tab, idx, val, w,
+                                                            want)
+    tab, _, val = _inputs(gen, n, m, torch.float32, normal=True, drops=False)
+    want = ref.rmw_table_ref(tab.double(), idx, val.double(), "faa").float()
+    worst = 0.0
+    for w in unaligned.WINDOWS:
+        for depth in K.DEPTHS:
+            got = K.table_combine(tab.clone(), idx, val, "faa", "windows",
+                                  window=w, depth=depth)
+            err = _max_err(got, want)
+            worst = max(worst, err)
+            if not torch.allclose(got, want, rtol=1e-5, atol=atol):
+                raise AssertionError(f"table_combine fp32 normal FAA window "
+                                     f"{w} depth {depth}: off by {err}")
+    # prefetcher: the global regime at every depth, both patterns
+    n, m = prefetcher.N_OPS, prefetcher.TABLE
+    pat = {"random": torch.randint(0, m, (n,), generator=gen, device="cuda",
+                                   dtype=torch.int32),
+           "sequential": (torch.arange(n, device="cuda") % m).to(
+               torch.int32)}
+    for name, pidx in pat.items():
+        patol = 1e-5 * math.sqrt(max(int(K.slot_counts_plain(pidx, m).max()),
+                                     1))
+        for dtype in (torch.int32, torch.float32):
+            tab, _, val = _inputs(gen, n, m, dtype, drops=False)
+            want = ref.rmw_table_ref(tab, pidx, val, "faa")
+            for depth in K.DEPTHS:
+                got = K.table_combine(tab.clone(), pidx, val, "faa", "global",
+                                      depth=depth)
+                sync()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"table_combine faa {dtype} {name} depth {depth}: "
+                        f"differs in {int((got != want).sum())} places")
+                cases.append(f"prefetch.{name}.{dtype}.d{depth}")
+        tab, _, val = _inputs(gen, n, m, torch.float32, normal=True,
+                              drops=False)
+        want = ref.rmw_table_ref(tab.double(), pidx, val.double(),
+                                 "faa").float()
+        for depth in K.DEPTHS:
+            got = K.table_combine(tab.clone(), pidx, val, "faa", "global",
+                                  depth=depth)
+            err = _max_err(got, want)
+            worst = max(worst, err)
+            if not torch.allclose(got, want, rtol=1e-5, atol=patol):
+                raise AssertionError(f"table_combine fp32 normal FAA {name} "
+                                     f"depth {depth}: off by {err}")
+    if not all(controls.values()):
+        raise AssertionError(f"the boundary-line control passed: {controls}")
+    refused = []
+    for op, regime, depth in (("min", "global", 32), ("faa", "smem", 1),
+                              ("faa", "global", 4)):
+        try:
+            K.table_combine(torch.zeros(1024, device="cuda"),
+                            torch.zeros(8, dtype=torch.int32, device="cuda"),
+                            torch.ones(8, device="cuda"), op, regime,
+                            depth=depth)
+        except ValueError:
+            refused.append((op, regime, depth))
+    if len(refused) != 3:
+        raise AssertionError(f"depths the library does not build were "
+                             f"taken: refused only {refused}")
+    errs["rmw_table"] = max(errs["rmw_table"], worst)
+    return dict(exact_cases=len(cases), normal_faa_max_abs_err=worst,
+                normal_faa_rtol=1e-5, controls_failed=controls,
+                refused=refused)
+
+
 def phase_kernels(gen, errs):
     if K.fetched_layout(1)[1] != K.RADIX_BITS:
         raise AssertionError("rmw_table_fetched: the library's radix digit "
@@ -618,6 +751,7 @@ def phase_kernels(gen, errs):
              max_abs_err={k: v for k, v in errs.items()},
              launches=dict(K.LAUNCHES))
     emit("kernels", table_regimes_as_plain=_check_table_regimes(gen, errs),
+         table_windows_and_depths_as_plain=_check_table_sweep(gen, errs),
          fetched_int32_bit_equal_twice=_check_fetched_cases(
         gen, 2 * EDGEFACTOR << SCALE),
          fp32_min_max_zeros_and_nans_as_plain=_check_fp32_zeros_and_nans(
@@ -1905,11 +2039,11 @@ def _host_ms(fn, reps=3):
 
 SH_SHAPE, SH_AXES = (2, 2), ("pod", "dev")
 SH_WORLD = 4
-SH_N, SH_M = 1 << 22, 1 << 24    # ops a rank; global int32 slots (16 MB a
-#                                  shard of four)
+SH_N, SH_M = 1 << 21, 1 << 24    # ops a rank (what the run's time allows);
+#                                  global int32 slots (16 MB a shard of four)
 SH_STRATEGIES = ("naive", "oneshot", "hierarchical")
 SH_RETRY_N, SH_RETRY_M = 64, 1 << 12
-SH_REPS = 3
+SH_REPS = 2
 # the oracle groups: (op, distribution, dtype); every case below is held
 # against its group's `rmw_serialized` over the batches in rank order
 SH_GROUPS = [(op, dist, "int32") for op in ("faa", "swp", "min", "cas",
@@ -3554,6 +3688,8 @@ def phase_moe_ep():
 
 # the trainer's own shapes: 8 sequences of 256 tokens, 30 steps, no remat
 T_ARCH, T_STEPS, T_SEQ, T_BATCH = "gemma_2b", 30, 256, 8
+#: what a phase measured that a later one checks against
+_MEASURED = {}
 BF16_PEAK = 989e12       # H100 SXM dense bf16, NVIDIA data sheet
 # f32 against f64 on one step (TF32 off): the loss and the grad norm are
 # sums whose f32 rounding is about eps sqrt(terms) ~ 1e-5 of their scale
@@ -3673,6 +3809,8 @@ def phase_train_gemma():
             del out
         trace = _profiled_train_step(cfg)
     det = runs["deterministic"]
+    _MEASURED["train_gemma"] = {"peak_gib": det["peak_gib"],
+                                "step_ms": det["step_ms"]}
     losses = det["losses"]
     if len(losses) != T_STEPS or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"train_gemma losses: {losses}")
@@ -3687,6 +3825,129 @@ def phase_train_gemma():
          tokens_per_step=tokens, memory_reckoned_gib=reckoned,
          exactness_cost=det["step_ms"] / runs["default"]["step_ms"],
          profiled_step=trace, **runs)
+
+
+# ---------------------------------------------------------------------------
+# the dry run (fake tensors on the host) against what the card measured
+# ---------------------------------------------------------------------------
+
+#: (arch, cell, layers run) of the production cells the smoke run dry-runs
+#: on the single mesh; None runs every layer.  The train cells keep the
+#: full config's microbatches; the cuts fit the children in the time the
+#: build and the first phases take (`python -m repro_torch.launch.dryrun`
+#: runs every cell whole on a host)
+DRYRUN_CELLS = (("gemma_2b", "train_4k", 2), ("gemma_2b", "prefill_32k", 9),
+                ("gemma_2b", "decode_32k", None), ("dbrx_132b", "train_4k", 1))
+#: the largest miss of the predicted peak of train_gemma's step
+DRYRUN_PEAK_RTOL = 0.10
+_DRYRUN_CHILD = """
+import json, sys
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch import dryrun as D
+job = json.loads(sys.argv[1])
+if job["cell"] == "local":
+    rec = D.run_local_train(get_config(job["arch"]), job["seq"], job["batch"],
+                            remat_policy="none", arch=job["arch"])
+    rec["status"] = "ok"
+else:
+    cell = next(s for s in SHAPES if s.name == job["cell"])
+    rec = D.run_and_write(job["arch"], cell, False, job["out"],
+                          overrides=job["overrides"])
+with open(job["path"], "w") as f:
+    json.dump(rec, f)
+"""
+
+
+def start_dryrun():
+    """Start `phase_dryrun`'s child processes, one a cell, all at once, on
+    the host (fake tensors: they allocate nothing on the card and launch
+    nothing), their output to a log each; returns {cell: (process, job)}.
+    They are stopped at exit if still running."""
+    out = os.path.join(build.BUILD_DIR, "dryrun_smoke")
+    os.makedirs(out, exist_ok=True)
+    jobs = {"local": dict(arch=T_ARCH, cell="local", seq=T_SEQ,
+                          batch=T_BATCH)}
+    for arch, cell, layers in DRYRUN_CELLS:
+        jobs[f"{arch}.{cell}"] = dict(
+            arch=arch, cell=cell, out=out,
+            overrides={} if layers is None else {"n_layers": layers})
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    started = {}
+    for name, job in jobs.items():
+        job["path"] = os.path.join(out, f"{name}.record.json")
+        job["log"] = os.path.join(out, f"{name}.log")
+        with open(job["log"], "w") as log:
+            started[name] = (subprocess.Popen(
+                [sys.executable, "-c", _DRYRUN_CHILD, json.dumps(job)],
+                env=env, stdout=log, stderr=subprocess.STDOUT), job)
+    atexit.register(_stop, [p for p, _ in started.values()])
+    return started
+
+
+def _stop(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_dryrun(started=None):
+    """`launch.dryrun`'s cells (`start_dryrun`, started now unless
+    ``started`` holds them) collected: (a) gemma_2b's local train step at
+    `train_gemma`'s shape (8 x 256, no remat, full width), whose predicted
+    peak must lie within `DRYRUN_PEAK_RTOL` of the
+    ``max_memory_allocated`` `phase_train_gemma` measured in this run, its
+    roofline time printed beside the measured step; (b) `DRYRUN_CELLS` on
+    the single production mesh, each record printed with its roofline
+    row.  Raises if a cell failed or (a) misses."""
+    from repro_torch.benchmarks.roofline import roofline_row
+    measured = _MEASURED.get("train_gemma")
+    if measured is None:
+        raise AssertionError("dryrun needs train_gemma's measured peak: run "
+                             "phase_train_gemma first")
+    t0 = time.perf_counter()
+    started = started or start_dryrun()
+    recs, failed = {}, {}
+    try:
+        for name, (proc, job) in started.items():
+            proc.wait(timeout=600)
+            if proc.returncode != 0:
+                with open(job["log"]) as f:
+                    failed[name] = f.read()[-2000:]
+                continue
+            with open(job["path"]) as f:
+                recs[name] = json.load(f)
+            if recs[name].get("status") != "ok":
+                failed[name] = recs[name].get("error")
+    finally:
+        _stop([p for p, _ in started.values()])
+    if failed:
+        raise AssertionError(f"dry-run cells failed: {failed}")
+    keep = ("arch", "shape", "mesh", "chips", "device", "layout",
+            "layers_run", "layers_full", "microbatches", "lower_s",
+            "dot_flops", "model_flops_global", "per_device_peak_bytes",
+            "dot_bytes", "collectives", "total_wire_bytes",
+            "wire_bytes_by_link", "status")
+    for name, rec in recs.items():
+        emit("dryrun", cell=name, record={k: rec.get(k) for k in keep},
+             roofline=roofline_row(rec))
+    local = recs["local"]
+    row = roofline_row(local)
+    predicted = local["per_device_peak_bytes"] / 2 ** 30
+    miss = predicted / measured["peak_gib"] - 1
+    emit("dryrun", check="train_gemma_peak", predicted_gib=predicted,
+         measured_gib=measured["peak_gib"], miss=miss,
+         rtol=DRYRUN_PEAK_RTOL,
+         roofline_ms=row[f"t_{row['dominant']}_s"] * 1e3,
+         roofline_dominant=row["dominant"],
+         measured_step_ms=measured["step_ms"],
+         wait_s=time.perf_counter() - t0)
+    if abs(miss) > DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"dry run's peak for train_gemma {predicted:.2f} "
+                             f"GiB against {measured['peak_gib']:.2f} GiB "
+                             f"measured")
+    return {"cells": len(recs)}
 
 
 def _master_checks(a, b, opt, init, ndims):
@@ -4544,7 +4805,7 @@ def phase_train_mm():
 # over data, 4 sequences a rank
 TS_WORLD, TS_SHAPE, TS_AXES = 4, (2, 2), ("data", "model")
 TS_F32_LAYERS, TS_STEPS = 2, 3
-TS_BF16_LAYERS, TS_BF16_STEPS = 4, 3
+TS_BF16_LAYERS, TS_BF16_STEPS = 2, 3
 # sharded against local in f32 (TF32 off, deterministic algorithms): the
 # loss and the grad norm are sums in another order (rtol 1e-5, as
 # `train_check`), each gathered parameter leaf after 3 steps within
@@ -5470,6 +5731,9 @@ def main():
         mark[0] = now
 
     phase_device()
+    # the dry run's children run on the host beside the first phases
+    # (fake tensors: nothing on the card); `phase_dryrun` collects them
+    dryrun_started = start_dryrun()
     phase_build()
     lap("device_build")
     gen = torch.Generator(device="cuda")
@@ -5542,6 +5806,8 @@ def main():
                   phase_train_sharded):
         phase()
         lap(phase.__name__[len("phase_"):])
+    phase_dryrun(dryrun_started)
+    lap("dryrun")
     headline = {"rmw_table": ("faa", "uniform_bfs_n"),
                 "rmw_table_fetched": ("cas", "uniform_bfs_n"),
                 "slot_counts": ("count", "uniform_bfs_n"),

@@ -26,7 +26,8 @@ Telemetry: with the stream on, each op batch records one
 pick, op, n, m, and the selector's ``predicted_s`` — and, under ``sync``,
 ``measured_s`` on the local tier: on the card, on the calls the stream's
 sampling period picks (`telemetry.core.sync_due`), the device time
-between two CUDA events recorded around the dispatch on the current
+between two CUDA events (a pair of the device's
+`telemetry.events.EventRing`) recorded around the dispatch on the current
 stream, pending (`telemetry.DeviceSeconds`) until the stream resolves it
 after the fact, with no synchronisation in the call; on the CPU, every
 call, the host clock.  A call that collects stats is always measured,
@@ -47,7 +48,6 @@ import time
 from typing import Any, NamedTuple, Optional, Sequence, Union
 
 import torch
-import torch.distributed as dist
 
 from repro_torch import telemetry
 from repro_torch.atomics import contracts as _contracts
@@ -58,6 +58,7 @@ from repro_torch.atomics.table import AtomicTable
 from repro_torch.core import rmw as rmw_mod
 from repro_torch.core import rmw_engine
 from repro_torch.telemetry import core as _tcore
+from repro_torch.telemetry import events as _tevents
 
 Tensor = torch.Tensor
 
@@ -108,7 +109,7 @@ def _dispatch_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
                   collect_stats: bool):
     stats = None
     if table.is_sharded:
-        if table.mesh is None or not dist.is_initialized():
+        if table.mesh is None or not table.mesh.can_exchange():
             raise ValueError(
                 f"AtomicTable is sharded over mesh axes {table.axis!r} but "
                 f"has no process group: build it with make_table(..., "
@@ -233,52 +234,32 @@ def _decision_fields(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
 #: instead of by CUDA events (what `tools/tuning_probe.py` compares)
 _SYNC_MEASURE = False
 
+_raw_stream = _tevents.raw_stream
+
 #: decision-field templates by (op, shapes, choice inputs, spec, epoch);
 #: cleared when full
 _DECISION_CACHE: dict = {}
 _DECISION_CACHE_MAX = 1024
 
 
-#: timing events by device index, given back by `telemetry.resolve`; the
-#: current stream's object by its (id, device, type); and the events'
-#: base ``record``, which skips the wrapper's stream lookup.  Creating two
-#: events and recording them through the wrappers cost an H100's host
-#: about 30 µs a call.
-_EVENT_POOLS: dict = {}
-_STREAMS: dict = {}
-_record = None
-
-
-def _timing_pair(device: int):
-    """(start, end, the pool they return to, the device's current
-    stream)."""
-    global _record
-    if _record is None:
-        _record = torch._C._CudaEventBase.record
-    key = torch._C._cuda_getCurrentStream(device)
-    stream = _STREAMS.get(key)
-    if stream is None:
-        stream = _STREAMS[key] = torch.cuda.Stream(
-            stream_id=key[0], device_index=key[1], device_type=key[2])
-    pool = _EVENT_POOLS.setdefault(device, [])
-    if len(pool) >= 2:
-        return pool.pop(), pool.pop(), pool, stream
-    return (torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True), pool, stream)
-
-
 def _measured(table: AtomicTable, op: AtomicOp, kw: dict, synced: bool):
     """(`_dispatch_one`'s result, its time): on the card a pending
-    `telemetry.DeviceSeconds` between two events on the current stream,
-    or with ``synced`` the host seconds between two synchronisations of
-    the card; on the CPU the host seconds."""
+    `telemetry.DeviceSeconds` between two events of the device's
+    `telemetry.events.EventRing` on the current stream, or with
+    ``synced`` the host seconds between two synchronisations of the card;
+    on the CPU the host seconds."""
     data = table.data
     if data.is_cuda and not synced:
-        start, end, pool, stream = _timing_pair(data.get_device())
-        _record(start, stream)
+        dev = data.get_device()
+        ring = _tevents.ring(dev)
+        stream = _raw_stream(dev)
+        k = ring.take()
+        if ring.record(ring.handle, 2 * k, stream):
+            raise RuntimeError("cudaEventRecord failed")
         out = _dispatch_one(table, op, **kw)
-        _record(end, stream)
-        return out, _tcore.DeviceSeconds(start, end, pool)
+        if ring.record(ring.handle, 2 * k + 1, stream):
+            raise RuntimeError("cudaEventRecord failed")
+        return out, _tcore.DeviceSeconds(k, ring=ring)
     if data.is_cuda:
         torch.cuda.synchronize(data.device)
     t0 = time.perf_counter()
@@ -307,7 +288,7 @@ def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
     # _tcore flag reads instead of the telemetry.*_enabled() accessors:
     # this is the hottest record site
     if not _tcore._enabled or (table.is_sharded and (
-            table.mesh is None or not dist.is_initialized())):
+            table.mesh is None or not table.mesh.can_exchange())):
         # off, or a dispatch that raises its guidance un-instrumented
         return _dispatch_one(table, op, **kw)
     sharded = table.axis is not None

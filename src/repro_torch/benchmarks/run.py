@@ -6,12 +6,20 @@ figure, in the reference's order (`benchmarks/run.py`):
   contention        Fig 8a-c                   (n writers -> one slot)
   operand_size      Fig 7                      (wide-operand CAS)
   operands_fetched  Fig 8d / §5.5              (two-operand CAS)
+  unaligned         Fig 10a / Fig 14           (the table kernel's L2
+                                                window on and off the
+                                                128-byte line)
+  prefetcher        Fig 9                      (the table kernel's load
+                                                depth, random and
+                                                sequential slots)
   bfs               Fig 10b / §6.1             (CAS vs SWP vs FAA TEPS)
   rmw_backends      RMW-engine shoot-out       (writes build/repro_torch/
                                                 rmw_backends.json)
   calibrate         HardwareSpec persistence   (writes build/repro_torch/
                                                 calibrated_spec.json)
   model_validation  Tables 2-3 + §5 NRMSE gate (calibration + validation)
+  roofline          §Roofline deliverable      (from `launch.dryrun`'s
+                                                records; none, no rows)
   rmw_sharded       distributed-RMW shoot-out  (naive vs one-shot vs
                                                 hierarchical, 8 ranks;
                                                 writes rmw_sharded.json)
@@ -52,14 +60,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from repro_torch.benchmarks import (bandwidth, bfs, calibrate, contention,
                                     contention_observe, fault_recovery,
                                     latency, model_validation, operand_size,
-                                    operands_fetched, reshard, rmw_backends,
-                                    rmw_sharded, telemetry_drift, tuning)
+                                    operands_fetched, prefetcher, reshard,
+                                    rmw_backends, rmw_sharded, roofline,
+                                    telemetry_drift, tuning, unaligned)
 from repro_torch.benchmarks.common import Csv
 
 SUITES = ("latency", "bandwidth", "contention", "operand_size",
-          "operands_fetched", "bfs", "rmw_backends", "calibrate",
-          "model_validation", "rmw_sharded", "reshard", "fault_recovery",
-          "telemetry_drift", "contention_observe", "tuning")
+          "operands_fetched", "unaligned", "prefetcher", "bfs",
+          "rmw_backends", "calibrate", "model_validation", "roofline",
+          "rmw_sharded", "reshard", "fault_recovery", "telemetry_drift",
+          "contention_observe", "tuning")
 
 
 def run_suites(only: Optional[Sequence[str]] = None, fast: bool = False,
@@ -80,6 +90,8 @@ def run_suites(only: Optional[Sequence[str]] = None, fast: bool = False,
         "contention": lambda: contention.run(csv, device=device),
         "operand_size": lambda: operand_size.run(csv, device=device),
         "operands_fetched": lambda: operands_fetched.run(csv, device=device),
+        "unaligned": lambda: unaligned.run(csv, device=device),
+        "prefetcher": lambda: prefetcher.run(csv, device=device),
         "bfs": lambda: bfs.run(csv, scale=10 if fast else 12, device=device),
         "rmw_backends": lambda: rmw_backends.run(
             csv, fast=fast, device=device, **({} if out_dir is None else {
@@ -90,6 +102,7 @@ def run_suites(only: Optional[Sequence[str]] = None, fast: bool = False,
                 out_dir, "calibrated_spec.json")),
         "model_validation": lambda: model_validation.run(
             csv, results.get("latency"), device=device, fast=fast),
+        "roofline": lambda: roofline.run(csv),
         "rmw_sharded": lambda: rmw_sharded.run(
             csv, fast=fast, device=device, **({} if out_dir is None else {
                 "out_path": os.path.join(out_dir, "rmw_sharded.json")})),

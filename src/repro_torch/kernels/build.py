@@ -9,6 +9,10 @@ named by a hash of the source, the headers it includes by a quoted path
 an edit rebuilds and an unchanged checkout builds once.  Nothing happens
 at import: :meth:`load` builds on first use.  Every entry returns
 ``cudaGetLastError()`` as an int.
+
+`is_fake` is every wrapper's rule for a tensor that has no memory to
+launch on (the dry run's, `launch.dryrun`): outputs of the right shape and
+dtype, no launch, no count in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,9 @@ import threading
 from pathlib import Path
 from typing import Mapping, NamedTuple, Optional, Sequence
 
+import torch
+from torch._subclasses.fake_tensor import FakeTensor
+
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: where ``#include "csrc/<header>.cuh"`` finds the headers the sources share
 INCLUDE_DIR = Path(__file__).resolve().parent
@@ -31,6 +38,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-I", str(INCLUDE_DIR))
 _QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """True for a `FakeTensor` (``FakeTensorMode``): no memory behind it.
+    The wrappers ask it after their CPU test and their checks of what the
+    kernel takes, so a real launch pays one type check.  A plain tensor on
+    the meta device is no fake: it launches, or raises."""
+    return isinstance(t, FakeTensor)
 
 
 class Built(NamedTuple):

@@ -33,7 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import NvccLibrary
+from repro_torch.kernels.build import NvccLibrary, is_fake
 
 Tensor = torch.Tensor
 
@@ -228,6 +228,9 @@ def kernel_bf16_parts(p: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     count it."""
     if p.device.type == "cpu":
         return bf16_parts(p)
+    if is_fake(p):
+        return tuple(torch.empty(p.shape, dtype=torch.bfloat16,
+                                 device=p.device) for _ in range(3))
     if p.dtype != torch.float32:
         raise TypeError(f"kernel_bf16_parts takes float32, got {p.dtype}")
     flat = p.contiguous().reshape(-1)
@@ -288,6 +291,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      kv_valid=kv_valid, kv_offset=kv_offset)
+    if is_fake(q):
+        return torch.empty_like(q)
     _check(q, k, v)
     out = torch.empty_like(q)          # q's strides, D contiguous
     b, hq, sq, d = q.shape

@@ -50,11 +50,17 @@
 //   - windows: a table of two L2 windows (WINDOW_SLOTS) or more is applied
 //     one window at a time, one pass over the batch a window, so the
 //     atomics stay in the L2 and off HBM (m = 2^24: 2x one pass).
-//   Each thread loads 8 indices, then their values and (global MIN, MAX,
-//   SWP) the words they land on, before it combines any: more loads in
-//   flight.  fp32 MIN/MAX into the output take one op a thread a step on
-//   four times the resident CTAs, as each compare-and-swap waits for its
-//   answer (eight a step: 25% slower).
+//   Each thread loads 8 indices (UNROLL, the load depth), then their values
+//   and (global MIN, MAX, SWP) the words they land on, before it combines
+//   any: more loads in flight.  FAA also builds at depths 1 and 32 in the
+//   global and windows regimes (the `prefetcher` suite's sweep: depth 1
+//   keeps one load in flight, as a prefetcher that is off), and `window`
+//   may be any width (the `unaligned` suite's: a width off the 32-slot L2
+//   line makes each boundary split a line between two passes; an atomic
+//   itself is always one naturally aligned word, since Hopper ends the
+//   context on a misaligned one).  fp32 MIN/MAX into the output take one
+//   op a thread a step on four times the resident CTAs, as each
+//   compare-and-swap waits for its answer (eight a step: 25% slower).
 //   Measured and not kept: a cluster's distributed shared memory (no faster
 //   than the L2 at 8 CTAs, slower at 16); warp aggregation with
 //   __match_any_sync (no gain on Graph500 Kronecker slots); 16-byte loads
@@ -256,9 +262,9 @@ constexpr int BLOCK = PRIVATE ? 1024 : THREADS;
 // compare-and-swap waits for its answer before the next op (eight: 25%
 // slower at m = 2^20, tools/rmw_table_ablate.py), run on four times the
 // resident CTAs instead.
-template <typename T, int OP, bool PRIVATE>
+template <typename T, int OP, bool PRIVATE, int DEPTH>
 constexpr int STEP =
-    !PRIVATE && IS_F32<T> && (OP == OP_MIN || OP == OP_MAX) ? 1 : UNROLL;
+    !PRIVATE && IS_F32<T> && (OP == OP_MIN || OP == OP_MAX) ? 1 : DEPTH;
 
 template <typename T, int OP>
 __device__ __forceinline__ int read_word(T* table, int* last_pos, int s) {
@@ -384,13 +390,14 @@ __device__ __forceinline__ void bulk_flush(void* dst, const int* priv,
 }
 
 // Applies the ops whose slot lies in [lo, hi): each thread loads STEP
-// indices (neighbouring threads, neighbouring ops), then the values of
+// (DEPTH: UNROLL but where FAA's sweep asks for another) indices
+// (neighbouring threads, neighbouring ops), then the values of
 // those in range (and, into the output, the words they land on: READS),
 // then combines them, over the batch grid-stride (SWP from its end).
 // PRIVATE (lo = 0): into the CTA's shared copy of the hi slots, then
 // flushed, the first `bulk` slots in one bulk reduction and the rest one
 // atomic per touched slot.
-template <typename T, int OP, bool PRIVATE>
+template <typename T, int OP, bool PRIVATE, int DEPTH>
 __global__ void __launch_bounds__(BLOCK<PRIVATE>)
 table_combine_kernel(T* __restrict__ table, const int* __restrict__ idx,
                      const T* __restrict__ vals, int* __restrict__ last_pos,
@@ -402,7 +409,7 @@ table_combine_kernel(T* __restrict__ table, const int* __restrict__ idx,
       priv[s] = identity_word<T, OP>();
     __syncthreads();
   }
-  constexpr int U = STEP<T, OP, PRIVATE>;
+  constexpr int U = STEP<T, OP, PRIVATE, DEPTH>;
   const long long step = (long long)gridDim.x * NT * U;
   // the warp's lanes iterate together (an op past n loads slot -1), so
   // fp32 FAA into the output can sum over the whole warp
@@ -925,7 +932,7 @@ static int grid_for(long long work) {
   return (int)(b < MAX_BLOCKS ? b : MAX_BLOCKS);
 }
 
-template <typename T, int OP>
+template <typename T, int OP, int DEPTH = UNROLL>
 static cudaError_t launch_table(T* table, const int* idx, const T* vals,
                                 int* last_pos, long long n, int m, int regime,
                                 long long window, cudaStream_t st) {
@@ -935,9 +942,10 @@ static cudaError_t launch_table(T* table, const int* idx, const T* vals,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (regime == REGIME_SMEM) {
+    if constexpr (DEPTH != UNROLL) return cudaErrorInvalidValue;
     constexpr int nt = BLOCK<true>;
     const long long most = (n + nt * UNROLL - 1) / (nt * UNROLL);
-    auto kernel = table_combine_kernel<T, OP, true>;
+    auto kernel = table_combine_kernel<T, OP, true, UNROLL>;
     const int bytes = m * 4;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -957,11 +965,11 @@ static cudaError_t launch_table(T* table, const int* idx, const T* vals,
     kernel<<<(int)blocks, nt, bytes, st>>>(table, idx, vals, last_pos, n, 0,
                                             m, bulk);
   } else {
-    auto kernel = table_combine_kernel<T, OP, false>;
+    auto kernel = table_combine_kernel<T, OP, false, DEPTH>;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         THREADS, 0);
     if (err != cudaSuccess) return err;
-    constexpr int u = STEP<T, OP, false>;
+    constexpr int u = STEP<T, OP, false, DEPTH>;
     const long long most = (n + THREADS * u - 1) / (THREADS * u);
     long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1) *
                        (u == 1 ? 4 : 1);
@@ -972,7 +980,7 @@ static cudaError_t launch_table(T* table, const int* idx, const T* vals,
           table, idx, vals, last_pos, n, (int)lo,
           (int)(lo + step < m ? lo + step : m), 0);
   }
-  if (OP == OP_SWP)
+  if constexpr (OP == OP_SWP)
     swp_write_kernel<T><<<grid_for(m), THREADS, 0, st>>>(table, vals, last_pos,
                                                          m);
   return cudaGetLastError();
@@ -994,15 +1002,30 @@ static cudaError_t launch_table_op(int op, T* table, const int* idx,
 #undef TABLE
 }
 
+// FAA at another load depth (1 or 32; global and windows regimes only).
+template <typename T>
+static cudaError_t launch_faa_depth(int depth, T* table, const int* idx,
+                                    const T* vals, long long n, int m,
+                                    int regime, long long window,
+                                    cudaStream_t st) {
+  if (depth == 1)
+    return launch_table<T, OP_FAA, 1>(table, idx, vals, nullptr, n, m,
+                                      regime, window, st);
+  return launch_table<T, OP_FAA, 32>(table, idx, vals, nullptr, n, m, regime,
+                                     window, st);
+}
+
 // rmw_table (faa, swp, min, max) and slot_counts (count: int32, no values)
 // into `table`, a copy of the input table (slot_counts: zeros) that the
 // kernels update in place.  `last_pos` (SWP): m int32 set to -1.  `regime`
-// as kernel.table_regime picks it; `window` the slots of an L2 window.
+// as kernel.table_regime picks it; `window` the slots of an L2 window;
+// `depth` the ops a thread loads before it combines any (UNROLL, or 1 or 32
+// for FAA outside the smem regime).
 extern "C" int table_combine_launch(void* table, const void* idx,
                                     const void* vals, void* last_pos,
                                     long long n, long long m, int op,
                                     int dtype, int regime, long long window,
-                                    void* stream) {
+                                    int depth, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const bool count = op == OP_COUNT;
   if ((op != OP_FAA && op != OP_SWP && op != OP_MIN && op != OP_MAX && !count)
@@ -1010,11 +1033,21 @@ extern "C" int table_combine_launch(void* table, const void* idx,
       || (count && dtype != DT_INT32) || (op == OP_SWP && last_pos == nullptr)
       || regime < REGIME_GLOBAL || regime > REGIME_WINDOWS
       || (regime == REGIME_WINDOWS && window < 1) || n < 0 || n > INT_MAX
-      || m < 0 || m > INT_MAX)
+      || m < 0 || m > INT_MAX
+      || (depth != UNROLL && (op != OP_FAA || regime == REGIME_SMEM
+                              || (depth != 1 && depth != 32))))
     return (int)cudaErrorInvalidValue;
   if (n == 0 || m == 0) return (int)cudaGetLastError();
   cudaError_t err;
-  if (count)
+  if (depth != UNROLL && dtype == DT_INT32)
+    err = launch_faa_depth<int>(depth, (int*)table, (const int*)idx,
+                                (const int*)vals, n, (int)m, regime, window,
+                                st);
+  else if (depth != UNROLL)
+    err = launch_faa_depth<float>(depth, (float*)table, (const int*)idx,
+                                  (const float*)vals, n, (int)m, regime,
+                                  window, st);
+  else if (count)
     err = launch_table<int, OP_COUNT>((int*)table, (const int*)idx, nullptr,
                                       nullptr, n, (int)m, regime, window, st);
   else if (dtype == DT_INT32)

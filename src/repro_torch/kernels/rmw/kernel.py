@@ -7,6 +7,8 @@ the same function — that is what the CPU tests exercise.  There is no
 fallback from the kernel to the plain version.
 
 `LAUNCHES` counts kernel launches per wrapper, one per call that launched.
+A fake tensor (`kernels.build.is_fake`) gets outputs of the right shape
+and dtype, no launch and no count.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.rmw import rmw_combining
-from repro_torch.kernels.build import NvccLibrary
+from repro_torch.kernels.build import NvccLibrary, is_fake
 from repro_torch.kernels.rmw import ref as _ref
 
 Tensor = torch.Tensor
@@ -38,8 +40,10 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 #: `csrc/rmw.cu`, built by nvcc at first launch
 LIBRARY = NvccLibrary("rmw", Path(__file__).resolve().parent / "csrc"
                       / "rmw.cu", {
-    # table, idx, vals, last_pos, n, m, op, dtype, regime, window, stream
-    "table_combine_launch": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _P),
+    # table, idx, vals, last_pos, n, m, op, dtype, regime, window, depth,
+    # stream
+    "table_combine_launch": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _I,
+                             _P),
     # table, out, idx, vals, fetched, success, scratch, scratch_bytes, n, m,
     # op, dtype, expected, stream
     "rmw_table_fetched_launch": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
@@ -96,6 +100,11 @@ REGIMES = {"global": 0, "smem": 1, "windows": 2}
 #: H100's 50 MB L2: the batch streams through it too)
 SMEM_SLOTS = 56 * 1024
 WINDOW_SLOTS = 1 << 22
+#: ops a thread loads before it combines any (UNROLL in csrc/rmw.cu), and
+#: the depths FAA also builds at outside the smem regime (the `prefetcher`
+#: suite's sweep)
+UNROLL = 8
+DEPTHS = (1, UNROLL, 32)
 #: ... and for fp32 MIN/MAX, whose private copies flush by compare-and-swap
 #: (no bulk reduction takes their order), and whose compare-and-swap into a
 #: table past the L2 waits on HBM either way: the largest private copy, the
@@ -142,17 +151,32 @@ def table_regimes(m: int) -> Tuple[str, ...]:
 
 
 def table_combine(out: Tensor, indices: Tensor, values, op: str,
-                  regime: str) -> Tensor:
+                  regime: str, window: int = WINDOW_SLOTS,
+                  depth: int = UNROLL) -> Tensor:
     """Launch the table-only kernel in ``regime`` on CUDA tensors, updating
     ``out`` in place (the callers pass a copy of the table, or zeros for op
     ``count``, whose ``values`` are None) and returning it.  Counts no
     launch: `rmw_table` and `slot_counts` do, in the regime `table_regime`
-    picks; the other regimes are for the tests and
-    `tools/rmw_table_ablate.py`."""
+    picks, at the defaults; the other regimes, windows and depths are for
+    the tests, the `unaligned` and `prefetcher` suites and
+    `tools/rmw_table_ablate.py`.
+
+    ``window``: the slots of one pass in the ``windows`` regime (any width:
+    one off the 32-slot L2 line splits a line at each boundary; every
+    atomic stays one aligned word).  ``depth``: the ops a thread loads
+    before it combines any, one of `DEPTHS`; other than `UNROLL` only for
+    FAA outside the ``smem`` regime."""
     if regime not in REGIMES:
         raise ValueError(f"unknown regime {regime!r}")
     if regime == "smem" and out.shape[0] > SMEM_SLOTS:
         raise ValueError(f"the smem regime takes at most {SMEM_SLOTS} slots")
+    if window < 1:
+        raise ValueError(f"a window holds at least one slot, got {window}")
+    if depth not in DEPTHS or (depth != UNROLL and (
+            op != "faa" or regime == "smem")):
+        raise ValueError(f"depth {depth} is built for FAA outside the smem "
+                         f"regime only, at {DEPTHS}; {op!r} in {regime!r} "
+                         f"takes {UNROLL}")
     if op == "count":
         _check(out, indices)
         if out.dtype != torch.int32:
@@ -161,6 +185,8 @@ def table_combine(out: Tensor, indices: Tensor, values, op: str,
     else:
         _check(out, indices, values)
         dt = _dtype_code(out, values)
+    if is_fake(out):
+        return out
     last = (torch.full(out.shape, -1, dtype=torch.int32, device=out.device)
             if op == "swp" else None)
     with torch.cuda.device(out.device):
@@ -169,7 +195,7 @@ def table_combine(out: Tensor, indices: Tensor, values, op: str,
                        None if values is None else values.data_ptr(),
                        None if last is None else last.data_ptr(),
                        indices.shape[0], out.shape[0], OP_CODES[op], dt,
-                       REGIMES[regime], WINDOW_SLOTS, _stream(out))
+                       REGIMES[regime], window, depth, _stream(out))
     return out
 
 
@@ -187,7 +213,8 @@ def rmw_table(table: Tensor, indices: Tensor, values: Tensor,
     out = table_combine(table.clone(), indices, values, op,
                         table_regime(op, table.dtype, indices.shape[0],
                                      table.shape[0]))
-    LAUNCHES["rmw_table"] += 1
+    if not is_fake(out):
+        LAUNCHES["rmw_table"] += 1
     return out
 
 
@@ -265,6 +292,8 @@ def rmw_table_fetched(table: Tensor, indices: Tensor, values: Tensor,
     out = table.clone()
     fetched = torch.empty((n,), dtype=table.dtype, device=table.device)
     success = torch.empty((n,), dtype=torch.bool, device=table.device)
+    if is_fake(table):
+        return out, fetched, success
     nbytes, _ = fetched_layout(n)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=table.device)
     exp = 0.0 if expected is None else float(
@@ -298,5 +327,6 @@ def slot_counts(indices: Tensor, m: int) -> Tensor:
                                        device=indices.device), indices, None,
                            "count", table_regime("count", torch.int32,
                                                  indices.shape[0], m))
-    LAUNCHES["slot_counts"] += 1
+    if not is_fake(counts):
+        LAUNCHES["slot_counts"] += 1
     return counts

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import rmw as _rmw
-from repro_torch.kernels.build import NvccLibrary
+from repro_torch.kernels.build import NvccLibrary, is_fake
 
 Tensor = torch.Tensor
 
@@ -110,6 +110,10 @@ def serial_rmw(table: Tensor, indices: Tensor, values: Tensor, op: str,
     if table.dim() != 1 or not 0 < table.shape[0] < _I32.max:
         raise ValueError("serial_rmw takes a 1-D table of 1 to 2**31 - 2 "
                          "slots")
+    if is_fake(table):
+        n = indices.reshape(-1).shape[0]
+        return (table.clone(), table.new_empty((n,)),
+                torch.empty((n,), dtype=torch.bool, device=table.device))
     idx, val, exp = _operands(table, indices, values, op, expected)
     n = idx.shape[0]
     out = table.contiguous().clone()
@@ -210,6 +214,8 @@ def chase(table: Cycle, steps: int, mode: str = "read",
     """
     if table.words.device.type == "cpu":
         return chase_plain(table, steps, mode, start)
+    if is_fake(table.words):
+        return torch.empty((1,), dtype=torch.int32, device=table.words.device)
     m = _check_chase(table, steps, mode, start)
     w = table.words
     end = torch.empty((1,), dtype=torch.int32, device=w.device)

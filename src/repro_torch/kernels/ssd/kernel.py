@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.build import NvccLibrary
+from repro_torch.kernels.build import NvccLibrary, is_fake
 
 Tensor = torch.Tensor
 
@@ -137,10 +137,13 @@ def ssd_chunk(xdt: Tensor, adt: Tensor, B: Tensor, C: Tensor, *,
     if xdt.device.type == "cpu":
         return ssd_chunk_plain(xdt, adt, B, C, chunk=chunk,
                                heads_per_group=heads_per_group)
-    _check(xdt, adt, B, C, chunk, heads_per_group)
+    if not is_fake(xdt):
+        _check(xdt, adt, B, C, chunk, heads_per_group)
     y = torch.empty((bh, s, p), dtype=torch.float32, device=xdt.device)
     states = torch.empty((bh, s // chunk, n, p), dtype=torch.float32,
                          device=xdt.device)
+    if is_fake(xdt):
+        return y, states
     with torch.cuda.device(xdt.device):
         LIBRARY.launch("ssd_chunk_launch", xdt.data_ptr(), adt.data_ptr(),
                        B.data_ptr(), C.data_ptr(), y.data_ptr(),

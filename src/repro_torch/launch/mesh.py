@@ -34,6 +34,12 @@ the sharded train step, where ranks along an axis the batch is not cut
 on duplicate the work; the expert-parallel layer's training variant
 (`models.moe._ep_train`) runs on them.
 
+`make_production_mesh` describes the reference's production meshes (no
+process group), and `RecordingMesh` is a mesh at one coordinate of such a
+shape with no ``torch.distributed`` behind it: its collectives return
+outputs of the right shape and record their wire bytes instead
+(`launch.dryrun`'s).
+
 `use_mesh` installs a mesh as the active one and `active_mesh` returns it;
 `atomics.reshard.restore_table`, `models.moe` and the checkpoint read it.
 `repro_torch.sharding.use_mesh` installs the logical-axis rules beside it,
@@ -183,9 +189,11 @@ class Mesh:
                             device=device)
 
     # --- collectives --------------------------------------------------------
-    def _run(self, name: str, fn, out: Tensor, *ins: Tensor) -> Tensor:
-        """Issue one collective, through the host where the backend refuses
-        CUDA buffers for it (`host_staged`)."""
+    def _run(self, name: str, fn, out: Tensor, *ins: Tensor,
+             axes: AxisNames = ()) -> Tensor:
+        """Issue one collective over ``axes`` (None: the world), through
+        the host where the backend refuses CUDA buffers for it
+        (`host_staged`)."""
         if self.sync_timing and out.is_cuda:
             torch.cuda.synchronize(out.device)
         t0 = time.perf_counter()
@@ -215,7 +223,7 @@ class Mesh:
             send[perm] = x                 # blocks by group rank
         recv = torch.empty_like(send)
         self._run("all_to_all", lambda o, i: dist.all_to_all_single(
-            o, i, group=self.group(axes)), recv, send)
+            o, i, group=self.group(axes)), recv, send, axes=axes)
         return recv if perm is None else recv[perm]
 
     def reduce_scatter(self, x: Tensor, axes: AxisNames) -> Tensor:
@@ -233,7 +241,7 @@ class Mesh:
             send = send.reshape(x.shape)
         out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
         self._run("reduce_scatter", lambda o, i: dist.reduce_scatter_tensor(
-            o, i, group=self.group(axes)), out, send)
+            o, i, group=self.group(axes)), out, send, axes=axes)
         return out
 
     def all_gather(self, x: Tensor, axes: AxisNames) -> Tensor:
@@ -245,7 +253,7 @@ class Mesh:
         perm = self._perm(axes, x.device)
         out = x.new_empty((n * x.shape[0], *x.shape[1:]))
         self._run("all_gather", lambda o, i: dist.all_gather_into_tensor(
-            o, i, group=self.group(axes)), out, x.contiguous())
+            o, i, group=self.group(axes)), out, x.contiguous(), axes=axes)
         if perm is not None:
             out = out.reshape(n, *x.shape)[perm].reshape(out.shape)
         return out
@@ -258,7 +266,7 @@ class Mesh:
             return out
         rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         return self._run("all_reduce", lambda o: dist.all_reduce(
-            o, op=rop, group=self.group(axes)), out)
+            o, op=rop, group=self.group(axes)), out, axes=axes)
 
     def broadcast(self, x: Tensor, axes: AxisNames, src: int = 0) -> Tensor:
         """The member of index ``src``'s ``x`` on every member."""
@@ -267,17 +275,25 @@ class Mesh:
             return out
         root = self.members(axes)[src]
         return self._run("broadcast", lambda o: dist.broadcast(
-            o, src=root, group=self.group(axes)), out)
+            o, src=root, group=self.group(axes)), out, axes=axes)
 
     def all_gather_world(self, x: Tensor) -> Tensor:
         """Every rank of the world's ``x`` stacked along dim 0 by world
         rank, members of this mesh or not (every rank of the world calls
         it): the collective a migration between two meshes uses."""
-        world = dist.get_world_size()
+        world = self.world_size()
         out = x.new_empty((world * x.shape[0], *x.shape[1:]))
         self._run("all_gather_world", lambda o, i: dist.all_gather_into_tensor(
-            o, i, group=dist.group.WORLD), out, x.contiguous())
+            o, i, group=dist.group.WORLD), out, x.contiguous(), axes=None)
         return out.reshape(world, *x.shape)
+
+    def world_size(self) -> int:
+        """Ranks in the world the mesh was built in."""
+        return dist.get_world_size()
+
+    def can_exchange(self) -> bool:
+        """Whether its collectives can run: the world is initialised."""
+        return dist.is_initialized()
 
     def probe(self, device) -> Tuple[str, ...]:
         """Try each collective once on tiny ``device`` tensors over the
@@ -309,6 +325,125 @@ class Mesh:
                  else "outside it")
         return (f"Mesh({dict(self.shape)} over ranks {list(self.ranks)}, "
                 f"rank {self.rank} {where}, {self.backend})")
+
+
+# ---------------------------------------------------------------------------
+# The production meshes, and a mesh that records instead of exchanging
+# ---------------------------------------------------------------------------
+
+def make_production_mesh(*, multi_pod: bool = False
+                         ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """(shape, axis names) of the reference's production meshes
+    (`repro.launch.mesh.make_production_mesh`): one pod, (16, 16) over
+    ``("data", "model")``, 256 cards; two pods, (2, 16, 16) over
+    ``("pod", "data", "model")``, 512.  A description only: it makes no
+    process group (`Mesh` over a world of that size, or `RecordingMesh`
+    at one of its coordinates, does)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+#: ranks of one node: the cards one NVLink domain joins (an H100 host)
+NODE_RANKS = 8
+#: the collective kinds of `repro.launch.hlo_stats` by `Mesh` call
+HLO_KINDS = {"all_gather": "all-gather", "all_gather_world": "all-gather",
+             "reduce_scatter": "reduce-scatter", "all_reduce": "all-reduce",
+             "all_to_all": "all-to-all", "broadcast": "collective-permute"}
+
+
+def wire_bytes(kind: str, n: int, in_bytes: int, out_bytes: int) -> float:
+    """Bytes one participant sends for a collective of ``kind`` (an
+    `HLO_KINDS` value) over ``n`` ranks, ring schedules, as
+    `repro.launch.hlo_stats` counts them: all-gather out (n - 1) / n,
+    reduce-scatter in (n - 1) / n, all-reduce 2 in (n - 1) / n, all-to-all
+    in (n - 1) / n, a permute (a broadcast) in."""
+    frac = (n - 1) / n
+    return {"all-gather": out_bytes * frac,
+            "reduce-scatter": in_bytes * frac,
+            "all-reduce": 2 * in_bytes * frac,
+            "all-to-all": in_bytes * frac}.get(kind, float(in_bytes))
+
+
+class RecordingMesh(Mesh):
+    """A `Mesh` of ``shape`` over ``axis_names`` seen from one rank
+    (``rank``, row-major: default 0), with no ``torch.distributed``: each
+    collective returns an output of the right shape and dtype (its values
+    are not exchanged) and is recorded instead of issued, in `calls`:
+    (kind, group size, wire bytes, link), the kind and the wire bytes as
+    `repro.launch.hlo_stats` names and counts them.  A group inside one
+    node (`NODE_RANKS` consecutive ranks) rides ``"nvlink"``, any other
+    ``"ib"``.  The dry run's mesh (`launch.dryrun`), the counterpart
+    of the reference's HLO parse: eager torch has no HLO text."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 rank: int = 0):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, map(int, shape)))
+        if len(self.shape) != len(tuple(shape)):
+            raise ValueError(f"mesh {tuple(shape)} needs one distinct name "
+                             f"per axis, got {self.axis_names}")
+        self.ranks = tuple(range(math.prod(self.shape.values())))
+        if not 0 <= rank < len(self.ranks):
+            raise ValueError(f"rank {rank} is not on mesh {self.shape}")
+        self.rank, self.flat, self.is_member = rank, rank, True
+        self.backend = "recording"
+        self.coords = dict(zip(self.axis_names, self._unravel(rank)))
+        self.host_staged: set = set()
+        self.exchange_s, self.sync_timing = 0.0, False
+        self._groups = {}
+        self.calls: list = []
+
+    def world_size(self) -> int:
+        return len(self.ranks)
+
+    def can_exchange(self) -> bool:
+        return True
+
+    def _perm(self, axes, device):
+        return None               # no values move: the order is moot
+
+    def group(self, axes: AxisNames):
+        self._check(axes)
+        return None
+
+    def _run(self, name: str, fn, out: Tensor, *ins: Tensor,
+             axes: AxisNames = ()) -> Tensor:
+        members = self.ranks if axes is None else self.members(axes)
+        n = len(members)
+        kind = HLO_KINDS[name]
+        in_bytes = (ins[0] if ins else out).nbytes
+        link = ("nvlink" if len({r // NODE_RANKS for r in members}) == 1
+                else "ib")
+        self.calls.append((kind, n, wire_bytes(kind, n, in_bytes, out.nbytes),
+                           link))
+        return out
+
+    def summary(self) -> Dict[str, object]:
+        """The recorded calls as the dry run's record holds them:
+        ``collectives`` ({kind: {"count", "wire_bytes"}}, the reference's
+        form), ``total_wire_bytes``, ``wire_bytes_by_link`` and
+        ``collective_groups`` (count and bytes by kind, group size and
+        link)."""
+        kinds: Dict[str, Dict[str, float]] = {}
+        links: Dict[str, float] = {}
+        groups: Dict[tuple, Dict[str, float]] = {}
+        for kind, n, wire, link in self.calls:
+            for d, key in ((kinds, kind), (groups, (kind, n, link))):
+                e = d.setdefault(key, {"count": 0, "wire_bytes": 0.0})
+                e["count"] += 1
+                e["wire_bytes"] += wire
+            links[link] = links.get(link, 0.0) + wire
+        return {"collectives": kinds,
+                "total_wire_bytes": sum(links.values()),
+                "wire_bytes_by_link": links,
+                "collective_groups": [
+                    {"kind": k, "group": n, "link": ln, **v}
+                    for (k, n, ln), v in sorted(groups.items())]}
+
+    def __repr__(self):
+        return (f"RecordingMesh({dict(self.shape)}, rank {self.rank} at "
+                f"{self.coords})")
 
 
 # ---------------------------------------------------------------------------

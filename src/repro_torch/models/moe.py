@@ -120,8 +120,12 @@ def _route(x2d: Tensor, router_w: Tensor, m) -> Tuple[Tensor, Tensor,
     srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, ids = srt[:, :m.top_k], order[:, :m.top_k].to(torch.int32)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    counts = torch.bincount(ids[:, 0].long(),
-                            minlength=m.n_experts).to(torch.float32)
+    # top-1 counts; a scatter of ones (not ``bincount``, whose length
+    # depends on the ids' values) keeps the shape static under fake tensors
+    top1 = ids[:, 0].long()
+    counts = torch.zeros((m.n_experts,), dtype=torch.float32,
+                         device=ids.device).index_put_(
+        (top1,), torch.ones_like(top1, dtype=torch.float32), accumulate=True)
     return gates, ids, (probs.mean(0), counts)
 
 
@@ -413,8 +417,21 @@ def training_blocks(blocks, batch_axes: Tuple[str, ...]):
     "w3", "w2"}); under an expert-parallel mesh, `moe_ffn` on those
     parameters takes the rank's cut of the batch (cut over
     ``batch_axes``) and runs `_ep_train` on the blocks."""
+    with restored(({id(p): b for p, b in blocks}, tuple(batch_axes))):
+        yield
+
+
+def training_state():
+    """The selection `training_blocks` put in force (None outside it), for
+    a recomputation in backward to install again (`restored`)."""
+    return getattr(_training, "state", None)
+
+
+@contextlib.contextmanager
+def restored(state):
+    """Put ``state`` (a `training_state`) in force for the block."""
     prev = getattr(_training, "state", None)
-    _training.state = ({id(p): b for p, b in blocks}, tuple(batch_axes))
+    _training.state = state
     try:
         yield
     finally:

@@ -20,6 +20,7 @@ policies (`torch.utils.checkpoint`), and `grad_barrier` is the identity.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, List, Optional, Tuple
 
@@ -28,11 +29,14 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.launch.mesh import active_mesh, active_rules, use_mesh
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_init, norm, norm_init
 from repro_torch.models.mamba import Mamba2
 from repro_torch.models.moe import moe_ffn, moe_init
+from repro_torch.models.moe import restored as moe_restored
+from repro_torch.models.moe import training_state as moe_training_state
 from repro_torch.sharding import hint
 
 Tensor = torch.Tensor
@@ -72,17 +76,38 @@ def remat(fn: Callable, policy: str) -> Callable:
         raise ValueError(f"remat policy {policy!r} not in {REMAT_POLICIES}")
     if policy == "none":
         return fn
-    kw = {}
-    if policy in _SAVED_OPS:
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts,
-            functools.partial(_save_ops_policy, _SAVED_OPS[policy]))
+    selective = (functools.partial(
+        create_selective_checkpoint_contexts,
+        functools.partial(_save_ops_policy, _SAVED_OPS[policy]))
+        if policy in _SAVED_OPS else None)
 
     def run(*args, **kwargs):
         if not torch.is_grad_enabled():
             return fn(*args, **kwargs)
-        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+        # backward recomputes after the sharded step's
+        # `moe.training_blocks` has exited, and on the card in autograd's
+        # device thread, where no `use_mesh` is in force: the
+        # recomputation installs the mesh, rules and selection the forward
+        # saw, or MoE would recompute another variant
+        state = moe_training_state()
+        mesh, rules = active_mesh(), active_rules()
+
+        def context_fn():
+            fwd, rec = (selective() if selective is not None else
+                        (contextlib.nullcontext(), contextlib.nullcontext()))
+            return fwd, _entered(rec, use_mesh(mesh, rules),
+                                 moe_restored(state))
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn, **kwargs)
     return run
+
+
+@contextlib.contextmanager
+def _entered(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
 
 
 def plan_stages(cfg: ModelConfig) -> List[Tuple[List[Sig], int]]:

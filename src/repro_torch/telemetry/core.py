@@ -25,16 +25,18 @@ Eager PyTorch has no trace time: every instrumented call is a host-side
 call, so events carry ``traced=False`` (the field is kept so both packages'
 events share one schema), and measured wall times come from the call sites
 under ``sync``.  A call on the card is measured by two CUDA events
-recorded around it on its stream, with no synchronisation: its event
+recorded around it on its stream (a pair of the device's
+`telemetry.events.EventRing`), with no synchronisation: its event
 carries a :class:`DeviceSeconds` in ``measured_s`` until `resolve`
 replaces it with the seconds between the two events, after one wait for
-the newest.  That happens where the wait costs nothing extra: at a
-consumer's window boundary (the tuning controller's update cycle), when a
+the newest (one call reads every pending pair of a ring).  That happens
+where the wait costs nothing extra: at a consumer's window boundary (the tuning controller's update cycle), when a
 `capture` ends or the stream is disabled, and when a `RingBuffer`'s events
 are read; a sink that writes events out as they come (`JsonlWriter`,
 `Counters`) resolves each one it is given.  A measured call still costs
-an H100's host about 15 µs more than an unmeasured one (recording the
-two events, and reading them back; two synchronisations cost 65-85 µs),
+an H100's host about 13 µs more than an unmeasured one (recording the
+two events, about 9 µs, and reading them back; two synchronisations cost
+65-85 µs),
 so a sink installed with sync may ask for one call on the card in
 ``Sink.sync_every`` to be measured (`sync_due`: one call at a seeded
 random place in each run of ``k``, so traffic that repeats with a period
@@ -96,17 +98,22 @@ def _set_period(synced) -> None:
 
 
 class DeviceSeconds:
-    """A measured time on the card, pending: the two CUDA events recorded
-    around a call on its stream.  `seconds` waits for the end event.
-    ``pool``, where given, takes both events back once `resolve` has read
-    them, for the next call to record again."""
+    """A measured time on the card, pending: two CUDA events recorded
+    around a call on its stream.  With ``ring`` (the
+    `telemetry.events.EventRing` they were recorded in), ``start`` is the
+    index of their pair, and `resolve` reads every pending pair of a ring
+    in one call; without, ``start`` and ``end`` are the event objects
+    (``synchronize``, ``elapsed_time`` in ms).  `seconds` waits for the
+    end event."""
 
-    __slots__ = ("start", "end", "pool")
+    __slots__ = ("start", "end", "ring")
 
-    def __init__(self, start, end, pool=None):
-        self.start, self.end, self.pool = start, end, pool
+    def __init__(self, start, end=None, ring=None):
+        self.start, self.end, self.ring = start, end, ring
 
     def seconds(self) -> float:
+        if self.ring is not None:
+            return self.ring.read((self.start,))[0]
         self.end.synchronize()
         return self.start.elapsed_time(self.end) / 1e3
 
@@ -125,17 +132,25 @@ def pend(ev: Dict[str, Any]) -> None:
 
 def resolve() -> None:
     """Replace the ``measured_s`` of every pending event with its seconds:
-    one wait for the newest end event, then each pair's elapsed time."""
+    one wait for the newest end event, then each pair's elapsed time (one
+    call a ring)."""
     global _pending
     if not _pending:
         return
     batch, _pending = _pending, []
+    rings: Dict[Any, List[Dict[str, Any]]] = {}
     for ev in reversed(batch):       # the newest first: one real wait
         meas = ev.get("measured_s")
         if isinstance(meas, DeviceSeconds):
-            ev["measured_s"] = meas.seconds()
-            if meas.pool is not None:
-                meas.pool += (meas.start, meas.end)
+            if meas.ring is None:
+                ev["measured_s"] = meas.seconds()
+            else:
+                rings.setdefault(meas.ring, []).append(ev)
+    for ring, evs in rings.items():
+        evs.reverse()                # record order, the newest last
+        secs = ring.read([ev["measured_s"].start for ev in evs])
+        for ev, s in zip(evs, secs):
+            ev["measured_s"] = s
 
 
 def _seconds(x):

@@ -102,12 +102,14 @@ STATE_VERSION = 1
 
 #: the controller's sink asks for one eager `execute` on the card in this
 #: many to be measured (`telemetry.Sink.sync_every`): a measured call costs
-#: an H100's host about 15 µs more than an unmeasured one (two CUDA
-#: events recorded and read back), and the update cycle a window of
-#: `TuningConfig.min_events` measured calls about 100 µs, against about
-#: 90 µs for an eager FAA of 4,096 ops.  Not in the reference, which
-#: measures every call; a ``telemetry.capture(sync=True)`` beside the
-#: controller measures every call again.  A CPU call is always measured.
+#: an H100's host about 13 µs more than an unmeasured one (a pair of the
+#: device's `telemetry.events.EventRing` recorded, about 9 µs, and read
+#: back in a window, about 4 µs), and the update cycle a window of
+#: `TuningConfig.min_events` measured calls about 80-150 µs, against
+#: about 100 µs for an eager FAA of 4,096 ops: a live controller
+#: measuring every call cost 21-25% against the 5% gate.  Not in the
+#: reference, which measures every call; a ``telemetry.capture(sync=True)``
+#: beside the controller measures every call again.  A CPU call is always measured.
 SYNC_EVERY = 64
 
 @dataclasses.dataclass(frozen=True)

@@ -1464,3 +1464,95 @@ def test_sharded_training_2x2_matches_local_on_the_card(cuda_device,
               for h in got["history"]], got["failures"], path)
     assert W.runs_off((*sharded[0], W.ckpt_dir(str(tmp_path), "card")),
                       local) == []
+
+
+SWEEP_SHAPES = [("windows", 1 << 22, (1 << 20) * 5), ("global", 1 << 20,
+                                                      1 << 18)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 8, 32])
+@pytest.mark.parametrize("window", [1 << 20, (1 << 20) + 8,
+                                    3 * (1 << 18) + 8])
+@pytest.mark.parametrize("regime,n,m", SWEEP_SHAPES,
+                         ids=[s[0] for s in SWEEP_SHAPES])
+def test_table_combine_every_window_and_depth_matches_plain(cuda_device,
+                                                            regime, n, m,
+                                                            window, depth):
+    """`table_combine` at every load depth the `prefetcher` suite runs,
+    in the global regime and in windows on and off the 32-slot L2 line
+    (the `unaligned` suite's widths, scaled to a table of 5 * 2^20
+    slots): int32 FAA and integer-valued fp32 FAA bit for bit against the
+    plain version, normal fp32 FAA within rtol 1e-5, atol 1e-5 sqrt(max
+    occupancy) of a float64 sum; SWP, MIN and MAX (depth 8 only) bit for
+    bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(window + depth)
+    idx = torch.randint(0, m, (n,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    for dtype in (torch.int32, torch.float32):
+        tab = torch.randint(-8, 9, (m,), generator=g, device=cuda_device,
+                            dtype=torch.int32).to(dtype)
+        val = torch.randint(-8, 9, (n,), generator=g, device=cuda_device,
+                            dtype=torch.int32).to(dtype)
+        for op in ("faa",) if depth != K.UNROLL else ("faa", "swp", "min",
+                                                      "max"):
+            got = K.table_combine(tab.clone(), idx, val, op, regime,
+                                  window=window, depth=depth)
+            assert torch.equal(got, tref.rmw_table_ref(tab, idx, val, op)), \
+                (op, dtype)
+    tab = torch.randn((m,), generator=g, device=cuda_device)
+    val = torch.randn((n,), generator=g, device=cuda_device)
+    want = tref.rmw_table_ref(tab.double(), idx, val.double(), "faa").float()
+    atol = 1e-5 * float(K.slot_counts_plain(idx, m).max()) ** 0.5
+    got = K.table_combine(tab.clone(), idx, val, "faa", regime,
+                          window=window, depth=depth)
+    assert torch.allclose(got, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.gpu
+def test_event_ring_reads_what_cuda_events_read(cuda_device):
+    """A pair of the event ring (`telemetry.events.EventRing`) recorded
+    around a pair of ``torch.cuda.Event``s around the same kernels on the
+    same stream, behind a busy stretch, reads back the torch pair's time
+    and at most 10 µs more (the events between the records: 6.3-7.8 µs
+    on an H100), one window of pairs in one read; the pairs of a
+    `telemetry.DeviceSeconds` resolve to the ring's own reading."""
+    from repro_torch import telemetry
+    from repro_torch.telemetry import events as TE
+    dev = cuda_device.index or 0
+    ring = TE.ring(dev)
+    stream = TE.raw_stream(dev)
+    x = torch.randn((1 << 22,), device=cuda_device)
+    pairs, torch_pairs = [], []
+    # every kernel loaded and every event made first (a module load can
+    # drain the stream), then the stream kept busy, so each event below is
+    # stamped when the card reaches it, not when the host records it
+    torch.sin(x)
+    torch.cuda.Event(enable_timing=True).record()
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    for reps in (1, 4, 16):
+        k = ring.take()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        assert ring.record(ring.handle, 2 * k, stream) == 0
+        a.record()
+        for _ in range(reps):
+            x = torch.sin(x)
+        b.record()
+        assert ring.record(ring.handle, 2 * k + 1, stream) == 0
+        pairs.append(k)
+        torch_pairs.append((a, b))
+    got = ring.read(pairs)
+    torch.cuda.synchronize()
+    want = [a.elapsed_time(b) / 1e3 for a, b in torch_pairs]
+    assert all(w - 1e-6 <= s <= w + 10e-6 for s, w in zip(got, want)), \
+        (got, want)
+    assert got[0] < got[1] < got[2]
+    evs = [{"measured_s": telemetry.DeviceSeconds(k, ring=ring)}
+           for k in pairs]
+    for ev in evs:
+        telemetry.core.pend(ev)
+    telemetry.resolve()
+    assert [ev["measured_s"] for ev in evs] == got

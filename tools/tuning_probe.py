@@ -10,15 +10,22 @@ controller costs eager `execute` on one card, part by part.
                                             # measured by CUDA events,
                                             # every call synced, and 1 in
                                             # 64 by events
+    python3 tools/tuning_probe.py gate    # the `tuning` suite's overhead
+                                          # gate, 3 runs measuring every
+                                          # call, then 1 run sampling
 
 Run from the repository root on a machine with one CUDA card.  The calls
 are the `tuning` suite's overhead workload: FAA of n = 4,096 ops over
 1,024 int32 slots on the ``cuda`` backend, the card synchronised after
 each.  ``parts`` prints, as one JSON object, the least mean µs over 5
 blocks of: an idle `torch.cuda.synchronize` (with and without a device),
-a stream query, a pair of CUDA events made and recorded (and the pair
-`atomics.execute` records: pooled, its stream looked up once), the call
-with the stream
+a stream query, a pair of CUDA events made and recorded, a pair of
+pooled ``torch.cuda.Event``s recorded on a stream looked up once (what
+`atomics.execute` recorded before the event ring), the pair
+`atomics.execute` records (two events of the device's
+`telemetry.events.EventRing`, through the CUDA runtime), a window of 32
+such pairs read back through ``torch.cuda.Event`` and through the ring
+(µs a pair), the call with the stream
 off, with a ring sink (no sync; sync, every call measured by events; and
 every call synced), with a controller started (no step, and stepped),
 and one controller tap, `drift.aggregate`, `fit_spec_update` and update
@@ -57,6 +64,7 @@ from repro_torch import atomics, telemetry  # noqa: E402
 from repro_torch.benchmarks.common import paired_ratio  # noqa: E402
 from repro_torch.core import rmw_engine  # noqa: E402
 from repro_torch.telemetry import drift  # noqa: E402
+from repro_torch.telemetry import events as tevents  # noqa: E402
 from repro_torch.tuning import SpecController, TuningConfig  # noqa: E402
 from repro_torch.tuning import controller as tc  # noqa: E402
 
@@ -99,7 +107,9 @@ def parts() -> dict:
            "sync_dev_idle_us": _per_us(lambda: torch.cuda.synchronize(dev)),
            "query_us": _per_us(lambda: torch.cuda.current_stream().query()),
            "event_pair_us": _per_us(_event_pair),
-           "pooled_pair_us": _per_us(_pooled_pair)}
+           "pooled_pair_us": _per_us(_pooled_pair()),
+           "ring_pair_us": _per_us(_ring_pair),
+           **_readback_us()}
     tc.SYNC_EVERY = 1
     ctrl = SpecController(device="cuda")
     for rnd in range(3):
@@ -142,12 +152,63 @@ def _event_pair():
 
 
 def _pooled_pair():
-    """What `execute` pays for its two events: pooled, the stream's
-    object cached, the base ``record``."""
-    start, end, pool, stream = ex._timing_pair(torch.cuda.current_device())
-    ex._record(start, stream)
-    ex._record(end, stream)
-    pool += (start, end)
+    """Two ``torch.cuda.Event``s recorded through the base ``record`` on a
+    stream object looked up once, and given back to a pool (what
+    `execute` paid before the event ring)."""
+    record = torch._C._CudaEventBase.record
+    stream = torch.cuda.current_stream()
+    pool = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def pair():
+        start, end = pool.pop(), pool.pop()
+        record(start, stream)
+        record(end, stream)
+        pool.extend((start, end))
+    return pair
+
+
+def _ring_pair():
+    """What `execute` pays for its two events now: a pair of the device's
+    `telemetry.events.EventRing`, recorded through the CUDA runtime."""
+    dev = torch.cuda.current_device()
+    ring = tevents.ring(dev)
+    stream = tevents.raw_stream(dev)
+    k = ring.take()
+    ring.record(ring.handle, 2 * k, stream)
+    ring.record(ring.handle, 2 * k + 1, stream)
+
+
+def _readback_us(window=32, reps=200):
+    """µs a pair to read a window of ``window`` recorded pairs back: as
+    `telemetry.resolve` read ``torch.cuda.Event`` pairs (the newest end's
+    wait, then each pair's synchronize and elapsed time), and as it reads
+    the ring's (one call)."""
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(window)]
+    ring = tevents.ring(torch.cuda.current_device())
+    stream = tevents.raw_stream(torch.cuda.current_device())
+    out = {"readback_torch_us": float("inf"), "readback_ring_us": float("inf")}
+    for _ in range(reps):
+        for a, b in evs:
+            a.record()
+            b.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a, b in reversed(evs):
+            b.synchronize()
+            a.elapsed_time(b)
+        out["readback_torch_us"] = min(out["readback_torch_us"],
+                                       (time.perf_counter() - t0) / window)
+        pairs = [ring.take() for _ in range(window)]
+        for k in pairs:
+            ring.record(ring.handle, 2 * k, stream)
+            ring.record(ring.handle, 2 * k + 1, stream)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ring.read(pairs)
+        out["readback_ring_us"] = min(out["readback_ring_us"],
+                                      (time.perf_counter() - t0) / window)
+    return {k: v * 1e6 for k, v in out.items()}
 
 
 def pairs() -> dict:
@@ -202,6 +263,26 @@ def sampling() -> dict:
     return {"runs": len(out)}
 
 
+def gate() -> dict:
+    """The `tuning` suite's overhead gate (`benchmarks.tuning.overhead`:
+    a live controller on eager FAA of 4,096 against the stream off) three
+    times with every call measured (`tuning.controller.SYNC_EVERY` = 1),
+    then once at 1 in 64; one JSON line a run."""
+    from repro_torch.benchmarks import tuning as suite
+    _workload()
+    out = []
+    for every in (1, 1, 1, 64):
+        tc.SYNC_EVERY = every
+        r = suite.overhead("cuda", fast=False)
+        row = {"sync_every": every, **{k: r[k] for k in (
+            "overhead", "overhead_of_minima", "attempts", "disabled_us",
+            "enabled_us", "update_cycle_us", "ok")}}
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    tc.SYNC_EVERY = 64
+    return {"every_call_ok": sum(r["ok"] for r in out[:3]), "runs": out}
+
+
 def phase() -> dict:
     import chip_smoke as C
     C.phase_device()
@@ -216,5 +297,5 @@ def phase() -> dict:
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else "phase"
     fn = {"phase": phase, "parts": parts, "pairs": pairs,
-          "sampling": sampling}[mode]
+          "sampling": sampling, "gate": gate}[mode]
     print(json.dumps(fn(), indent=1), flush=True)
