@@ -37,7 +37,7 @@ depth (`prefetcher`), BFS, the backend shoot-out, calibration into
 `build/repro_torch/calibrated_spec.json` and the Table 2/3 fit with its NRMSE), with the one-thread kernels'
 launch counters reset before and read after.  Last, the sharded tier
 (`sharded`): 4 ranks sharing the card on a 2x2 ``("pod", "dev")`` mesh
-over gloo, 2^21 ops a rank over 2^24 int32 slots, every exchange strategy
+over gloo, 2^20 ops a rank over 2^24 int32 slots, every exchange strategy
 and op (per-op CAS, dense, replicas, ``reverse_ranks``; int32 and fp32)
 against the serialized oracle in rank order, `bfs_sharded` at the BFS
 phase's scale against its parents, `execute_until` with every policy
@@ -45,7 +45,7 @@ against the local tier's round history, ms per batch split into the
 exchange and the ranks' kernels, the kernels' launches inside the ranks;
 then a world-size-1 NCCL run, and two NCCL ranks on the one card, whose
 refusal it records.  Last, the elastic tier (`elastic`): on the same 4
-ranks, a 2^24-slot table built by 4 FAA batches of 2^21 ops a rank moves
+ranks, a 2^24-slot table built by 4 FAA batches of 2^20 ops a rank moves
 by the exchange path ((pod, dev)-sharded -> dev-sharded, pod replicas),
 then by device_put onto `survivors_mesh` (2 ranks) and back, each bit for
 bit; after each move three batches (fetched FAA with stats, per-op CAS,
@@ -110,7 +110,17 @@ convergence, rollback and quarantine; tuned int32 runs bit-equal to
 untuned runs that took other backends, locally and on 4 ranks), then a
 default controller over the telemetry suite's local traffic for 12
 update windows (`tuning_probe`: each window's outcome, the fields tuned
-at the end, and what auto picks before and after).  Last, sharded
+at the end, and what auto picks before and after), and the stamps the RMW
+kernels write for a measured call (`tuning_stamps`: ``%globaltimer``'s
+resolution, every regime, op and dtype bit-equal with a stamp pair armed
+and without, µs to record and to read a pair against the event ring's,
+stamped against event seconds on 1,024 calls).  The contract linter
+(`analysis`, its own main path, the counters reset before and read
+after): the nine registered entries of `repro_torch.analysis` swept on
+the card and on the CPU (zero unsuppressed errors, the same findings),
+each rule's bad and good twin on both, and the sanctioned execute twin
+launching `rmw_table_fetched` with a result bit-equal to the CPU's.
+Last, sharded
 training (`train_sharded`, no kernel launched): 4 ranks sharing the card
 on a 2x2 ``("data", "model")`` mesh over gloo, gemma_2b at full width,
 8 x 256 tokens; 3 sharded steps in f32 at 2 layers held to the local
@@ -1951,6 +1961,8 @@ def flash_timing(gen):
 
 #: the suites of the tuning slice, run by `phase_tuning`
 TUNING_SUITES = ("contention_observe", "tuning")
+#: ... and the lint sweep, which `phase_analysis` runs as its own path
+OWN_PHASE_SUITES = TUNING_SUITES + ("analysis",)
 
 
 def _run_suites(names):
@@ -1974,7 +1986,7 @@ def phase_suites():
     XK.reset_launches()
     K.reset_launches()
     results = _run_suites([n for n in suites.SUITES
-                           if n not in TUNING_SUITES])
+                           if n not in OWN_PHASE_SUITES])
     launches = dict(XK.LAUNCHES)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -2092,7 +2104,7 @@ def _sh_cases():
     for dist in ("hot", "uniform"):
         for strategy in SH_STRATEGIES:
             out.append(_sh_case(("faa", dist, "float32"), strategy))
-    # fp32 FAA of normal values, ~2^21 a hot slot: held to float64 sums
+    # fp32 FAA of normal values, ~2^19 a hot slot: held to float64 sums
     # (the sequential oracle's own rounding is the tolerance's size)
     out.append(_sh_case(("faa", "hot_normal", "float32")))
     for strategy in SH_STRATEGIES:
@@ -5639,6 +5651,286 @@ def phase_tuning():
                           if k != "controller"},
          bit_identity=bit)
     emit("tuning_probe", **probe)
+    emit("tuning_stamps", **_stamp_figures())
+    return launches
+
+
+#: calls whose stamped and event seconds are compared
+ST_CALLS = 1024
+
+
+def _check_stamp_bits(ring):
+    """Every regime, op and dtype of the three stamped C entries with a
+    stamp pair armed and without: bit-equal (NaN by `isnan`), each armed
+    pair stamped with an exit after its entry.  FAA's values are small
+    integers, whose fp32 sums are exact in any order."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    cases = 0
+    for n, m in ((1 << 16, 64), (3000, 700), (1 << 16, K.WINDOW_SLOTS + 8)):
+        idx = torch.randint(0, m + 7, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        for dtype in (torch.int32, torch.float32):
+            tab = torch.randint(-8, 9, (m,), generator=gen,
+                                device="cuda").to(dtype)
+            val = torch.randint(-8, 9, (n,), generator=gen,
+                                device="cuda").to(dtype)
+            if dtype == torch.float32:
+                val[::97] = float("nan")
+                val[1::97] = -0.0
+            runs = []
+            for op in ("faa", "swp", "min", "max", "count"):
+                if op == "count" and dtype != torch.int32:
+                    continue
+                v = val.nan_to_num(0.0) if op == "faa" else val
+                for regime in K.table_regimes(m):
+                    depths = K.DEPTHS if op == "faa" and regime != "smem" \
+                        else (K.UNROLL,)
+                    for depth in depths:
+                        runs.append((f"table {op} {regime} d{depth}",
+                                     lambda op=op, v=v, r=regime, d=depth:
+                                     K.table_combine(
+                                         torch.zeros((m,), dtype=torch.int32,
+                                                     device="cuda")
+                                         if op == "count" else tab.clone(),
+                                         idx, None if op == "count" else v,
+                                         op, r, depth=d)))
+            for op in ("faa", "swp", "min", "max", "cas"):
+                v = val.nan_to_num(0.0) if op == "faa" else val
+                runs.append((f"fetched {op}", lambda op=op, v=v:
+                             K.rmw_table_fetched(tab, idx, v, op, expected=(
+                                 0 if op == "cas" else None))))
+                if n <= 3000:
+                    runs.append((f"serial {op}", lambda op=op, v=v:
+                                 XK.serial_rmw(tab, idx, v, op, expected=(
+                                     0 if op == "cas" else None))))
+            for what, fn in runs:
+                plain = fn()
+                got, k = ring.stamp(fn)
+                for a, b in zip(got if isinstance(got, tuple) else (got,),
+                                plain if isinstance(plain, tuple)
+                                else (plain,)):
+                    if a.dtype == torch.float32:
+                        _same_bits(a, b, f"stamped {what} n={n} m={m}")
+                    elif not torch.equal(a, b):
+                        raise AssertionError(f"stamped {what} {dtype} n={n} "
+                                             f"m={m}: differs unstamped")
+                secs = ring.read([k])[0]
+                if not secs > 0:
+                    raise AssertionError(f"stamp pair of {what}: {secs}")
+                cases += 1
+    return cases
+
+
+def _stamp_agreement(ring, events, call, calls=ST_CALLS):
+    """``calls`` calls of ``call`` enqueued back to back, each timed by a
+    pair of the event ring recorded around it and by the stamps its
+    kernels write, read back in windows of 32: the stamped and event µs
+    (median, least, most), their ratio (median, 5th and 95th percentile,
+    least, most), and µs a pair to read a window back each way."""
+    stream = TE.raw_stream(torch.cuda.current_device())
+    st_s, ev_s, read_st, read_ev = [], [], [], []
+    for _ in range(calls // 32):
+        ks, ke = [], []
+        for _ in range(32):
+            e = events.take()
+            events.record(events.handle, 2 * e, stream)
+            _, k = ring.stamp(call)
+            events.record(events.handle, 2 * e + 1, stream)
+            ks.append(k)
+            ke.append(e)
+        sync()
+        t = time.perf_counter()
+        st_s += ring.read(ks)
+        read_st.append((time.perf_counter() - t) / 32)
+        t = time.perf_counter()
+        ev_s += events.read(ke)
+        read_ev.append((time.perf_counter() - t) / 32)
+    st, ev = np.array(st_s), np.array(ev_s)
+    ratio = st / ev
+    return dict(
+        calls=len(st),
+        stamped_us=dict(median=float(np.median(st)) * 1e6,
+                        min=float(st.min()) * 1e6, max=float(st.max()) * 1e6),
+        event_us=dict(median=float(np.median(ev)) * 1e6,
+                      min=float(ev.min()) * 1e6, max=float(ev.max()) * 1e6),
+        ratio=dict(median=float(np.median(ratio)),
+                   p5=float(np.percentile(ratio, 5)),
+                   p95=float(np.percentile(ratio, 95)),
+                   min=float(ratio.min()), max=float(ratio.max())),
+        stamp_past_event_us=float((st - ev).max()) * 1e6,
+        read_stamp_us_a_pair=min(read_st) * 1e6,
+        read_ring_us_a_pair=min(read_ev) * 1e6)
+
+
+def _stamp_figures():
+    """Part of `phase_tuning`: what the stamps the RMW kernels write
+    cost and read (`telemetry.events.StampRing`; `atomics.execute`
+    times its measured calls by events, and `tools/tuning_probe.py
+    stamps` by stamps): `%globaltimer`'s resolution; every stamped
+    entry bit-equal with and without a pair armed; µs to arm a pair
+    against recording an event-ring pair; on the tuning gate's call
+    (FAA of 4,096 ops over 1,024 int32 slots, ``cuda`` backend,
+    fetched, synchronised after each) the paired overhead of the call
+    stamped against bare (`benchmarks.common.paired_ratio`); and the
+    stamped seconds of `ST_CALLS` calls against the event-ring seconds
+    of the same calls (`_stamp_agreement`) at the gate's call, whose
+    host enqueues slower than the card runs it (the events then hold
+    the card's waits between launches; the stamps do not), and at 2^22
+    ops over 2^20 slots, which the card runs slower than the host
+    enqueues (stamps cover the kernels, events also the table's copy
+    and the scratch's memset)."""
+    from repro_torch.benchmarks.common import paired_ratio
+    t0 = time.perf_counter()
+    dev = torch.cuda.current_device()
+    ring, events = TE.stamp_ring(dev), TE.ring(dev)
+    stream = TE.raw_stream(dev)
+    timer = TE.globaltimer_resolution(dev)
+    bit_cases = _check_stamp_bits(ring)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+
+    def batch(n, m):
+        tbl = atomics.make_table(m, torch.int32)
+        op = atomics.Faa(torch.randint(0, m, (n,), generator=gen,
+                                       device="cuda", dtype=torch.int32),
+                         torch.ones(n, dtype=torch.int32, device="cuda"))
+        return lambda: atomics.execute(tbl, op, backend="cuda")
+
+    call, big = batch(4096, 1024), batch(1 << 22, 1 << 20)
+    for _ in range(50):
+        call()
+    big()
+    sync()
+
+    def per_us(fn, reps=2000):
+        best = float("inf")
+        for _ in range(5):
+            t = time.perf_counter()
+            for _ in range(reps // 5):
+                fn()
+            best = min(best, (time.perf_counter() - t) / (reps // 5))
+        return best * 1e6
+
+    def arm():
+        TE.STAMP.ptr = ring.address(ring.take())
+        TE.STAMP.ptr = None
+
+    def ring_pair():
+        k = events.take()
+        events.record(events.handle, 2 * k, stream)
+        events.record(events.handle, 2 * k + 1, stream)
+
+    arm_us, ring_pair_us = per_us(arm), per_us(ring_pair)
+    sync()
+    stamped = paired_ratio(lambda: (ring.stamp(call), sync()),
+                           lambda: (call(), sync()), batch=32, n_batches=60)
+    ring.read(list(range(ring.pairs)))       # every pair reset
+    return dict(
+        timer=timer, bit_equal_cases=bit_cases, arm_us=arm_us,
+        ring_pair_us=ring_pair_us,
+        call_stamped_against_bare={k: stamped[k] for k in (
+            "overhead", "overhead_of_minima", "a_us", "b_us")},
+        gate_call=_stamp_agreement(ring, events, call),
+        device_bound_call=dict(n=1 << 22, m=1 << 20, **_stamp_agreement(
+            ring, events, big)),
+        seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# 19. analysis
+# ---------------------------------------------------------------------------
+
+def _findings_key(findings):
+    """What the card's and the CPU's sweeps must agree on."""
+    return sorted((f.rule, os.path.relpath(f.file, ROOT) if f.file else None,
+                   f.line, f.suppressed) for f in findings)
+
+
+def phase_analysis():
+    """The contract linter on the card, its own main path: the launch
+    counters reset, the nine registered entries swept on the card (each
+    entry's wall µs, findings, suppressed findings and kernel launches),
+    then on the CPU: both with zero unsuppressed errors and the same (rule,
+    file, line, suppressed) findings; each rule's bad and good twin
+    (`tests/_torch_analysis_twins.py`) on the card as on the CPU; and the
+    sanctioned execute twin (FAA of 4,096 ops over 1,024 int32 slots on
+    the ``cuda`` backend under `analysis.check`) launching
+    `rmw_table_fetched`, its table and fetched values bit-equal to the
+    CPU's; the counters read after."""
+    from repro_torch import analysis
+    from repro_torch.analysis.entries import ENTRY_POINTS
+    from repro_torch.analysis.findings import ERROR
+    from repro_torch.analysis.lint import sweep
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_analysis_twins as W
+    t0 = time.perf_counter()
+    XK.reset_launches()
+    K.reset_launches()
+    bad, entries = [], {}
+    for name in ENTRY_POINTS:
+        before = {**dict(K.LAUNCHES), **dict(XK.LAUNCHES)}
+        t = time.perf_counter()
+        card = sweep([name], "cuda")[name]
+        sync()
+        wall_us = (time.perf_counter() - t) * 1e6
+        after = {**dict(K.LAUNCHES), **dict(XK.LAUNCHES)}
+        cpu = sweep([name], "cpu")[name]
+        entries[name] = dict(
+            wall_us=wall_us, findings=len(card),
+            suppressed=sum(f.suppressed for f in card),
+            launches={k: after[k] - before[k] for k in after
+                      if after[k] - before[k]})
+        errors = [f.format() for f in card + cpu
+                  if f.severity == ERROR and not f.suppressed]
+        if errors:
+            bad.append(f"{name}: {errors}")
+        if _findings_key(card) != _findings_key(cpu):
+            bad.append(f"{name}: card {_findings_key(card)} against CPU "
+                       f"{_findings_key(cpu)}")
+    twins = {}
+    for name, (_, _, _, want) in W.PORT_TWINS.items():
+        card = W.run_port_twin(name, 0, device="cuda")
+        cpu = W.run_port_twin(name, 0, device="cpu")
+        twins[name] = sorted(f.rule for f in card)
+        if twins[name] != want or _findings_key(card) != _findings_key(cpu):
+            bad.append(f"twin {name}: card {_findings_key(card)}, CPU "
+                       f"{_findings_key(cpu)}, want {want}")
+    gen = np.random.default_rng(3)
+    idx = torch.from_numpy(gen.integers(0, 1024, 4096).astype(np.int32))
+    val = torch.from_numpy(gen.integers(-8, 9, 4096).astype(np.int32))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        got = []
+
+        def sanctioned(t, i, v):
+            res = atomics.execute(atomics.AtomicTable(t), atomics.Faa(i, v),
+                                  backend="cuda")
+            got.append((res.table.data.cpu(), res.fetched.cpu()))
+
+        fetched_before = K.LAUNCHES["rmw_table_fetched"]
+        found = analysis.check(sanctioned, torch.zeros(1024, dtype=torch.int32,
+                                                       device=dev),
+                               idx.to(dev), val.to(dev), device=dev)
+        runs[dev] = dict(findings=len(found), launched=K.LAUNCHES[
+            "rmw_table_fetched"] - fetched_before)
+        if found:
+            bad.append(f"sanctioned execute on {dev}: "
+                       f"{[f.format() for f in found]}")
+        runs[dev]["result"] = got[0]
+    if runs["cuda"]["launched"] < 1 or runs["cpu"]["launched"]:
+        bad.append(f"sanctioned execute launches: {runs}")
+    same = all(torch.equal(a, b) for a, b in zip(runs["cuda"].pop("result"),
+                                                 runs["cpu"].pop("result")))
+    if not same:
+        bad.append("sanctioned execute: the card's result differs from the "
+                   "CPU's")
+    launches = {**dict(K.LAUNCHES), **dict(XK.LAUNCHES)}
+    emit("analysis", seconds=time.perf_counter() - t0, entries=entries,
+         twins=twins, sanctioned=dict(runs, bit_equal=same),
+         launches=launches, bad=bad[:10])
+    if bad:
+        raise AssertionError("analysis: " + "; ".join(bad))
     return launches
 
 
@@ -5781,6 +6073,10 @@ def main():
     for k, v in phase_tuning().items():
         launches[k] += v
     lap("tuning")
+    # the contract linter's sweep: its own counts, added
+    for k, v in phase_analysis().items():
+        launches[k] += v
+    lap("analysis")
     # the sharded tier last, on the local BFS's graph: its main path runs
     # inside its ranks, which reset and read their own counts, and their
     # sums join the kernels line

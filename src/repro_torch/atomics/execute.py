@@ -269,6 +269,18 @@ def _measured(table: AtomicTable, op: AtomicOp, kw: dict, synced: bool):
     return out, time.perf_counter() - t0
 
 
+def _axes_bound(table: AtomicTable) -> bool:
+    """The reference's "mesh axes bound" in the port's terms: the table is
+    local, or its mesh can exchange and carries every axis it names."""
+    if not table.is_sharded:
+        return True
+    mesh = table.mesh
+    if mesh is None or not mesh.can_exchange():
+        return False
+    return all(a in mesh.axis_names for a in norm_axes(table.axis)
+               + norm_axes(table.replica_axes))
+
+
 def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
                  backend: str, strategy: str, spec,
                  distinct_slots: Optional[int], reverse_ranks: bool,
@@ -277,14 +289,34 @@ def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
         raise TypeError(
             f"ops must be atomics.Faa/Swp/Min/Max/Cas instances, "
             f"got {type(op).__name__}")
-    if _contracts._observer is not None:
-        _contracts.notify(
-            "execute", table=table, op=op, need_fetched=need_fetched,
-            backend=backend, strategy=strategy,
-            distinct_slots=distinct_slots, reverse_ranks=reverse_ranks)
     kw = dict(need_fetched=need_fetched, backend=backend, strategy=strategy,
               spec=spec, distinct_slots=distinct_slots,
               reverse_ranks=reverse_ranks, collect_stats=collect_stats)
+    if _contracts._observer is None:
+        return _recorded(table, op, kw)
+    # static analysis in progress: report this call site's contract before
+    # dispatch (a sharded table without a mesh raises below, and the
+    # analyzer turns the recorded site into the finding), and mark the
+    # op's operands with the site's id, as the reference does
+    sid = _contracts.next_site()
+    for role, x in (("op_indices", op.indices), ("op_values", op.values),
+                    ("op_expected", op.expected)):
+        _contracts.mark(x, role, kind=op.kind, site=sid)
+    _contracts.notify(
+        "execute", table=table, op=op, site_id=sid,
+        need_fetched=need_fetched, backend=backend, strategy=strategy,
+        distinct_slots=distinct_slots, reverse_ranks=reverse_ranks,
+        axes_bound=_axes_bound(table))
+    out = _recorded(table, op, kw)
+    # the result's data is the table's too (the reference's lineage follows
+    # the sanctioned write's output)
+    _contracts.mark(out[0].data, "table")
+    return out
+
+
+def _recorded(table: AtomicTable, op: AtomicOp, kw: dict):
+    """`_dispatch_one`, measured and recorded as the stream asks."""
+    collect_stats = kw["collect_stats"]
     # _tcore flag reads instead of the telemetry.*_enabled() accessors:
     # this is the hottest record site
     if not _tcore._enabled or (table.is_sharded and (
@@ -300,25 +332,49 @@ def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
     measure = _tcore._sync and not sharded and (
         collect_stats or not table.data.is_cuda or _tcore.sync_due())
     measured_s = None
+    synced = collect_stats or _SYNC_MEASURE
     # the batch is launched before the event is built, so the instrument's
     # host work overlaps the card's
     if _tcore._annotate:
         with telemetry.annotation(
                 f"atomics.execute/{'sharded' if sharded else 'local'}"):
             if measure:
-                out, measured_s = _measured(
-                    table, op, kw, collect_stats or _SYNC_MEASURE)
+                out, measured_s = _measured(table, op, kw, synced)
             else:
                 out = _dispatch_one(table, op, **kw)
     elif measure:
-        out, measured_s = _measured(table, op, kw,
-                                    collect_stats or _SYNC_MEASURE)
+        out, measured_s = _measured(table, op, kw, synced)
     else:
         out = _dispatch_one(table, op, **kw)
     if measured_s is None and not _tcore._every_event:
         # only measured-only sinks listen (the tuning controller's tap):
         # an unmeasured decision event would carry nothing they read
         return out
+    # a copy: the cached template stays pristine
+    fields = _fields(table, op, kw, sharded).copy()
+    if measured_s is not None:
+        fields["measured_s"] = measured_s
+        if type(measured_s) is _tcore.DeviceSeconds:
+            _tcore.pend(fields)
+    # the copy becomes the event itself (record_event skips the kwargs
+    # rebuild that `record` pays)
+    telemetry.record_event(fields)
+    if out[3] is not None and measure:
+        # contention.* events only at sync boundaries: the stats leaves
+        # are ready, so the host readout costs no extra wait
+        telemetry.record_event(_cstats.stats_to_fields(
+            out[3], tier=fields.get("tier"), op=op.kind,
+            n=fields.get("n"), m=fields.get("m"), traced=False))
+    return out
+
+
+def _fields(table: AtomicTable, op: AtomicOp, kw: dict, sharded: bool
+            ) -> dict:
+    """The call's decision-event template (`_decision_fields`), cached by
+    the inputs that fix it."""
+    need_fetched, backend, strategy = (kw["need_fetched"], kw["backend"],
+                                       kw["strategy"])
+    spec, distinct_slots = kw["spec"], kw["distinct_slots"]
     data = table.data
     # the cheapest reads that fix the decision: numel of the 1-D indices
     # and table (faster than shape[0]), the raw dtype object and
@@ -341,21 +397,7 @@ def _execute_one(table: AtomicTable, op: AtomicOp, *, need_fetched: bool,
         if len(_DECISION_CACHE) >= _DECISION_CACHE_MAX:
             _DECISION_CACHE.clear()
         _DECISION_CACHE[key] = fields
-    fields = fields.copy()           # the cached template stays pristine
-    if measured_s is not None:
-        fields["measured_s"] = measured_s
-        if type(measured_s) is _tcore.DeviceSeconds:
-            _tcore.pend(fields)
-    # the copy becomes the event itself (record_event skips the kwargs
-    # rebuild that `record` pays)
-    telemetry.record_event(fields)
-    if out[3] is not None and measure:
-        # contention.* events only at sync boundaries: the stats leaves
-        # are ready, so the host readout costs no extra wait
-        telemetry.record_event(_cstats.stats_to_fields(
-            out[3], tier=fields.get("tier"), op=op.kind,
-            n=fields.get("n"), m=fields.get("m"), traced=False))
-    return out
+    return fields
 
 
 def execute(table: Union[AtomicTable, Tensor],

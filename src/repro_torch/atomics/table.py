@@ -59,6 +59,9 @@ class AtomicTable:
         self.replica_axes = _norm_axis(replica_axes) or ()
         self.mesh = mesh
         if _contracts._observer is not None:
+            # fresh constructions only (with_data bypasses __init__): the
+            # data is reported as table lineage to the analyzer's log
+            _contracts.mark(self.data, role="table")
             _contracts.notify("table", table=self)
         if self.replica_axes and self.axis is None:
             # replica serialization belongs to the sharded executor: on a

@@ -33,6 +33,9 @@ figure, in the reference's order (`benchmarks/run.py`):
                     the estimator's device feed, writers per slot against
                     the contention model (writes contention_observe.json
                     under --out only)
+  analysis          the atomics contract linter over every registered
+                    entry point (wall µs, findings, suppressed a row;
+                    raises on an unsuppressed error)
   tuning            the guarded spec controller: convergence, rollback and
                     quarantine, the <5% live-controller overhead gate,
                     tuned-vs-untuned bit identity local and (full runs) on
@@ -57,7 +60,8 @@ import os
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.benchmarks import (bandwidth, bfs, calibrate, contention,
+from repro_torch.benchmarks import (analysis_sweep, bandwidth, bfs,
+                                    calibrate, contention,
                                     contention_observe, fault_recovery,
                                     latency, model_validation, operand_size,
                                     operands_fetched, prefetcher, reshard,
@@ -69,7 +73,7 @@ SUITES = ("latency", "bandwidth", "contention", "operand_size",
           "operands_fetched", "unaligned", "prefetcher", "bfs",
           "rmw_backends", "calibrate", "model_validation", "roofline",
           "rmw_sharded", "reshard", "fault_recovery", "telemetry_drift",
-          "contention_observe", "tuning")
+          "contention_observe", "analysis", "tuning")
 
 
 def run_suites(only: Optional[Sequence[str]] = None, fast: bool = False,
@@ -115,6 +119,7 @@ def run_suites(only: Optional[Sequence[str]] = None, fast: bool = False,
         "contention_observe": lambda: contention_observe.run(
             csv, fast=fast, device=device, out_path=None if out_dir is None
             else os.path.join(out_dir, "contention_observe.json")),
+        "analysis": lambda: analysis_sweep.run(csv, device=device),
         "tuning": lambda: tuning.run(
             csv, fast=fast, device=device, out_path=None if out_dir is None
             else os.path.join(out_dir, "tuning.json")),

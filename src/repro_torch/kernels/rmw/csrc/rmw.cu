@@ -153,6 +153,7 @@
 #include <type_traits>
 
 #include "csrc/order.cuh"
+#include "csrc/stamp.cuh"
 
 enum { OP_FAA = 0, OP_SWP = 1, OP_MIN = 2, OP_MAX = 3, OP_CAS = 4,
        OP_COUNT = 5 };
@@ -396,14 +397,21 @@ __device__ __forceinline__ void bulk_flush(void* dst, const int* priv,
 // then combines them, over the batch grid-stride (SWP from its end).
 // PRIVATE (lo = 0): into the CTA's shared copy of the hi slots, then
 // flushed, the first `bulk` slots in one bulk reduction and the rest one
-// atomic per touched slot.
-template <typename T, int OP, bool PRIVATE, int DEPTH>
+// atomic per touched slot.  STAMPED: the launch stamps `stamp_in`'s entry
+// and `stamp_out`'s exit (csrc/stamp.cuh, either may be null); a separate
+// instantiation: compiled into one kernel for both, the exit stamp's
+// barrier cost the global regime 38% on an H100 with no pair armed (int32
+// FAA at uniform_bfs_n, 0.427 -> 0.589 ms, tools/rmw_default_ab.py).
+template <typename T, int OP, bool PRIVATE, int DEPTH, bool STAMPED>
 __global__ void __launch_bounds__(BLOCK<PRIVATE>)
 table_combine_kernel(T* __restrict__ table, const int* __restrict__ idx,
                      const T* __restrict__ vals, int* __restrict__ last_pos,
-                     long long n, int lo, int hi, int bulk) {
+                     long long n, int lo, int hi, int bulk,
+                     unsigned long long* stamp_in,
+                     unsigned long long* stamp_out) {
   constexpr int NT = BLOCK<PRIVATE>;
   extern __shared__ int priv[];
+  if constexpr (STAMPED) stamp_entry(stamp_in);
   if (PRIVATE) {
     for (int s = threadIdx.x; s < hi; s += NT)
       priv[s] = identity_word<T, OP>();
@@ -444,7 +452,10 @@ table_combine_kernel(T* __restrict__ table, const int* __restrict__ idx,
       else global_word<T, OP>(table, last_pos, s[u], w[u], cur[u]);
     }
   }
-  if (!PRIVATE) return;
+  if (!PRIVATE) {
+    if constexpr (STAMPED) stamp_exit(stamp_out);
+    return;
+  }
   // the shared copy's writes become visible to the bulk copy's proxy
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
@@ -457,17 +468,20 @@ table_combine_kernel(T* __restrict__ table, const int* __restrict__ idx,
       global_word<T, OP>(table, last_pos, s, w,
                          READS<OP> ? read_word<T, OP>(table, last_pos, s) : 0);
   }
+  if constexpr (STAMPED) stamp_exit(stamp_out);
 }
 
-template <typename T>
+template <typename T, bool STAMPED>
 __global__ void swp_write_kernel(T* __restrict__ table,
                                  const T* __restrict__ vals,
-                                 const int* __restrict__ last_pos, int m) {
+                                 const int* __restrict__ last_pos, int m,
+                                 unsigned long long* stamp_out) {
   for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < m;
        s += gridDim.x * blockDim.x) {
     const int p = last_pos[s];
     if (p >= 0) table[s] = vals[p];
   }
+  if constexpr (STAMPED) stamp_exit(stamp_out);
 }
 
 // --- rmw_table_fetched -----------------------------------------------------
@@ -555,10 +569,12 @@ fetched_compact_kernel(const int* __restrict__ idx, T* __restrict__ fetched,
                        uint8_t* __restrict__ success, int* __restrict__ keys,
                        int* __restrict__ pos, u64* status, int* counters,
                        int* hist, long long n, int m, int passes,
-                       int pos_shift, uint8_t kept_success) {
+                       int pos_shift, uint8_t kept_success,
+                       unsigned long long* stamp_in) {
   __shared__ int s_hist[HIST_ROWS * DIGITS];
   __shared__ int s_warp[FW];
   __shared__ int s_ticket, s_base;
+  stamp_entry(stamp_in);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int i = tid; i < HIST_ROWS * DIGITS; i += FT) s_hist[i] = 0;
   if (tid == 0) s_ticket = atomicAdd(&counters[0], 1);
@@ -895,21 +911,24 @@ fetched_scan_kernel(const T* __restrict__ table, T* __restrict__ out,
 __global__ void __launch_bounds__(FT)
 fetched_scatter_kernel(const int* __restrict__ f_pos,
                        const unsigned* __restrict__ f_val,
-                       unsigned* __restrict__ fetched, const int* counters) {
+                       unsigned* __restrict__ fetched, const int* counters,
+                       unsigned long long* stamp_out) {
   const long long k = counters[C_KEPT];
   const long long t0 = (long long)blockIdx.x * TILE;
-  if (t0 >= k) return;
-  int p[FI];
-  unsigned v[FI];
+  if (t0 < k) {
+    int p[FI];
+    unsigned v[FI];
 #pragma unroll
-  for (int u = 0; u < FI; ++u) {
-    const long long j = t0 + u * FT + threadIdx.x;
-    p[u] = j < k ? f_pos[j] : -1;
-    v[u] = j < k ? f_val[j] : 0;
+    for (int u = 0; u < FI; ++u) {
+      const long long j = t0 + u * FT + threadIdx.x;
+      p[u] = j < k ? f_pos[j] : -1;
+      v[u] = j < k ? f_val[j] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < FI; ++u)
+      if (p[u] >= 0) fetched[p[u]] = v[u];
   }
-#pragma unroll
-  for (int u = 0; u < FI; ++u)
-    if (p[u] >= 0) fetched[p[u]] = v[u];
+  stamp_exit(stamp_out);
 }
 
 // CAS: success = kept and fetched == expected, streamed over the batch.
@@ -917,11 +936,12 @@ template <typename T>
 __global__ void cas_success_kernel(const int* __restrict__ idx,
                                    const T* __restrict__ fetched,
                                    uint8_t* __restrict__ success, long long n,
-                                   int m, T e) {
+                                   int m, T e, unsigned long long* stamp_out) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride)
     success[i] = idx[i] >= 0 && idx[i] < m && fetched[i] == e;
+  stamp_exit(stamp_out);
 }
 
 // --- C entries -------------------------------------------------------------
@@ -932,10 +952,15 @@ static int grid_for(long long work) {
   return (int)(b < MAX_BLOCKS ? b : MAX_BLOCKS);
 }
 
+// `stamp`: a pair of telemetry.events.StampRing (csrc/stamp.cuh), or null:
+// the first kernel stamps its entry, the last its exit.
 template <typename T, int OP, int DEPTH = UNROLL>
 static cudaError_t launch_table(T* table, const int* idx, const T* vals,
                                 int* last_pos, long long n, int m, int regime,
-                                long long window, cudaStream_t st) {
+                                long long window, unsigned long long* stamp,
+                                cudaStream_t st) {
+  // SWP ends with swp_write_kernel, which stamps the exit
+  unsigned long long* exit_stamp = OP == OP_SWP ? nullptr : stamp;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -945,7 +970,9 @@ static cudaError_t launch_table(T* table, const int* idx, const T* vals,
     if constexpr (DEPTH != UNROLL) return cudaErrorInvalidValue;
     constexpr int nt = BLOCK<true>;
     const long long most = (n + nt * UNROLL - 1) / (nt * UNROLL);
-    auto kernel = table_combine_kernel<T, OP, true, UNROLL>;
+    auto kernel = stamp != nullptr
+                      ? table_combine_kernel<T, OP, true, UNROLL, true>
+                      : table_combine_kernel<T, OP, true, UNROLL, false>;
     const int bytes = m * 4;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -963,9 +990,9 @@ static cudaError_t launch_table(T* table, const int* idx, const T* vals,
     const bool bulk_op = !(IS_F32<T> && (OP == OP_MIN || OP == OP_MAX));
     const int bulk = bulk_op && ((uintptr_t)dst & 15) == 0 ? (m & ~3) : 0;
     kernel<<<(int)blocks, nt, bytes, st>>>(table, idx, vals, last_pos, n, 0,
-                                            m, bulk);
+                                            m, bulk, stamp, exit_stamp);
   } else {
-    auto kernel = table_combine_kernel<T, OP, false, DEPTH>;
+    auto kernel = table_combine_kernel<T, OP, false, DEPTH, false>;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         THREADS, 0);
     if (err != cudaSuccess) return err;
@@ -975,14 +1002,25 @@ static cudaError_t launch_table(T* table, const int* idx, const T* vals,
                        (u == 1 ? 4 : 1);
     if (blocks > most) blocks = most;
     const long long step = regime == REGIME_WINDOWS ? window : m;
-    for (long long lo = 0; lo < m; lo += step)
-      kernel<<<(int)blocks, THREADS, 0, st>>>(
+    for (long long lo = 0; lo < m; lo += step) {
+      unsigned long long* in = lo == 0 ? stamp : nullptr;
+      unsigned long long* out = lo + step < m ? nullptr : exit_stamp;
+      auto launched = in != nullptr || out != nullptr
+                          ? table_combine_kernel<T, OP, false, DEPTH, true>
+                          : kernel;
+      launched<<<(int)blocks, THREADS, 0, st>>>(
           table, idx, vals, last_pos, n, (int)lo,
-          (int)(lo + step < m ? lo + step : m), 0);
+          (int)(lo + step < m ? lo + step : m), 0, in, out);
+    }
   }
-  if constexpr (OP == OP_SWP)
-    swp_write_kernel<T><<<grid_for(m), THREADS, 0, st>>>(table, vals, last_pos,
-                                                         m);
+  if constexpr (OP == OP_SWP) {
+    if (stamp != nullptr)
+      swp_write_kernel<T, true><<<grid_for(m), THREADS, 0, st>>>(
+          table, vals, last_pos, m, stamp);
+    else
+      swp_write_kernel<T, false><<<grid_for(m), THREADS, 0, st>>>(
+          table, vals, last_pos, m, nullptr);
+  }
   return cudaGetLastError();
 }
 
@@ -990,9 +1028,11 @@ template <typename T>
 static cudaError_t launch_table_op(int op, T* table, const int* idx,
                                    const T* vals, int* last_pos, long long n,
                                    int m, int regime, long long window,
+                                   unsigned long long* stamp,
                                    cudaStream_t st) {
-#define TABLE(OP) \
-  launch_table<T, OP>(table, idx, vals, last_pos, n, m, regime, window, st)
+#define TABLE(OP)                                                         \
+  launch_table<T, OP>(table, idx, vals, last_pos, n, m, regime, window,  \
+                      stamp, st)
   switch (op) {
     case OP_FAA: return TABLE(OP_FAA);
     case OP_SWP: return TABLE(OP_SWP);
@@ -1007,12 +1047,13 @@ template <typename T>
 static cudaError_t launch_faa_depth(int depth, T* table, const int* idx,
                                     const T* vals, long long n, int m,
                                     int regime, long long window,
+                                    unsigned long long* stamp,
                                     cudaStream_t st) {
   if (depth == 1)
     return launch_table<T, OP_FAA, 1>(table, idx, vals, nullptr, n, m,
-                                      regime, window, st);
+                                      regime, window, stamp, st);
   return launch_table<T, OP_FAA, 32>(table, idx, vals, nullptr, n, m, regime,
-                                     window, st);
+                                     window, stamp, st);
 }
 
 // rmw_table (faa, swp, min, max) and slot_counts (count: int32, no values)
@@ -1020,13 +1061,15 @@ static cudaError_t launch_faa_depth(int depth, T* table, const int* idx,
 // kernels update in place.  `last_pos` (SWP): m int32 set to -1.  `regime`
 // as kernel.table_regime picks it; `window` the slots of an L2 window;
 // `depth` the ops a thread loads before it combines any (UNROLL, or 1 or 32
-// for FAA outside the smem regime).
+// for FAA outside the smem regime); `stamp` a StampRing pair or null.
 extern "C" int table_combine_launch(void* table, const void* idx,
                                     const void* vals, void* last_pos,
                                     long long n, long long m, int op,
                                     int dtype, int regime, long long window,
-                                    int depth, void* stream) {
+                                    int depth, void* stamp_pair,
+                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* stamp = (unsigned long long*)stamp_pair;
   const bool count = op == OP_COUNT;
   if ((op != OP_FAA && op != OP_SWP && op != OP_MIN && op != OP_MAX && !count)
       || (dtype != DT_INT32 && dtype != DT_FLOAT32)
@@ -1042,22 +1085,23 @@ extern "C" int table_combine_launch(void* table, const void* idx,
   if (depth != UNROLL && dtype == DT_INT32)
     err = launch_faa_depth<int>(depth, (int*)table, (const int*)idx,
                                 (const int*)vals, n, (int)m, regime, window,
-                                st);
+                                stamp, st);
   else if (depth != UNROLL)
     err = launch_faa_depth<float>(depth, (float*)table, (const int*)idx,
                                   (const float*)vals, n, (int)m, regime,
-                                  window, st);
+                                  window, stamp, st);
   else if (count)
     err = launch_table<int, OP_COUNT>((int*)table, (const int*)idx, nullptr,
-                                      nullptr, n, (int)m, regime, window, st);
+                                      nullptr, n, (int)m, regime, window,
+                                      stamp, st);
   else if (dtype == DT_INT32)
     err = launch_table_op<int>(op, (int*)table, (const int*)idx,
                                (const int*)vals, (int*)last_pos, n, (int)m,
-                               regime, window, st);
+                               regime, window, stamp, st);
   else
     err = launch_table_op<float>(op, (float*)table, (const int*)idx,
                                  (const float*)vals, (int*)last_pos, n,
-                                 (int)m, regime, window, st);
+                                 (int)m, regime, window, stamp, st);
   return (int)err;
 }
 
@@ -1098,7 +1142,8 @@ template <typename T>
 static void launch_fetched(const T* table, T* out, const int* idx,
                            const T* vals, T* fetched, uint8_t* success,
                            char* scratch, const FetchedLayout& L, long long n,
-                           int m, int op, T expected, cudaStream_t st) {
+                           int m, int op, T expected,
+                           unsigned long long* stamp, cudaStream_t st) {
   int* counters = (int*)(scratch + L.counters);
   int* hist = (int*)(scratch + L.hist);
   u64* status = (u64*)(scratch + L.status);
@@ -1111,7 +1156,7 @@ static void launch_fetched(const T* table, T* out, const int* idx,
   const int pos_shift = bits_n > DBITS ? bits_n - DBITS : 0;
   fetched_compact_kernel<T><<<tiles, FT, 0, st>>>(
       idx, fetched, success, keys[0], pos[0], status, counters, hist, n, m,
-      passes, pos_shift, op == OP_CAS ? 0 : 1);
+      passes, pos_shift, op == OP_CAS ? 0 : 1, stamp);
   for (int p = 0; p < passes; ++p)
     fetched_radix_kernel<<<tiles, FT, 0, st>>>(
         keys[p & 1], pos[p & 1], keys[(p + 1) & 1], pos[(p + 1) & 1], status,
@@ -1136,10 +1181,11 @@ static void launch_fetched(const T* table, T* out, const int* idx,
       hist + MAX_PASSES * DIGITS, pos_shift, 2 + passes,
       2 * (2 + passes) + 1);
   fetched_scatter_kernel<<<tiles, FT, 0, st>>>(
-      pos[f], (const unsigned*)keys[f], (unsigned*)fetched, counters);
+      pos[f], (const unsigned*)keys[f], (unsigned*)fetched, counters,
+      op == OP_CAS ? nullptr : stamp);
   if (op == OP_CAS)
     cas_success_kernel<T><<<grid_for(n), THREADS, 0, st>>>(
-        idx, fetched, success, n, m, expected);
+        idx, fetched, success, n, m, expected, stamp);
 }
 
 // The scratch bytes rmw_table_fetched_launch needs for n ops, and the bits
@@ -1154,14 +1200,17 @@ extern "C" int rmw_table_fetched_layout(long long n, long long* scratch_bytes,
 }
 
 // `table` is only read; `out` (a copy of it) receives the final values.
+// `stamp`: a StampRing pair or null (the compaction stamps the entry, the
+// last kernel the exit).
 extern "C" int rmw_table_fetched_launch(const void* table, void* out,
                                         const void* idx, const void* vals,
                                         void* fetched, void* success,
                                         void* scratch, long long scratch_bytes,
                                         long long n, long long m, int op,
                                         int dtype, double expected,
-                                        void* stream) {
+                                        void* stamp_pair, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* stamp = (unsigned long long*)stamp_pair;
   if (op < OP_FAA || op > OP_CAS || (dtype != DT_INT32 && dtype != DT_FLOAT32)
       || n < 0 || n > 0x7fffffffLL || m < 0 || m > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -1173,13 +1222,14 @@ extern "C" int rmw_table_fetched_launch(const void* table, void* out,
     if (dtype == DT_INT32)
       launch_fetched<int>((const int*)table, (int*)out, (const int*)idx,
                           (const int*)vals, (int*)fetched, (uint8_t*)success,
-                          (char*)scratch, L, n, (int)m, op, (int)expected, st);
+                          (char*)scratch, L, n, (int)m, op, (int)expected,
+                          stamp, st);
     else
       launch_fetched<float>((const float*)table, (float*)out,
                             (const int*)idx, (const float*)vals,
                             (float*)fetched, (uint8_t*)success,
                             (char*)scratch, L, n, (int)m, op,
-                            (float)expected, st);
+                            (float)expected, stamp, st);
   }
   return (int)cudaGetLastError();
 }

@@ -9,6 +9,11 @@ fallback from the kernel to the plain version.
 `LAUNCHES` counts kernel launches per wrapper, one per call that launched.
 A fake tensor (`kernels.build.is_fake`) gets outputs of the right shape
 and dtype, no launch and no count.
+
+While a pair of the device's `telemetry.events.StampRing` is armed
+(`events.STAMP`, `StampRing.stamp`), each launch passes it to its C
+entry, whose first kernel stamps its entry and last kernel its exit
+(`kernels/csrc/stamp.cuh`); no result bit depends on it.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from repro_torch.core.rmw import rmw_combining
 from repro_torch.kernels.build import NvccLibrary, is_fake
 from repro_torch.kernels.rmw import ref as _ref
+from repro_torch.telemetry.events import STAMP
 
 Tensor = torch.Tensor
 
@@ -41,13 +47,13 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 LIBRARY = NvccLibrary("rmw", Path(__file__).resolve().parent / "csrc"
                       / "rmw.cu", {
     # table, idx, vals, last_pos, n, m, op, dtype, regime, window, depth,
-    # stream
+    # stamp pair, stream
     "table_combine_launch": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _I,
-                             _P),
+                             _P, _P),
     # table, out, idx, vals, fetched, success, scratch, scratch_bytes, n, m,
-    # op, dtype, expected, stream
+    # op, dtype, expected, stamp pair, stream
     "rmw_table_fetched_launch": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
-                                 _I, _I, ctypes.c_double, _P),
+                                 _I, _I, ctypes.c_double, _P, _P),
     # n, scratch_bytes, digit_bits
     "rmw_table_fetched_layout": (_LL, ctypes.POINTER(_LL),
                                  ctypes.POINTER(_I)),
@@ -195,7 +201,8 @@ def table_combine(out: Tensor, indices: Tensor, values, op: str,
                        None if values is None else values.data_ptr(),
                        None if last is None else last.data_ptr(),
                        indices.shape[0], out.shape[0], OP_CODES[op], dt,
-                       REGIMES[regime], window, depth, _stream(out))
+                       REGIMES[regime], window, depth, STAMP.take_armed(),
+                       _stream(out))
     return out
 
 
@@ -303,7 +310,8 @@ def rmw_table_fetched(table: Tensor, indices: Tensor, values: Tensor,
                        out.data_ptr(), indices.data_ptr(), values.data_ptr(),
                        fetched.data_ptr(), success.data_ptr(),
                        scratch.data_ptr(), nbytes, n, table.shape[0],
-                       OP_CODES[op], dt, exp, _stream(table))
+                       OP_CODES[op], dt, exp, STAMP.take_armed(),
+                       _stream(table))
     LAUNCHES["rmw_table_fetched"] += 1
     return out, fetched, success
 

@@ -72,6 +72,7 @@
 #include <stdint.h>
 
 #include "csrc/order.cuh"
+#include "csrc/stamp.cuh"
 
 enum { OP_FAA = 0, OP_SWP = 1, OP_MIN = 2, OP_MAX = 3, OP_CAS = 4 };
 enum { DT_INT32 = 0, DT_FLOAT32 = 1 };
@@ -145,7 +146,8 @@ __global__ void serial_rmw_kernel(T* table, const int* __restrict__ idx,
                                   const T* __restrict__ expected,
                                   T* __restrict__ fetched,
                                   bool* __restrict__ success, long long n,
-                                  long long m) {
+                                  long long m, unsigned long long* stamp) {
+  stamp_entry(stamp);
   for (long long k = 0; k < n; ++k) {
     long long j = idx[k];
     if (j < 0) j += m;
@@ -162,13 +164,16 @@ __global__ void serial_rmw_kernel(T* table, const int* __restrict__ idx,
     fetched[k] = old;
     success[k] = ok;
   }
+  stamp_exit(stamp);
 }
 
 template <typename T>
 static cudaError_t serial_rmw_typed(void* table, const void* idx,
                                     const void* vals, const void* expected,
                                     void* fetched, void* success, long long n,
-                                    long long m, int op, cudaStream_t s) {
+                                    long long m, int op,
+                                    unsigned long long* stamp,
+                                    cudaStream_t s) {
   T* t = static_cast<T*>(table);
   const int* i = static_cast<const int*>(idx);
   const T* v = static_cast<const T*>(vals);
@@ -176,7 +181,8 @@ static cudaError_t serial_rmw_typed(void* table, const void* idx,
   T* f = static_cast<T*>(fetched);
   bool* ok = static_cast<bool*>(success);
 #define SERIAL_RMW(OP)                                                  \
-  serial_rmw_kernel<T, OP><<<1, 1, 0, s>>>(t, i, v, e, f, ok, n, m);    \
+  serial_rmw_kernel<T, OP><<<1, 1, 0, s>>>(t, i, v, e, f, ok, n, m,    \
+                                           stamp);                      \
   break
   switch (op) {
     case OP_FAA: SERIAL_RMW(OP_FAA);
@@ -213,18 +219,21 @@ __global__ void chase_kernel(unsigned* table, unsigned mask, unsigned a,
 
 // --- C entries --------------------------------------------------------------
 
+// `stamp_pair`: a telemetry.events.StampRing pair (csrc/stamp.cuh), or
+// null.
 extern "C" int serial_rmw_launch(void* table, const void* idx,
                                  const void* vals, const void* expected,
                                  void* fetched, void* success, long long n,
                                  long long m, int op, int dtype,
-                                 void* stream) {
+                                 void* stamp_pair, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* stamp = static_cast<unsigned long long*>(stamp_pair);
   if (dtype == DT_INT32)
     return (int)serial_rmw_typed<int>(table, idx, vals, expected, fetched,
-                                      success, n, m, op, s);
+                                      success, n, m, op, stamp, s);
   if (dtype == DT_FLOAT32)
     return (int)serial_rmw_typed<float>(table, idx, vals, expected, fetched,
-                                        success, n, m, op, s);
+                                        success, n, m, op, stamp, s);
   return (int)cudaErrorInvalidValue;
 }
 

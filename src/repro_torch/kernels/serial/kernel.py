@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.core import rmw as _rmw
 from repro_torch.kernels.build import NvccLibrary, is_fake
+from repro_torch.telemetry.events import STAMP
 
 Tensor = torch.Tensor
 
@@ -45,8 +46,10 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 #: `csrc/serial.cu`, built by nvcc at first launch
 LIBRARY = NvccLibrary("serial", Path(__file__).resolve().parent / "csrc"
                       / "serial.cu", {
-    # table, idx, vals, expected, fetched, success, n, m, op, dtype, stream
-    "serial_rmw_launch": (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P),
+    # table, idx, vals, expected, fetched, success, n, m, op, dtype,
+    # stamp pair (`telemetry.events.StampRing`, or null), stream
+    "serial_rmw_launch": (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P,
+                          _P),
     # table, m, a, c, start, steps, mode, end, stream
     "chase_launch": (_P, _LL, _LL, _LL, _LL, _LL, _I, _P, _P),
 })
@@ -125,7 +128,7 @@ def serial_rmw(table: Tensor, indices: Tensor, values: Tensor, op: str,
                        None if exp is None else exp.data_ptr(),
                        fetched.data_ptr(), success.data_ptr(), n,
                        out.shape[0], OP_CODES[op], DTYPE_CODES[table.dtype],
-                       _stream(out))
+                       STAMP.take_armed(), _stream(out))
     LAUNCHES["serial_rmw"] += 1
     return out, fetched, success
 

@@ -42,6 +42,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Tuple
 
 from repro_torch import telemetry
+from repro_torch.atomics import contracts as _contracts
 from repro_torch.runtime.chaos import FaultPlan
 
 log = logging.getLogger("repro_torch.runtime")
@@ -123,6 +124,10 @@ class _DonatingStep:
         self.donate_argnums = tuple(donate_argnums)
 
     def __call__(self, *args, **kwargs):
+        if _contracts._observer is not None:
+            # the analyzer's rule A004 reads the caller's source for names
+            # passed in these positions and read again after the call
+            _contracts.notify("donate", argnums=self.donate_argnums)
         return self.fn(*args, **kwargs)
 
     def __repr__(self) -> str:

@@ -13,9 +13,9 @@ atomics stack, the recovery loop and the trainer report into:
 * ``python -m repro_torch.telemetry.report capture.jsonl`` — render a
   capture.
 
-Event catalogue, the reference's (the port emits every event whose
-producer it has; ``analysis.finding`` comes from the reference's static
-analysis, ``tuning.*`` from `repro_torch.tuning.SpecController`):
+Event catalogue, the reference's (the port emits every one of them;
+``analysis.finding`` comes from the contract linter `repro_torch.analysis`,
+``tuning.*`` from `repro_torch.tuning.SpecController`):
 
 ====================  =====================================================
 ``atomics.execute``   one per `atomics.execute` op batch: tier,
@@ -37,7 +37,7 @@ analysis, ``tuning.*`` from `repro_torch.tuning.SpecController`):
 ``recovery.restore``  one per restore: step resumed from (or scratch)
 ``chaos.fire``        one per injected fault: site, occurrence, step
 ``train.step``        per-step span from `launch.train`: wall_s, step
-``analysis.finding``  one per static-lint finding (static analysis):
+``analysis.finding``  one per contract-lint finding (`analysis.check`):
                       rule, severity, file, line, entry, suppressed
 ``recovery.donation_hazard``  startup warning from `run_with_recovery`:
                       donating step_fn + captured init_state (rule A004)

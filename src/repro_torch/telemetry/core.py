@@ -100,11 +100,12 @@ def _set_period(synced) -> None:
 class DeviceSeconds:
     """A measured time on the card, pending: two CUDA events recorded
     around a call on its stream.  With ``ring`` (the
-    `telemetry.events.EventRing` they were recorded in), ``start`` is the
-    index of their pair, and `resolve` reads every pending pair of a ring
-    in one call; without, ``start`` and ``end`` are the event objects
-    (``synchronize``, ``elapsed_time`` in ms).  `seconds` waits for the
-    end event."""
+    `telemetry.events.EventRing` they were recorded in, or a
+    `telemetry.events.StampRing` whose pair the call's kernels stamped),
+    ``start`` is the index of their pair, and `resolve` reads every
+    pending pair of a ring in one call; without, ``start`` and ``end``
+    are the event objects (``synchronize``, ``elapsed_time`` in ms).
+    `seconds` waits for the end event."""
 
     __slots__ = ("start", "end", "ring")
 

@@ -12,6 +12,15 @@
 // not done yet is waited for on its own).
 //
 // Pair k holds events 2k (start) and 2k + 1 (end).
+//
+// stamp_ring_read: a window of telemetry.events.StampRing's pairs (two
+// 64-bit words each, on the device) copied to pinned host memory and
+// zeroed for reuse: one copy, one wait on the stream, one memset.
+//
+// globaltimer_probe: the resolution of %globaltimer, which the RMW kernels'
+// stamps read (kernels/csrc/stamp.cuh; telemetry.events.StampRing): one
+// thread reads it `reads` times back to back, and writes the least nonzero
+// step between two reads, the number of steps, and the span in ns.
 
 #include <cuda_runtime.h>
 #include <stdlib.h>
@@ -92,4 +101,45 @@ extern "C" int event_ring_destroy(void* ring) {
   free(r->ev);
   free(r);
   return (int)first;
+}
+
+// `count` pairs from pair `lo` of `words` into `host`, then zeroed, on
+// `stream` (a cudaStream_t of the words' device).
+extern "C" int stamp_ring_read(void* words, long long lo, long long count,
+                               void* host, void* stream) {
+  if (lo < 0 || count < 0) return (int)cudaErrorInvalidValue;
+  if (count == 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* w = (unsigned long long*)words + 2 * lo;
+  const size_t bytes = (size_t)count * 2 * sizeof(unsigned long long);
+  cudaError_t err = cudaMemcpyAsync(host, w, bytes, cudaMemcpyDeviceToHost,
+                                    st);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(w, 0, bytes, st);
+  return (int)err;
+}
+
+__global__ void globaltimer_probe_kernel(unsigned long long* out,
+                                         long long reads) {
+  unsigned long long prev, now, least = ~0ull, steps = 0, first;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(first));
+  prev = first;
+  for (long long i = 0; i < reads; ++i) {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (now != prev) {
+      ++steps;
+      if (now - prev < least) least = now - prev;
+      prev = now;
+    }
+  }
+  out[0] = steps ? least : 0;
+  out[1] = steps;
+  out[2] = prev - first;
+}
+
+// out: 3 unsigned 64-bit words on the device (least step, steps, span).
+extern "C" int globaltimer_probe(void* out, long long reads, void* stream) {
+  globaltimer_probe_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      (unsigned long long*)out, reads);
+  return (int)cudaGetLastError();
 }

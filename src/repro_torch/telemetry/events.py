@@ -1,4 +1,4 @@
-"""Timing events on the card for measured eager calls.
+"""Timing on the card for measured eager calls.
 
 A measured `atomics.execute` on a CUDA table records two CUDA events
 around the call on the current stream and reads them back after the fact
@@ -9,14 +9,28 @@ so a record is one ``cudaEventRecord`` through ``ctypes``, and a window of
 pairs is read back in one call (one wait on the newest end event, then
 each pair's elapsed time), not by ``torch.cuda.Event``'s record, wait,
 queries and elapsed time.
+
+`StampRing` times the port's RMW kernels from inside: while a pair is
+armed (`STAMP`, `StampRing.stamp`), each launch of `rmw_table`,
+`rmw_table_fetched` or `serial_rmw` passes its address to its C entry,
+whose first kernel's blocks stamp their entry and last kernel's their
+exit from ``%globaltimer`` (`kernels/csrc/stamp.cuh`).  Arming costs no
+host call; a window is read back with one copy into pinned memory and one
+wait, and reset with one memset, in one C call.  Stamps cover the kernels
+alone: not the table's copy before them, nor the card's waits for the
+host between launches, which events hold.  So `atomics.execute` times
+its measured calls by events, the ruler the cost model's drift fields are
+fitted to; the stamps serve `tools/tuning_probe.py stamps`, `chip_smoke.py`
+and the card tests, which compare the two.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.build import NvccLibrary
@@ -32,6 +46,10 @@ LIBRARY = NvccLibrary("event_ring", Path(__file__).resolve().parent / "csrc"
     "event_ring_read": (_P, ctypes.POINTER(_I), _I,
                         ctypes.POINTER(ctypes.c_float)),
     "event_ring_destroy": (_P,),
+    # out (3 x u64 on the device), reads, stream
+    "globaltimer_probe": (_P, ctypes.c_longlong, _P),
+    # words, first pair, pairs, pinned host words, stream
+    "stamp_ring_read": (_P, ctypes.c_longlong, ctypes.c_longlong, _P, _P),
 })
 
 #: pairs a ring holds: more than the most pairs pending at once
@@ -90,6 +108,114 @@ def ring(device: int) -> EventRing:
     if r is None:
         r = _RINGS[device] = EventRing(device)
     return r
+
+
+class StampRing:
+    """`RING_PAIRS` stamp pairs on CUDA device ``device``, taken in turn
+    (`take`): ``words`` is a (pairs, 2) int64 tensor (unsigned 64-bit
+    words to the kernels), zero when reset; pair ``k`` lives at
+    `address` (k).  The first word holds the earliest entry as its
+    complement, the second the latest exit, in ns of ``%globaltimer``."""
+
+    __slots__ = ("device", "pairs", "words", "base", "_host", "_host_words",
+                 "_read", "_next")
+
+    def __init__(self, device: int, pairs: int = RING_PAIRS):
+        self.device, self.pairs = device, pairs
+        self.words = torch.zeros((pairs, 2), dtype=torch.int64,
+                                 device=torch.device("cuda", device))
+        self.base = self.words.data_ptr()
+        self._host = torch.zeros((pairs, 2), dtype=torch.int64,
+                                 pin_memory=True)
+        self._host_words = self._host.numpy().view(np.uint64)
+        self._read = LIBRARY.load().lib.stamp_ring_read
+        self._next = 0
+
+    def take(self) -> int:
+        """The next pair's index."""
+        k = self._next
+        self._next = k + 1 if k + 1 < self.pairs else 0
+        return k
+
+    def address(self, k: int) -> int:
+        return self.base + 16 * k
+
+    def stamp(self, fn):
+        """``fn()`` with the next pair armed (`STAMP`): (its result, the
+        pair's index)."""
+        k = self.take()
+        STAMP.ptr = self.address(k)
+        try:
+            return fn(), k
+        finally:
+            STAMP.ptr = None
+
+    def read(self, pairs: Sequence[int]) -> List[float]:
+        """Seconds from each pair's entry to its exit (``pairs`` in record
+        order): the span of pairs they cover copied to pinned host memory
+        on the device's current stream, one wait, and zeroed for reuse.
+        A pair no kernel stamped (an empty batch) reads 0."""
+        if not len(pairs):
+            return []
+        lo, hi = min(pairs), max(pairs)
+        rc = self._read(self.base, lo, hi - lo + 1,
+                        self._host.data_ptr() + 16 * lo,
+                        raw_stream(self.device))
+        if rc != 0:
+            raise RuntimeError(f"stamp_ring_read failed with CUDA error {rc}")
+        rows = self._host_words[np.asarray(pairs)]
+        first, exit_ns = rows[:, 0], rows[:, 1]
+        stamped = (first != 0) & (exit_ns != 0)
+        ns = np.where(stamped, exit_ns - ~first, 0).astype(np.int64)
+        return (ns / 1e9).tolist()
+
+
+class _Armed:
+    """The armed stamp pair (its device address, or None) and how many C
+    entries took it; module-global, as one call is dispatched at a
+    time."""
+
+    __slots__ = ("ptr", "used")
+
+    def __init__(self):
+        self.ptr: Optional[int] = None
+        self.used = 0
+
+    def take_armed(self) -> Optional[int]:
+        """The armed pair's address for a launch (None: stamp nothing)."""
+        p = self.ptr
+        if p is not None:
+            self.used += 1
+        return p
+
+
+#: the armed stamp pair the RMW wrappers pass to their C entries
+STAMP = _Armed()
+
+_STAMP_RINGS: Dict[int, StampRing] = {}
+
+
+def stamp_ring(device: int) -> StampRing:
+    """Device ``device``'s stamp ring, made at its first use."""
+    r = _STAMP_RINGS.get(device)
+    if r is None:
+        r = _STAMP_RINGS[device] = StampRing(device)
+    return r
+
+
+def globaltimer_resolution(device: int, reads: int = 1 << 20
+                           ) -> Dict[str, float]:
+    """``%globaltimer`` as the stamps see it: one thread on ``device``
+    reads it ``reads`` times back to back; the least nonzero step between
+    two reads (ns), the steps seen, and the span (ns)."""
+    out = torch.zeros(3, dtype=torch.int64,
+                      device=torch.device("cuda", device))
+    with torch.cuda.device(device):
+        LIBRARY.launch("globaltimer_probe", out.data_ptr(), reads,
+                       raw_stream(device))
+    least, steps, span = (int(x) for x in out.cpu())
+    return {"least_step_ns": least, "steps": steps, "span_ns": span,
+            "reads": reads}
 
 
 def raw_stream(device: int) -> int:

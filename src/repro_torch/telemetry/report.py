@@ -91,8 +91,8 @@ def _contention_rows(events: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
 
 
 def _analysis_rows(events: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
-    """``analysis.finding`` events -> lint-result rows (the reference's
-    static analysis writes them; the port renders them alike)."""
+    """``analysis.finding`` events -> lint-result rows (both packages'
+    contract linters write them)."""
     rows = []
     for ev in events:
         if ev.get("event") != "analysis.finding":

@@ -105,11 +105,14 @@ STATE_VERSION = 1
 #: an H100's host about 13 µs more than an unmeasured one (a pair of the
 #: device's `telemetry.events.EventRing` recorded, about 9 µs, and read
 #: back in a window, about 4 µs), and the update cycle a window of
-#: `TuningConfig.min_events` measured calls about 80-150 µs, against
+#: `TuningConfig.min_events` measured calls about 80-190 µs, against
 #: about 100 µs for an eager FAA of 4,096 ops: a live controller
-#: measuring every call cost 21-25% against the 5% gate.  Not in the
-#: reference, which measures every call; a ``telemetry.capture(sync=True)``
-#: beside the controller measures every call again.  A CPU call is always measured.
+#: measuring every call cost 21-25% against the 5% gate, and 15-25% with
+#: the calls timed by the stamps the RMW kernels write (which cost about
+#: 2.5 µs a call, but time the kernels alone, not what the cost model's
+#: drift fields are fitted to).  Not in the reference, which measures
+#: every call; a ``telemetry.capture(sync=True)`` beside the controller
+#: measures every call again.  A CPU call is always measured.
 SYNC_EVERY = 64
 
 @dataclasses.dataclass(frozen=True)

@@ -20,7 +20,9 @@ measured time of a ``cuda``-backend `execute` against the kernel's; and
 tuning: tuned int32 runs under a live controller bit-equal to untuned ones
 that took other backends, the estimator fed from the ``slot_counts``
 kernel, and a swap moving the next `execute`'s auto decision; sharded
-training on 4 ranks sharing the card against the local trainer.
+training on 4 ranks sharing the card against the local trainer; the
+stamps the RMW kernels write (no result bit moved, each inside the CUDA
+events around its call); and the contract linter's sweep on the card.
 This file imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \
@@ -1556,3 +1558,125 @@ def test_event_ring_reads_what_cuda_events_read(cuda_device):
         telemetry.core.pend(ev)
     telemetry.resolve()
     assert [ev["measured_s"] for ev in evs] == got
+
+
+# ---------------------------------------------------------------------------
+# stamps the RMW kernels write
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,dtype", [
+    (op, dt) for op in OPS for dt in (torch.int32, torch.float32)]
+    + [("count", torch.int32)])
+def test_stamps_change_no_result_bit(cuda_device, op, dtype):
+    """Every regime (and FAA's load depths) of the table kernel, the
+    fetched kernel and `serial_rmw`, with a stamp pair armed and without:
+    bit-equal, NaN by `isnan` (FAA's values are small integers, whose
+    fp32 sums are exact in any order); each armed pair reads an exit after
+    its entry."""
+    from repro_torch.telemetry import events as TE
+    ring = TE.stamp_ring(torch.cuda.current_device())
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    rng = np.random.default_rng(7)
+    for n, m in ((1 << 16, 64), (3000, 700), (1 << 16, K.WINDOW_SLOTS + 8)):
+        idx = torch.randint(0, m + 7, (n,), generator=g, device=cuda_device,
+                            dtype=torch.int32)
+        tab = torch.randint(-8, 9, (m,), generator=g,
+                            device=cuda_device).to(dtype)
+        if dtype == torch.float32 and op != "faa":
+            val = torch.from_numpy(zeros_and_nans(rng, n)).to(cuda_device)
+        else:
+            val = torch.randint(-8, 9, (n,), generator=g,
+                                device=cuda_device).to(dtype)
+        runs = []
+        if op in ("faa", "swp", "min", "max", "count"):
+            for regime in K.table_regimes(m):
+                depths = K.DEPTHS if op == "faa" and regime != "smem" \
+                    else (K.UNROLL,)
+                for d in depths:
+                    runs.append(lambda r=regime, d=d: K.table_combine(
+                        torch.zeros((m,), dtype=torch.int32,
+                                    device=cuda_device) if op == "count"
+                        else tab.clone(), idx,
+                        None if op == "count" else val, op, r, depth=d))
+        if op != "count":
+            exp = 0 if op == "cas" else None
+            runs.append(lambda: K.rmw_table_fetched(tab, idx, val, op,
+                                                    expected=exp))
+            if n <= 3000:
+                runs.append(lambda: XK.serial_rmw(tab, idx, val, op, exp))
+        for fn in runs:
+            plain = fn()
+            got, k = ring.stamp(fn)
+            plain = plain if isinstance(plain, tuple) else (plain,)
+            got = got if isinstance(got, tuple) else (got,)
+            for a, b in zip(got, plain):
+                same_bits(a, b.cpu().numpy(), f"{op} n={n} m={m}") \
+                    if a.dtype == torch.float32 else \
+                    torch.testing.assert_close(a, b, rtol=0, atol=0)
+            assert ring.read([k])[0] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(4096, 1024), (1 << 22, 1 << 20)])
+def test_stamped_seconds_agree_with_event_seconds(cuda_device, n, m):
+    """1,024 ``cuda``-backend calls (FAA of ``n`` ops over ``m`` int32
+    slots, fetched), enqueued back to back, each timed by a pair of the
+    event ring recorded around it and by the stamps its kernels write:
+    every stamp lies inside its events, within 2 µs (two clocks read, the
+    stamps' at 32 ns and the events' at about 0.5 µs).  At the tuning
+    gate's call (4,096 over 1,024) the host enqueues slower than the card
+    runs the kernels, so the events also hold the card's waits for the
+    host between launches and the stamps read well under them (the reason
+    `atomics.execute` times by events); at 2^22 over 2^20 the card sets
+    the pace and the median ratio of stamped to event seconds is at least
+    0.9 (the events also hold the table's copy, 4 MB, and the scratch's
+    memset, beside about 0.5 ms of kernels)."""
+    from repro_torch.telemetry import events as TE
+    dev = torch.cuda.current_device()
+    ring, events = TE.stamp_ring(dev), TE.ring(dev)
+    stream = TE.raw_stream(dev)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    tbl = atomics.make_table(m, torch.int32, device=cuda_device)
+    op = atomics.Faa(torch.randint(0, m, (n,), generator=g,
+                                   device=cuda_device, dtype=torch.int32),
+                     torch.ones(n, dtype=torch.int32, device=cuda_device))
+    for _ in range(4):
+        atomics.execute(tbl, op, backend="cuda")
+    st, ev = [], []
+    for _ in range(32):
+        ks, ke = [], []
+        for _ in range(32):
+            e = events.take()
+            events.record(events.handle, 2 * e, stream)
+            _, k = ring.stamp(lambda: atomics.execute(tbl, op,
+                                                      backend="cuda"))
+            events.record(events.handle, 2 * e + 1, stream)
+            ks.append(k)
+            ke.append(e)
+        st += ring.read(ks)
+        ev += events.read(ke)
+    st, ev = np.array(st), np.array(ev)
+    assert len(st) == 1024 and (st > 0).all()
+    assert (st <= ev + 2e-6).all(), float((st - ev).max())
+    if n > 4096:
+        assert np.median(st / ev) >= 0.9, float(np.median(st / ev))
+
+
+@pytest.mark.gpu
+def test_lint_sweep_on_the_card_is_clean(cuda_device):
+    """`python -m repro_torch.analysis.lint` on the card: the nine
+    registered entries run there with no unsuppressed error, and with
+    the findings the CPU's sweep gives (rule, file, line, suppressed)."""
+    from repro_torch.analysis.findings import ERROR
+    from repro_torch.analysis.lint import sweep
+
+    def key(res):
+        return {n: sorted((f.rule, f.file, f.line, f.suppressed) for f in fs)
+                for n, fs in res.items()}
+
+    card = sweep(device="cuda")
+    assert len(card) == 9
+    assert not [f.format() for fs in card.values() for f in fs
+                if f.severity == ERROR and not f.suppressed]
+    assert key(card) == key(sweep(device="cpu"))

@@ -327,7 +327,7 @@ def source_variants(fh, gen):
                                    None if last is None else last.data_ptr(),
                                    n, m, K.OP_CODES[op],
                                    K.DTYPE_CODES[dtype], K.REGIMES[regime],
-                                   K.WINDOW_SLOTS, stream)
+                                   K.WINDOW_SLOTS, K.UNROLL, None, stream)
                     ms.setdefault(name, []).append(time_calls(run))
             emit(fh, variants=op, dtype=str(dtype).split(".")[1],
                  shape=shape, n=n, m=m, regime=regime, ms=ms)

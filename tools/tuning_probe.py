@@ -13,6 +13,11 @@ controller costs eager `execute` on one card, part by part.
     python3 tools/tuning_probe.py gate    # the `tuning` suite's overhead
                                           # gate, 3 runs measuring every
                                           # call, then 1 run sampling
+    python3 tools/tuning_probe.py stamps  # the RMW kernels' stamps: the
+                                          # timer's resolution, µs to
+                                          # record and read a pair, the
+                                          # gate and the probe's windows
+                                          # with every call stamped
 
 Run from the repository root on a machine with one CUDA card.  The calls
 are the `tuning` suite's overhead workload: FAA of n = 4,096 ops over
@@ -36,17 +41,28 @@ sink without and with sync, a controller measuring every call by events,
 every call synced (`atomics.execute._SYNC_MEASURE`) and one call in 64
 (`tuning.controller.SYNC_EVERY`) each way, each without and with
 `step()`, a controller without sync, and the call against itself (the
-protocol's noise).  ``sampling`` builds the kernels, then runs
-`chip_smoke.py`'s live probe (a default controller over the drift
-traffic for 12 windows) six times, every call measured by CUDA events
-(``events``), every call between two synchronisations (``synced``), or
-one call in 64 by events (``sampled``), in the order events, synced,
-sampled, sampled, synced, events: one JSON line per run with its
-windows, the fields quarantined and applied, the active tuned fields at
-the end, what auto picks after, the measured calls, the distinct (op, n,
-backend) among them, and its seconds.
+protocol's noise).  ``sampling [MODE ...]`` builds the kernels, then
+runs `chip_smoke.py`'s live probe (a default controller over the drift
+traffic for 12 windows) once per mode: every call measured by CUDA events
+(``events``), every call between two synchronisations (``synced``), one
+call in 64 by events (``sampled``, what the controller does), every call
+or one in 64 timed by stamps (``stamps``, ``sampled_stamps``:
+`stamped_timing`); by default events, synced, sampled, sampled, synced,
+events: one JSON line per run with its windows, the fields quarantined
+and applied, the active tuned fields at the end, what auto picks after,
+the measured calls, the distinct (op, n, backend) among them, and its
+seconds.  ``stamps`` builds the kernels and prints
+`chip_smoke._stamp_figures` (``%globaltimer``'s resolution, the stamped
+entries bit-equal with and without a pair armed, µs to arm a pair and to
+read one back against the event ring's, stamped against event seconds on
+1,024 calls at the gate's call and at 2^22 ops over 2^20 slots), then the
+gate 3 times with every call stamped, once at 1 in 64 stamped and once
+at 1 in 64 by events, then the live probe 3 times with every call
+stamped: one JSON line each.  `atomics.execute` times its measured calls
+by events; only `stamped_timing` here times them by stamps.
 """
 
+import contextlib
 import importlib
 import json
 import os
@@ -63,6 +79,7 @@ import torch  # noqa: E402
 from repro_torch import atomics, telemetry  # noqa: E402
 from repro_torch.benchmarks.common import paired_ratio  # noqa: E402
 from repro_torch.core import rmw_engine  # noqa: E402
+from repro_torch.telemetry import core as tcore  # noqa: E402
 from repro_torch.telemetry import drift  # noqa: E402
 from repro_torch.telemetry import events as tevents  # noqa: E402
 from repro_torch.tuning import SpecController, TuningConfig  # noqa: E402
@@ -70,6 +87,42 @@ from repro_torch.tuning import controller as tc  # noqa: E402
 
 #: the module (`repro_torch.atomics` exports its function of that name)
 ex = importlib.import_module("repro_torch.atomics.execute")
+
+
+#: the backends whose calls on the card reach a stamped C entry: ``cuda``
+#: (`rmw_table`, `rmw_table_fetched`) and ``serialized`` (`serial_rmw`)
+STAMPED_BACKENDS = ("cuda", "serialized")
+
+
+@contextlib.contextmanager
+def stamped_timing():
+    """While entered, `atomics.execute`'s measured calls on the card whose
+    backend runs the port's RMW kernels are timed by a pair of the
+    device's `telemetry.events.StampRing` that the kernels stamp, not by
+    the event ring; other calls keep events.  A stamped call that reaches
+    no stamped entry raises."""
+    by_events = ex._measured
+
+    def measured(table, op, kw, synced):
+        backend = kw["backend"]
+        if backend == "auto":
+            backend = ex._fields(table, op, kw, False).get("backend")
+        if synced or not table.data.is_cuda or \
+                backend not in STAMPED_BACKENDS:
+            return by_events(table, op, kw, synced)
+        ring = tevents.stamp_ring(table.data.get_device())
+        used = tevents.STAMP.used
+        out, k = ring.stamp(lambda: ex._dispatch_one(table, op, **kw))
+        if tevents.STAMP.used == used:
+            raise RuntimeError(f"a stamped call on backend {backend!r} "
+                               f"reached no stamped kernel entry")
+        return out, tcore.DeviceSeconds(k, ring=ring)
+
+    ex._measured = measured
+    try:
+        yield
+    finally:
+        ex._measured = by_events
 
 
 def _workload():
@@ -243,16 +296,18 @@ def pairs() -> dict:
     return out
 
 
-def sampling() -> dict:
+def sampling(*modes) -> dict:
     import chip_smoke as C
     C.phase_device()
     C.phase_build()
     out = []
-    for mode in ("events", "synced", "sampled", "sampled", "synced",
-                 "events"):
+    for mode in modes or ("events", "synced", "sampled", "sampled",
+                          "synced", "events"):
         ex._SYNC_MEASURE = mode == "synced"
-        tc.SYNC_EVERY = 64 if mode == "sampled" else 1
-        p = C._tuning_probe()
+        tc.SYNC_EVERY = 64 if mode.startswith("sampled") else 1
+        with (stamped_timing() if mode.endswith("stamps")
+              else contextlib.nullcontext()):
+            p = C._tuning_probe()
         row = {"measure": mode, **{k: p[k] for k in (
             "windows", "quarantined", "applied", "tuned_fields",
             "auto_before_after", "batches", "measured_kinds", "seconds")}}
@@ -283,6 +338,40 @@ def gate() -> dict:
     return {"every_call_ok": sum(r["ok"] for r in out[:3]), "runs": out}
 
 
+def stamps() -> dict:
+    import chip_smoke as C
+    C.phase_device()
+    C.phase_build()
+    fig = C._stamp_figures()
+    print(json.dumps({"figures": fig}), flush=True)
+    from repro_torch.benchmarks import tuning as suite
+    _workload()
+    gates = []
+    for every, stamped in ((1, True), (1, True), (1, True), (64, True),
+                           (64, False)):
+        tc.SYNC_EVERY = every
+        with (stamped_timing() if stamped else contextlib.nullcontext()):
+            r = suite.overhead("cuda", fast=False)
+        row = {"sync_every": every, "stamps": stamped, **{k: r[k] for k in (
+            "overhead", "overhead_of_minima", "attempts", "disabled_us",
+            "enabled_us", "update_cycle_us", "ok")}}
+        print(json.dumps(row), flush=True)
+        gates.append(row)
+    probes = []
+    tc.SYNC_EVERY = 1
+    for _ in range(3):
+        with stamped_timing():
+            p = C._tuning_probe()
+        row = {"measure": "stamps_every_call", **{k: p[k] for k in (
+            "windows", "quarantined", "applied", "tuned_fields", "batches",
+            "measured_kinds", "seconds")}}
+        print(json.dumps(row), flush=True)
+        probes.append(row)
+    tc.SYNC_EVERY = 64
+    return {"every_call_gate_ok": sum(r["ok"] for r in gates[:3]),
+            "probe_windows": [[w for w in r["windows"]] for r in probes]}
+
+
 def phase() -> dict:
     import chip_smoke as C
     C.phase_device()
@@ -297,5 +386,5 @@ def phase() -> dict:
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else "phase"
     fn = {"phase": phase, "parts": parts, "pairs": pairs,
-          "sampling": sampling, "gate": gate}[mode]
-    print(json.dumps(fn(), indent=1), flush=True)
+          "sampling": sampling, "gate": gate, "stamps": stamps}[mode]
+    print(json.dumps(fn(*sys.argv[2:]), indent=1), flush=True)
