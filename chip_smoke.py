@@ -152,6 +152,8 @@ non-zero before printing any result.
 import atexit
 import contextlib
 import dataclasses
+import functools
+import gc
 import json
 import math
 import os
@@ -273,14 +275,19 @@ def sync():
 # 1. device
 # ---------------------------------------------------------------------------
 
+def card():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() "
                          "is false)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
     emit("device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
@@ -3843,13 +3850,20 @@ def phase_train_gemma():
 # the dry run (fake tensors on the host) against what the card measured
 # ---------------------------------------------------------------------------
 
-#: (arch, cell, layers run) of the production cells the smoke run dry-runs
-#: on the single mesh; None runs every layer.  The train cells keep the
-#: full config's microbatches; the cuts fit the children in the time the
-#: build and the first phases take (`python -m repro_torch.launch.dryrun`
-#: runs every cell whole on a host)
-DRYRUN_CELLS = (("gemma_2b", "train_4k", 2), ("gemma_2b", "prefill_32k", 9),
-                ("gemma_2b", "decode_32k", None), ("dbrx_132b", "train_4k", 1))
+#: (arch, cell, layers run, partitioned) of the production cells the
+#: smoke run dry-runs on the single mesh; None runs every layer.  The
+#: train cells keep the full config's microbatches; the cuts fit the
+#: children in the time the build and the first phases take (`python -m
+#: repro_torch.launch.dryrun` runs every cell whole on a host).  gemma's
+#: train cell runs whole, partitioned and unpartitioned (the parent's step)
+DRYRUN_CELLS = (("gemma_2b", "train_4k", None, True),
+                ("gemma_2b", "train_4k", None, False),
+                ("gemma_2b", "prefill_32k", 9, True),
+                ("gemma_2b", "decode_32k", None, True),
+                ("dbrx_132b", "train_4k", 1, True))
+#: the partitioned step's FLOPs a card for gemma_2b train_4k must fall at
+#: least this far below the parent layout's, and its peak below it
+DRYRUN_TP_FLOPS_CUT = 3.0
 #: the largest miss of the predicted peak of train_gemma's step
 DRYRUN_PEAK_RTOL = 0.10
 _DRYRUN_CHILD = """
@@ -3864,7 +3878,7 @@ if job["cell"] == "local":
 else:
     cell = next(s for s in SHAPES if s.name == job["cell"])
     rec = D.run_and_write(job["arch"], cell, False, job["out"],
-                          overrides=job["overrides"])
+                          tag=job["tag"], overrides=job["overrides"])
 with open(job["path"], "w") as f:
     json.dump(rec, f)
 """
@@ -3879,10 +3893,13 @@ def start_dryrun():
     os.makedirs(out, exist_ok=True)
     jobs = {"local": dict(arch=T_ARCH, cell="local", seq=T_SEQ,
                           batch=T_BATCH)}
-    for arch, cell, layers in DRYRUN_CELLS:
-        jobs[f"{arch}.{cell}"] = dict(
-            arch=arch, cell=cell, out=out,
-            overrides={} if layers is None else {"n_layers": layers})
+    for arch, cell, layers, partitioned in DRYRUN_CELLS:
+        over = {} if layers is None else {"n_layers": layers}
+        tag = "baseline"
+        if not partitioned:
+            over["partitioned"], tag = False, "parent"
+        jobs[f"{arch}.{cell}" + ("" if partitioned else ".parent")] = dict(
+            arch=arch, cell=cell, out=out, tag=tag, overrides=over)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
     started = {}
@@ -3912,7 +3929,10 @@ def phase_dryrun(started=None):
     ``max_memory_allocated`` `phase_train_gemma` measured in this run, its
     roofline time printed beside the measured step; (b) `DRYRUN_CELLS` on
     the single production mesh, each record printed with its roofline
-    row.  Raises if a cell failed or (a) misses."""
+    row; gemma_2b's train_4k partitioned and unpartitioned (the parent's
+    step on the same blocks), whose FLOPs a card must fall by
+    `DRYRUN_TP_FLOPS_CUT` and whose peak must fall.  Raises if a cell
+    failed or a check misses."""
     from repro_torch.benchmarks.roofline import roofline_row
     measured = _MEASURED.get("train_gemma")
     if measured is None:
@@ -3959,6 +3979,25 @@ def phase_dryrun(started=None):
         raise AssertionError(f"dry run's peak for train_gemma {predicted:.2f} "
                              f"GiB against {measured['peak_gib']:.2f} GiB "
                              f"measured")
+    tp, parent = recs["gemma_2b.train_4k"], recs["gemma_2b.train_4k.parent"]
+    cut = parent["dot_flops"] / tp["dot_flops"]
+    emit("dryrun", check="gemma_2b_train_4k_partitioned",
+         layers=tp["layers_run"], microbatches=tp["microbatches"],
+         tflop_per_card=tp["dot_flops"] / 1e12,
+         parent_tflop_per_card=parent["dot_flops"] / 1e12,
+         flops_cut=cut, min_flops_cut=DRYRUN_TP_FLOPS_CUT,
+         peak_gb=tp["per_device_peak_bytes"] / 1e9,
+         parent_peak_gb=parent["per_device_peak_bytes"] / 1e9,
+         useful=tp["model_flops_global"] / 256 / tp["dot_flops"],
+         wire_gb=tp["total_wire_bytes"] / 1e9,
+         parent_wire_gb=parent["total_wire_bytes"] / 1e9)
+    if cut < DRYRUN_TP_FLOPS_CUT or tp["per_device_peak_bytes"] >= \
+            parent["per_device_peak_bytes"]:
+        raise AssertionError(
+            f"gemma_2b train_4k partitioned: FLOPs a card cut {cut:.2f}x "
+            f"(at least {DRYRUN_TP_FLOPS_CUT}x), peak "
+            f"{tp['per_device_peak_bytes']} B against the parent layout's "
+            f"{parent['per_device_peak_bytes']}")
     return {"cells": len(recs)}
 
 
@@ -4812,9 +4851,10 @@ def phase_train_mm():
 # ---------------------------------------------------------------------------
 
 # gemma_2b at full width on 2x2 ("data", "model"): fsdp splits over data,
-# heads / ffn / vocab over model where they divide (its one KV head does
-# not: wk and wv stay whole along model); the global batch 8 x 256 splits
-# over data, 4 sequences a rank
+# heads / ffn / vocab over model where they divide, and the step computes
+# on the rank's model cut of them (its one KV head does not divide: wk and
+# wv stay whole along model, their gradients partial); the global batch
+# 8 x 256 splits over data, 4 sequences a rank
 TS_WORLD, TS_SHAPE, TS_AXES = 4, (2, 2), ("data", "model")
 TS_F32_LAYERS, TS_STEPS = 2, 3
 TS_BF16_LAYERS, TS_BF16_STEPS = 2, 3
@@ -4853,33 +4893,49 @@ def _ts_model(cfg):
               attn_impl="chunked", remat_policy="none", loss_chunk=2048)
 
 
-def _ts_bytes(specs, model, mesh, opt_bytes):
-    """GiB a rank holds: the whole parameters (the gathered workspace),
-    their f32 gradients, and its blocks of the parameters plus master and
+def _ts_bytes(specs, model, mesh, opt_bytes, cuts):
+    """GiB a rank holds: the whole parameters (the model's workspace), the
+    leaves it computes on their "model" cut (``cuts``: the step's
+    ``.cuts``; gathered over "data"), the f32 gradients (of a cut leaf its
+    "model" cut), and its blocks of the parameters plus master and
     moments (``opt_bytes`` a parameter element)."""
-    whole = blocks = grads = 0
+    whole = blocks = grads = local = 0
+    tp = mesh.size("model")
     for name, p in model.named_parameters():
         n = p.numel()
         split = math.prod(mesh.size(e) for e in specs[name] if e)
+        cut = cuts[name].mode == "cut"
         whole += n * p.element_size()
-        grads += n * 4
+        local += n // tp * p.element_size() if cut else 0
+        grads += (n // tp if cut else n) * 4
         blocks += n // split * (p.element_size() + opt_bytes)
-    return {"params_whole": whole / 2 ** 30, "grads_f32": grads / 2 ** 30,
+    return {"params_whole": whole / 2 ** 30,
+            "model_cuts": local / 2 ** 30, "grads_f32": grads / 2 ** 30,
             "blocks": blocks / 2 ** 30,
-            "total": (whole + grads + blocks) / 2 ** 30}
+            "total": (whole + local + grads + blocks) / 2 ** 30}
+
+
+def _ts_modes(cuts):
+    """{mode: leaves} of a sharded step's ``.cuts``."""
+    return {m: sum(c.mode == m for c in cuts.values())
+            for m in ("cut", "partial", "whole")}
 
 
 def _train_sharded_rank(mesh, tmp):
-    """One rank of `train_sharded`: (a) 3 sharded steps in f32 at 2 layers
-    (`make_sharded_train_step`, the trainer's step), each gathered
+    """One rank of `train_sharded`: (a) 3 partitioned steps in f32 at 2
+    layers (`make_sharded_train_step`, the trainer's step), each gathered
     parameter held by rank 0 against the local run's (``tmp/local.pt``),
     then one step on the masked batch from the same weights, weighted by
-    counts and as a mean of the ranks' means; (b) `train(mesh=...)` in
-    bf16 at `TS_BF16_LAYERS` layers; (c) `train(mesh=...)` on the reduced
-    config with checkpoints, clean and under `TS_CHAOS`."""
+    counts and as a mean of the ranks' means, and one on the first batch
+    with the partial leaves' gradients left unsummed over "model"; (b)
+    `train(mesh=...)` in bf16 at `TS_BF16_LAYERS` layers, partitioned and
+    with the unpartitioned step (the parent's); (c) `train(mesh=...)`
+    on the reduced config with checkpoints, clean and under
+    `TS_CHAOS`."""
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.mesh import gather_full, shard_of
-    from repro_torch.launch.shardings import arch_rules, params_shardings
+    from repro_torch.launch.shardings import (ModelCut, arch_rules,
+                                              model_cuts, params_shardings)
     from repro_torch.launch.steps import make_sharded_train_step
     from repro_torch.optim.adamw import init_state
     from repro_torch.runtime.chaos import FaultPlan
@@ -4930,47 +4986,70 @@ def _train_sharded_rank(mesh, tmp):
         del params, local
         control = {}
         masked = _ts_masked(_train_batch(cfg.vocab_size, 0))
-        for tag, mm in (("masked", False), ("mean_of_means", True)):
+        for tag, batch, kw in (
+                ("masked", masked, {}),
+                ("mean_of_means", masked, dict(mean_of_means=True)),
+                ("unsummed", _train_batch(cfg.vocab_size, 0),
+                 dict(sum_partial=False))):
             params, state = fresh()
-            one = make_sharded_train_step(model, opt, mesh, rules,
-                                          mean_of_means=mm)
-            m = one(params, state, masked)[2]
+            one = make_sharded_train_step(model, opt, mesh, rules, **kw)
+            m = one(params, state, batch)[2]
             control[tag] = {k: float(m[k]) for k in ("loss", "grad_norm")}
             del params, state, one, m
         out["f32"] = dict(history=hist, leaf_rel_l2=leaf_err,
                           control=control, specs={
                               n: [list(e) if isinstance(e, tuple) else e
                                   for e in s] for n, s in specs.items()},
+                          modes={n: c.mode for n, c in step.cuts.items()},
                           memory_reckoned_gib=_ts_bytes(specs, model, mesh,
-                                                        12),
+                                                        12, step.cuts),
                           peak_gib=torch.cuda.max_memory_allocated()
                           / 2 ** 30)
         del model, step, init
     torch.cuda.empty_cache()
     seconds = {"f32": time.perf_counter() - start}
-    # (b) bf16 through the trainer
-    real = train_mod.get_config
-    train_mod.get_config = lambda arch: _ts_cfg("bfloat16", TS_BF16_LAYERS)
+    # (b) bf16 through the trainer, partitioned and unpartitioned (the
+    # parent's step, on the same blocks)
+    bf16 = _ts_cfg("bfloat16", TS_BF16_LAYERS)
+    layouts = {"partitioned": True, "parent": False}
+    real = train_mod.get_config, train_mod.make_sharded_train_step
+    train_mod.get_config = lambda arch: bf16
+    out["bf16"] = {}
     try:
-        torch.cuda.reset_peak_memory_stats()
-        ex0 = mesh.exchange_s
-        t0 = time.perf_counter()
-        got = train_mod.train(T_ARCH, steps=TS_BF16_STEPS, seq_len=T_SEQ,
-                              global_batch=T_BATCH, reduced=False, mesh=mesh,
-                              log_every=1, device="cuda")
-        out["bf16"] = dict(history=got["history"],
-                           wall_s=time.perf_counter() - t0,
-                           exchange_s=mesh.exchange_s - ex0,
-                           peak_gib=torch.cuda.max_memory_allocated()
-                           / 2 ** 30)
-        del got
+        for tag, partitioned in layouts.items():
+            train_mod.make_sharded_train_step = functools.partial(
+                make_sharded_train_step, partitioned=partitioned)
+            # `train` leaves reference cycles that hold its model and
+            # state until a collection: free the last run's first
+            gc.collect()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+            ex0 = mesh.exchange_s
+            t0 = time.perf_counter()
+            got = train_mod.train(T_ARCH, steps=TS_BF16_STEPS, seq_len=T_SEQ,
+                                  global_batch=T_BATCH, reduced=False,
+                                  mesh=mesh, log_every=1, device="cuda")
+            out["bf16"][tag] = dict(history=got["history"],
+                                    wall_s=time.perf_counter() - t0,
+                                    exchange_s=mesh.exchange_s - ex0,
+                                    held_gib=held,
+                                    peak_gib=torch.cuda.max_memory_allocated()
+                                    / 2 ** 30)
+            del got
     finally:
-        train_mod.get_config = real
-    model = LM(_ts_cfg("bfloat16", TS_BF16_LAYERS), device="meta")
-    out["bf16"]["memory_reckoned_gib"] = _ts_bytes(
-        params_shardings(model.cfg, dict(model.named_parameters()), mesh,
-                         arch_rules(model.cfg, mesh)), model, mesh, 12)
+        train_mod.get_config, train_mod.make_sharded_train_step = real
+    model = LM(bf16, device="meta")
+    specs = params_shardings(bf16, dict(model.named_parameters()), mesh,
+                             arch_rules(bf16, mesh, "train"))
+    for tag, partitioned in layouts.items():
+        cuts = {n: c if partitioned else ModelCut(None, "whole")
+                for n, c in model_cuts(bf16, specs, mesh).items()}
+        out["bf16"][tag].update(
+            memory_reckoned_gib=_ts_bytes(specs, model, mesh, 12, cuts),
+            modes=_ts_modes(cuts))
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     seconds["bf16"] = time.perf_counter() - start - seconds["f32"]
     # (c) chaos against clean, the reduced config, checkpoints every 2 steps
@@ -4992,19 +5071,24 @@ def _train_sharded_rank(mesh, tmp):
 def phase_train_sharded():
     """Sharded training on 4 ranks sharing the card (gloo) on a 2x2
     ``("data", "model")`` mesh, gemma_2b at full width (d_model 2048, ffn
-    16,384, vocab 256,000), the global batch 8 x 256.  (a) f32 at 2
-    layers, 3 steps: the losses and grad norms within `TS_RTOL` of the
-    local step's on the same weights and batches, every gathered
-    parameter within relative L2 `TS_LEAF_TOL`, clipping active in a
-    step; one step on a batch whose first half of rows is 90% masked,
-    weighted by the all-reduced counts, must pass the same loss and
-    grad-norm check, and the control (a mean of the ranks' means) must
-    fail it.  (b) `train(mesh=...)` in bf16 at `TS_BF16_LAYERS` layers:
-    step ms split into gather, compute and reduce, the host-staged
-    collectives, peak memory per rank, losses finite and falling.  (c)
-    `train(mesh=...)` on the reduced config under `TS_CHAOS`: failures,
-    and every leaf of the final checkpoint bit-equal to a clean sharded
-    run's.  No kernel may launch, here or in the ranks."""
+    16,384, vocab 256,000), the global batch 8 x 256, on the partitioned
+    step (the attention's query heads, the MLP and the vocabulary
+    computed on each rank's "model" cut).  (a) f32 at 2 layers, 3 steps:
+    the losses and grad norms within `TS_RTOL` of the local step's on the
+    same weights and batches, every gathered parameter within relative L2
+    `TS_LEAF_TOL`, clipping active in a step; one step on a batch whose
+    first half of rows is 90% masked, weighted by the all-reduced counts,
+    must pass the same loss and grad-norm check, and two controls must
+    fail it: a mean of the ranks' means on the masked batch, and the
+    first step with ``wk`` / ``wv``'s partial gradients left unsummed
+    over "model".  (b) `train(mesh=...)` in bf16 at `TS_BF16_LAYERS`
+    layers, partitioned and unpartitioned (the parent's step on the
+    same blocks) in turn: step ms split into gather, compute and reduce, the
+    host-staged collectives, peak memory per rank, losses finite and
+    falling.  (c) `train(mesh=...)` on the reduced config under
+    `TS_CHAOS`: failures, and every leaf of the final checkpoint
+    bit-equal to a clean sharded run's.  No kernel may launch, here or in
+    the ranks."""
     import shutil
     import tempfile
     from repro_torch.launch import ranks
@@ -5089,15 +5173,27 @@ def phase_train_sharded():
         bad.append(f"no step clipped: {[h['grad_norm'] for h in local]}")
     masked_off = off(a["control"]["masked"], local_masked)
     control_off = off(a["control"]["mean_of_means"], local_masked)
+    unsummed_off = off(a["control"]["unsummed"], local[0])
     if masked_off:
         bad.append(f"masked batch off the local step: {masked_off}")
     if not control_off:
         bad.append("the mean-of-means control passed")
-    b = out[0]["bf16"]
+    if not unsummed_off:
+        bad.append("the unsummed partial gradients' control passed")
+    modes = {m: sorted(n for n, v in a["modes"].items() if v == m)
+             for m in ("cut", "partial")}
+    if not modes["cut"] or not modes["partial"]:
+        bad.append(f"no leaf computed on the model cut or none partial: "
+                   f"{modes}")
+    b = out[0]["bf16"]["partitioned"]
     losses = [h["loss"] for h in b["history"]]
     if len(losses) != TS_BF16_STEPS or not all(map(math.isfinite, losses)) \
             or not losses[-1] < losses[0]:
         bad.append(f"bf16 losses: {losses}")
+    parent = out[0]["bf16"]["parent"]
+    parent_losses = [h["loss"] for h in parent["history"]]
+    if not all(map(math.isfinite, parent_losses)):
+        bad.append(f"bf16 losses, unpartitioned: {parent_losses}")
     (sa, ca), (sb, cb) = ckpts["clean"], ckpts["chaos"]
     differ = sorted(k for k in ca if not np.array_equal(ca[k], cb[k]))
     clean, chaos = out[0]["clean"], out[0]["chaos"]
@@ -5105,10 +5201,24 @@ def phase_train_sharded():
             or sa != sb or clean["final_loss"] != chaos["final_loss"]:
         bad.append(f"chaos not bit-equal to clean: {clean} {chaos} "
                    f"leaves {differ}")
-    hist = b["history"][1:]          # the first step warms up
-    split = {k[:-2]: 1e3 * float(np.median([h[k] for h in hist]))
-             for k in ("gather_s", "compute_s", "reduce_s")}
-    emit("train_sharded", arch=T_ARCH, mesh=dict(zip(TS_AXES, TS_SHAPE)),
+    def split_ms(run):
+        hist = run["history"][1:]    # the first step warms up
+        return {k[:-2]: 1e3 * float(np.median([h[k] for h in hist]))
+                for k in ("gather_s", "compute_s", "reduce_s")}
+
+    def bf16_row(tag):
+        r = out[0]["bf16"][tag]
+        return dict(losses=[h["loss"] for h in r["history"]],
+                    step_ms=[1e3 * h["sec"] for h in r["history"]],
+                    split_ms_median=split_ms(r),
+                    exchange_s=[o["bf16"][tag]["exchange_s"] for o in out],
+                    wall_s=r["wall_s"],
+                    peak_gib=[o["bf16"][tag]["peak_gib"] for o in out],
+                    held_gib_before=[o["bf16"][tag]["held_gib"] for o in out],
+                    memory_reckoned_gib=r["memory_reckoned_gib"],
+                    modes=r["modes"])
+    emit("train_sharded", card=card(), arch=T_ARCH,
+         mesh=dict(zip(TS_AXES, TS_SHAPE)),
          ranks=TS_WORLD, d_model=cfg.d_model, ffn=cfg.d_ff,
          vocab=cfg.vocab_size, seq_len=T_SEQ, global_batch=T_BATCH,
          host_staged=out[0]["host_staged"],
@@ -5119,18 +5229,15 @@ def phase_train_sharded():
                   leaf_worst=worst, leaf_rel_l2=a["leaf_rel_l2"],
                   masked_local=local_masked, masked=a["control"]["masked"],
                   mean_of_means=a["control"]["mean_of_means"],
-                  control_off=control_off, specs=a["specs"],
+                  control_off=control_off,
+                  unsummed=a["control"]["unsummed"],
+                  unsummed_off=unsummed_off, modes=modes, specs=a["specs"],
                   peak_gib=[o["f32"]["peak_gib"] for o in out],
                   memory_reckoned_gib=a["memory_reckoned_gib"],
                   tol=dict(rtol=TS_RTOL, leaf=TS_LEAF_TOL)),
          bf16=dict(n_layers=TS_BF16_LAYERS, steps=TS_BF16_STEPS,
-                   losses=losses,
-                   step_ms=[1e3 * h["sec"] for h in b["history"]],
-                   split_ms_median=split,
-                   exchange_s=[o["bf16"]["exchange_s"] for o in out],
-                   wall_s=b["wall_s"],
-                   peak_gib=[o["bf16"]["peak_gib"] for o in out],
-                   memory_reckoned_gib=b["memory_reckoned_gib"]),
+                   partitioned=bf16_row("partitioned"),
+                   parent=bf16_row("parent")),
          chaos=dict(spec=TS_CHAOS, steps=TS_CHAOS_STEPS, clean=clean,
                     chaos=chaos, checkpoint_steps=[sa, sb],
                     checkpoint_leaves=len(ca), leaves_differing=differ),

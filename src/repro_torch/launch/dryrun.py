@@ -35,8 +35,12 @@ counts go through `atomics.execute`), its fake-tensor rule answers
 
 ``layout`` says how the cell runs.  ``sharded_train``: train cells run
 `launch.steps.make_sharded_train_step` on the recording mesh, the state
-from `abstract_train_state` laid out by `params_shardings` (each rank
-gathers whole parameters into the model, the port's layout).
+from `abstract_train_state` laid out by `params_shardings`: the
+partitioned step, each GQA attention, dense MLP and vocabulary leaf the
+rules cut computed on the rank's ``"model"`` cut, the other leaves
+gathered whole into the model (whose whole parameters stay placed and
+counted: the step's workspace); the ``partitioned`` override False runs
+the unpartitioned step on the same blocks.
 ``serve_whole_params``: prefill and decode cells run `make_prefill_step` /
 `make_decode_step` on the rank's cut of the batch (`batch_shardings`) with
 whole parameters and no mesh, as `launch/serve.py` serves today: no
@@ -310,9 +314,11 @@ def run_cell(arch: str, shape: ShapeCell, multi_pod: bool,
     full config) and ``mesh_shape`` ((shape, axis names), default the
     production mesh) are for smaller cells; ``overrides``: the reference's
     ``capacity_factor``, ``microbatches``, ``attn_impl``,
-    ``remat_policy``, ``loss_chunk``, and ``n_layers``, a cut of the
+    ``remat_policy``, ``loss_chunk``, ``n_layers``, a cut of the
     depth that keeps the full config's microbatches (the record says
-    ``layers_run`` of ``layers_full``)."""
+    ``layers_run`` of ``layers_full``), and ``partitioned`` (False: a
+    train cell runs the unpartitioned step on the same blocks,
+    `make_sharded_train_step`'s ``partitioned=False``)."""
     overrides = dict(overrides or {})
     cfg = cfg or get_config(arch)
     if "capacity_factor" in overrides and cfg.moe is not None:
@@ -350,8 +356,9 @@ def run_cell(arch: str, shape: ShapeCell, multi_pod: bool,
 
             # the step and the state's layout from the abstract state,
             # uncounted: only this rank's blocks of it are made
-            step = make_sharded_train_step(model, opt_cfg, mesh, rules,
-                                           microbatches=mb)
+            step = make_sharded_train_step(
+                model, opt_cfg, mesh, rules, microbatches=mb,
+                partitioned=bool(overrides.get("partitioned", True)))
             params_abs, opt_abs = abstract_train_state(model, opt_cfg)
             lay = {n: (_block(p.shape, step.specs[n], mesh), p.dtype,
                        {k: opt_abs[k][n].dtype for k in ("master", "m",

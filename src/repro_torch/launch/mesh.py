@@ -32,7 +32,9 @@ The differentiable collectives (`cut_duplicated`, `gather_duplicated`,
 these calls in `torch.autograd.Function`s whose backward is derived for
 the sharded train step, where ranks along an axis the batch is not cut
 on duplicate the work; the expert-parallel layer's training variant
-(`models.moe._ep_train`) runs on them.
+(`models.moe._ep_train`) runs on them, and so do the partitioned
+products (`models.tensor_parallel`: `sum_grad` on a column product's
+input, `all_reduce_grad` on a row product's output).
 
 `make_production_mesh` describes the reference's production meshes (no
 process group), and `RecordingMesh` is a mesh at one coordinate of such a
@@ -371,7 +373,8 @@ class RecordingMesh(Mesh):
     collective returns an output of the right shape and dtype (its values
     are not exchanged) and is recorded instead of issued, in `calls`:
     (kind, group size, wire bytes, link), the kind and the wire bytes as
-    `repro.launch.hlo_stats` names and counts them.  A group inside one
+    `repro.launch.hlo_stats` names and counts them; `log` holds each
+    call's axes and input shape beside.  A group inside one
     node (`NODE_RANKS` consecutive ranks) rides ``"nvlink"``, any other
     ``"ib"``.  The dry run's mesh (`launch.dryrun`), the counterpart
     of the reference's HLO parse: eager torch has no HLO text."""
@@ -393,6 +396,8 @@ class RecordingMesh(Mesh):
         self.exchange_s, self.sync_timing = 0.0, False
         self._groups = {}
         self.calls: list = []
+        #: each call's (kind, axes, input shape), in `calls`' order
+        self.log: list = []
 
     def world_size(self) -> int:
         return len(self.ranks)
@@ -417,6 +422,8 @@ class RecordingMesh(Mesh):
                 else "ib")
         self.calls.append((kind, n, wire_bytes(kind, n, in_bytes, out.nbytes),
                            link))
+        self.log.append((kind, None if axes is None else _names(axes),
+                         tuple((ins[0] if ins else out).shape)))
         return out
 
     def summary(self) -> Dict[str, object]:
@@ -531,34 +538,50 @@ def all_reduce_grad(x: Tensor, mesh: Mesh, axes: AxisNames,
 # Blocks of a leaf by a partition spec (`repro_torch.sharding`)
 # ---------------------------------------------------------------------------
 
-def _sharded_dims(spec) -> list:
-    """(dim, axis names) of each dim that ``spec`` shards."""
-    return [(d, _names(e)) for d, e in enumerate(spec) if e]
+def _sharded_dims(spec, only: Optional[AxisNames] = None) -> list:
+    """(dim, axis names) of each dim that ``spec`` shards; with ``only``,
+    of each dim it shards over those axes alone (a dim sharded over some
+    of them and some other axis raises)."""
+    dims = [(d, _names(e)) for d, e in enumerate(spec) if e]
+    if only is None:
+        return dims
+    only = set(_names(only))
+    for d, axes in dims:
+        if only.intersection(axes) and not only.issuperset(axes):
+            raise ValueError(f"dim {d} of spec {spec} is sharded over "
+                             f"{axes}, not within {sorted(only)}")
+    return [(d, axes) for d, axes in dims if only.issuperset(axes)]
 
 
-def shard_of(full: Tensor, spec, mesh: Mesh) -> Tensor:
+def shard_of(full: Tensor, spec, mesh: Mesh,
+             axes: Optional[AxisNames] = None) -> Tensor:
     """This rank's block of ``full`` under ``spec`` (one entry per leading
     dim: None, an axis name, or a tuple of them, major to minor), a
     contiguous copy: what ``jax.device_put(full, NamedSharding(mesh,
     spec))`` keeps on this rank's device.  Each sharded dim must divide
-    by its axes' size."""
+    by its axes' size.  With ``axes``, only the dims ``spec`` shards over
+    those axes are cut (``full`` is then whole along them only)."""
     out = full
-    for dim, axes in _sharded_dims(spec):
-        n = mesh.size(axes)
+    for dim, names in _sharded_dims(spec, axes):
+        n = mesh.size(names)
         if out.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(full.shape)} does not "
-                             f"divide over {axes} ({n})")
+                             f"divide over {names} ({n})")
         size = out.shape[dim] // n
-        out = out.narrow(dim, mesh.index(axes) * size, size)
+        out = out.narrow(dim, mesh.index(names) * size, size)
     return out.clone(memory_format=torch.contiguous_format)
 
 
-def gather_full(shard: Tensor, spec, mesh: Mesh) -> Tensor:
+def gather_full(shard: Tensor, spec, mesh: Mesh,
+                axes: Optional[AxisNames] = None) -> Tensor:
     """The whole leaf on every rank from each rank's `shard_of` block:
     one all-gather over every axis ``spec`` names, the blocks then laid
-    back in place.  A leaf ``spec`` does not shard comes back as it is
+    back in place.  With ``axes``, over the dims ``spec`` shards over
+    those axes only, the others kept cut (the sharded train step gathers
+    a leaf its module computes on over its ``"fsdp"`` axes and keeps the
+    ``"model"`` cut).  A leaf with nothing to gather comes back as it is
     (no copy)."""
-    dims = _sharded_dims(spec)
+    dims = _sharded_dims(spec, axes)
     if not dims:
         return shard
     counts = [mesh.size(axes) for _, axes in dims]

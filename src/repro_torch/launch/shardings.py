@@ -16,16 +16,20 @@ So the port's spec for a layer's leaf is the reference's spec for the
 stacked leaf with its leading entry removed (`convert.name_map` relates
 the two names): the names are resolved against the stacked shape, as the
 reference resolves them, and the stacking entry is then dropped.
+
+`model_cuts` says, for each leaf, whether the sharded train step computes
+on its ``"model"`` cut (the reference's partitioned step), holds it whole
+with a partial gradient, or gathers it whole.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import plan_stages
 from repro_torch.sharding import (DEFAULT_RULES, Spec, logical_to_physical,
-                                  use_mesh)
+                                  model_dim, use_mesh)
 
 # logical axes per param name (applied to the trailing dims; stacked stage
 # params get a leading "layers"=None axis automatically)
@@ -152,6 +156,83 @@ def params_shardings(cfg: ModelConfig, params: Mapping[str, Any], mesh,
                 shape = (stacked, *shape)
             spec = logical_to_physical(_leaf_axes(keys, len(shape)), shape)
             out[name] = spec[1:] if stacked is not None else spec
+    return out
+
+
+class ModelCut(NamedTuple):
+    """How the sharded train step computes with a leaf along ``"model"``
+    (`model_cuts`): ``mode`` "cut" (its module computes on the rank's
+    ``"model"`` cut, dim ``dim`` of the leaf), "partial" (whole along
+    ``"model"`` inside a module that computes on the cut, so each rank's
+    gradient is a part of the whole) or "whole" (gathered whole, its
+    module computing whole on every rank)."""
+
+    dim: Optional[int]
+    mode: str
+
+
+#: the leaves of each module that computes on its "model" cut, and the
+#: dim "model" cuts: the column products' columns, the row products' rows
+_MLP_CUT = {"w1": 1, "w3": 1, "b1": 0, "w2": 0}
+_Q_CUT = {"wq": 1, "bq": 0, "wo": 0}
+_KV_CUT = {"wk": 1, "wv": 1, "bk": 0, "bv": 0}
+_VOCAB_CUT = {"embed": 0, "lm_head": 0}
+
+
+def model_cuts(cfg: ModelConfig, specs: Mapping[str, Spec], mesh
+               ) -> Dict[str, ModelCut]:
+    """{parameter name: `ModelCut`} for `params_shardings`' ``specs`` on
+    ``mesh``: which leaves the sharded train step computes on their
+    ``"model"`` cut, as the reference's partitioned step does.
+
+    A GQA attention layer (``attn``, no MLA) computes on the cut where
+    its query heads divide over ``"model"`` and ``wq`` / ``bq`` / ``wo``
+    are cut on their head dims (the reference's divisibility rule:
+    gemma_2b's 8 heads stay whole on a 16-way axis); its kv leaves are
+    then cut where the kv heads divide too, else "partial" (one kv head
+    always stays whole).  A dense MLP (``mlp``) computes on the cut where
+    ``w1`` / ``w3`` / ``b1`` are cut on their columns and ``w2`` on its
+    rows; ``b2`` is added after the sum, "whole".  ``embed`` and
+    ``lm_head`` are cut where the vocabulary is.  Everything else is
+    "whole": MLA, Mamba, cross-attention and MoE leaves (the step keeps
+    expert blocks apart), norms, learned positions.  Every leaf of a
+    config with MoE layers (deepseek_v3, jamba, dbrx) is "whole" too:
+    those keep the unpartitioned step beside their expert-parallel
+    layer."""
+    tp = mesh.shape.get("model", 1)
+    out = {n: ModelCut(None, "whole") for n in specs}
+    if tp <= 1 or cfg.moe is not None:
+        return out
+    modules: Dict[str, Dict[str, Spec]] = {}
+    for name, spec in specs.items():
+        head, _, key = name.rpartition(".")
+        modules.setdefault(head, {})[key] = spec
+
+    def cut(leaves, dims) -> bool:
+        named = [k for k in dims if k in leaves]
+        return bool(named) and all(model_dim(leaves[k]) == dims[k]
+                                   for k in named)
+
+    def mark(head, dims, mode="cut"):
+        for key in dims:
+            if key in modules[head]:
+                name = f"{head}.{key}" if head else key
+                out[name] = ModelCut(dims[key] if mode == "cut" else None,
+                                     mode)
+
+    for head, leaves in modules.items():
+        kind = head.rpartition(".")[2]
+        if kind == "mlp" and cut(leaves, _MLP_CUT):
+            mark(head, _MLP_CUT)
+        elif kind == "attn" and cfg.mla is None \
+                and cfg.n_heads % tp == 0 and cut(leaves, _Q_CUT):
+            mark(head, _Q_CUT)
+            kv = cfg.n_kv_heads % tp == 0 and cut(leaves, _KV_CUT)
+            mark(head, _KV_CUT, "cut" if kv else "partial")
+        elif head == "":
+            for key in _VOCAB_CUT:
+                if key in leaves and cut(leaves, {key: _VOCAB_CUT[key]}):
+                    mark(head, {key: _VOCAB_CUT[key]})
     return out
 
 

@@ -9,7 +9,9 @@ differentiates `LM.loss` with autograd and applies AdamW in place.
 
 `make_sharded_train_step` is the same step on every rank of a mesh, each
 rank holding only its blocks of the parameters and of AdamW's state
-(`launch.shardings`), the reference's jitted step under its shardings.
+(`launch.shardings`) and computing the GQA attention, dense MLP and
+vocabulary leaves the rules cut on its ``"model"`` cut: the reference's
+jitted step under its shardings, partitioned as XLA partitions it.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.launch.mesh import gather_full, shard_of
-from repro_torch.launch.shardings import batch_shardings, params_shardings
-from repro_torch.models import moe
+from repro_torch.launch.shardings import (ModelCut, batch_shardings,
+                                         model_cuts, params_shardings)
+from repro_torch.models import moe, tensor_parallel
 from repro_torch.models.model import LM
 from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
 
@@ -123,18 +126,38 @@ def _clock(device: torch.device) -> float:
 
 def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
                             rules: Dict[str, Any], microbatches: int = 1,
-                            *, mean_of_means: bool = False) -> Callable:
+                            *, mean_of_means: bool = False,
+                            sum_partial: bool = True,
+                            partitioned: bool = True) -> Callable:
     """(param blocks, AdamW-state blocks, global batch) -> (param blocks,
     state, metrics), called by every rank of ``mesh``; ``.specs`` holds
-    each parameter's partition spec (`launch.shardings.params_shardings`).
+    each parameter's partition spec (`launch.shardings.params_shardings`)
+    and ``.cuts`` how the step computes with it along ``"model"``
+    (`launch.shardings.model_cuts`).
 
-    The rank gathers the whole parameters into ``model`` (`gather_full`),
-    computes the loss on its cut of each microbatch (the global batch's
-    *i*-th cut, split by `batch_shardings`), weighted by its share of the
-    microbatch's valid labels (the counts all-reduced) before the
-    backward, sums the gradients over the axes the batch is split on,
-    keeps its block of each and applies AdamW to its blocks, the clipping
-    norm summed over the blocks (`optim.adamw.global_norm`).
+    The rank computes the loss on its cut of each microbatch (the global
+    batch's *i*-th cut, split by `batch_shardings`), weighted by its share
+    of the microbatch's valid labels (the counts all-reduced) before the
+    backward, and, as the reference's partitioned step, on its ``"model"``
+    cut of every GQA attention, dense MLP and vocabulary leaf the rules
+    cut: such a leaf ("cut") is gathered over its other axes only and
+    handed to the model as the rank's block (`models.tensor_parallel.
+    cuts`), which runs the column and row products on it and sums their
+    outputs over ``"model"``.  Every other leaf is gathered whole into
+    ``model`` (`gather_full`).  Ranks along ``"model"`` then hold the
+    same activations between the layers.
+
+    After the backward each gradient is summed over the axes the batch is
+    split on and cut back to the block.  A "partial" leaf (whole along
+    ``"model"`` inside a layer that computes on the cut: gemma_2b's
+    ``wk`` / ``wv`` at one kv head, kv heads left whole beside cut query
+    heads) holds on each rank the part its query heads use, so it is
+    summed over ``"model"`` too; ``sum_partial=False`` leaves it partial
+    (the control of the tests).  A leaf applied to the replicated
+    activations (norms, ``b2``, attention whose heads do not divide) has
+    equal gradients along ``"model"`` and counts once.  AdamW runs on the
+    blocks, the clipping norm summed over them
+    (`optim.adamw.global_norm`).
 
     Expert weights differ where the mesh runs expert parallelism
     (`models.moe.expert_parallel`): they are never gathered whole.  The
@@ -143,6 +166,12 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
     gradient over those axes and cuts it back to the block, so the step
     neither all-reduces nor cuts it.  That sum is why the weight must
     scale the loss, not the gradients after the backward.
+
+    ``partitioned=False`` gathers every leaf whole and computes it alike
+    along ``"model"``, on the same blocks: the unpartitioned step, for
+    comparison.  (Rules that map ``qkv``, ``kv_qkv``, ``ffn`` and
+    ``vocab`` to None compute the same, but also keep those leaves whole
+    in every rank's state.)
 
     So each rank's gradient block is the block of the global batch's
     gradient, the loss the mean over its valid labels: the local step's
@@ -156,21 +185,30 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
 
     metrics: {"loss", "lr", "grad_norm"} as 0-dim tensors, and the host
     seconds (the card synchronised) of the step's three parts:
-    ``gather_s``, ``compute_s`` (the label counts, forward and backward)
-    and ``reduce_s`` (gradients, norm and AdamW)."""
+    ``gather_s``, ``compute_s`` (the label counts, forward and backward,
+    the products' exchanges along ``"model"`` included) and ``reduce_s``
+    (gradients, norm and AdamW)."""
     specs = params_shardings(model.cfg, dict(model.named_parameters()), mesh,
                              rules)
     ndims = reference_ndims(model)
     wide = torch.promote_types(model.dtype, torch.float32)
     experts = _expert_leaves(model, mesh, specs)
+    cuts = {n: c if partitioned else ModelCut(None, "whole")
+            for n, c in model_cuts(model.cfg, specs, mesh).items()
+            if n not in experts}
+    rest = tuple(a for a in mesh.axis_names if a != "model")
 
     def step(params, opt_state, batch):
         own = dict(model.named_parameters())
-        dense = [n for n in own if n not in experts]
+        whole = [n for n in own if n not in experts
+                 and cuts[n].mode != "cut"]
         t0 = _clock(model.device)
         with torch.no_grad():
-            for name in dense:
+            for name in whole:
                 own[name].copy_(gather_full(params[name], specs[name], mesh))
+            # the rank's "model" cut, whole along the batch's axes
+            local_leaves = {n: gather_full(params[n], specs[n], mesh, rest)
+                            for n, c in cuts.items() if c.mode == "cut"}
         t1 = _clock(model.device)
         parts = _split(batch, microbatches) if microbatches > 1 else [batch]
         cut = batch_shardings(parts[0], mesh, rules)
@@ -196,16 +234,20 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
             # collectives sum the expert blocks' gradients over the ranks
             blocks = {n: params[n].detach().requires_grad_()
                       for n in experts}
+            mine = {n: x.detach().requires_grad_()
+                    for n, x in local_leaves.items()}
             by_module = {}
             for n, (module, key) in experts.items():
                 by_module.setdefault(module, {})[key] = blocks[n]
-            with moe.training_blocks(by_module.items(), red):
+            with moe.training_blocks(by_module.items(), red), \
+                    tensor_parallel.cuts(mesh, {id(own[n]): x
+                                                for n, x in mine.items()}):
                 l = model.loss(part).to(wide) * (w / microbatches)
-            g = torch.autograd.grad(
-                l, [own[n] for n in dense] + list(blocks.values()),
-                allow_unused=True, materialize_grads=True)
-            g = dict(zip(dense + list(blocks), g))
-            del blocks
+            wrt = {**{n: own[n] for n in whole}, **mine, **blocks}
+            g = torch.autograd.grad(l, list(wrt.values()), allow_unused=True,
+                                    materialize_grads=True)
+            g = dict(zip(wrt, g))
+            del blocks, mine, wrt
             if grads is None:
                 loss = l.detach()
                 grads = {n: x.to(wide) for n, x in g.items()}
@@ -214,16 +256,20 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
                 for n, x in g.items():
                     grads[n] += x
             del g
+        del local_leaves
         t2 = _clock(model.device)
         loss = mesh.all_reduce(loss, red)
+        partial = red + ("model",) if sum_partial else red
         out = {}
         for name in list(grads):
             g = grads.pop(name)
             if name in experts:      # the block's, summed in the backward
                 out[name] = g
                 continue
-            full = mesh.all_reduce(g, red)
-            out[name] = shard_of(full, specs[name], mesh)
+            mode = cuts[name].mode
+            full = mesh.all_reduce(g, partial if mode == "partial" else red)
+            out[name] = shard_of(full, specs[name], mesh,
+                                 rest if mode == "cut" else None)
             del full, g
         new_params, new_state, metrics = apply_updates(
             params, out, opt_state, opt_cfg, ndims, mesh=mesh,
@@ -234,6 +280,7 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
         return new_params, new_state, metrics
 
     step.specs = specs
+    step.cuts = cuts
     return step
 
 

@@ -43,6 +43,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, mrope_apply, norm,
                                        norm_init, rope_apply, upcast)
@@ -263,17 +265,31 @@ def gqa_forward(params: nn.ParameterDict, x: Tensor, cfg: ModelConfig, *,
                 ) -> Tuple[Tensor, Optional[dict]]:
     """x (B, S, d) -> (out (B, S, d), cache').  With a cache, the step's k
     and v go into its rows [len, len + s) in place.  ``positions3``
-    (3, B, S): M-RoPE's ids for these tokens (M-RoPE configs only)."""
+    (3, B, S): M-RoPE's ids for these tokens (M-RoPE configs only).
+
+    Where the sharded train step cut the layer over ``"model"``
+    (`tensor_parallel.cuts`), ``wq`` / ``bq`` are the rank's query heads'
+    columns and ``wo`` their rows, its output summed over ``"model"``;
+    ``wk`` / ``wv`` / ``bk`` / ``bv`` are its kv heads' columns, or whole,
+    and then the rank attends with the kv heads its query heads use
+    (`_own_kv`).  The head counts are the leaves' widths."""
     b, s, d = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    hd = cfg.head_dim
+    mesh = tp.mesh_of(params["wq"])
+    p = {k: tp.block(w) for k, w in params.items()}
+    if mesh is not None:
+        x = mesh_lib.sum_grad(x, mesh, "model")      # column products' input
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
     if cfg.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    h, hkv = q.shape[-1] // hd, k.shape[-1] // hd
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
+    if h < cfg.n_heads and hkv == cfg.n_kv_heads:
+        k, v = _own_kv(k, v, cfg, h * mesh.index("model"), h)
 
     cache_len = cache["len"] if cache is not None else 0
     pos = _positions(cache_len, b, s, x.device)
@@ -294,7 +310,25 @@ def gqa_forward(params: nn.ParameterDict, x: Tensor, cfg: ModelConfig, *,
         new_cache = None
         out = _sdpa(q, k, v, causal=causal, kv_len=s, q_offset=0,
                     scale=hd ** -0.5, impl=impl, use_kernel=use_kernel)
-    return out.reshape(b, s, h * hd) @ params["wo"], new_cache
+    out = out.reshape(b, s, h * hd) @ p["wo"]
+    if mesh is not None:                             # the row product's sum
+        out = mesh_lib.all_reduce_grad(out, mesh, "model", ())
+    return out, new_cache
+
+
+def _own_kv(k: Tensor, v: Tensor, cfg: ModelConfig, first: int, count: int
+            ) -> Tuple[Tensor, Tensor]:
+    """The whole kv heads (B, S, Hkv, D) cut to those query heads
+    ``[first, first + count)`` use, laid out for `_sdpa`'s grouping:
+    global query head ``j`` uses kv head ``j // (H / Hkv)``.  Where the
+    rank's query heads fill whole groups, or lie in one group, that is a
+    slice of the kv heads; otherwise one kv head a query head."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    lo, hi = first // group, (first + count - 1) // group + 1
+    if count % group == 0 or hi - lo == 1:
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    ids = torch.arange(first, first + count, device=k.device) // group
+    return k.index_select(2, ids), v.index_select(2, ids)
 
 
 # ---------------------------------------------------------------------------

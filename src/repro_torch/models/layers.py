@@ -9,7 +9,9 @@ cast back to the input's dtype, as the reference does.  RoPE and M-RoPE
 rotate interleaved pairs (``x[..., ::2]``, ``x[..., 1::2]``) with angles in
 f32, as the reference does.  The chunked cross-entropy
 recomputes each chunk's f32 logits in backward, as the reference's
-`jax.checkpoint` does.
+`jax.checkpoint` does.  In the sharded train step the MLP, the embedding
+lookup and the cross-entropy compute on the rank's ``"model"`` cut
+(`models.tensor_parallel`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import tensor_parallel as tp
 
 Tensor = torch.Tensor
 
@@ -93,20 +98,30 @@ def norm_init(d: int, kind: str, dtype=torch.float32,
 
 def mlp_apply(x: Tensor, params: nn.ParameterDict, act: str) -> Tensor:
     """Gated (swiglu/geglu: w1=gate, w3=up, w2=down) or plain (gelu: w1, w2,
-    optional biases b1, b2)."""
+    optional biases b1, b2).  Where the sharded train step cut the layer
+    over ``"model"`` (`tensor_parallel.cuts`), ``w1`` / ``w3`` / ``b1``
+    are the rank's columns and ``w2`` its rows: the partial output is
+    summed over ``"model"`` before ``b2``, which is added once."""
+    mesh = tp.mesh_of(params["w1"])
+    p = {k: tp.block(v) for k, v in params.items()}
+    if mesh is not None:
+        x = mesh_lib.sum_grad(x, mesh, "model")      # column products' input
     if act in ("swiglu", "geglu"):
-        g = x @ params["w1"]
-        u = x @ params["w3"]
+        g = x @ p["w1"]
+        u = x @ p["w3"]
         h = (F.silu(g) if act == "swiglu" else
              F.gelu(g, approximate="tanh")) * u
-        return h @ params["w2"]
-    h = x @ params["w1"]
-    if "b1" in params:
-        h = h + params["b1"]
-    h = F.gelu(h, approximate="tanh")
-    out = h @ params["w2"]
-    if "b2" in params:
-        out = out + params["b2"]
+        out = h @ p["w2"]
+    else:
+        h = x @ p["w1"]
+        if "b1" in p:
+            h = h + p["b1"]
+        h = F.gelu(h, approximate="tanh")
+        out = h @ p["w2"]
+    if mesh is not None:                             # the row product's sum
+        out = mesh_lib.all_reduce_grad(out, mesh, "model", ())
+    if "b2" in p:
+        out = out + p["b2"]
     return out
 
 
@@ -186,36 +201,79 @@ def mrope_apply(x: Tensor, positions3: Tensor, theta: float,
 # chunked cross-entropy (bounded logit memory)
 # ---------------------------------------------------------------------------
 
+def _vocab_range(width: int, mesh) -> Tuple[int, int]:
+    """(first id, count) of the vocabulary slice this rank holds along
+    ``"model"`` (``width`` ids a rank)."""
+    return mesh.index("model") * width, width
+
+
+def embed_lookup(table: Tensor, ids: Tensor, mesh=None) -> Tensor:
+    """``table[ids]``.  With ``mesh``, ``table`` is this rank's slice of
+    the vocabulary along ``"model"`` (vocab-parallel): ids outside it look
+    up zeros, and the rows are summed over ``"model"``, the gradient the
+    identity (each rank's slice gets its own rows' gradient)."""
+    if mesh is None:
+        return table[ids]
+    lo, n = _vocab_range(table.shape[0], mesh)
+    local = ids.long() - lo
+    own = (local >= 0) & (local < n)
+    rows = torch.where(own[..., None], table[torch.where(own, local, 0)], 0)
+    return mesh_lib.all_reduce_grad(rows, mesh, "model", ())
+
+
 def _xent_chunk(hx: Tensor, emb_out: Tensor, lx: Tensor,
-                logit_softcap: float) -> Tuple[Tensor, Tensor]:
-    """(summed CE, count of unmasked labels) of one sequence chunk."""
+                logit_softcap: float, mesh=None) -> Tuple[Tensor, Tensor]:
+    """(summed CE, count of unmasked labels) of one sequence chunk.  With
+    ``mesh``, ``emb_out`` is this rank's vocabulary slice along
+    ``"model"``: the logits' max and their sum of exponents are reduced
+    over ``"model"``, and the target logit comes from the rank that holds
+    the label's id."""
     logits = upcast(hx @ emb_out)                         # (B, chunk, vocab)
     if logit_softcap > 0:
         logits = logit_softcap * torch.tanh(logits / logit_softcap)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.take_along_dim(
-        logits, torch.clamp(lx, min=0).long()[..., None], dim=-1)[..., 0]
+    if mesh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.take_along_dim(
+            logits, torch.clamp(lx, min=0).long()[..., None], dim=-1)[..., 0]
+    else:
+        top = mesh.all_reduce(logits.detach().amax(dim=-1), "model", "max")
+        sumexp = torch.sum(torch.exp(logits - top[..., None]), dim=-1)
+        lse = top + torch.log(mesh_lib.all_reduce_grad(sumexp, mesh,
+                                                       "model", ()))
+        lo, n = _vocab_range(logits.shape[-1], mesh)
+        local = lx.long() - lo
+        own = (local >= 0) & (local < n)
+        tgt = torch.take_along_dim(
+            logits, torch.where(own, local, 0)[..., None], dim=-1)[..., 0]
+        tgt = mesh_lib.all_reduce_grad(torch.where(own, tgt, 0.0), mesh,
+                                       "model", ())
     mask = (lx >= 0).to(logits.dtype)
     return torch.sum((lse - tgt) * mask), torch.sum(mask)
 
 
 def chunked_softmax_xent(h: Tensor, emb_out: Tensor, labels: Tensor,
                          chunk: int = 4096,
-                         logit_softcap: float = 0.0) -> Tensor:
+                         logit_softcap: float = 0.0, mesh=None) -> Tensor:
     """Mean next-token CE over (B, S, d) hidden states against the head
     ``emb_out`` (d, vocab), without the full (tokens, vocab) logits: a loop
     over *sequence* chunks whose body is checkpointed, so one chunk's f32
     logits are the only transient and none is saved for backward.  Labels
     of -100 are masked; the target gather clamps them to 0 first, as the
-    reference does."""
+    reference does.
+
+    With ``mesh`` the head is this rank's vocabulary slice along
+    ``"model"`` (vocab-parallel, `_xent_chunk`); ``h`` enters through
+    `launch.mesh.sum_grad`, as a column product's input."""
     b, s, d = h.shape
     chunk = min(chunk, s)
     dt = upcast(h[:0]).dtype
     tot = torch.zeros((), dtype=dt, device=h.device)
     cnt = torch.zeros((), dtype=dt, device=h.device)
+    if mesh is not None:
+        h = mesh_lib.sum_grad(h, mesh, "model")
     for lo in range(0, s, chunk):
         args = (h[:, lo:lo + chunk], emb_out, labels[:, lo:lo + chunk],
-                logit_softcap)
+                logit_softcap, mesh)
         if torch.is_grad_enabled():
             t, c = checkpoint(_xent_chunk, *args, use_reentrant=False)
         else:

@@ -9,7 +9,9 @@ encoder-decoder with learned positions (whisper), SSM (mamba2_780m), MoE
 MoE (jamba): input embedding, the block loop, the final norm and the tied
 (or separate) head, with f32 logits (f64 for an f64 model).  The blocks'
 MoE aux losses are summed as the reference's `_backbone` does; `loss` adds
-them to the chunked cross-entropy, serving drops them.
+them to the chunked cross-entropy, serving drops them.  In the sharded
+train step the embedding lookup and the loss are vocab-parallel where the
+step cut the table over ``"model"`` (`models.tensor_parallel`).
 
 Batch dict contract (the reference's):
   tokens     (B, S) integer ids       -- unless ``embeds`` is given
@@ -31,8 +33,9 @@ from torch import nn
 
 from repro_torch.models.attention import make_kv_cache
 from repro_torch.models.config import ModelConfig
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.layers import (chunked_softmax_xent, embed_init,
-                                       norm, norm_init, upcast)
+                                       embed_lookup, norm, norm_init, upcast)
 from repro_torch.models.mamba import make_ssm_cache
 from repro_torch.models.transformer import (Block, layer_sigs, plan_stages,
                                             remat)
@@ -117,7 +120,9 @@ class LM(nn.Module):
         if cfg.embeds_input and "embeds" in batch:
             x = batch["embeds"].to(self.dtype)
         else:
-            x = self.embed[batch["tokens"]]
+            # vocab-parallel where the sharded train step cut the table
+            x = embed_lookup(tp.block(self.embed), batch["tokens"],
+                             tp.mesh_of(self.embed))
         if cfg.scale_embeddings:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
         if cfg.pos_emb == "learned":
@@ -178,9 +183,12 @@ class LM(nn.Module):
         h, _, aux = self._backbone(self._embed_in(batch), caches=None,
                                    enc_out=self._enc_out(batch),
                                    positions3=batch.get("positions3"))
-        ce = chunked_softmax_xent(h, self._head(), batch["labels"],
+        # the rank's vocabulary slice where the sharded train step cut it
+        w = self.embed if self.cfg.tie_embeddings else self.lm_head
+        ce = chunked_softmax_xent(h, tp.block(w).T, batch["labels"],
                                   chunk=self.loss_chunk,
-                                  logit_softcap=self.cfg.logit_softcap)
+                                  logit_softcap=self.cfg.logit_softcap,
+                                  mesh=tp.mesh_of(w))
         return ce if aux is None else ce + aux
 
     # --------------------------------------------------------------- serving

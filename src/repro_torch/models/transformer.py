@@ -31,6 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.launch.mesh import active_mesh, active_rules, use_mesh
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import tensor_parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_init, norm, norm_init
 from repro_torch.models.mamba import Mamba2
@@ -85,18 +86,20 @@ def remat(fn: Callable, policy: str) -> Callable:
         if not torch.is_grad_enabled():
             return fn(*args, **kwargs)
         # backward recomputes after the sharded step's
-        # `moe.training_blocks` has exited, and on the card in autograd's
-        # device thread, where no `use_mesh` is in force: the
-        # recomputation installs the mesh, rules and selection the forward
-        # saw, or MoE would recompute another variant
-        state = moe_training_state()
+        # `moe.training_blocks` and `tensor_parallel.cuts` have exited, and
+        # on the card in autograd's device thread, where no `use_mesh` is
+        # in force: the recomputation installs the mesh, rules and
+        # selections the forward saw, or MoE would recompute another
+        # variant and the products the whole leaves
+        state, cuts = moe_training_state(), tensor_parallel.state()
         mesh, rules = active_mesh(), active_rules()
 
         def context_fn():
             fwd, rec = (selective() if selective is not None else
                         (contextlib.nullcontext(), contextlib.nullcontext()))
             return fwd, _entered(rec, use_mesh(mesh, rules),
-                                 moe_restored(state))
+                                 moe_restored(state),
+                                 tensor_parallel.restored(cuts))
         return checkpoint(fn, *args, use_reentrant=False,
                           context_fn=context_fn, **kwargs)
     return run

@@ -75,6 +75,15 @@ def logical_to_physical(logical: Sequence[Optional[str]],
     return tuple(spec)
 
 
+def model_dim(spec: Spec, axis: str = "model") -> Optional[int]:
+    """The dim ``spec`` shards over ``axis`` alone, None where no dim is
+    (a dim sharded over ``axis`` and another axis is not)."""
+    for dim, entry in enumerate(spec):
+        if entry == axis or entry == (axis,):
+            return dim
+    return None
+
+
 def hint(x, *logical: Optional[str]):
     """The reference's sharding constraint by logical names: the rank is
     checked under a mesh, and ``x`` comes back unchanged."""
