@@ -76,7 +76,16 @@ on the trainer's batch (8 x 256 tokens), timed by stage in bf16 and held
 in f32 to the same layer run locally; `train(mesh=...)` on reduced
 deepseek_v3 and jamba against the local trainer, at their own capacity
 (finite, falling losses) and under chaos; only `rmw_table` and
-`rmw_table_fetched` launch, counted inside the ranks.  The suites
+`rmw_table_fetched` launch, counted inside the ranks.  Then sharded
+serving (`serve_sharded`, on the same 4 ranks and mesh): the sharded
+prefill and decode steps (the KV cache cut by sequence over "model",
+decode's partials from the flash kernel's decode body, with each row's
+log-sum-exp, combined across the ranks) for gemma_2b at full width and
+depth in bf16, at 2 layers in f32 and qwen2_vl_2b at full width, 4
+prompts of 512 tokens and 8 decode steps, held to the local serving path
+on the same card (bf16 within 2x a floor measured in the run, f32 within
+1e-3), every rank's launches counted, prefill and decode ms and the
+exchange's share per rank.  The suites
 include `rmw_sharded` (8 ranks on the card).  Last, training and MLA,
 which launch no kernel (each phase fails if one launches; no kernel has
 a backward): `train_gemma` trains
@@ -137,9 +146,11 @@ allocated): gemma_2b's
 local train step at `train_gemma`'s shape, whose predicted peak must lie
 within 10% of the `max_memory_allocated` `train_gemma` measured, its
 roofline time beside the measured step; and gemma_2b's train_4k,
-prefill_32k and decode_32k and dbrx's train_4k on the single production
-mesh (gemma's train cell cut to 2 layers, its prefill to 9, dbrx's train
-cell to 1, with the full configs' microbatches), each record printed with its roofline row (the `roofline`
+prefill_32k and decode_32k, dbrx's train_4k and command_r_plus_104b's
+decode_32k on the single production mesh (gemma's prefill cut to 9
+layers, dbrx's train cell to 1, with the full configs' microbatches; the
+serving cells under `sharded_serve`, command_r_plus's under 80 GB a
+card), each record printed with its roofline row (the `roofline`
 suite runs among the suites, with no rows where no record is written).
 A `timeline` line gives each phase's seconds.
 
@@ -1228,6 +1239,86 @@ def _split3_check(gen):
     return p.numel()
 
 
+#: a rank's decode partial (the log-sum-exp and the f32 output) at each
+#: served model's decode shape (query heads, KV heads, D), over these valid
+#: rows (0: a segment with no valid key yet); the output within
+#: `FA_TOL` f32 of `flash_attention_split_plain` at the kernel's own splits,
+#: the log-sum-exp within `FA_LSE_TOL`
+FA_LSE_SHAPES = {"gemma_2b": (8, 1, 256), "qwen2_vl_2b": (12, 2, 128),
+                 "dbrx_132b": (48, 8, 128),
+                 "jamba_1_5_large_398b": (64, 8, 128),
+                 "whisper_small": (12, 12, 64),
+                 "command_r_plus_104b": (96, 8, 128)}
+FA_LSE_VALID = (0, 1, 65, G_DECODE_VALID)
+FA_LSE_TOL = 1e-5
+
+
+def _lse_checks(gen):
+    """`_lse_case` at every shape of `FA_LSE_SHAPES`, valid count of
+    `FA_LSE_VALID` and dtype; then the decode body's device time at
+    gemma's 1,600 rows in bf16 with the partial's outputs and without
+    (`graph_ms`, in turns).  Returns (errors by case, timing)."""
+    errs = {}
+    for name, (hq, hkv, d) in FA_LSE_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for valid in FA_LSE_VALID:
+                errs[f"{name}_{valid}_{str(dtype)[6:]}"] = _lse_case(
+                    gen, hq, hkv, d, valid, dtype)
+    args, kw = _lse_args(gen, G_HQ, G_HKV, G_D, G_DECODE_VALID,
+                         torch.bfloat16)
+    plain, partial = [], []
+    for _ in range(3):
+        plain.append(graph_ms(lambda: FK.flash_attention(*args, **kw), 50))
+        partial.append(graph_ms(lambda: FK.flash_attention(
+            *args, **kw, return_lse=True), 50))
+    return errs, dict(shape="gemma_2b decode, 1,600 rows, bf16",
+                      ms=min(plain), lse_f32_ms=min(partial),
+                      ms_runs=plain, lse_f32_ms_runs=partial)
+
+
+def _lse_args(gen, hq, hkv, d, valid, dtype):
+    """A decode call of 2 sequences over ``valid`` cached rows, NaN past
+    them (the kernel must never read them)."""
+    q = torch.randn((2, 1, hq, d), generator=gen, device="cuda")
+    kc, vc = (torch.randn((2, valid + 40, hkv, d), generator=gen,
+                          device="cuda") for _ in range(2))
+    kc[:, valid:] = float("nan")
+    vc[:, valid:] = float("nan")
+    args = tuple(t.to(dtype).transpose(1, 2) for t in (q, kc, vc))
+    return args, dict(causal=True, kv_valid=valid, kv_offset=valid - 1)
+
+
+def _lse_case(gen, hq, hkv, d, valid, dtype):
+    """One decode call with the log-sum-exp and the f32 output against
+    `flash_attention_split_plain` at the kernel's own splits; its f32
+    output rounded to the input type must equal the plain call's output
+    bit for bit; at 0 valid rows the output is 0 and the lse -inf.
+    Returns the largest error (output, lse)."""
+    args, kw = _lse_args(gen, hq, hkv, d, valid, dtype)
+    out, lse = FK.flash_attention(*args, **kw, return_lse=True)
+    splits = FK.decode_splits(valid, 2 * hkv, FK._sm_count(out.device),
+                              FK.decode_limits()[1])
+    want, want_lse = FK.flash_attention_split_plain(
+        *args, **kw, splits=splits, return_lse=True)
+    what = f"partial {(hq, hkv, d)} at {valid} rows {dtype}"
+    if valid == 0:
+        if out.any() or not bool((lse == float("-inf")).all()):
+            raise AssertionError(f"flash_attention {what}: not out = 0, "
+                                 f"lse = -inf")
+        return 0.0
+    err = _check_fa(out, want, what, rtol=FA_TOL[torch.float32],
+                    atol=FA_TOL[torch.float32])
+    lse_err = _max_err(lse, want_lse)
+    if not torch.isfinite(lse).all() or lse_err > FA_LSE_TOL * max(
+            1.0, float(want_lse.abs().max())):
+        raise AssertionError(f"flash_attention {what}: lse off by "
+                             f"{lse_err}")
+    if not torch.equal(FK.flash_attention(*args, **kw), out.to(dtype)):
+        raise AssertionError(f"flash_attention {what}: the f32 output "
+                             f"rounded is not the plain call's output")
+    return max(err, lse_err)
+
+
 def phase_flash_kernel(gen):
     """The reference tests' seven cases through `ops.attention` (the two
     with D = 8 and 16 padded to 32), and gemma_2b's prefill (of 4,096 and
@@ -1235,7 +1326,9 @@ def phase_flash_kernel(gen):
     split across CTAs, and at 65, one row past a tile); each in f32 and
     bf16 against the plain version.  The bf16 prefill of 17 tokens and the
     cached prefill are also held to `FA_P_F32_MISMATCH` beside their
-    control, and the kernel's split of p to `bf16_parts`."""
+    control, and the kernel's split of p to `bf16_parts`.  Then a rank's
+    decode partial, the log-sum-exp and the f32 output (`_lse_checks`),
+    at each served model's decode shape, 0 valid rows included."""
     errs, want_max, p_f32 = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
@@ -1272,15 +1365,18 @@ def phase_flash_kernel(gen):
                     got, want, FK.flash_attention_plain(*args, p_to_bf16=True,
                                                         **kw), shape)
     split3_n = _split3_check(gen)
+    lse_errs, lse_timing = _lse_checks(gen)
     sync()
     emit("flash_kernel", tol={"f32": FA_TOL[torch.float32],
                               "bf16": FA_TOL[torch.bfloat16],
                               "gemma_bf16": FA_GEMMA_BF16,
-                              "p_f32_mismatch": FA_P_F32_MISMATCH},
+                              "p_f32_mismatch": FA_P_F32_MISMATCH,
+                              "lse": FA_LSE_TOL},
          cases=len(FA_CASES), max_abs_err=errs, max_abs_want=want_max,
          bf16_mismatch_share=p_f32, split3_equal_to_bf16_parts=split3_n,
-         launches=dict(FK.LAUNCHES))
-    return max(errs.values())
+         partial_max_err=lse_errs, partial_timing=lse_timing,
+         launches=dict(FK.LAUNCHES), lse_launches=dict(FK.LSE_LAUNCHES))
+    return max(max(errs.values()), max(lse_errs.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -2058,8 +2154,10 @@ def _host_ms(fn, reps=3):
 
 SH_SHAPE, SH_AXES = (2, 2), ("pod", "dev")
 SH_WORLD = 4
-SH_N, SH_M = 1 << 21, 1 << 24    # ops a rank (what the run's time allows);
-#                                  global int32 slots (16 MB a shard of four)
+SH_N, SH_M = 1 << 20, 1 << 24    # ops a rank (what the run's time allows:
+#                                  2^21 until the serving phases grew the
+#                                  run); global int32 slots (16 MB a shard
+#                                  of four)
 SH_STRATEGIES = ("naive", "oneshot", "hierarchical")
 SH_RETRY_N, SH_RETRY_M = 64, 1 << 12
 SH_REPS = 2
@@ -3860,7 +3958,10 @@ DRYRUN_CELLS = (("gemma_2b", "train_4k", None, True),
                 ("gemma_2b", "train_4k", None, False),
                 ("gemma_2b", "prefill_32k", 9, True),
                 ("gemma_2b", "decode_32k", None, True),
-                ("dbrx_132b", "train_4k", 1, True))
+                ("dbrx_132b", "train_4k", 1, True),
+                ("command_r_plus_104b", "decode_32k", None, True))
+#: the sharded serving cell that must fit one card (GB a card)
+DRYRUN_SERVE_CELL, DRYRUN_CARD_GB = "command_r_plus_104b.decode_32k", 80.0
 #: the partitioned step's FLOPs a card for gemma_2b train_4k must fall at
 #: least this far below the parent layout's, and its peak below it
 DRYRUN_TP_FLOPS_CUT = 3.0
@@ -3998,6 +4099,18 @@ def phase_dryrun(started=None):
             f"(at least {DRYRUN_TP_FLOPS_CUT}x), peak "
             f"{tp['per_device_peak_bytes']} B against the parent layout's "
             f"{parent['per_device_peak_bytes']}")
+    serve = recs[DRYRUN_SERVE_CELL]
+    emit("dryrun", check="command_r_plus_104b_decode_32k_sharded_serve",
+         layout=serve["layout"], layers=serve["layers_run"],
+         peak_gb=serve["per_device_peak_bytes"] / 1e9,
+         card_gb=DRYRUN_CARD_GB, wire_gb=serve["total_wire_bytes"] / 1e9,
+         collectives=serve["collectives"])
+    if serve["layout"] != "sharded_serve" or \
+            serve["per_device_peak_bytes"] / 1e9 >= DRYRUN_CARD_GB:
+        raise AssertionError(
+            f"{DRYRUN_SERVE_CELL}: layout {serve['layout']}, peak "
+            f"{serve['per_device_peak_bytes'] / 1e9:.1f} GB a card (under "
+            f"{DRYRUN_CARD_GB} needed)")
     return {"cells": len(recs)}
 
 
@@ -5628,6 +5741,224 @@ def phase_train_sharded_moe():
 
 
 # ---------------------------------------------------------------------------
+# 17b. sharded serving: the prefill and decode steps on 2x2, the KV cache
+#      cut by sequence over "model", decode's partials combined
+# ---------------------------------------------------------------------------
+
+SS_WORLD, SS_SHAPE, SS_AXES = 4, (2, 2), ("data", "model")
+#: 4 prompts of 512 tokens (2 a rank along "data"), then 8 decode steps,
+#: in caches of 528 rows: segments of 264, the prompt over both, the
+#: decoded rows in the second
+SS_BATCH, SS_PROMPT, SS_STEPS, SS_S_MAX = 4, 512, 8, 528
+#: (tag, arch, layers (None: full depth), dtype)
+SS_RUNS = (("gemma_2b", "gemma_2b", None, "bfloat16"),
+           ("gemma_2b_f32_2_layers", "gemma_2b", 2, "float32"),
+           ("qwen2_vl_2b", "qwen2_vl_2b", None, "bfloat16"))
+
+
+def _ss_config(arch, layers, dtype):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(dtype=dtype)
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def _ss_batches(cfg):
+    """The seeded prompts (`SS_BATCH` x `SS_PROMPT`), then the `SS_STEPS`
+    tokens fed one at a time, on the card; M-RoPE's three position axes,
+    distinct, where the config takes them."""
+    gen = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (SS_BATCH, SS_PROMPT + SS_STEPS),
+                         generator=gen).cuda()
+    spans = [(0, SS_PROMPT)] + [(i, i + 1) for i in
+                                range(SS_PROMPT, SS_PROMPT + SS_STEPS)]
+    out = []
+    for lo, hi in spans:
+        bt = {"tokens": toks[:, lo:hi]}
+        if cfg.pos_emb == "mrope":
+            t = torch.arange(lo, hi, device="cuda")[None].expand(
+                SS_BATCH, hi - lo)
+            bt["positions3"] = torch.stack([t, t // 2, t // 3]).to(
+                torch.int32)
+        out.append(bt)
+    return out
+
+
+def _serve_sharded_rank(mesh, runs):
+    """One rank of `serve_sharded`: for each run of ``runs``, its blocks
+    of a model of seed 0 (`shard_of` by the step's specs; the whole model
+    then freed), the sharded prefill and decode steps on a model built on
+    meta (a warm-up prefill and decode step first: the placement, cuBLAS,
+    the allocator), then the launch counters reset, a prefill of the
+    prompts and `SS_STEPS` decode steps, and the counters read."""
+    from repro_torch.launch.mesh import shard_of
+    from repro_torch.launch.shardings import arch_rules
+    from repro_torch.launch.steps import (make_sharded_decode_step,
+                                          make_sharded_prefill_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = dict(rank=mesh.rank, coords=dict(mesh.coords),
+               host_staged=list(mesh.probe(dev)), runs={})
+    mesh.sync_timing = True
+    for tag, arch, layers, dtype in runs:
+        cfg = _ss_config(arch, layers, dtype)
+        whole = LM(cfg, seed=0)
+        model = LM(cfg, device="meta", seed=0)
+        prefill = make_sharded_prefill_step(
+            model, SS_S_MAX, mesh, arch_rules(cfg, mesh, "prefill"))
+        decode = make_sharded_decode_step(model, mesh,
+                                          arch_rules(cfg, mesh, "decode"))
+        blocks = {n: shard_of(p.detach(), prefill.specs[n], mesh)
+                  for n, p in whole.named_parameters()}
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batches = _ss_batches(cfg)
+        cache, _ = prefill(blocks, batches[0])           # warm-up
+        place_s = prefill.metrics["place_s"]
+        cache, _ = decode(blocks, cache, batches[1])
+        del cache
+        FK.reset_launches()              # the sharded path starts here
+        cache, lg = prefill(blocks, batches[0])
+        logits, pre, dec = [lg.float().cpu()], dict(prefill.metrics), []
+        for bt in batches[1:]:
+            cache, lg = decode(blocks, cache, bt)
+            logits.append(lg.float().cpu())
+            dec.append(dict(decode.metrics))
+        launches = FK.LAUNCHES["flash_attention"]        # ... and ends here
+        lse = FK.LSE_LAUNCHES["flash_attention"]
+        first = cache["layers"][0]
+        out["runs"][tag] = dict(
+            logits=logits if mesh.index("model") == 0 else None,
+            data_index=mesh.index("data"), n_layers=cfg.n_layers,
+            launches=launches, lse_launches=lse, prefill=pre, decode=dec,
+            place_s=place_s, cache_block=list(first["k"].shape),
+            seq=list(first["seq"]), len=first["len"],
+            cache_finite=all(bool(torch.isfinite(layer[k]).all())
+                             for layer in cache["layers"]
+                             for k in ("k", "v")),
+            placed_gib=sum(p.numel() * p.element_size()
+                           for p in model.parameters()) / 2 ** 30,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del model, prefill, decode, blocks, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ss_local(model, batches, reps=2):
+    """The local serving path (`LM.prefill` / `decode_step`) on the same
+    batches, twice (the first warms up): (each step's f32 logits on the
+    host, prefill ms, decode ms a token) of the last."""
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        cache, lg = model.prefill(batches[0], SS_S_MAX)
+        logits = [lg.float().cpu()]
+        t1 = time.perf_counter()
+        for bt in batches[1:]:
+            cache, lg = model.decode_step(cache, bt)
+            logits.append(lg.float().cpu())
+        t2 = time.perf_counter()
+        del cache
+    return logits, 1e3 * (t1 - t0), 1e3 * (t2 - t1) / SS_STEPS
+
+
+def phase_serve_sharded():
+    """Sharded serving on 4 ranks sharing the card (gloo) on 2x2 ``("data",
+    "model")``: `launch.steps.make_sharded_prefill_step` and
+    `make_sharded_decode_step` (the KV cache cut by sequence over
+    "model", GQA attention, MLP and vocabulary computed on the rank's
+    "model" cut) for each run of `SS_RUNS`, held to the local serving
+    path on the same card, weights and tokens: bf16 within
+    `GEMMA_FLOOR_FACTOR` x the floor measured here (the local path's
+    kernel against its plain attention), f32 within
+    `SERVE_F32_LOGIT_ATOL`.  Raises unless every rank launched the flash
+    kernel once a layer a step and its decode body with the log-sum-exp on
+    every decode layer (`FK.LSE_LAUNCHES`), and its caches are finite with
+    ``len`` global.  Prefill ms, decode ms a token and the exchange's
+    share on each rank; the card's name and power limit.  Returns the
+    kernel's launches inside the ranks."""
+    from repro_torch.launch import ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = ranks.launch(f"{os.path.abspath(__file__)}:_serve_sharded_rank",
+                       SS_WORLD, mesh=(SS_SHAPE, SS_AXES), device="cuda",
+                       args=(SS_RUNS,), timeout=900)
+    ranks_s = time.perf_counter() - t0
+    bad, launches = [], 0
+    for tag, arch, layers, dtype in SS_RUNS:
+        cfg = _ss_config(arch, layers, dtype)
+        runs = [o["runs"][tag] for o in out]
+        parts = sorted((r["data_index"], r["logits"]) for r in runs
+                       if r["logits"] is not None)
+        got = [torch.cat([p[i] for _, p in parts])
+               for i in range(1 + SS_STEPS)]
+        batches = _ss_batches(cfg)
+        model = LM(cfg, seed=0)
+        local, local_prefill_ms, local_decode_ms = _ss_local(model, batches)
+        err = max(_max_err(a, b) for a, b in zip(got, local))
+        same = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                   for a, b in zip(got, local))
+        gate = {}
+        if dtype == "float32":
+            gate = dict(atol=SERVE_F32_LOGIT_ATOL)
+            if err > SERVE_F32_LOGIT_ATOL:
+                bad.append(f"{tag}: logits off the local path by {err}")
+        else:
+            model.use_kernel = False
+            plain, _, _ = _ss_local(model, batches, reps=1)
+            floor = max(_max_err(a, b) for a, b in zip(local, plain))
+            gate = dict(floor=floor, gate=GEMMA_FLOOR_FACTOR * floor)
+            if err > GEMMA_FLOOR_FACTOR * floor:
+                bad.append(f"{tag}: logits off the local path by {err} > "
+                           f"{GEMMA_FLOOR_FACTOR} x floor {floor}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        for r, o in zip(runs, out):
+            want = (cfg.n_layers * (1 + SS_STEPS), cfg.n_layers * SS_STEPS)
+            if (r["launches"], r["lse_launches"]) != want:
+                bad.append(f"{tag} rank {o['rank']}: flash launched "
+                           f"{r['launches']} times, {r['lse_launches']} with "
+                           f"the lse; want {want}")
+            if not r["cache_finite"] or r["len"] != SS_PROMPT + SS_STEPS \
+                    or r["seq"] != ["model"]:
+                bad.append(f"{tag} rank {o['rank']}: cache block "
+                           f"{r['cache_block']} seq {r['seq']} len "
+                           f"{r['len']} finite {r['cache_finite']}")
+            launches += r["launches"]
+        per_rank = [dict(
+            rank=o["rank"], coords=o["coords"],
+            prefill_ms=1e3 * r["prefill"]["prefill_s"],
+            prefill_exchange_share=r["prefill"]["exchange_s"]
+            / r["prefill"]["prefill_s"],
+            decode_ms_per_token=1e3 * sum(d["decode_s"] for d in r["decode"])
+            / SS_STEPS,
+            decode_exchange_share=sum(d["exchange_s"] for d in r["decode"])
+            / sum(d["decode_s"] for d in r["decode"]),
+            place_s=r["place_s"], placed_gib=r["placed_gib"],
+            peak_gib=r["peak_gib"]) for r, o in zip(runs, out)]
+        emit("serve_sharded", run=tag, arch=arch, n_layers=cfg.n_layers,
+             d_model=cfg.d_model, dtype=dtype, ranks=SS_WORLD,
+             mesh=dict(zip(SS_AXES, SS_SHAPE)), transport="gloo",
+             host_staged=out[0]["host_staged"], batch=SS_BATCH,
+             prompt=SS_PROMPT, decode_steps=SS_STEPS, s_max=SS_S_MAX,
+             cache_block=runs[0]["cache_block"], logit_max_abs_err=err,
+             **gate, greedy_tokens_equal=f"{same}/"
+             f"{SS_BATCH * (1 + SS_STEPS)}",
+             local_prefill_ms=local_prefill_ms,
+             local_decode_ms_per_token=local_decode_ms, per_rank=per_rank,
+             launches=[r["launches"] for r in runs],
+             lse_launches=[r["lse_launches"] for r in runs])
+    emit("serve_sharded", card=card(), seconds=time.perf_counter() - t0,
+         ranks_s=ranks_s, bad=bad[:10])
+    if bad:
+        raise AssertionError(f"serve_sharded: {bad}")
+    return {"flash_attention": launches}
+
+
+# ---------------------------------------------------------------------------
 # 18. telemetry
 # ---------------------------------------------------------------------------
 
@@ -6202,6 +6533,11 @@ def main():
     for k, v in phase_train_sharded_moe().items():
         launches[k] += v
     lap("train_sharded_moe")
+    # ... then sharded serving, whose ranks count the flash kernel the
+    # same way
+    for k, v in phase_serve_sharded().items():
+        launches[k] += v
+    lap("serve_sharded")
     # training and deepseek_v3's serving launch no kernel (each phase
     # checks that), so they come after every count is read
     for phase in (phase_train_gemma, phase_train_check, phase_train_recovery,

@@ -52,6 +52,12 @@
 //      output is the same from run to run): M = max m_s, l = sum e^(m_s-M)
 //      l_s, acc likewise.  Masked keys get p = 0, so a split that sees no
 //      valid key (m = -1e30, l = 0) weighs nothing.  One launch per call.
+//      On request the combining CTA also writes each row's log-sum-exp,
+//      M + log l (-inf for a row that sees no key: then out = 0), and then
+//      the output in f32 whatever the input type: a rank's partial over
+//      its segment of a cache cut by sequence, which the caller combines
+//      across ranks and rounds once.  kv_valid may then be 0 (a segment
+//      that holds no valid key yet).
 //   2. Prefill (more than 16 rows), bf16: tensor cores (wgmma).  A CTA of
 //      2 warpgroups owns 128 rows, a warpgroup 64; the CTAs with the
 //      longest KV walks launch first (the causal triangle).  Q and a
@@ -192,11 +198,11 @@ struct Dec {
 template <typename T, int NJ>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o,
+                    const T* __restrict__ v, void* __restrict__ o,
                     Strides sq_, Strides sk, Strides sv, Strides so, int sq,
                     int group, int kv_valid, int kv_offset, int causal,
                     float scale, float* __restrict__ part,
-                    int* __restrict__ tickets) {
+                    int* __restrict__ tickets, float* __restrict__ lse) {
   using C = Dec<T, NJ>;
   constexpr int D = C::D, E = C::E, SUB = C::SUB, LD = C::LD, R = DEC_ROWS;
   extern __shared__ float4 smem4[];
@@ -398,6 +404,11 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       den = fmaf(w, ls[s * R + tid], den);
     }
     al[tid] = fmaxf(den, 1e-30f);
+    if (lse && tid < n_rows) {        // (B, Hq, Sq), contiguous
+      const int pos = tid / group, h = kvh * group + tid % group;
+      lse[((long long)b * gridDim.y * group + h) * sq + pos] =
+          den > 0.f ? mx + logf(den) : __int_as_float(0xff800000);
+    }
   }
   __syncthreads();
   if (rv < C::RV) {
@@ -419,9 +430,16 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       const float den = al[r];
       const int pos = r / group, h = kvh * group + r % group;
-      T* dst = o + b * so.b + h * so.h + pos * so.s + cg * 4;
-      store2(dst, out[0] / den, out[1] / den);
-      store2(dst + 2, out[2] / den, out[3] / den);
+      const long long at = b * so.b + h * so.h + pos * so.s + cg * 4;
+      if (lse) {                      // a partial: the output in f32
+        float* dst = static_cast<float*>(o) + at;
+        store2(dst, out[0] / den, out[1] / den);
+        store2(dst + 2, out[2] / den, out[3] / den);
+      } else {
+        T* dst = static_cast<T*>(o) + at;
+        store2(dst, out[0] / den, out[1] / den);
+        store2(dst + 2, out[2] / den, out[3] / den);
+      }
     }
   }
   if (tid == 0) tickets[grp] = 0;     // ready for the next call
@@ -967,6 +985,7 @@ struct Args {
   int splits;
   float* part;
   int* tickets;
+  float* lse;
   cudaStream_t stream;
 };
 
@@ -992,9 +1011,9 @@ int launch_decode(const Args& a) {
   static bool done[64];
   if (int err = set_smem(kernel, bytes, done)) return err;
   kernel<<<dim3(a.splits, a.hkv, a.b), THREADS, bytes, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.sq_, a.sk, a.sv,
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.o, a.sq_, a.sk, a.sv,
       a.so, a.sq, a.group, a.kv_valid, a.kv_offset, a.causal, a.scale, a.part,
-      a.tickets);
+      a.tickets, a.lse);
   return (int)cudaGetLastError();
 }
 
@@ -1103,22 +1122,28 @@ extern "C" int flash_attention_decode_limits(int* rows, int* max_splits) {
 // is a decode call: it needs 1 <= `splits` <= `max_splits`, `scratch` of
 // B * Hkv * splits * rows * (D + 2) floats and `tickets`, B * Hkv ints that
 // are zero (each call leaves them zero).  Other calls ignore the three.
+// Only a decode call takes `lse` (B * Hq * Sq floats, (B, Hq, Sq)
+// contiguous: each row's log-sum-exp; the output `o` is then f32, its
+// strides in f32 elements) or kv_valid = 0; other calls need null and
+// kv_valid >= 1.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int b,
     int hq, int hkv, int sq, int d, int kv_valid, int kv_offset, int causal,
     float scale, long long q_b, long long q_h, long long q_s, long long k_b,
     long long k_h, long long k_s, long long v_b, long long v_h, long long v_s,
     long long o_b, long long o_h, long long o_s, int splits, void* scratch,
-    void* tickets, void* stream) {
+    void* tickets, void* lse, void* stream) {
   if (b <= 0 || b > 65535 || hkv <= 0 || hkv > 65535 || hq % hkv != 0 ||
-      sq <= 0 || d <= 0 || d > 256 || d % 32 != 0 || kv_valid <= 0 ||
+      sq <= 0 || d <= 0 || d > 256 || d % 32 != 0 || kv_valid < 0 ||
       (long long)sq * (hq / hkv) > (1LL << 31) - 256 || dtype < 0 ||
       dtype > 1)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, {q_b, q_h, q_s}, {k_b, k_h, k_s}, {v_b, v_h, v_s},
                {o_b, o_h, o_s}, b, hkv, sq, hq / hkv, kv_valid, kv_offset,
                causal, scale, splits, (float*)scratch, (int*)tickets,
-               (cudaStream_t)stream};
+               (float*)lse, (cudaStream_t)stream};
+  if ((long long)sq * a.group > DEC_ROWS && (lse || kv_valid == 0))
+    return (int)cudaErrorInvalidValue;
   if ((long long)sq * a.group <= DEC_ROWS) {
     if (splits < 1 || splits > MAX_SPLITS || !scratch || !tickets)
       return (int)cudaErrorInvalidValue;

@@ -19,9 +19,15 @@ A call with at most 16 rows per (batch, KV head), Sq * Hq / Hkv <= 16 (a
 decode step; the library reports the limit), splits its KV walk across
 `decode_splits` CTAs and combines their partials in split order inside the
 same launch; `flash_attention_split_plain` is that algorithm in plain
-torch.  Longer calls in bf16 run both products on tensor cores, p·v as the
-three bf16 parts of the f32 p that `bf16_parts` computes
-(`kernel_bf16_parts` runs the kernel's own split, for the checks).
+torch.  Such a call can also return a rank's partial over its segment of a
+KV cache cut by sequence (``return_lse``): its output in f32 and each
+row's log-sum-exp, which `launch.mesh.combine_partials` combines across
+ranks.  A segment may then hold no valid key yet (``kv_valid=0``): the
+kernel still launches and gives out = 0, lse = -inf.  `LSE_LAUNCHES`
+counts the launches that wrote it.  Longer calls in bf16 run both
+products on tensor cores, p·v as the three bf16 parts of the f32 p that
+`bf16_parts` computes (`kernel_bf16_parts` runs the kernel's own split,
+for the checks).
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ BN = 64
 
 #: kernel launches per wrapper since the last `reset_launches()`
 LAUNCHES = {"flash_attention": 0}
+#: of those, the launches that wrote each row's log-sum-exp
+LSE_LAUNCHES = {"flash_attention": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: `csrc/flash_attention.cu`, built by nvcc at first launch
@@ -53,10 +61,10 @@ LIBRARY = NvccLibrary("flash_attention", Path(__file__).resolve().parent
                       / "csrc" / "flash_attention.cu", {
     # q, k, v, out, dtype, b, hq, hkv, sq, d, kv_valid, kv_offset, causal,
     # scale, (batch, head, seq) strides of q, k, v, out, decode splits,
-    # decode scratch, decode tickets, stream
+    # decode scratch, decode tickets, lse (then out in f32), stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, ctypes.c_float) + (_LL,) * 12
-                              + (_I, _P, _P, _P),
+                              + (_I, _P, _P, _P, _P),
     # rows, max_splits: the decode body's limits
     "flash_attention_decode_limits": (ctypes.POINTER(_I),) * 2,
     # p, hi, mid, lo, n, stream
@@ -71,12 +79,14 @@ _TICKETS: Dict[torch.device, Tensor] = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LSE_LAUNCHES[k] = 0
 
 
 def _resolve(q: Tensor, k: Tensor, v: Tensor, scale: Optional[float],
-             kv_valid: Optional[int], kv_offset: Optional[int]
-             ) -> Tuple[float, int, int]:
-    """Check the shapes (any device) and fill the defaults."""
+             kv_valid: Optional[int], kv_offset: Optional[int],
+             empty_ok: bool = False) -> Tuple[float, int, int]:
+    """Check the shapes (any device) and fill the defaults; ``empty_ok``
+    lets ``kv_valid`` be 0 (a partial over a segment with no valid key)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention takes q (B, Hq, Sq, D) and k/v "
                          "(B, Hkv, Skv, D)")
@@ -90,8 +100,9 @@ def _resolve(q: Tensor, k: Tensor, v: Tensor, scale: Optional[float],
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
     kv_valid = skv if kv_valid is None else int(kv_valid)
     kv_offset = skv - sq if kv_offset is None else int(kv_offset)
-    if not 1 <= kv_valid <= skv:
-        raise ValueError(f"kv_valid={kv_valid} outside [1, Skv={skv}]")
+    if not (0 if empty_ok else 1) <= kv_valid <= skv:
+        raise ValueError(f"kv_valid={kv_valid} outside "
+                         f"[{0 if empty_ok else 1}, Skv={skv}]")
     return (d ** -0.5 if scale is None else float(scale)), kv_valid, kv_offset
 
 
@@ -124,51 +135,73 @@ def bf16_parts(p: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     return hi, mid, (r - mid.float()).to(torch.bfloat16)
 
 
+def _partial(out: Tensor, lse: Optional[Tensor], q: Tensor):
+    """From f32 ``out`` and ``lse`` (B, Hkv, group, Sq, ...): the partial
+    (out (B, Hq, Sq, D), lse (B, Hq, Sq)) in f32, or without ``lse`` the
+    output alone in q's dtype."""
+    b, hq, sq, d = q.shape
+    if lse is None:
+        return out.reshape(b, hq, sq, d).to(q.dtype)
+    return out.reshape(b, hq, sq, d), lse.reshape(b, hq, sq)
+
+
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
                           causal: bool = True, scale: Optional[float] = None,
                           kv_valid: Optional[int] = None,
                           kv_offset: Optional[int] = None,
-                          p_to_bf16: bool = False) -> Tensor:
+                          p_to_bf16: bool = False, return_lse: bool = False):
     """The kernel's function in plain torch: q, k and v upcast to f32, q
     scaled, the mask selected to -1e30, an f32 softmax, the output in q's
     dtype.  Keys at or past ``kv_valid`` are left out, as the kernel never
-    loads them.  ``p_to_bf16`` rounds p to bf16 before p·v (the
-    normalizer stays f32): SDPA's function, not the kernel's, the control
-    that shows a check can tell a kernel that keeps p in f32 from one that
-    does not."""
+    loads them.  ``p_to_bf16`` rounds p to bf16 before p·v (the normalizer
+    stays f32): SDPA's function, not the kernel's, the control that shows a
+    check can tell a kernel that keeps p in f32 from one that does not.
+    ``return_lse``: the partial, (out in f32, each row's log-sum-exp (B,
+    Hq, Sq) in f32, m + log l); a row that sees no key then gets out = 0
+    and lse = -inf, as the decode body gives them."""
     scale, kv_valid, kv_offset = _resolve(q, k, v, scale, kv_valid,
-                                          kv_offset)
+                                          kv_offset, empty_ok=return_lse)
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     qf = q.float().reshape(b, hkv, hq // hkv, sq, d) * scale
     kf = k[:, :, :kv_valid].float()
     vf = v[:, :, :kv_valid].float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf)
+    ok = None
     if causal:
         qpos = torch.arange(sq, device=q.device) + kv_offset
         kpos = torch.arange(kv_valid, device=q.device)
-        s = torch.where(kpos[None, :] <= qpos[:, None], s, _NEG)
-    m = s.amax(dim=-1, keepdim=True)
+        ok = kpos[None, :] <= qpos[:, None]
+        s = torch.where(ok, s, _NEG)
+    m = s.amax(dim=-1, keepdim=True) if kv_valid else \
+        s.new_full(s.shape[:-1] + (1,), _NEG)
     p = torch.exp(s - m)
+    if return_lse and ok is not None:  # a row with no valid key weighs 0
+        p = torch.where(ok, p, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     if p_to_bf16:
         p = p.to(torch.bfloat16).float()
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, vf) / torch.clamp(l, min=1e-30)
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(l), float("-inf"))[..., 0] \
+        if return_lse else None
+    return _partial(out, lse, q)
 
 
 def flash_attention_split_plain(q: Tensor, k: Tensor, v: Tensor, *,
                                 splits: int, causal: bool = True,
                                 scale: Optional[float] = None,
                                 kv_valid: Optional[int] = None,
-                                kv_offset: Optional[int] = None) -> Tensor:
+                                kv_offset: Optional[int] = None,
+                                return_lse: bool = False):
     """The decode kernel's algorithm in plain torch: the walk [0, kv_end) cut
     into ``splits`` ranges of whole 64-key tiles, each giving an f32 partial
     (m, l, acc) in which masked keys weigh 0 (a range that a row cannot see
     leaves m = -1e30, l = 0), then combined in split order:
-    out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30)."""
+    out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30), in
+    q's dtype.  ``return_lse``: the partial, (out in f32, each row's
+    log-sum-exp M + log l, -inf where l = 0); ``kv_valid`` may be 0."""
     scale, kv_valid, kv_offset = _resolve(q, k, v, scale, kv_valid,
-                                          kv_offset)
+                                          kv_offset, empty_ok=return_lse)
     if splits < 1:
         raise ValueError(f"splits={splits} < 1")
     b, hq, sq, d = q.shape
@@ -201,7 +234,9 @@ def flash_attention_split_plain(q: Tensor, k: Tensor, v: Tensor, *,
         den = den + w * l
         out = out + w * acc
     out = out / torch.clamp(den, min=1e-30)
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    lse = torch.where(den > 0, mx + torch.log(den), float("-inf"))[..., 0] \
+        if return_lse else None
+    return _partial(out, lse, q)
 
 
 @functools.lru_cache(maxsize=None)
@@ -283,25 +318,41 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     scale: Optional[float] = None,
                     kv_valid: Optional[int] = None,
-                    kv_offset: Optional[int] = None) -> Tensor:
+                    kv_offset: Optional[int] = None,
+                    return_lse: bool = False):
     """Attention of q (B, Hq, Sq, D) over k/v (B, Hkv, Skv, D); returns
-    (B, Hq, Sq, D) in q's dtype, laid out in memory as q is."""
+    (B, Hq, Sq, D) in q's dtype, laid out in memory as q is.
+    ``return_lse``: a rank's partial, (out in f32, lse (B, Hq, Sq) f32
+    each row's log-sum-exp); ``kv_valid`` may then be 0.  On the card it
+    is the decode body's (at most `decode_limits` rows per (batch, KV
+    head)): a longer call that asks for it raises."""
     scale, kv_valid, kv_offset = _resolve(q, k, v, scale, kv_valid,
-                                          kv_offset)
+                                          kv_offset, empty_ok=return_lse)
+    out_dtype = torch.float32 if return_lse else q.dtype
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     kv_valid=kv_valid, kv_offset=kv_offset)
-    if is_fake(q):
-        return torch.empty_like(q)
-    _check(q, k, v)
-    out = torch.empty_like(q)          # q's strides, D contiguous
+                                     kv_valid=kv_valid, kv_offset=kv_offset,
+                                     return_lse=return_lse)
     b, hq, sq, d = q.shape
+    if is_fake(q):
+        out = torch.empty_like(q, dtype=out_dtype)
+        return (out, torch.empty((b, hq, sq), dtype=torch.float32,
+                                 device=q.device)) if return_lse else out
+    _check(q, k, v)
+    out = torch.empty_like(q, dtype=out_dtype)   # q's strides
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     hkv = k.shape[1]
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     splits, scratch, tickets = 0, None, None
     rows, max_splits = decode_limits()
+    if return_lse and sq * (hq // hkv) > rows:
+        raise ValueError(f"flash_attention: a partial (the log-sum-exp) is "
+                         f"the decode body's, at most {rows} rows per "
+                         f"(batch, KV head); this call has "
+                         f"{sq * (hq // hkv)}")
     if sq * (hq // hkv) <= rows:
         splits = decode_splits(_kv_end(sq, kv_valid, kv_offset, causal),
                                b * hkv, _sm_count(q.device), max_splits)
@@ -315,6 +366,10 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                        scale, *strides, splits,
                        None if scratch is None else scratch.data_ptr(),
                        None if tickets is None else tickets.data_ptr(),
+                       None if lse is None else lse.data_ptr(),
                        torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES["flash_attention"] += 1
+    if return_lse:
+        LSE_LAUNCHES["flash_attention"] += 1
+        return out, lse
     return out

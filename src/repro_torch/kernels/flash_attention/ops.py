@@ -29,21 +29,25 @@ class _Flash(torch.autograd.Function):
     """The kernel forward; a backward raises (no backward kernel)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, kv_valid, kv_offset):
+    def forward(ctx, q, k, v, causal, scale, kv_valid, kv_offset,
+                return_lse):
         return _k.flash_attention(q, k, v, causal=causal, scale=scale,
-                                  kv_valid=kv_valid, kv_offset=kv_offset)
+                                  kv_valid=kv_valid, kv_offset=kv_offset,
+                                  return_lse=return_lse)
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         raise RuntimeError(NO_BACKWARD.format("flash_attention"))
 
 
 def flash(q, k, v, *, causal: bool, scale: Optional[float], kv_valid: int,
-          kv_offset: int):
+          kv_offset: int, return_lse: bool = False):
     """`kernel.flash_attention` for any D <= 256 (zero-padded to a multiple
     of 32).  Layouts as the kernel's: q (B, Hq, Sq, D), k/v (B, Hkv, Skv,
     D), any strides.  v's width must be D: a model with another value
-    width (MLA) runs the plain math.  A gradient through it raises."""
+    width (MLA) runs the plain math.  A gradient through it raises.
+    ``return_lse`` passes through (a rank's partial over its segment of a
+    cache cut by sequence: (out in f32, lse))."""
     d = q.shape[-1]
     if k.shape[-1] != d or v.shape[-1] != d:
         raise ValueError(f"the flash kernel takes one head width: q {d}, "
@@ -53,7 +57,11 @@ def flash(q, k, v, *, causal: bool, scale: Optional[float], kv_valid: int,
     pad = (-d) % _k.KERNEL_D_MULTIPLE
     if pad:
         q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
-    out = _Flash.apply(q, k, v, causal, scale, kv_valid, kv_offset)
+    out = _Flash.apply(q, k, v, causal, scale, kv_valid, kv_offset,
+                       return_lse)
+    if return_lse:
+        out, lse = out
+        return (out[..., :d] if pad else out), lse
     return out[..., :d] if pad else out
 
 

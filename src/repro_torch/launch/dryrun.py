@@ -41,12 +41,22 @@ rules cut computed on the rank's ``"model"`` cut, the other leaves
 gathered whole into the model (whose whole parameters stay placed and
 counted: the step's workspace); the ``partitioned`` override False runs
 the unpartitioned step on the same blocks.
-``serve_whole_params``: prefill and decode cells run `make_prefill_step` /
-`make_decode_step` on the rank's cut of the batch (`batch_shardings`) with
-whole parameters and no mesh, as `launch/serve.py` serves today: no
-collective, and not a sharded serving path.  A decode cell's caches are
-full (each attention layer's ``len`` at ``seq_len - 1``), as the
-reference's jitted step attends the whole cache.  ``local``
+``sharded_serve``: prefill and decode cells of the GQA self-attention
+configs (`serve_layout`) run `make_sharded_prefill_step` /
+`make_sharded_decode_step` on the recording mesh with the global batch:
+the rank holds only its blocks of the parameters (from the meta model,
+laid out by `params_shardings` under `arch_rules(cfg, mesh, "prefill" |
+"decode")`), places the leaves the rules cut over ``"model"`` as its cut
+and every other leaf whole, and its KV cache blocks by `cache_shardings`
+(the sequence over ``"model"``).  A decode cell's caches are full (each
+attention layer's ``len`` at ``seq_len - 1``), as the reference's jitted
+step attends the whole cache; the rank attends over its segment and
+combines the partials.  ``serve_whole_params``: the other configs'
+prefill and decode cells (the record's ``layout_reason``: MLA's latent
+cache, the Mamba state or cross-attention, each a later slice) run
+`make_prefill_step` / `make_decode_step` on the rank's cut of the batch
+(`batch_shardings`) with whole parameters and no mesh: no collective, and
+not a sharded serving path.  ``local``
 (`run_local_train`): the one-card trainer's step (`make_train_step`, the
 state `train` builds), for checking a prediction against a measured peak.
 
@@ -72,7 +82,7 @@ import os
 import time
 import traceback
 import weakref
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -83,10 +93,12 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import (ARCH_IDS, SHAPES, ShapeCell, cells_for,
                                  get_config)
 from repro_torch.launch import shardings as sh
-from repro_torch.launch.mesh import (RecordingMesh, make_production_mesh,
-                                     use_mesh)
+from repro_torch.launch.mesh import (RecordingMesh, block_shape,
+                                     make_production_mesh, use_mesh)
 from repro_torch.launch.steps import (abstract_train_state, make_decode_step,
                                       make_prefill_step,
+                                      make_sharded_decode_step,
+                                      make_sharded_prefill_step,
                                       make_sharded_train_step,
                                       make_train_step)
 from repro_torch.models.config import ModelConfig
@@ -136,6 +148,20 @@ def input_specs(cfg: ModelConfig, shape: ShapeCell) -> Dict[str, InputSpec]:
 
 def _moment_dtype(cfg: ModelConfig) -> str:
     return "bfloat16" if cfg.param_count() > 2e11 else "float32"
+
+
+def serve_layout(cfg: ModelConfig) -> Tuple[str, Optional[str]]:
+    """(layout, the reason where it is not sharded) of a config's prefill
+    and decode cells: ``sharded_serve`` for GQA self-attention (dense or
+    MoE), else ``serve_whole_params``."""
+    if cfg.mla is not None:
+        return "serve_whole_params", "MLA's latent cache (a later slice)"
+    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.n_layers)):
+        return ("serve_whole_params", "the Mamba state, cut by heads "
+                "(a later slice)")
+    if cfg.encoder is not None:
+        return "serve_whole_params", "cross-attention (a later slice)"
+    return "sharded_serve", None
 
 
 def default_microbatches(cfg: ModelConfig, shape: ShapeCell,
@@ -217,21 +243,6 @@ class LiveBytes(TorchDispatchMode):
         return out
 
 
-def _block(shape: Sequence[int], spec, mesh) -> Tuple[int, ...]:
-    """The shape of this rank's block of a leaf of ``shape`` under
-    ``spec`` (`launch.mesh.shard_of`'s)."""
-    out = list(shape)
-    for dim, entry in enumerate(spec or ()):
-        if entry:
-            axes = (entry,) if isinstance(entry, str) else tuple(entry)
-            n = mesh.size(axes)
-            if out[dim] % n:
-                raise ValueError(f"dim {dim} of {tuple(shape)} does not "
-                                 f"divide over {axes} ({n})")
-            out[dim] //= n
-    return tuple(out)
-
-
 def _empty(shape, dtype, device) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device=device)
 
@@ -240,8 +251,8 @@ def _batch(specs: Dict[str, InputSpec], device, cut=None, mesh=None
            ) -> Dict[str, torch.Tensor]:
     """Fake inputs of ``specs``, or of this rank's cut of them (``cut``:
     the batch's partition specs)."""
-    return {k: _empty(s.shape if cut is None else _block(s.shape, cut[k],
-                                                        mesh),
+    return {k: _empty(s.shape if cut is None
+                      else block_shape(s.shape, cut[k], mesh),
                       s.dtype, device) for k, s in specs.items()}
 
 
@@ -360,7 +371,7 @@ def run_cell(arch: str, shape: ShapeCell, multi_pod: bool,
                 model, opt_cfg, mesh, rules, microbatches=mb,
                 partitioned=bool(overrides.get("partitioned", True)))
             params_abs, opt_abs = abstract_train_state(model, opt_cfg)
-            lay = {n: (_block(p.shape, step.specs[n], mesh), p.dtype,
+            lay = {n: (block_shape(p.shape, step.specs[n], mesh), p.dtype,
                        {k: opt_abs[k][n].dtype for k in ("master", "m",
                                                          "v")})
                    for n, p in params_abs.items()}
@@ -377,8 +388,33 @@ def run_cell(arch: str, shape: ShapeCell, multi_pod: bool,
                           for k in ("master", "m", "v")}}
                 with use_mesh(mesh, rules):
                     return step(params, opt, _batch(specs, device))
+        elif serve_layout(cfg)[0] == "sharded_serve":
+            rec["layout"] = "sharded_serve"
+            rec["microbatches"] = 1
+            if shape.kind == "prefill":
+                step = make_sharded_prefill_step(model, shape.seq_len, mesh,
+                                                 rules)
+            else:
+                step = make_sharded_decode_step(model, mesh, rules)
+            lay = {n: (block_shape(p.shape, step.specs[n], mesh), p.dtype)
+                   for n, p in model.named_parameters()}
+            b = shape.global_batch
+
+            def body():
+                params = {n: _empty(blk, dt, device)
+                          for n, (blk, dt) in lay.items()}
+                batch = _batch(specs, device)
+                with use_mesh(mesh, rules):
+                    if shape.kind == "prefill":
+                        return step(params, batch)
+                    cache = model.init_cache(
+                        b, shape.seq_len, device=device, mesh=mesh,
+                        specs=step.cache_specs(b, shape.seq_len))
+                    for layer in cache["layers"]:
+                        layer["len"] = shape.seq_len - 1
+                    return step(params, cache, batch)
         else:
-            rec["layout"] = "serve_whole_params"
+            rec["layout"], rec["layout_reason"] = serve_layout(cfg)
             rec["microbatches"] = 1
             cut = sh.batch_shardings(specs, mesh, rules)
 
@@ -404,7 +440,7 @@ def run_cell(arch: str, shape: ShapeCell, multi_pod: bool,
         del out
     rec["model_flops_global"] = model_flops_global(cfg, shape)
     return _finish(rec, counting, lower_s,
-                   mesh if shape.kind == "train" else None)
+                   mesh if rec["layout"] != "serve_whole_params" else None)
 
 
 def run_local_train(cfg: ModelConfig, seq_len: int, global_batch: int, *,

@@ -36,6 +36,11 @@ on duplicate the work; the expert-parallel layer's training variant
 products (`models.tensor_parallel`: `sum_grad` on a column product's
 input, `all_reduce_grad` on a row product's output).
 
+`combine_partials` is sharded serving's one forward-only collective of
+its own: attention over a KV cache cut by sequence, from each rank's
+partial and log-sum-exp, gathered and merged in segment order
+(`merge_partials`) so every rank gets the same bits.
+
 `make_production_mesh` describes the reference's production meshes (no
 process group), and `RecordingMesh` is a mesh at one coordinate of such a
 shape with no ``torch.distributed`` behind it: its collectives return
@@ -192,10 +197,11 @@ class Mesh:
 
     # --- collectives --------------------------------------------------------
     def _run(self, name: str, fn, out: Tensor, *ins: Tensor,
-             axes: AxisNames = ()) -> Tensor:
+             axes: AxisNames = (), label: Optional[str] = None) -> Tensor:
         """Issue one collective over ``axes`` (None: the world), through
         the host where the backend refuses CUDA buffers for it
-        (`host_staged`)."""
+        (`host_staged`).  ``label`` names the caller's operation where it
+        is not the collective itself (`RecordingMesh.log` keeps it)."""
         if self.sync_timing and out.is_cuda:
             torch.cuda.synchronize(out.device)
         t0 = time.perf_counter()
@@ -246,16 +252,18 @@ class Mesh:
             o, i, group=self.group(axes)), out, send, axes=axes)
         return out
 
-    def all_gather(self, x: Tensor, axes: AxisNames) -> Tensor:
+    def all_gather(self, x: Tensor, axes: AxisNames,
+                   label: Optional[str] = None) -> Tensor:
         """Every member's ``x`` stacked along dim 0 by index.
-        `lax.all_gather(tiled=True)`."""
+        `lax.all_gather(tiled=True)`.  ``label``: see `_run`."""
         n = self.size(axes)
         if not _names(axes):
             return x.clone()
         perm = self._perm(axes, x.device)
         out = x.new_empty((n * x.shape[0], *x.shape[1:]))
         self._run("all_gather", lambda o, i: dist.all_gather_into_tensor(
-            o, i, group=self.group(axes)), out, x.contiguous(), axes=axes)
+            o, i, group=self.group(axes)), out, x.contiguous(), axes=axes,
+            label=label)
         if perm is not None:
             out = out.reshape(n, *x.shape)[perm].reshape(out.shape)
         return out
@@ -374,7 +382,8 @@ class RecordingMesh(Mesh):
     are not exchanged) and is recorded instead of issued, in `calls`:
     (kind, group size, wire bytes, link), the kind and the wire bytes as
     `repro.launch.hlo_stats` names and counts them; `log` holds each
-    call's axes and input shape beside.  A group inside one
+    call's kind (or its ``label``: ``"combine_partials"``), axes and
+    input shape beside.  A group inside one
     node (`NODE_RANKS` consecutive ranks) rides ``"nvlink"``, any other
     ``"ib"``.  The dry run's mesh (`launch.dryrun`), the counterpart
     of the reference's HLO parse: eager torch has no HLO text."""
@@ -396,7 +405,8 @@ class RecordingMesh(Mesh):
         self.exchange_s, self.sync_timing = 0.0, False
         self._groups = {}
         self.calls: list = []
-        #: each call's (kind, axes, input shape), in `calls`' order
+        #: each call's (kind or label, axes, input shape), in `calls`'
+        #: order
         self.log: list = []
 
     def world_size(self) -> int:
@@ -413,7 +423,7 @@ class RecordingMesh(Mesh):
         return None
 
     def _run(self, name: str, fn, out: Tensor, *ins: Tensor,
-             axes: AxisNames = ()) -> Tensor:
+             axes: AxisNames = (), label: Optional[str] = None) -> Tensor:
         members = self.ranks if axes is None else self.members(axes)
         n = len(members)
         kind = HLO_KINDS[name]
@@ -422,7 +432,8 @@ class RecordingMesh(Mesh):
                 else "ib")
         self.calls.append((kind, n, wire_bytes(kind, n, in_bytes, out.nbytes),
                            link))
-        self.log.append((kind, None if axes is None else _names(axes),
+        self.log.append((label or kind, None if axes is None
+                         else _names(axes),
                          tuple((ins[0] if ins else out).shape)))
         return out
 
@@ -451,6 +462,44 @@ class RecordingMesh(Mesh):
     def __repr__(self):
         return (f"RecordingMesh({dict(self.shape)}, rank {self.rank} at "
                 f"{self.coords})")
+
+
+# ---------------------------------------------------------------------------
+# Attention's partials over a cache cut by sequence (sharded serving)
+# ---------------------------------------------------------------------------
+
+def merge_partials(outs: Tensor, lses: Tensor) -> Tensor:
+    """The attention over every segment from each segment's: ``outs``
+    (n, ..., D) and ``lses`` (n, ...), segment ``i`` at index ``i``,
+    merged in segment order: m = max lse, w_i = e^(lse_i - m), out =
+    sum w_i out_i / sum w_i, in f32.  A segment with lse = -inf weighs
+    0; where every segment has, the output is 0."""
+    outs, lses = outs.float(), lses.float()
+    m = lses.amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    num = den = None
+    for out, lse in zip(outs, lses):
+        w = torch.exp(lse - m)
+        num = w[..., None] * out if num is None else num + w[..., None] * out
+        den = w if den is None else den + w
+    return num / torch.clamp(den, min=1e-30)[..., None]
+
+
+def combine_partials(out: Tensor, lse: Tensor, mesh: Mesh,
+                     axes: AxisNames) -> Tensor:
+    """Attention over a KV cache whose sequence is cut over ``axes`` from
+    this rank's partial over its segment: ``out`` (..., D), ``lse`` (...)
+    each row's log-sum-exp (-inf where the segment holds no valid key).
+    One all-gather of (out, lse) over ``axes`` (f32), then
+    `merge_partials` in segment order on every rank, so every rank gets
+    the same bits.  Forward only; `RecordingMesh` logs it as
+    ``"combine_partials"``."""
+    if mesh.size(axes) == 1:
+        return out.float()
+    packed = torch.cat([out.float(), lse.float()[..., None]], dim=-1)
+    got = mesh.all_gather(packed, axes, label="combine_partials")
+    got = got.reshape(mesh.size(axes), *packed.shape)
+    return merge_partials(got[..., :-1], got[..., -1])
 
 
 # ---------------------------------------------------------------------------
@@ -551,6 +600,19 @@ def _sharded_dims(spec, only: Optional[AxisNames] = None) -> list:
             raise ValueError(f"dim {d} of spec {spec} is sharded over "
                              f"{axes}, not within {sorted(only)}")
     return [(d, axes) for d, axes in dims if only.issuperset(axes)]
+
+
+def block_shape(shape: Sequence[int], spec, mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of this rank's block (`shard_of`) of a leaf of ``shape``
+    under ``spec``, without the leaf."""
+    out = list(shape)
+    for dim, names in _sharded_dims(spec):
+        n = mesh.size(names)
+        if out[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not "
+                             f"divide over {names} ({n})")
+        out[dim] //= n
+    return tuple(out)
 
 
 def shard_of(full: Tensor, spec, mesh: Mesh,

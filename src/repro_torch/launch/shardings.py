@@ -19,7 +19,9 @@ reference resolves them, and the stacking entry is then dropped.
 
 `model_cuts` says, for each leaf, whether the sharded train step computes
 on its ``"model"`` cut (the reference's partitioned step), holds it whole
-with a partial gradient, or gathers it whole.
+with a partial gradient, or gathers it whole; with ``serving=True``, the
+same for the sharded serving steps, which cut the MoE configs' dense
+leaves too.
 """
 
 from __future__ import annotations
@@ -179,8 +181,8 @@ _KV_CUT = {"wk": 1, "wv": 1, "bk": 0, "bv": 0}
 _VOCAB_CUT = {"embed": 0, "lm_head": 0}
 
 
-def model_cuts(cfg: ModelConfig, specs: Mapping[str, Spec], mesh
-               ) -> Dict[str, ModelCut]:
+def model_cuts(cfg: ModelConfig, specs: Mapping[str, Spec], mesh,
+               serving: bool = False) -> Dict[str, ModelCut]:
     """{parameter name: `ModelCut`} for `params_shardings`' ``specs`` on
     ``mesh``: which leaves the sharded train step computes on their
     ``"model"`` cut, as the reference's partitioned step does.
@@ -195,13 +197,15 @@ def model_cuts(cfg: ModelConfig, specs: Mapping[str, Spec], mesh
     rows; ``b2`` is added after the sum, "whole".  ``embed`` and
     ``lm_head`` are cut where the vocabulary is.  Everything else is
     "whole": MLA, Mamba, cross-attention and MoE leaves (the step keeps
-    expert blocks apart), norms, learned positions.  Every leaf of a
-    config with MoE layers (deepseek_v3, jamba, dbrx) is "whole" too:
-    those keep the unpartitioned step beside their expert-parallel
-    layer."""
+    expert blocks apart), norms, learned positions.  In training every
+    leaf of a config with MoE layers (deepseek_v3, jamba, dbrx) is
+    "whole" too: those keep the unpartitioned step beside their
+    expert-parallel layer (AdamW's conditioning, ROADMAP).  ``serving``
+    (the sharded prefill and decode steps, which update nothing) cuts
+    their dense leaves as any config's."""
     tp = mesh.shape.get("model", 1)
     out = {n: ModelCut(None, "whole") for n in specs}
-    if tp <= 1 or cfg.moe is not None:
+    if tp <= 1 or (cfg.moe is not None and not serving):
         return out
     modules: Dict[str, Dict[str, Spec]] = {}
     for name, spec in specs.items():

@@ -12,18 +12,27 @@ rank holding only its blocks of the parameters and of AdamW's state
 (`launch.shardings`) and computing the GQA attention, dense MLP and
 vocabulary leaves the rules cut on its ``"model"`` cut: the reference's
 jitted step under its shardings, partitioned as XLA partitions it.
+
+`make_sharded_prefill_step` and `make_sharded_decode_step` are the
+reference's jitted serving steps under `params_shardings` and
+`cache_shardings` (`arch_rules(..., "prefill" | "decode")`): each rank
+holds its KV cache blocks, cut by sequence over ``"model"``, and computes
+the same leaves on its ``"model"`` cut; decode combines the ranks'
+attention partials (`launch.mesh.combine_partials`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.launch.mesh import gather_full, shard_of
+from repro_torch.launch.mesh import gather_full, shard_of, use_mesh
 from repro_torch.launch.shardings import (ModelCut, batch_shardings,
-                                         model_cuts, params_shardings)
+                                         cache_shardings, model_cuts,
+                                         params_shardings)
 from repro_torch.models import moe, tensor_parallel
 from repro_torch.models.model import LM
 from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
@@ -307,6 +316,193 @@ def _expert_leaves(model: LM, mesh, specs) -> Dict[str, Tuple[Any, str]]:
                     f"'model', the spec is {specs[name]}")
             out[name] = (model.get_submodule(head), key)
     return out
+
+
+class _Shaped(tuple):
+    """A leaf's shape where `cache_shardings` reads ``.shape`` and
+    ``.ndim``."""
+
+    @property
+    def shape(self):
+        return tuple(self)
+
+    @property
+    def ndim(self):
+        return len(self)
+
+
+class _ServeLayout:
+    """What the sharded serving steps of ``model`` on ``mesh`` share: each
+    parameter's spec, how the steps compute with it along ``"model"``,
+    and the rank's placement of the parameters in ``model`` (made once per
+    model and set of blocks: the prefill and decode steps of one model
+    share it)."""
+
+    def __init__(self, model: LM, mesh, rules: Dict[str, Any]):
+        cfg = model.cfg
+        if cfg.mla is not None or cfg.encoder is not None or any(
+                b.kind != "attn" for b in model.blocks):
+            raise NotImplementedError(
+                "sharded serving covers GQA self-attention configs; MLA's "
+                "latent cache, the Mamba state and cross-attention wait "
+                "for a later slice")
+        self.model, self.mesh, self.rules = model, mesh, rules
+        placed = getattr(model, "_sharded_serve", None)
+        #: the parameters' whole shapes (meta), before any placement
+        self.full = placed["full"] if placed else {
+            n: torch.empty(p.shape, dtype=p.dtype, device="meta")
+            for n, p in model.named_parameters()}
+        self.specs = params_shardings(cfg, self.full, mesh, rules)
+        self.cuts = model_cuts(cfg, self.specs, mesh, serving=True)
+        self.experts = set(_expert_leaves(model, mesh, self.specs))
+        self.rest = tuple(a for a in mesh.axis_names if a != "model")
+
+    def cache_specs(self, batch_size: int, s_max: int) -> Dict[str, Any]:
+        """`cache_shardings` of the whole cache of ``batch_size`` rows of
+        ``s_max`` (from its shapes: nothing is made)."""
+        cfg = self.model.cfg
+        kv = _Shaped((batch_size, s_max, cfg.n_kv_heads, cfg.head_dim))
+        whole = {"layers": [{"k": kv, "v": kv, "len": 0}
+                            for _ in self.model.blocks], "enc_out": None}
+        return cache_shardings(whole, self.mesh, self.rules)
+
+    def place(self, params: Dict[str, Tensor]) -> float:
+        """Put this rank's parameters in the model from its blocks
+        ``params``, unless these blocks are placed already: each leaf the
+        steps compute on its ``"model"`` cut, and each expert block,
+        gathered over the other axes only; every other leaf whole.  Host
+        seconds it took (0.0 when placed already)."""
+        model = self.model
+        key = (id(self.mesh), tuple(id(t) for t in params.values()))
+        placed = getattr(model, "_sharded_serve", None)
+        if placed is not None and placed["key"] == key:
+            return 0.0
+        if params.keys() != self.full.keys():
+            raise KeyError(f"parameter names differ from the model's: "
+                           f"{sorted(set(params) ^ set(self.full))}")
+        t0 = _clock(next(iter(params.values())).device)
+        sel = {}
+        with torch.no_grad():
+            for name, blk in params.items():
+                mine = name in self.experts or self.cuts[name].mode == "cut"
+                t = gather_full(blk, self.specs[name], self.mesh,
+                                self.rest if mine else None)
+                head, _, leaf = name.rpartition(".")
+                module = model.get_submodule(head) if head else model
+                module._parameters[leaf] = p = torch.nn.Parameter(
+                    t, requires_grad=False)
+                if mine or leaf == "router":
+                    sel[id(p)] = p
+        model._sharded_serve = dict(key=key, full=self.full, selection=sel)
+        return _clock(t.device) - t0
+
+    @contextlib.contextmanager
+    def selected(self, batch_axes: Tuple[str, ...]):
+        """The rank's products for the block: its placed cuts selected as
+        their own blocks (`models.tensor_parallel.cuts`), the mesh and
+        rules installed, no gradient."""
+        sel = self.model._sharded_serve["selection"]
+        with torch.no_grad(), use_mesh(self.mesh, self.rules), \
+                tensor_parallel.cuts(self.mesh, sel, batch_axes):
+            yield
+
+    def local_batch(self, batch: Dict[str, Tensor]
+                    ) -> Tuple[Dict[str, Tensor], Tuple[str, ...]]:
+        """This rank's cut of the global ``batch`` (`batch_shardings`) and
+        the axes its batch is cut over."""
+        cut = batch_shardings(batch, self.mesh, self.rules)
+        key = "embeds" if "embeds" in batch else "tokens"
+        return ({k: shard_of(x, cut[k], self.mesh) for k, x in batch.items()},
+                _axes(cut[key][0] if cut[key] else None))
+
+
+def _serve_step(layout: _ServeLayout, step: Callable) -> Callable:
+    step.specs = layout.specs
+    step.cuts = layout.cuts
+    step.cache_specs = layout.cache_specs
+    step.metrics = {}
+    return step
+
+
+def make_sharded_prefill_step(model: LM, s_max: int, mesh,
+                              rules: Dict[str, Any]) -> Callable:
+    """(param blocks, global batch) -> (this rank's cache blocks, the last
+    position's logits (B / data, vocab) for the rank's cut of the batch),
+    called by every rank of ``mesh``: the reference's prefill step jitted
+    under `params_shardings` and `cache_shardings` (``rules``:
+    `arch_rules(cfg, mesh, "prefill")`).  GQA self-attention configs only
+    (with MoE layers too: dbrx).
+
+    At its first call with a set of blocks the rank places its parameters
+    in ``model`` once (serving updates nothing): each leaf the rules cut
+    over ``"model"`` in a module that computes on the cut
+    (`model_cuts(..., serving=True)`: GQA attention, dense MLPs,
+    vocabulary) and each expert block, gathered over the batch's axes
+    only, so no whole copy of such a leaf is placed; every other leaf
+    whole.  ``model`` may be built on meta.  The rank's cache blocks
+    (`LM.init_cache` with the mesh) start empty; the prompt's attention
+    runs on the rank's heads over its own k and v, and each rank writes
+    the rows of its sequence segment (`models.attention`).
+
+    ``.specs``, ``.cuts``, ``.cache_specs(batch_size, s_max)``; after a
+    call ``.metrics``: host seconds (the card synchronised) of the call
+    (``prefill_s``), inside the mesh's collectives (``exchange_s``), the
+    rest (``compute_s``) and of the placement (``place_s``)."""
+    layout = _ServeLayout(model, mesh, rules)
+
+    def step(params, batch):
+        place_s = layout.place(params)
+        ex0 = mesh.exchange_s
+        t0 = _clock(model.device)
+        local, axes = layout.local_batch(batch)
+        inp = batch["embeds"] if "embeds" in batch else batch["tokens"]
+        b = inp.shape[0]
+        cache = model.init_cache(b, s_max, mesh=mesh,
+                                 specs=layout.cache_specs(b, s_max))
+        with layout.selected(axes):
+            cache, logits = model.prefill(local, s_max, cache=cache)
+        total = _clock(model.device) - t0
+        ex = mesh.exchange_s - ex0
+        step.metrics = dict(prefill_s=total, exchange_s=ex,
+                            compute_s=total - ex, place_s=place_s)
+        return cache, logits
+
+    return _serve_step(layout, step)
+
+
+def make_sharded_decode_step(model: LM, mesh, rules: Dict[str, Any]
+                             ) -> Callable:
+    """(param blocks, this rank's cache blocks, global batch of one token)
+    -> (the cache, the logits (B / data, vocab) of the rank's cut of the
+    batch), called by every rank of ``mesh``: the reference's decode step
+    jitted under its shardings (``rules``: `arch_rules(cfg, mesh,
+    "decode")`).  The parameters are placed as
+    `make_sharded_prefill_step` places them (once per model and blocks:
+    a decode step made on the prefill step's model uses its placement).
+
+    Each attention layer gathers the new token's q to every head, attends
+    over the rank's segment of the cache through the flash kernel's
+    decode body with each row's log-sum-exp, and combines the ranks'
+    partials (`launch.mesh.combine_partials`, one a layer); the rank that
+    owns row ``len`` writes the token's k and v.  ``len`` stays global.
+    ``.specs``, ``.cuts``, ``.cache_specs``; ``.metrics`` as the prefill
+    step's, with ``decode_s``."""
+    layout = _ServeLayout(model, mesh, rules)
+
+    def step(params, cache, batch):
+        place_s = layout.place(params)
+        ex0 = mesh.exchange_s
+        t0 = _clock(model.device)
+        local, axes = layout.local_batch(batch)
+        with layout.selected(axes):
+            cache, logits = model.decode_step(cache, local)
+        total = _clock(model.device) - t0
+        ex = mesh.exchange_s - ex0
+        step.metrics = dict(decode_s=total, exchange_s=ex,
+                            compute_s=total - ex, place_s=place_s)
+        return cache, logits
+
+    return _serve_step(layout, step)
 
 
 def make_prefill_step(model: LM, s_max: int) -> Callable:

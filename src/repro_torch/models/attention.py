@@ -23,6 +23,16 @@ a step of s tokens writes rows [len, len + s) in place (the reference
 returns updated copies) and attends to [0, len + s).  Writing past S_max
 raises, where the reference's `dynamic_update_slice` would clamp the write.
 
+A sharded serving step's cache (`make_kv_cache` with a mesh) is this
+rank's block under the reference's `cache_shardings`: k and v (B / data,
+S_max / n, Hkv, Dh) with ``mesh`` and ``seq``, the axes its sequence is
+cut over (n ranks; none where S_max does not divide), ``len`` global.
+Rank r holds rows [r S_loc, (r + 1) S_loc).  `gqa_forward` writes the
+rows of its own segment; a prefill attends over the prompt's own k and v;
+a decode step gathers q to every head, attends over its segment, and
+combines the ranks' partials by their log-sum-exps
+(`launch.mesh.combine_partials`).
+
 MLA expands the latent cache per head as the reference's baseline does (no
 absorbed matmul) and always runs `_sdpa`'s plain math, as the reference
 runs MLA on its jnp math: the kernel takes Dv = D only.
@@ -103,7 +113,22 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype):
 
 
 def make_kv_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
-                  device="cuda") -> dict:
+                  device="cuda", *, mesh=None, spec=()) -> dict:
+    """An empty cache of ``batch`` rows of ``s_max``; with ``mesh``, this
+    rank's block of it under ``spec`` (the k leaf's partition spec:
+    batch, sequence, kv heads), and the sequence's axes (module
+    docstring)."""
+    if mesh is not None:
+        if cfg.mla is not None:
+            raise NotImplementedError("MLA's latent cache is not cut by "
+                                      "sequence yet")
+        shape = mesh_lib.block_shape(
+            (batch, s_max, cfg.n_kv_heads, cfg.head_dim), spec, mesh)
+        seq = spec[1] if len(spec) > 1 and spec[1] else ()
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "len": 0, "mesh": mesh,
+                "seq": (seq,) if isinstance(seq, str) else tuple(seq)}
     if cfg.mla is not None:
         m = cfg.mla
         return {"ckv": torch.zeros((batch, s_max, m.kv_lora_rank),
@@ -123,7 +148,7 @@ def make_kv_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
 
 def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, kv_len: int,
           q_offset: int, scale: float, impl: str, q_chunk: int = 0,
-          use_kernel: Optional[bool] = None) -> Tensor:
+          use_kernel: Optional[bool] = None, return_lse: bool = False):
     """q (B,Sq,H,D); k (B,Skv,Hkv,D); v (B,Skv,Hkv,Dv); kv_len: valid kv
     prefix; q_offset: global position of q[0].  Returns (B,Sq,H,Dv) in q's
     dtype.
@@ -132,7 +157,13 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, kv_len: int,
     ones; True = `ops.flash` (the kernel, or its plain version on CPU
     tensors; Dv = D only); False = the plain math: ``impl`` "ref" (full
     scores), "chunked" (query blocks, recomputed in backward) or "tri"
-    (`_sdpa_tri`, causal with Sq = Skv; otherwise the chunked math)."""
+    (`_sdpa_tri`, causal with Sq = Skv; otherwise the chunked math).
+
+    ``return_lse``: a partial over a segment of a cache cut by sequence,
+    (out (B,Sq,H,D) in f32, each row's log-sum-exp (B,Sq,H) in f32); the
+    kernel's decode body on the card, the full-score math without it; a
+    row with no valid key (``kv_len`` may be 0) gets out = 0, lse =
+    -inf."""
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if use_kernel is None:
@@ -140,8 +171,16 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, kv_len: int,
     if use_kernel:
         out = fa_ops.flash(q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), causal=causal, scale=scale,
-                           kv_valid=kv_len, kv_offset=q_offset)
+                           kv_valid=kv_len, kv_offset=q_offset,
+                           return_lse=return_lse)
+        if return_lse:
+            out, lse = out
+            return (out.transpose(1, 2).reshape(b, sq, hq, dh),
+                    lse.transpose(1, 2))
         return out.transpose(1, 2).reshape(b, sq, hq, dh)
+    if return_lse:
+        return _sdpa_lse(q, k, v, causal=causal, kv_len=kv_len,
+                         q_offset=q_offset, scale=scale)
     if impl == "tri" and causal and sq == skv:
         return _sdpa_tri(q, k, v, kv_len=kv_len, scale=scale)
     if q_chunk == 0:
@@ -172,6 +211,31 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, kv_len: int,
         out = torch.cat([run(qg[:, lo:lo + q_chunk], pos[lo:lo + q_chunk])
                          for lo in range(0, sq, q_chunk)], dim=1)
     return out.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
+
+
+def _sdpa_lse(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, kv_len: int,
+              q_offset: int, scale: float) -> Tuple[Tensor, Tensor]:
+    """`_sdpa`'s full-score math as a partial: (out (B,Sq,H,Dv) f32, lse
+    (B,Sq,H) f32), p rounded to v's dtype before p·v as there; a row with
+    no valid key gets out = 0 and lse = -inf."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", upcast(qg), upcast(k)) * scale
+    kpos = torch.arange(skv, device=q.device)
+    valid = (kpos < kv_len)[None, :]
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        valid = valid & (kpos[None, :] <= qpos[:, None])
+    s = torch.where(valid, s, _NEG)
+    seen = valid.any(dim=-1)                           # (Sq,)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", upcast(p.to(v.dtype)), upcast(v))
+    out = torch.where(seen[None, :, None, None, None], out, 0.0)
+    lse = torch.where(seen, torch.logsumexp(s, -1),
+                      float("-inf"))                   # (B,Hkv,g,Sq)
+    return (out.reshape(b, sq, hq, v.shape[-1]).float(),
+            lse.permute(0, 3, 1, 2).reshape(b, sq, hq).float())
 
 
 def _sdpa_tri(q: Tensor, k: Tensor, v: Tensor, *, kv_len: int,
@@ -272,7 +336,10 @@ def gqa_forward(params: nn.ParameterDict, x: Tensor, cfg: ModelConfig, *,
     columns and ``wo`` their rows, its output summed over ``"model"``;
     ``wk`` / ``wv`` / ``bk`` / ``bv`` are its kv heads' columns, or whole,
     and then the rank attends with the kv heads its query heads use
-    (`_own_kv`).  The head counts are the leaves' widths."""
+    (`_own_kv`).  The head counts are the leaves' widths.
+
+    A sharded serving step's cache block (`make_kv_cache` with a mesh)
+    goes through `_attend_cut_cache`."""
     b, s, d = x.shape
     hd = cfg.head_dim
     mesh = tp.mesh_of(params["wq"])
@@ -288,12 +355,20 @@ def gqa_forward(params: nn.ParameterDict, x: Tensor, cfg: ModelConfig, *,
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
-    if h < cfg.n_heads and hkv == cfg.n_kv_heads:
-        k, v = _own_kv(k, v, cfg, h * mesh.index("model"), h)
 
     cache_len = cache["len"] if cache is not None else 0
     pos = _positions(cache_len, b, s, x.device)
     q, k = _apply_pos(q, k, cfg, pos, positions3)
+    if cache is not None and cache.get("mesh") is not None:
+        out, new_cache = _attend_cut_cache(q, k, v, cache, cfg, mesh,
+                                           causal=causal, impl=impl,
+                                           use_kernel=use_kernel)
+        out = out.reshape(b, s, h * hd) @ p["wo"]
+        if mesh is not None:                         # the row product's sum
+            out = mesh_lib.all_reduce_grad(out, mesh, "model", ())
+        return out, new_cache
+    if h < cfg.n_heads and hkv == cfg.n_kv_heads:
+        k, v = _own_kv(k, v, cfg, h * mesh.index("model"), h)
 
     if cache is not None:
         kc, vc = cache["k"], cache["v"]
@@ -314,6 +389,77 @@ def gqa_forward(params: nn.ParameterDict, x: Tensor, cfg: ModelConfig, *,
     if mesh is not None:                             # the row product's sum
         out = mesh_lib.all_reduce_grad(out, mesh, "model", ())
     return out, new_cache
+
+
+def _heads_over_model(t: Tensor, mesh) -> Tensor:
+    """(B, S, H_loc, D) cut over ``"model"`` by heads -> every head."""
+    whole = mesh.all_gather(t.permute(2, 0, 1, 3).contiguous(), "model")
+    return whole.permute(1, 2, 0, 3)
+
+
+def _attend_cut_cache(q: Tensor, k: Tensor, v: Tensor, cache: dict,
+                      cfg: ModelConfig, mesh, *, causal: bool, impl: str,
+                      use_kernel: Optional[bool]) -> Tuple[Tensor, dict]:
+    """Attention of a sharded serving step on this rank's cache block
+    (module docstring): q (B, s, h, D) the rank's query heads, k / v the
+    heads it computed (its cut over ``"model"``, or every kv head), all
+    rotated at their global positions.  Returns (out (B, s, h, D) for the
+    rank's query heads, the cache with ``len`` advanced).
+
+    The block holds every kv head or the rank's cut of them (the heads
+    ``cache_shardings`` leaves when the sequence claims ``"model"``); the
+    rank gathers its computed heads over ``"model"`` where the block holds
+    more, and writes the rows of [len, len + s) that fall in its segment.
+    A cache whole along the sequence attends as the local path.  Else a
+    prefill (``len`` 0) attends over the prompt's own k and v on the
+    rank's heads, and a later step gathers q to every head, attends over
+    the rank's segment (``kv_len`` its valid rows, clamped to [0, S_loc])
+    for a partial with its log-sum-exp, and combines the segments' in
+    segment order (`launch.mesh.combine_partials`), of which the rank
+    keeps its query heads."""
+    b, s, h, hd = q.shape
+    cmesh, seq = cache["mesh"], cache["seq"]
+    kc, vc, length = cache["k"], cache["v"], cache["len"]
+    n = cmesh.size(seq)
+    r = cmesh.index(seq) if seq else 0
+    s_loc = kc.shape[1]
+    if length + s > n * s_loc:
+        raise ValueError(f"KV cache overflow: {length} cached + {s} new "
+                         f"rows > s_max {n * s_loc}")
+    first = h * mesh.index("model") if h < cfg.n_heads else 0
+    kw, vw = k, v
+    if kc.shape[2] != k.shape[2]:
+        if mesh is None or kc.shape[2] != k.shape[2] * mesh.size("model"):
+            raise NotImplementedError(
+                f"a cache block of {kc.shape[2]} kv heads beside "
+                f"{k.shape[2]} computed")
+        kw, vw = (_heads_over_model(t, mesh) for t in (k, v))
+    lo, hi = max(length, r * s_loc), min(length + s, (r + 1) * s_loc)
+    if lo < hi:
+        kc[:, lo - r * s_loc:hi - r * s_loc] = kw[:, lo - length:hi - length]
+        vc[:, lo - r * s_loc:hi - r * s_loc] = vw[:, lo - length:hi - length]
+    new_cache = {**cache, "len": length + s}
+
+    def own(kk, vv):
+        if h < cfg.n_heads and kk.shape[2] == cfg.n_kv_heads:
+            return _own_kv(kk, vv, cfg, first, h)
+        return kk, vv
+
+    kw_ = dict(causal=causal, scale=hd ** -0.5, impl=impl,
+               use_kernel=use_kernel)
+    if n == 1:
+        kk, vv = own(kc, vc)
+        return _sdpa(q, kk, vv, kv_len=length + s, q_offset=length,
+                     **kw_), new_cache
+    if length == 0:
+        kk, vv = own(k, v)
+        return _sdpa(q, kk, vv, kv_len=s, q_offset=0, **kw_), new_cache
+    qa = _heads_over_model(q, mesh) if h < cfg.n_heads else q
+    part, lse = _sdpa(qa, kc, vc, kv_len=min(max(length + s - r * s_loc, 0),
+                                             s_loc),
+                      q_offset=length - r * s_loc, return_lse=True, **kw_)
+    out = mesh_lib.combine_partials(part, lse, cmesh, seq).to(q.dtype)
+    return out[:, :, first:first + h], new_cache
 
 
 def _own_kv(k: Tensor, v: Tensor, cfg: ModelConfig, first: int, count: int

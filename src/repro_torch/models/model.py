@@ -170,7 +170,15 @@ class LM(nn.Module):
         return w.T  # (d, vocab)
 
     def _logits(self, h: Tensor) -> Tensor:
-        return upcast(h[:, -1]) @ upcast(self._head())
+        """The last position's f32 logits (B, vocab).  Where a sharded
+        serving step cut the head over ``"model"`` (`tensor_parallel`),
+        the rank's vocabulary slice, all-gathered over ``"model"``."""
+        w = self.embed if self.cfg.tie_embeddings else self.lm_head
+        mesh = tp.mesh_of(w)
+        if mesh is None:
+            return upcast(h[:, -1]) @ upcast(self._head())
+        part = upcast(h[:, -1]) @ upcast(tp.block(w).T)    # (B, V_loc)
+        return mesh.all_gather(part.T.contiguous(), "model").T
 
     # ------------------------------------------------------------------ loss
     def _enc_out(self, batch: Dict[str, Tensor]) -> Optional[Tensor]:
@@ -192,22 +200,39 @@ class LM(nn.Module):
         return ce if aux is None else ce + aux
 
     # --------------------------------------------------------------- serving
-    def init_cache(self, batch_size: int, s_max: int) -> Dict[str, Any]:
+    def init_cache(self, batch_size: int, s_max: int, *, device=None,
+                   mesh=None, specs=None) -> Dict[str, Any]:
         """One cache per layer: a KV cache of ``s_max`` rows for each
         attention layer, the conv window and SSM state for each SSM layer;
-        and ``enc_out``, the encoder's output, which `prefill` fills."""
+        and ``enc_out``, the encoder's output, which `prefill` fills.
+        With ``mesh``, this rank's blocks of the KV caches of a global
+        batch of ``batch_size`` under ``specs`` (`launch.shardings.
+        cache_shardings`' structure; attention layers only)."""
+        device = self.device if device is None else device
+        if mesh is not None:
+            if any(block.kind != "attn" for block in self.blocks):
+                raise NotImplementedError("the SSM state is not cut on a "
+                                          "mesh yet")
+            return {"layers": [
+                make_kv_cache(self.cfg, batch_size, s_max, self.dtype,
+                              device, mesh=mesh, spec=spec["k"])
+                for spec in specs["layers"]], "enc_out": None}
         return {"layers": [
             make_kv_cache(self.cfg, batch_size, s_max, self.dtype,
-                          self.device) if block.kind == "attn" else
-            make_ssm_cache(self.cfg, batch_size, self.dtype, self.device)
+                          device) if block.kind == "attn" else
+            make_ssm_cache(self.cfg, batch_size, self.dtype, device)
             for block in self.blocks], "enc_out": None}
 
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, Tensor], s_max: int
+    def prefill(self, batch: Dict[str, Tensor], s_max: int,
+                cache: Optional[Dict[str, Any]] = None
                 ) -> Tuple[Dict[str, Any], Tensor]:
-        """Run the full prompt, fill caches, return (cache, last logits)."""
+        """Run the full prompt, fill caches, return (cache, last logits).
+        ``cache``: empty caches to fill (a sharded serving step's blocks,
+        `init_cache` with a mesh), else made here."""
         inp = batch["embeds"] if "embeds" in batch else batch["tokens"]
-        cache = self.init_cache(inp.shape[0], s_max)
+        if cache is None:
+            cache = self.init_cache(inp.shape[0], s_max)
         cache["enc_out"] = self._enc_out(batch)
         h, cache["layers"], _ = self._backbone(
             self._embed_in(batch), caches=cache["layers"],

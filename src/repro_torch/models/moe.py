@@ -46,6 +46,14 @@ activations' gradients are the rank's data cut's, equal along
 ``"model"``.  On a mesh without expert parallelism each cut runs the
 local layer (`_cut_train`), its aux loss from every cut's.
 
+A sharded serving step (`launch.steps.make_sharded_decode_step`) selects
+its router through `models.tensor_parallel.cuts`, with the rank's expert
+blocks placed in the layer, their rows already whole: `moe_ffn` then
+gathers the rank's batch cut over the batch's axes, runs the
+expert-parallel layer on the global input (the local layer without
+expert parallelism) and keeps the rank's cut of the output
+(`_serve_cut`).
+
 Each stage runs in a `torch.profiler.record_function` range named
 ``moe.<stage>`` (route, rank, atomics, scatter, exchange, experts,
 combine, weight_gather), so a profiler's trace splits the layer's time.
@@ -66,8 +74,8 @@ from torch.profiler import record_function
 from repro_torch import atomics
 from repro_torch.core.rmw import segmented_scan
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import active_mesh
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
 
@@ -368,18 +376,22 @@ def _gather_x(out: Tensor, mesh, plan: EpPlan) -> Tensor:
     return out
 
 
-def _ep_ffn(params, x: Tensor, cfg: ModelConfig, mesh):
+def _ep_ffn(params, x: Tensor, cfg: ModelConfig, mesh,
+            rows_whole: bool = False):
     """The reference's ``shard_map`` on this rank: ``params`` are this
     rank's shards (`shard_params`), ``x`` the global input, cut by
     `shard_x`; the body of ``shard_fn``, then the output gathered back.
-    Returns (global out, aux loss) without the shared experts."""
+    ``rows_whole``: the shards' rows are already gathered over the fsdp
+    axes (a serving step placed them once).  Returns (global out, aux
+    loss) without the shared experts."""
     m = cfg.moe
     b, s, d = x.shape
     plan = ep_plan(mesh, cfg, b, s)
     xs = shard_x(x, mesh, plan)
     with record_function("moe.weight_gather"):
+        rows = () if rows_whole else plan.dp_axes
         p_local = {"router": params["router"],
-                   **{name: _gather_rows(params[name], mesh, plan.dp_axes)
+                   **{name: _gather_rows(params[name], mesh, rows)
                       for name in ("w1", "w3", "w2")}}
     bl, sl, _ = xs.shape
     out2d, (mp, cnt) = _dispatch_compute(
@@ -531,6 +543,32 @@ def _cut_train(params, x: Tensor, cfg: ModelConfig, mesh,
     return out2d.reshape(b, s, d), _aux_loss(mp, cnt, m)
 
 
+def _local(params, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
+    """The layer on one device: (out (b, s, d), aux loss)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    out2d, aux = _dispatch_compute(x.reshape(t, d), params, cfg, 1,
+                                   _capacity(t, m, 1), None, cfg.mlp_act)
+    return out2d.reshape(b, s, d), _aux_loss(*aux, m)
+
+
+def _serve_cut(params, x: Tensor, cfg: ModelConfig, mesh,
+               batch_axes: Tuple[str, ...]) -> Tuple[Tensor, Tensor]:
+    """The layer in a sharded serving step: ``x`` is this rank's cut of
+    the batch over ``batch_axes``, gathered to the global input; the
+    expert-parallel layer on the rank's expert blocks (rows whole), or the
+    local layer where the mesh runs no expert parallelism; then the
+    rank's cut of the global output."""
+    xg = mesh.all_gather(x.contiguous(), batch_axes) if batch_axes else x
+    if expert_parallel(cfg, mesh):
+        out, loss = _ep_ffn(params, xg, cfg, mesh, rows_whole=True)
+    else:
+        out, loss = _local(params, xg, cfg)
+    return (mesh_lib._own_chunk(out, mesh, batch_axes) if batch_axes
+            else out), loss
+
+
 # ---------------------------------------------------------------------------
 # public entry
 # ---------------------------------------------------------------------------
@@ -538,24 +576,23 @@ def _cut_train(params, x: Tensor, cfg: ModelConfig, mesh,
 def moe_ffn(params, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar).  Inside
     `training_blocks` under a mesh, ``x`` is the rank's cut and so is the
-    output (`_ep_train`, or `_cut_train` without expert parallelism)."""
+    output (`_ep_train`, or `_cut_train` without expert parallelism); so
+    it is where a sharded serving step selected the router
+    (`_serve_cut`)."""
     m = cfg.moe
     mesh = active_mesh()
-    b, s, d = x.shape
     state = getattr(_training, "state", None)
+    serving = tp.mesh_of(params["router"])
     if state is not None and mesh is not None:
         if expert_parallel(cfg, mesh):
             out, loss = _ep_train(params, state[0][id(params)], x, cfg,
                                   mesh, state[1])
         else:
             out, loss = _cut_train(params, x, cfg, mesh, state[1])
+    elif serving is not None:
+        out, loss = _serve_cut(params, x, cfg, serving, tp.batch_axes())
     elif not expert_parallel(cfg, mesh):
-        t = b * s
-        cap = _capacity(t, m, 1)
-        out2d, aux = _dispatch_compute(x.reshape(t, d), params, cfg, 1, cap,
-                                       None, cfg.mlp_act)
-        out = out2d.reshape(b, s, d)
-        loss = _aux_loss(*aux, m)
+        out, loss = _local(params, x, cfg)
     else:
         out, loss = _ep_ffn(shard_params(params, mesh, cfg), x, cfg, mesh)
     if m.n_shared_experts:

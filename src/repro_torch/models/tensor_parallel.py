@@ -1,4 +1,5 @@
-"""Tensor-parallel compute along ``"model"`` in the sharded train step.
+"""Tensor-parallel compute along ``"model"`` in the sharded train and
+serving steps.
 
 The reference jits its train step with every weight placed by its
 partition spec, so each rank along ``"model"`` multiplies only its
@@ -16,7 +17,15 @@ read their leaves through `block` and `mesh_of`:
 * `attention.gqa_forward`: the rank's query heads, beside its cut of the
   kv heads or the kv heads those query heads use;
 * `model.LM._embed_in` and `LM.loss`: the vocab-parallel lookup and
-  cross-entropy (`layers.embed_lookup`, `layers.chunked_softmax_xent`).
+  cross-entropy (`layers.embed_lookup`, `layers.chunked_softmax_xent`);
+  `LM._logits`, the vocabulary slice's logits all-gathered.
+
+The sharded serving steps (`launch.steps.make_sharded_prefill_step`,
+`make_sharded_decode_step`) place those leaves as the rank's cut in the
+model itself and select each leaf as its own block, with the batch's
+axes, under which `models.moe.moe_ffn` gathers its input for the
+expert-parallel layer (`batch_axes`); the same products run under
+``torch.no_grad``.
 
 A column product's input goes through `launch.mesh.sum_grad` (the
 identity, its gradient summed over ``"model"``: Megatron's *f*), a row
@@ -31,7 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -41,11 +50,13 @@ _state = threading.local()
 
 
 @contextlib.contextmanager
-def cuts(mesh, blocks: Dict[int, Tensor]):
+def cuts(mesh, blocks: Dict[int, Tensor], batch_axes: Tuple[str, ...] = ()):
     """Select the tensor-parallel products for the block: ``blocks`` maps
     ``id(parameter)`` to this rank's block of it on ``mesh`` (cut over
-    ``"model"``, whole along the other axes)."""
-    with restored((mesh, dict(blocks)) if blocks else None):
+    ``"model"``, whole along the other axes); ``batch_axes``, the axes
+    the activations' batch is cut over (serving)."""
+    with restored((mesh, dict(blocks), tuple(batch_axes)) if blocks
+                  else None):
         yield
 
 
@@ -77,3 +88,9 @@ def mesh_of(p: Tensor):
     """The mesh where `cuts` selected a block of ``p``, else None."""
     sel = getattr(_state, "selection", None)
     return sel[0] if sel is not None and id(p) in sel[1] else None
+
+
+def batch_axes() -> Tuple[str, ...]:
+    """The batch's axes `cuts` was given (() outside it)."""
+    sel = getattr(_state, "selection", None)
+    return sel[2] if sel is not None else ()

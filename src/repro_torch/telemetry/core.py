@@ -49,6 +49,9 @@ installed sink is ``Sink.measured_only`` an unmeasured call builds none.
 
 Thread safety: sink dispatch holds one module lock; sinks themselves need
 no internal locking.  Enabling/disabling swaps the sink tuple atomically.
+While every installed sink is ``Sink.lock_free`` (a plain `RingBuffer`:
+one atomic deque append) an event is handed over without the lock, to the
+deque's own ``append``, so a ring costs an event no Python call of its own.
 """
 
 from __future__ import annotations
@@ -77,12 +80,25 @@ _sync_tick: int = 0             # place in the current run of _sync_every
 _sync_pick: int = 0             # ... and the place measured in it
 _sampler = random.Random(0)
 _every_event: bool = False      # some sink reads unmeasured events too
+#: (lock free, each installed sink's `Sink.emitter`), read as one tuple
+_emission: Tuple[bool, Tuple[Callable[[Dict[str, Any]], Any], ...]] = (
+    True, ())
 _annotate: bool = False         # torch.profiler ranges at dispatch
 _pending: List[Dict[str, Any]] = []  # events whose measured_s is pending
 
 
 def _wants_every(sinks) -> bool:
     return any(not getattr(s, "measured_only", False) for s in sinks)
+
+
+def _install(sinks) -> None:
+    """Make ``sinks`` the installed set, with what `record_event` reads of
+    them (caller holds the lock)."""
+    global _sinks, _every_event, _emission
+    _sinks = tuple(sinks)
+    _every_event = _wants_every(_sinks)
+    _emission = (all(s.lock_free for s in _sinks),
+                 tuple(s.emitter() for s in _sinks))
 
 
 def _set_period(synced) -> None:
@@ -164,36 +180,53 @@ def _seconds(x):
 # ---------------------------------------------------------------------------
 
 class Sink:
-    """One consumer of the event stream.  ``emit`` is called under the
-    module lock with a flat dict (the caller owns the dict; copy if you
-    retain it past the call — the built-in sinks retain it as-is since
-    instrumentation never mutates an emitted event).
+    """One consumer of the event stream.  ``emit`` (through `emitter`) is
+    called under the module lock with a flat dict (the caller owns the
+    dict; copy if you retain it past the call — the built-in sinks retain
+    it as-is since instrumentation never mutates an emitted event).
 
     ``measured_only`` declares a sink that reads only events carrying a
     measured time (the tuning controller's tap): while every installed
     sink says so, an eager `execute` that was not measured skips building
     its decision event.  ``sync_every``: installed with sync, the sink asks
     for one call on the card in this many to be measured.  An event's
-    ``measured_s`` may be a pending `DeviceSeconds` until `resolve`."""
+    ``measured_s`` may be a pending `DeviceSeconds` until `resolve`.
+    ``lock_free`` declares that the sink's `emitter` may be called without
+    the module lock, from any thread."""
 
     measured_only = False
     sync_every = 1
+    lock_free = False
 
     def emit(self, event: Dict[str, Any]) -> None:
         raise NotImplementedError
+
+    def emitter(self) -> Callable[[Dict[str, Any]], Any]:
+        """The callable `record_event` hands each event to (fixed when the
+        sink is installed): ``emit``."""
+        return self.emit
 
     def close(self) -> None:
         pass
 
 
 class RingBuffer(Sink):
-    """Bounded in-memory sink — the test/inspection default."""
+    """Bounded in-memory sink — the test/inspection default.  Its events go
+    straight to its deque's ``append`` (one atomic call: `lock_free`),
+    unless a subclass overrides `emit`."""
 
     def __init__(self, capacity: int = 4096):
         self._buf: collections.deque = collections.deque(maxlen=capacity)
 
     def emit(self, event: Dict[str, Any]) -> None:
         self._buf.append(event)
+
+    @property
+    def lock_free(self) -> bool:
+        return type(self).emit is RingBuffer.emit
+
+    def emitter(self) -> Callable[[Dict[str, Any]], Any]:
+        return self._buf.append if self.lock_free else self.emit
 
     @property
     def events(self) -> List[Dict[str, Any]]:
@@ -346,10 +379,9 @@ def enable(*sinks: Sink, sync: bool = False, annotate: bool = False) -> None:
     ranges around engine dispatch / exchange collectives / migrations /
     train steps.
     """
-    global _sinks, _enabled, _sync, _annotate, _every_event
+    global _enabled, _sync, _annotate
     with _lock:
-        _sinks = tuple(sinks) or (RingBuffer(),)
-        _every_event = _wants_every(_sinks)
+        _install(tuple(sinks) or (RingBuffer(),))
         _sync = bool(sync)
         _set_period(_sinks if sync else ())
         _annotate = bool(annotate)
@@ -359,7 +391,7 @@ def enable(*sinks: Sink, sync: bool = False, annotate: bool = False) -> None:
 def disable() -> None:
     """Turn the stream off (pending times resolved) and close the
     installed sinks."""
-    global _sinks, _enabled, _sync, _annotate, _every_event
+    global _enabled, _sync, _annotate
     resolve()
     with _lock:
         for s in _sinks:
@@ -367,8 +399,7 @@ def disable() -> None:
                 s.close()
             except Exception:  # noqa: BLE001 — teardown must not raise
                 pass
-        _sinks = ()
-        _every_event = False
+        _install(())
         _enabled = False
         _sync = False
         _set_period(())
@@ -383,11 +414,9 @@ def add_sink(sink: Sink, *, sync: Optional[bool] = None,
     tuning controller) must not silently strip another consumer's settings.
     With ``sync`` the sink's ``sync_every`` joins the sampling period (the
     least among the sinks installed with sync).  Pair with `remove_sink`."""
-    global _sinks, _enabled, _sync, _annotate, _every_event
+    global _enabled, _sync, _annotate
     with _lock:
-        if sink not in _sinks:
-            _sinks = _sinks + (sink,)
-        _every_event = _wants_every(_sinks)
+        _install(_sinks if sink in _sinks else _sinks + (sink,))
         if sync:
             _sync = True
             if sink not in _synced:
@@ -401,11 +430,10 @@ def remove_sink(sink: Sink, *, close: bool = False) -> bool:
     """Detach one sink installed via `add_sink`/`enable`.  When the last
     sink goes, the stream turns fully off (flags reset).  Returns True if
     the sink was installed."""
-    global _sinks, _enabled, _sync, _annotate, _every_event
+    global _enabled, _sync, _annotate
     with _lock:
         had = any(s is sink for s in _sinks)
-        _sinks = tuple(s for s in _sinks if s is not sink)
-        _every_event = _wants_every(_sinks)
+        _install(s for s in _sinks if s is not sink)
         _set_period(s for s in _synced if s is not sink)
         if not _sinks:
             _enabled = False
@@ -435,12 +463,11 @@ def capture(sink: Optional[Sink] = None, *, sync: bool = False,
             atomics.execute(...)
         events = buf.events
     """
-    global _sinks, _enabled, _sync, _annotate, _every_event
+    global _enabled, _sync, _annotate
     target = sink if sink is not None else RingBuffer()
     with _lock:
-        prev = (_sinks, _enabled, _sync, _annotate, _synced, _every_event)
-        _sinks = prev[0] + (target,)
-        _every_event = _wants_every(_sinks)
+        prev = (_sinks, _enabled, _sync, _annotate, _synced)
+        _install(prev[0] + (target,))
         if sync:
             _set_period(_synced + (target,))
         _sync = bool(sync) or _sync
@@ -451,7 +478,8 @@ def capture(sink: Optional[Sink] = None, *, sync: bool = False,
     finally:
         resolve()
         with _lock:
-            _sinks, _enabled, _sync, _annotate, _, _every_event = prev
+            _install(prev[0])
+            _enabled, _sync, _annotate = prev[1:4]
             _set_period(prev[4])
         if sink is None:
             pass                      # caller keeps the buffer; nothing to close
@@ -476,14 +504,22 @@ def record_event(ev: Dict[str, Any]) -> None:
         return
     if "t" not in ev:
         ev["t"] = time.time()
+    lock_free, emitters = _emission
+    if lock_free:
+        for emit in emitters:
+            try:
+                emit(ev)
+            except Exception:  # noqa: BLE001 — a broken sink must not take
+                pass           # down the instrumented path
+        return
     # acquire/release, not ``with``: this is every instrumented call's cost
     _lock.acquire()
     try:
-        for s in _sinks:
+        for emit in emitters:
             try:
-                s.emit(ev)
-            except Exception:  # noqa: BLE001 — a broken sink must not take
-                pass           # down the instrumented path
+                emit(ev)
+            except Exception:  # noqa: BLE001 — as above
+                pass
     finally:
         _lock.release()
 

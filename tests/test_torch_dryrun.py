@@ -291,8 +291,10 @@ def test_fake_tensor_call_of_every_wrapper_launches_nothing():
 def test_reduced_cells_of_every_family_run():
     """Train (sharded, on a 2 x 2 recording mesh, remat ``full``),
     prefill and decode cells of reduced configs of every family: each
-    counts FLOPs and a peak, only train cells exchange, and a train
-    cell's MoE layers recompute their training variant in backward."""
+    counts FLOPs and a peak, train cells and the sharded serving cells of
+    GQA configs (`serve_layout`) exchange and the whole-parameter serving
+    cells do not, and a train cell's MoE layers recompute their training
+    variant in backward."""
     mesh = ((2, 2), ("data", "model"))
     for arch in ("gemma_2b", "dbrx_132b", "mamba2_780m", "whisper_small"):
         cfg = get_reduced(arch)
@@ -301,9 +303,11 @@ def test_reduced_cells_of_every_family_run():
                      ShapeCell("d", 64, 4, "decode")):
             rec = D.run_cell(arch, cell, False, cfg=cfg, mesh_shape=mesh)
             assert rec["dot_flops"] > 0 and rec["per_device_peak_bytes"] > 0
-            assert (rec["total_wire_bytes"] > 0) == (cell.kind == "train")
-            assert rec["layout"] == ("sharded_train" if cell.kind == "train"
-                                     else "serve_whole_params")
+            layout = ("sharded_train" if cell.kind == "train"
+                      else D.serve_layout(cfg)[0])
+            assert rec["layout"] == layout
+            assert (rec["total_wire_bytes"] > 0) == (
+                layout != "serve_whole_params")
             if cell.kind == "train" and cfg.moe is not None:
                 assert "all-to-all" in rec["collectives"]
 

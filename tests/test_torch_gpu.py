@@ -599,6 +599,56 @@ def test_flash_attention_decode_splits_match_plain_version(cuda_device,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 1, 256), (12, 2, 128),
+                                      (48, 8, 128), (12, 12, 64)],
+                         ids=["gemma", "qwen2_vl", "dbrx", "whisper"])
+@pytest.mark.parametrize("kv_valid", [0, 1, 65, 1600])
+def test_flash_attention_decode_lse_and_f32_output(cuda_device, kv_valid,
+                                                   hq, hkv, d, dtype):
+    """A decode call that also writes each row's log-sum-exp and its
+    output in f32 (a rank's partial over its cache segment), NaN past the
+    valid rows, against `flash_attention_split_plain` at the kernel's own
+    splits: out within 3e-5, lse within 1e-5; the f32 output rounded to
+    the input type is the plain call's output bit for bit; kv_valid = 0
+    launches and gives out = 0, lse = -inf; one launch each, counted in
+    `LSE_LAUNCHES`."""
+    args, kw = _gemma_call(cuda_device, 1, kv_valid - 1, dtype,
+                           seed=kv_valid, b=2, hq=hq, hkv=hkv, d=d,
+                           s_max=kv_valid + 40)
+    FK.reset_launches()
+    out, lse = FK.flash_attention(*args, **kw, return_lse=True)
+    assert FK.LAUNCHES == FK.LSE_LAUNCHES == {"flash_attention": 1}
+    rows, max_splits = FK.decode_limits()
+    splits = FK.decode_splits(max(kv_valid, 0), 2 * hkv,
+                              FK._sm_count(out.device), max_splits)
+    want, want_lse = FK.flash_attention_split_plain(
+        *args, **kw, splits=splits, return_lse=True)
+    torch.cuda.synchronize()
+    assert out.dtype == lse.dtype == torch.float32
+    if kv_valid == 0:
+        assert not out.any() and bool((lse == float("-inf")).all())
+        return
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out, want, rtol=3e-5, atol=3e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert torch.equal(FK.flash_attention(*args, **kw), out.to(dtype))
+
+
+@pytest.mark.gpu
+def test_flash_attention_partial_outputs_refused_outside_decode(
+        cuda_device):
+    """A partial (the log-sum-exp, the output in f32) is the decode
+    body's: a prefill-shaped call asking for it raises before any
+    launch."""
+    args, kw = _gemma_call(cuda_device, 17, 0, torch.bfloat16)
+    FK.reset_launches()
+    with pytest.raises(ValueError, match="decode body"):
+        FK.flash_attention(*args, **kw, return_lse=True)
+    assert FK.LAUNCHES == {"flash_attention": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hq,hkv,s,cached,d", [
     (2, 8, 2, 1, 300, 128),      # B 2, Hkv 2: four row groups of 4 rows
     (1, 8, 1, 2, 127, 256),      # 16 rows in 2 splits; the second holds

@@ -124,6 +124,49 @@ def test_broken_sink_never_breaks_the_instrumented_path():
     assert [e["event"] for e in good.events] == ["ev", "atomics.execute"]
 
 
+def _records_while_the_lock_is_held(name):
+    """Whether ``telemetry.record(name)`` returns, from another thread,
+    while this thread holds the module lock (then, released, it has)."""
+    import threading
+    done = threading.Event()
+    worker = threading.Thread(target=lambda: (telemetry.record(name),
+                                              done.set()))
+    with core._lock:
+        worker.start()
+        returned = done.wait(0.5)
+    worker.join(5)
+    assert done.is_set()
+    return returned
+
+
+def test_ring_sinks_take_events_without_the_lock():
+    """With only plain RingBuffers installed an event goes to each deque's
+    own append, without the module lock; a sink that needs the lock
+    (Counters) brings it back for every sink."""
+    a, b = telemetry.RingBuffer(), telemetry.RingBuffer()
+    telemetry.enable(a, b)
+    assert _records_while_the_lock_is_held("free")
+    c = telemetry.Counters()
+    telemetry.add_sink(c)
+    assert not _records_while_the_lock_is_held("locked")
+    telemetry.remove_sink(c)
+    assert _records_while_the_lock_is_held("free_again")
+    for ring in (a, b):
+        assert [e["event"] for e in ring.events] == [
+            "free", "locked", "free_again"]
+    assert c.counts == {"locked": 1}
+
+
+def test_a_ring_whose_emit_is_overridden_keeps_its_emit_and_the_lock():
+    class Tagged(telemetry.RingBuffer):
+        def emit(self, event):
+            super().emit(dict(event, tagged=True))
+    ring = Tagged()
+    with telemetry.capture(ring):
+        assert not _records_while_the_lock_is_held("ev")
+    assert [(e["event"], e["tagged"]) for e in ring.events] == [("ev", True)]
+
+
 def test_counters_aggregate_numeric_fields():
     c = telemetry.Counters()
     with telemetry.capture(c):
