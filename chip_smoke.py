@@ -74,18 +74,23 @@ inside the ranks counted.  Then sharded MoE training
 full width, forward and backward through the layer's training variant
 on the trainer's batch (8 x 256 tokens), timed by stage in bf16 and held
 in f32 to the same layer run locally; `train(mesh=...)` on reduced
-deepseek_v3 and jamba against the local trainer, at their own capacity
-(finite, falling losses) and under chaos; only `rmw_table` and
-`rmw_table_fetched` launch, counted inside the ranks.  Then sharded
-serving (`serve_sharded`, on the same 4 ranks and mesh): the sharded
-prefill and decode steps (the KV cache cut by sequence over "model",
-decode's partials from the flash kernel's decode body, with each row's
-log-sum-exp, combined across the ranks) for gemma_2b at full width and
-depth in bf16, at 2 layers in f32 and qwen2_vl_2b at full width, 4
-prompts of 512 tokens and 8 decode steps, held to the local serving path
-on the same card (bf16 within 2x a floor measured in the run, f32 within
-1e-3), every rank's launches counted, prefill and decode ms and the
-exchange's share per rank.  The suites
+deepseek_v3, jamba (f64) and dbrx, their dense leaves and Mamba mixers
+on the "model" cut, against the local trainer, at their own capacity
+(finite, falling losses) and under chaos; jamba's first layer at full
+width through the partitioned step on (1, 4), its step split into
+gather, compute and reduce; only `rmw_table` and `rmw_table_fetched`
+launch, counted inside the ranks.  Then sharded serving
+(`serve_sharded`, on the same 4 ranks): the sharded prefill and decode
+steps (the KV cache cut by sequence over "model", decode's partials from
+the flash kernel's decode body, with each row's log-sum-exp, combined
+across the ranks; the Mamba state cut by heads, `ssd_chunk` on a rank's
+heads) for gemma_2b at full width and depth in bf16, at 2 layers in f32,
+qwen2_vl_2b and mamba2_780m at full width and depth on 2x2, and jamba at
+full width and 5 layers on (1, 4), 4 prompts of 512 tokens and 8 decode
+steps, held to the local serving path on the same card (bf16 within 2x
+a floor measured in the run, jamba's routing pinned to the local run's;
+f32 within 1e-3), every rank's launches counted, prefill and decode ms
+and the exchange's share per rank.  The suites
 include `rmw_sharded` (8 ranks on the card).  Last, training and MLA,
 which launch no kernel (each phase fails if one launches; no kernel has
 a backward): `train_gemma` trains
@@ -1100,6 +1105,12 @@ def _chunk_inputs(gen, bh, s, hpg=1):
 # per-head interface, and two groups of 24
 SSD_CASES = [("serving", SSD_H, SSD_H), ("batch4", 4 * SSD_H, SSD_H),
              ("serving_per_head", SSD_H, 1), ("two_groups", SSD_H, SSD_H // 2)]
+# ... and at the sharded prefill's shapes (`serve_sharded`): a rank's cut of
+# the heads, one group a sequence, over the 512-token prompts: mamba2_780m
+# on 2x2 (2 sequences of 24 heads a rank) and jamba on (1, 4) (4 of 64)
+SSD_CUT_CASES = [("mamba2_780m_rank_of_2x2", 2 * SSD_H // 2, SSD_H // 2),
+                 ("jamba_rank_of_1x4", 4 * 64, 64)]
+SSD_CUT_S = 512
 
 
 def _check_close(got, want, what):
@@ -1143,6 +1154,18 @@ def phase_ssd_kernel(gen):
         emit("ssd_kernel", shape=name, bh=bh, heads_per_group=hpg, s=4096,
              p=SSD_P, n=SSD_N, chunk=SSD_Q, rtol=SSD_TOL, atol=SSD_TOL,
              max_abs_err=errs[name], launches=dict(SK.LAUNCHES), **fields)
+    for name, bh, hpg in SSD_CUT_CASES:
+        args = _chunk_inputs(gen, bh, SSD_CUT_S, hpg)
+        y, st = SK.ssd_chunk(*args, chunk=SSD_Q, heads_per_group=hpg)
+        y_p, st_p = SK.ssd_chunk_plain(*args, chunk=SSD_Q,
+                                       heads_per_group=hpg)
+        sync()
+        errs[name] = {"y_intra": _check_close(y, y_p, f"ssd_chunk {name} y"),
+                      "states": _check_close(st, st_p,
+                                             f"ssd_chunk {name} states")}
+        emit("ssd_kernel", shape=name, bh=bh, heads_per_group=hpg,
+             s=SSD_CUT_S, p=SSD_P, n=SSD_N, chunk=SSD_Q, rtol=SSD_TOL,
+             atol=SSD_TOL, max_abs_err=errs[name])
     # a short prompt, 1000 = 3 * 256 + 232 steps, through the composition
     # (padding, flattening, cross-chunk recurrence) and the sequential oracle
     s = 1000
@@ -3953,13 +3976,18 @@ def phase_train_gemma():
 #: train cells keep the full config's microbatches; the cuts fit the
 #: children in the time the build and the first phases take (`python -m
 #: repro_torch.launch.dryrun` runs every cell whole on a host).  gemma's
-#: train cell runs whole, partitioned and unpartitioned (the parent's step)
+#: train cell runs whole, partitioned and unpartitioned (the parent's step);
+#: mamba2_780m's serving cells on the sharded steps, the state by heads
 DRYRUN_CELLS = (("gemma_2b", "train_4k", None, True),
                 ("gemma_2b", "train_4k", None, False),
                 ("gemma_2b", "prefill_32k", 9, True),
                 ("gemma_2b", "decode_32k", None, True),
                 ("dbrx_132b", "train_4k", 1, True),
-                ("command_r_plus_104b", "decode_32k", None, True))
+                ("command_r_plus_104b", "decode_32k", None, True),
+                ("mamba2_780m", "prefill_32k", 12, True),
+                ("mamba2_780m", "long_500k", None, True))
+#: the cells of a Mamba config that the sharded serving steps must run
+DRYRUN_SSM_CELLS = ("mamba2_780m.prefill_32k", "mamba2_780m.long_500k")
 #: the sharded serving cell that must fit one card (GB a card)
 DRYRUN_SERVE_CELL, DRYRUN_CARD_GB = "command_r_plus_104b.decode_32k", 80.0
 #: the partitioned step's FLOPs a card for gemma_2b train_4k must fall at
@@ -4111,6 +4139,16 @@ def phase_dryrun(started=None):
             f"{DRYRUN_SERVE_CELL}: layout {serve['layout']}, peak "
             f"{serve['per_device_peak_bytes'] / 1e9:.1f} GB a card (under "
             f"{DRYRUN_CARD_GB} needed)")
+    for name in DRYRUN_SSM_CELLS:
+        rec = recs[name]
+        emit("dryrun", check=f"{name}_sharded_serve", layout=rec["layout"],
+             layers=rec["layers_run"],
+             peak_gb=rec["per_device_peak_bytes"] / 1e9,
+             wire_gb=rec["total_wire_bytes"] / 1e9,
+             collectives=rec["collectives"])
+        if rec["layout"] != "sharded_serve" or not rec["total_wire_bytes"]:
+            raise AssertionError(f"{name}: layout {rec['layout']}, "
+                                 f"{rec['total_wire_bytes']} wire bytes")
     return {"cells": len(recs)}
 
 
@@ -5376,10 +5414,23 @@ MT_NO_DROP, MT_TOL, MT_ROWS = 4.0, 1e-4, 64
 # no-drop factor against the local trainer (the CPU tests' bounds), then
 # `MT_FALL_STEPS` at their own capacity at the reduced configs' lr, and
 # one run under chaos against a clean one
-MT_ARCHS = ("deepseek_v3_671b", "jamba_1_5_large_398b")
+MT_ARCHS = ("deepseek_v3_671b", "jamba_1_5_large_398b", "dbrx_132b")
 MT_STEPS, MT_FALL_STEPS, MT_FALL_LR = 3, 10, 3e-3
 MT_RTOL, MT_LEAF_TOL = 1e-5, 1e-4
 MT_CHAOS, MT_CHAOS_STEPS = "seed=3,step=1.0@2,ckpt_save=1.0@1", 6
+# the no-drop runs of these configs in f64 on both sides, as the CPU tests
+# run them (tests/_torch_train_sharded_moe_worker.py, `F64`): partitioned
+# in f32, jamba's Mamba leaves' first-step gradient elements near eps
+# round differently on a rank's cut, and AdamW divides them by their size
+MT_F64 = ("jamba_1_5_large_398b",)
+# (c) the partitioned step at full width (bf16), `MT_FULL_LAYERS` deep, on
+# (1, 4) over the same ranks, `MT_FULL_STEPS` steps (the first warms up):
+# jamba's first layer (an SSD mixer of 256 heads, 64 a rank, a dense MLP of
+# 24,576, 65,536-row vocabulary; 2.09B parameters).  Its first MoE layer
+# alone holds 9.66B parameters, and every dbrx layer 3.17B in its experts
+# (4.49B at one layer): with AdamW's f32 master and moments and the f32
+# gradients, four ranks sharing one 80 GB card cannot hold either
+MT_FULL_ARCH, MT_FULL_LAYERS, MT_FULL_STEPS = JAMBA, 1, 4
 
 
 def _mt_no_drop(cfg):
@@ -5517,14 +5568,16 @@ def _mt_train(mesh, tmp, arch, tag, **kw):
 
 @contextlib.contextmanager
 def _mt_configs(no_drop):
-    """The trainer's reduced configs in f32, at the no-drop factor or at
-    their own capacity."""
+    """The trainer's reduced configs in f32 (`MT_F64` in f64 at the
+    no-drop factor), at the no-drop factor or at their own capacity."""
     from repro_torch.configs import get_reduced
     from repro_torch.launch import train as train_mod
     real = train_mod.get_reduced
 
     def f32(arch):
         cfg = get_reduced(arch).replace(dtype="float32")
+        if no_drop and arch in MT_F64:
+            cfg = cfg.replace(dtype="float64")
         return _mt_no_drop(cfg) if no_drop else cfg
 
     train_mod.get_reduced = f32
@@ -5532,6 +5585,62 @@ def _mt_configs(no_drop):
         yield
     finally:
         train_mod.get_reduced = real
+
+
+def _mt_full(mesh):
+    """(c) on this rank: the partitioned step on `MT_FULL_ARCH` at full
+    width, `MT_FULL_LAYERS` deep, in bf16 on ``mesh``: the rank's blocks
+    made leaf by leaf (`_ss_block`), the model on meta but for the leaves
+    the step gathers whole into it (and ``embed``, whose device the
+    step's clock reads): it never reads its own copies of the leaves it
+    computes on the cut.  `MT_FULL_STEPS` steps of the trainer's batch;
+    the split of each step after the first, the losses, the peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.launch.shardings import arch_rules
+    from repro_torch.launch.steps import make_sharded_train_step
+    from repro_torch.launch.train import deterministic_algorithms
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    cfg = get_config(MT_FULL_ARCH).replace(n_layers=MT_FULL_LAYERS)
+    model = LM(cfg, device="meta", use_kernel=False)
+    rules = arch_rules(cfg, mesh, "train")
+    opt = AdamWConfig()
+    step = make_sharded_train_step(model, opt, mesh, rules)
+    meta = {n: p for n, p in model.named_parameters()}
+    for name, p in meta.items():
+        c = step.cuts.get(name)
+        if c is not None and (c.mode != "cut" or name == "embed"):
+            head, _, leaf = name.rpartition(".")
+            module = model.get_submodule(head) if head else model
+            module._parameters[leaf] = torch.nn.Parameter(
+                torch.empty(p.shape, dtype=p.dtype, device="cuda"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = {n: _ss_block(n, p, step.specs[n], mesh)
+              for n, p in meta.items()}
+    state = init_state(params, opt)
+    split, losses = [], []
+    with deterministic_algorithms(True), use_mesh(mesh, rules):
+        for i in range(MT_FULL_STEPS):
+            params, state, m = step(params, state,
+                                    _train_batch(cfg.vocab_size, i))
+            losses.append(float(m["loss"]))
+            if i:
+                split.append({k: 1e3 * m[f"{k}_s"]
+                              for k in ("gather", "compute", "reduce")})
+    modes = {}
+    for n, c in step.cuts.items():
+        modes.setdefault(c.mode, set()).add(n.rpartition(".")[2])
+    out = dict(arch=MT_FULL_ARCH, layers=MT_FULL_LAYERS,
+               kinds=[(b.kind, b.is_moe) for b in model.blocks],
+               params_b=sum(p.numel() for p in meta.values()) / 1e9,
+               split_ms=split, losses=losses,
+               modes={k: sorted(v) for k, v in modes.items()},
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, step, params, state, meta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _train_sharded_moe_rank(mesh, tmp):
@@ -5568,6 +5677,10 @@ def _train_sharded_moe_rank(mesh, tmp):
                 lr=MT_FALL_LR, checkpoint_every=MT_FALL_STEPS)
     out["train"] = train
     seconds["train"] = time.perf_counter() - start - seconds["layer"]
+    from repro_torch.launch.mesh import Mesh
+    out["full"] = _mt_full(Mesh((1, 4), MT_AXES))
+    seconds["full"] = time.perf_counter() - start - seconds["layer"] \
+        - seconds["train"]
     out["seconds"] = seconds
     out["launches"] = {k: v for mod in (K, SK, FK, XK)
                        for k, v in mod.LAUNCHES.items()}
@@ -5584,13 +5697,17 @@ def phase_train_sharded_moe():
     no-drop factor, the output rows, dx, the router's gradient and the
     first `MT_ROWS` rows of each expert's gradient within relative L2
     `MT_TOL` of the same layer run locally before the ranks start.  (b)
-    `train(mesh=...)` on reduced deepseek_v3 and jamba in f32: at the
+    `train(mesh=...)` on reduced deepseek_v3, jamba and dbrx in f32 (jamba
+    in f64 at the no-drop factor, `MT_F64`), partitioned: at the
     no-drop factor, 3 steps, losses and grad norms within `MT_RTOL` of
     the local trainer's, every leaf of the final checkpoint within
     relative L2 `MT_LEAF_TOL`; at their own capacity, `MT_FALL_STEPS`
     steps, losses finite and falling; one run under `MT_CHAOS`, bit-equal
-    to a clean one.  Only `rmw_table` and `rmw_table_fetched` may launch
-    (the counts and the arrival ranks' sharded FAA).  Returns their
+    to a clean one.  (c) the partitioned step at full width on
+    `MT_FULL_ARCH`'s first `MT_FULL_LAYERS` layer(s), bf16, on (1, 4):
+    finite losses, the split of each step, the peak per rank.  Only
+    `rmw_table` and `rmw_table_fetched` may launch (the counts and the
+    arrival ranks' sharded FAA).  Returns their
     launches inside the ranks, summed."""
     import shutil
     import tempfile
@@ -5691,6 +5808,18 @@ def phase_train_sharded_moe():
             or sa != sb or clean["final_loss"] != chaos["final_loss"]:
         bad.append(f"chaos not bit-equal to clean: {clean['failures']} "
                    f"{chaos['failures']} leaves {differ}")
+    # (c) the full-width partitioned step: finite losses, the Mamba mixer,
+    # MLP and vocabulary on the cut, every rank through every step
+    full = [o["full"] for o in out]
+    for o, f in zip(out, full):
+        if len(f["losses"]) != MT_FULL_STEPS \
+                or not all(map(math.isfinite, f["losses"])) \
+                or not {"in_proj", "out_proj", "w1", "w2", "w3", "embed",
+                        "lm_head"} <= set(f["modes"].get("cut", ())):
+            bad.append(f"full-width {f['arch']} rank {o['rank']}: losses "
+                       f"{f['losses']}, modes {f['modes']}")
+    split = {k: [[s[k] for s in f["split_ms"]] for f in full]
+             for k in ("gather", "compute", "reduce")}
     launches = {k: sum(o["launches"][k] for o in out)
                 for k in out[0]["launches"]}
     for k in ("rmw_table", "rmw_table_fetched"):
@@ -5731,7 +5860,16 @@ def phase_train_sharded_moe():
                     leaf_worst=leaf_worst, falling=falling,
                     chaos=dict(spec=MT_CHAOS, clean=clean["failures"],
                                chaos=chaos["failures"],
-                               leaves=len(ca), differ=differ)),
+                               leaves=len(ca), differ=differ),
+                    f64=MT_F64),
+         full=dict(arch=full[0]["arch"], layers=full[0]["layers"],
+                   kinds=full[0]["kinds"], params_b=full[0]["params_b"],
+                   mesh={"data": 1, "model": MT_WORLD}, dtype="bfloat16",
+                   tokens=[T_BATCH, T_SEQ], steps_timed=MT_FULL_STEPS - 1,
+                   split_ms_per_rank=split,
+                   losses=[f["losses"] for f in full][0],
+                   modes=full[0]["modes"],
+                   peak_gib=[f["peak_gib"] for f in full]),
          launches=launches, local_s=local_s, ranks_s=ranks_s,
          rank_seconds=[o["seconds"] for o in out],
          seconds=time.perf_counter() - t0, bad=bad[:10])
@@ -5750,16 +5888,82 @@ SS_WORLD, SS_SHAPE, SS_AXES = 4, (2, 2), ("data", "model")
 #: in caches of 528 rows: segments of 264, the prompt over both, the
 #: decoded rows in the second
 SS_BATCH, SS_PROMPT, SS_STEPS, SS_S_MAX = 4, 512, 8, 528
-#: (tag, arch, layers (None: full depth), dtype)
-SS_RUNS = (("gemma_2b", "gemma_2b", None, "bfloat16"),
-           ("gemma_2b_f32_2_layers", "gemma_2b", 2, "float32"),
-           ("qwen2_vl_2b", "qwen2_vl_2b", None, "bfloat16"))
+#: (tag, arch, layers (None: full depth), dtype, mesh (None: 2x2; (1, 4)
+#: over the same ranks), weights made leaf by leaf on each rank
+#: (`_ss_block`) where a whole model a rank would not fit the card).
+#: mamba2_780m at full depth on 2x2: its mixers on 24 heads a rank.
+#: jamba at `JAMBA_LAYERS` (SSD with a dense MLP and with MoE, attention)
+#: on (1, 4): on 2x2 each rank would place half of the 48 GB (rows
+#: gathered over "data") beside its blocks, past the card for four; on
+#: (1, 4) a rank's blocks are what it places, 12 GB
+SS_RUNS = (("gemma_2b", "gemma_2b", None, "bfloat16", None, False),
+           ("gemma_2b_f32_2_layers", "gemma_2b", 2, "float32", None, False),
+           ("qwen2_vl_2b", "qwen2_vl_2b", None, "bfloat16", None, False),
+           ("mamba2_780m", "mamba2_780m", None, "bfloat16", None, False),
+           ("jamba", JAMBA, JAMBA_LAYERS, "bfloat16", (1, 4), True))
 
 
 def _ss_config(arch, layers, dtype):
+    """The run's config; an MoE config at the no-drop factor E / k, where
+    the sharded layer's function is the local one's."""
     from repro_torch.configs import get_config
     cfg = get_config(arch).replace(dtype=dtype)
+    if cfg.moe is not None:
+        cfg = _mt_no_drop(cfg)
     return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def _ss_leaf(name, shape, dtype, part=None):
+    """One leaf (or one expert's slice, ``part``) of a run whose weights
+    come leaf by leaf, made on the card from its own seed (the CRC of the
+    name and part), so a rank makes its own experts only: a matrix N(0, 1)
+    over sqrt(fan-in) (0.02 for the embeddings, 0.2 for the conv taps),
+    a vector at its initial value (ones for norm weights and D, zeros
+    for the rest)."""
+    import zlib
+    key = name.rpartition(".")[2]
+    if len(shape) == 1:
+        return torch.full(shape, 1.0 if key in ("w", "D", "norm_w") else 0.0,
+                          dtype=dtype, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(
+        zlib.crc32(f"{name}#{part}".encode()))
+    scale = (0.02 if key in ("embed", "lm_head") else 0.2 if key == "conv_w"
+             else shape[-2] ** -0.5)
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+def _ss_whole(name, p):
+    """The whole leaf of `_ss_leaf`'s weights for parameter ``p``."""
+    if p.ndim == 3:
+        return torch.stack([_ss_leaf(name, p.shape[1:], p.dtype, e)
+                            for e in range(p.shape[0])])
+    return _ss_leaf(name, p.shape, p.dtype)
+
+
+def _ss_block(name, p, spec, mesh):
+    """This rank's block of `_ss_whole`'s leaf under ``spec``: an expert
+    leaf made of the rank's experts only."""
+    from repro_torch.launch.mesh import shard_of
+    if p.ndim == 3 and spec and spec[0] == "model":
+        e = p.shape[0] // mesh.size("model")
+        first = mesh.index("model") * e
+        part = torch.stack([_ss_leaf(name, p.shape[1:], p.dtype, i)
+                            for i in range(first, first + e)])
+        return shard_of(part, (None, *spec[1:]), mesh)
+    return shard_of(_ss_whole(name, p), spec, mesh)
+
+
+def _ss_model(cfg, leaves):
+    """The local model of a run: seed 0, or `_ss_whole`'s weights."""
+    if not leaves:
+        return LM(cfg, seed=0)
+    model = LM(cfg, device="meta")
+    for name, p in list(model.named_parameters()):
+        head, _, leaf = name.rpartition(".")
+        module = model.get_submodule(head) if head else model
+        module._parameters[leaf] = torch.nn.Parameter(_ss_whole(name, p),
+                                                      requires_grad=False)
+    return model
 
 
 def _ss_batches(cfg):
@@ -5783,60 +5987,106 @@ def _ss_batches(cfg):
     return out
 
 
-def _serve_sharded_rank(mesh, runs):
+@contextlib.contextmanager
+def _ss_pinned(calls, mesh, cfg, b, s):
+    """`_routing_pinned` for one sharded step: each MoE call routed to the
+    local run's global choices ((b * s, k) ids), cut to this rank's tokens
+    as the expert-parallel layer cuts its input (`moe.shard_x`); nothing
+    pinned without ``calls``."""
+    if calls is None:
+        yield
+        return
+    from repro_torch.models import moe as moe_mod
+    plan = moe_mod.ep_plan(mesh, cfg, b, s)
+    mine = [moe_mod.shard_x(ids.cuda().reshape(b, s, -1), mesh, plan)
+            .reshape(-1, ids.shape[-1]) for ids in calls]
+    with _routing_pinned(mine):
+        yield
+
+
+def _serve_sharded_rank(mesh, runs, pinned):
     """One rank of `serve_sharded`: for each run of ``runs``, its blocks
-    of a model of seed 0 (`shard_of` by the step's specs; the whole model
-    then freed), the sharded prefill and decode steps on a model built on
-    meta (a warm-up prefill and decode step first: the placement, cuBLAS,
-    the allocator), then the launch counters reset, a prefill of the
-    prompts and `SS_STEPS` decode steps, and the counters read."""
-    from repro_torch.launch.mesh import shard_of
+    (`shard_of` by the step's specs of a model of seed 0, the whole model
+    then freed; or `_ss_block`'s), the sharded prefill and decode steps on
+    a model built on meta (a warm-up prefill and decode step first: the
+    placement, cuBLAS, the allocator), then the launch counters reset, a
+    prefill of the prompts and `SS_STEPS` decode steps, and the counters
+    read.  An MoE run routes each step as the local run chose
+    (``pinned[tag]``: per step, per MoE call, `_ss_pinned`)."""
+    from repro_torch.launch.mesh import Mesh, shard_of
     from repro_torch.launch.shardings import arch_rules
     from repro_torch.launch.steps import (make_sharded_decode_step,
                                           make_sharded_prefill_step)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    meshes = {None: mesh, (1, 4): Mesh((1, 4), SS_AXES)}
     out = dict(rank=mesh.rank, coords=dict(mesh.coords),
                host_staged=list(mesh.probe(dev)), runs={})
-    mesh.sync_timing = True
-    for tag, arch, layers, dtype in runs:
+    for m in meshes.values():
+        m.sync_timing = True
+    for tag, arch, layers, dtype, shape, leaves in runs:
         cfg = _ss_config(arch, layers, dtype)
-        whole = LM(cfg, seed=0)
+        m = meshes[shape]
         model = LM(cfg, device="meta", seed=0)
         prefill = make_sharded_prefill_step(
-            model, SS_S_MAX, mesh, arch_rules(cfg, mesh, "prefill"))
-        decode = make_sharded_decode_step(model, mesh,
-                                          arch_rules(cfg, mesh, "decode"))
-        blocks = {n: shard_of(p.detach(), prefill.specs[n], mesh)
-                  for n, p in whole.named_parameters()}
-        del whole
+            model, SS_S_MAX, m, arch_rules(cfg, m, "prefill"))
+        decode = make_sharded_decode_step(model, m,
+                                          arch_rules(cfg, m, "decode"))
+        if leaves:
+            blocks = {n: _ss_block(n, p, prefill.specs[n], m)
+                      for n, p in model.named_parameters()}
+        else:
+            whole = LM(cfg, seed=0)
+            blocks = {n: shard_of(p.detach(), prefill.specs[n], m)
+                      for n, p in whole.named_parameters()}
+            del whole
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         batches = _ss_batches(cfg)
-        cache, _ = prefill(blocks, batches[0])           # warm-up
+        steps = pinned.get(tag) or [None] * len(batches)
+
+        def shaped(i):
+            return _ss_pinned(steps[i], m, cfg, SS_BATCH,
+                              batches[i]["tokens"].shape[1])
+
+        with shaped(0):                                  # warm-up
+            cache, _ = prefill(blocks, batches[0])
         place_s = prefill.metrics["place_s"]
-        cache, _ = decode(blocks, cache, batches[1])
+        with shaped(1):
+            cache, _ = decode(blocks, cache, batches[1])
         del cache
         FK.reset_launches()              # the sharded path starts here
-        cache, lg = prefill(blocks, batches[0])
+        SK.reset_launches()
+        with shaped(0):
+            cache, lg = prefill(blocks, batches[0])
         logits, pre, dec = [lg.float().cpu()], dict(prefill.metrics), []
-        for bt in batches[1:]:
-            cache, lg = decode(blocks, cache, bt)
+        for i, bt in enumerate(batches[1:], 1):
+            with shaped(i):
+                cache, lg = decode(blocks, cache, bt)
             logits.append(lg.float().cpu())
             dec.append(dict(decode.metrics))
         launches = FK.LAUNCHES["flash_attention"]        # ... and ends here
         lse = FK.LSE_LAUNCHES["flash_attention"]
-        first = cache["layers"][0]
+        ssd = SK.LAUNCHES["ssd_chunk"]
+        layers_ = cache["layers"]
+        attn = [layer for layer in layers_ if "k" in layer]
+        ssm = [layer for layer in layers_ if "ssm" in layer]
         out["runs"][tag] = dict(
-            logits=logits if mesh.index("model") == 0 else None,
-            data_index=mesh.index("data"), n_layers=cfg.n_layers,
-            launches=launches, lse_launches=lse, prefill=pre, decode=dec,
-            place_s=place_s, cache_block=list(first["k"].shape),
-            seq=list(first["seq"]), len=first["len"],
+            logits=logits if m.index("model") == 0 else None,
+            data_index=m.index("data"), n_layers=cfg.n_layers,
+            n_attn=len(attn), n_ssm=len(ssm), launches=launches,
+            lse_launches=lse, ssd_launches=ssd, prefill=pre, decode=dec,
+            place_s=place_s,
+            cache_block=list(attn[0]["k"].shape) if attn else None,
+            seq=list(attn[0]["seq"]) if attn else None,
+            ssm_block=list(ssm[0]["ssm"].shape) if ssm else None,
+            conv_block=list(ssm[0]["conv"].shape) if ssm else None,
+            lens=sorted({layer["len"] for layer in layers_}),
             cache_finite=all(bool(torch.isfinite(layer[k]).all())
-                             for layer in cache["layers"]
-                             for k in ("k", "v")),
+                             for layer in layers_
+                             for k in ("k", "v", "ssm", "conv")
+                             if k in layer),
             placed_gib=sum(p.numel() * p.element_size()
                            for p in model.parameters()) / 2 ** 30,
             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -5846,88 +6096,116 @@ def _serve_sharded_rank(mesh, runs):
     return out
 
 
-def _ss_local(model, batches, reps=2):
+def _ss_local(model, batches, reps=2, pinned=None, record=False):
     """The local serving path (`LM.prefill` / `decode_step`) on the same
-    batches, twice (the first warms up): (each step's f32 logits on the
-    host, prefill ms, decode ms a token) of the last."""
+    batches, ``reps`` times (the first warms up): (each step's f32 logits
+    on the host, prefill ms, decode ms a token, and with ``record`` each
+    step's MoE choices, `_routing_pinned`) of the last; ``pinned`` routes
+    each step as those choices say."""
+    steps = pinned or [None] * len(batches)
     for _ in range(reps):
-        sync()
-        t0 = time.perf_counter()
-        cache, lg = model.prefill(batches[0], SS_S_MAX)
-        logits = [lg.float().cpu()]
-        t1 = time.perf_counter()
-        for bt in batches[1:]:
-            cache, lg = model.decode_step(cache, bt)
+        chosen, logits, times = [], [], []
+        cache = None
+        for i, bt in enumerate(batches):
+            sync()
+            t0 = time.perf_counter()
+            with _routing_pinned(None if steps[i] is None else
+                                 [c.cuda() for c in steps[i]]) as rec:
+                if i == 0:
+                    cache, lg = model.prefill(bt, SS_S_MAX)
+                else:
+                    cache, lg = model.decode_step(cache, bt)
             logits.append(lg.float().cpu())
-        t2 = time.perf_counter()
+            times.append(time.perf_counter() - t0)
+            chosen.append([c.cpu() for c in rec] if record else None)
         del cache
-    return logits, 1e3 * (t1 - t0), 1e3 * (t2 - t1) / SS_STEPS
+    return (logits, 1e3 * times[0], 1e3 * sum(times[1:]) / SS_STEPS,
+            chosen if record else None)
 
 
 def phase_serve_sharded():
-    """Sharded serving on 4 ranks sharing the card (gloo) on 2x2 ``("data",
-    "model")``: `launch.steps.make_sharded_prefill_step` and
-    `make_sharded_decode_step` (the KV cache cut by sequence over
-    "model", GQA attention, MLP and vocabulary computed on the rank's
-    "model" cut) for each run of `SS_RUNS`, held to the local serving
-    path on the same card, weights and tokens: bf16 within
-    `GEMMA_FLOOR_FACTOR` x the floor measured here (the local path's
-    kernel against its plain attention), f32 within
+    """Sharded serving on 4 ranks sharing the card (gloo), on 2x2 ``("data",
+    "model")`` (jamba on (1, 4)): `launch.steps.make_sharded_prefill_step`
+    and `make_sharded_decode_step` (the KV cache cut by sequence over
+    "model", the Mamba state by heads; GQA attention, Mamba mixers, MLP
+    and vocabulary computed on the rank's "model" cut, MoE expert-parallel)
+    for each run of `SS_RUNS`, held to the local serving path on the same
+    card, weights and tokens, run first: bf16 within `GEMMA_FLOOR_FACTOR`
+    x the floor measured here (the local path's kernels against its plain
+    paths; an MoE run's plain path, and every sharded step, routed to the
+    local kernel path's choices, `_ss_pinned`), f32 within
     `SERVE_F32_LOGIT_ATOL`.  Raises unless every rank launched the flash
-    kernel once a layer a step and its decode body with the log-sum-exp on
-    every decode layer (`FK.LSE_LAUNCHES`), and its caches are finite with
-    ``len`` global.  Prefill ms, decode ms a token and the exchange's
-    share on each rank; the card's name and power limit.  Returns the
-    kernel's launches inside the ranks."""
+    kernel once an attention layer a step and its decode body with the
+    log-sum-exp on every decode layer (`FK.LSE_LAUNCHES`), `ssd_chunk`
+    once a Mamba layer in the prefill (on the rank's heads), and its
+    caches are finite with ``len`` global.  Prefill ms, decode ms a token
+    and the exchange's share on each rank; the card's name and power
+    limit.  Returns the kernels' launches inside the ranks."""
     from repro_torch.launch import ranks
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    local, pinned = {}, {}
+    for tag, arch, layers, dtype, _, leaves in SS_RUNS:
+        cfg = _ss_config(arch, layers, dtype)
+        batches = _ss_batches(cfg)
+        model = _ss_model(cfg, leaves)
+        logits, pre_ms, dec_ms, chosen = _ss_local(
+            model, batches, record=cfg.moe is not None)
+        gate = {}
+        if dtype == "bfloat16":
+            model.use_kernel = False
+            plain = _ss_local(model, batches, reps=1, pinned=chosen)[0]
+            gate = dict(floor=max(_max_err(a, b)
+                                  for a, b in zip(logits, plain)))
+        local[tag] = (logits, pre_ms, dec_ms, gate)
+        if chosen is not None:
+            pinned[tag] = chosen
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    local_s = time.perf_counter() - t0
     out = ranks.launch(f"{os.path.abspath(__file__)}:_serve_sharded_rank",
                        SS_WORLD, mesh=(SS_SHAPE, SS_AXES), device="cuda",
-                       args=(SS_RUNS,), timeout=900)
-    ranks_s = time.perf_counter() - t0
-    bad, launches = [], 0
-    for tag, arch, layers, dtype in SS_RUNS:
+                       args=(SS_RUNS, pinned), timeout=900)
+    ranks_s = time.perf_counter() - t0 - local_s
+    bad, launches = [], {"flash_attention": 0, "ssd_chunk": 0}
+    for tag, arch, layers, dtype, shape, _ in SS_RUNS:
         cfg = _ss_config(arch, layers, dtype)
+        mesh = dict(zip(SS_AXES, shape or SS_SHAPE))
         runs = [o["runs"][tag] for o in out]
         parts = sorted((r["data_index"], r["logits"]) for r in runs
                        if r["logits"] is not None)
         got = [torch.cat([p[i] for _, p in parts])
                for i in range(1 + SS_STEPS)]
-        batches = _ss_batches(cfg)
-        model = LM(cfg, seed=0)
-        local, local_prefill_ms, local_decode_ms = _ss_local(model, batches)
-        err = max(_max_err(a, b) for a, b in zip(got, local))
+        want, local_prefill_ms, local_decode_ms, gate = local[tag]
+        err = max(_max_err(a, b) for a, b in zip(got, want))
         same = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
-                   for a, b in zip(got, local))
-        gate = {}
+                   for a, b in zip(got, want))
         if dtype == "float32":
             gate = dict(atol=SERVE_F32_LOGIT_ATOL)
             if err > SERVE_F32_LOGIT_ATOL:
                 bad.append(f"{tag}: logits off the local path by {err}")
         else:
-            model.use_kernel = False
-            plain, _, _ = _ss_local(model, batches, reps=1)
-            floor = max(_max_err(a, b) for a, b in zip(local, plain))
-            gate = dict(floor=floor, gate=GEMMA_FLOOR_FACTOR * floor)
-            if err > GEMMA_FLOOR_FACTOR * floor:
+            gate = dict(gate, gate=GEMMA_FLOOR_FACTOR * gate["floor"])
+            if err > gate["gate"]:
                 bad.append(f"{tag}: logits off the local path by {err} > "
-                           f"{GEMMA_FLOOR_FACTOR} x floor {floor}")
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
+                           f"{GEMMA_FLOOR_FACTOR} x floor {gate['floor']}")
         for r, o in zip(runs, out):
-            want = (cfg.n_layers * (1 + SS_STEPS), cfg.n_layers * SS_STEPS)
-            if (r["launches"], r["lse_launches"]) != want:
+            want_l = (r["n_attn"] * (1 + SS_STEPS), r["n_attn"] * SS_STEPS,
+                      r["n_ssm"])
+            if (r["launches"], r["lse_launches"], r["ssd_launches"]) \
+                    != want_l or (r["n_attn"], r["n_ssm"]) == (0, 0):
                 bad.append(f"{tag} rank {o['rank']}: flash launched "
                            f"{r['launches']} times, {r['lse_launches']} with "
-                           f"the lse; want {want}")
-            if not r["cache_finite"] or r["len"] != SS_PROMPT + SS_STEPS \
-                    or r["seq"] != ["model"]:
+                           f"the lse, ssd_chunk {r['ssd_launches']}; want "
+                           f"{want_l}")
+            if not r["cache_finite"] or r["lens"] != [SS_PROMPT + SS_STEPS] \
+                    or r["n_attn"] and r["seq"] != ["model"]:
                 bad.append(f"{tag} rank {o['rank']}: cache block "
-                           f"{r['cache_block']} seq {r['seq']} len "
-                           f"{r['len']} finite {r['cache_finite']}")
-            launches += r["launches"]
+                           f"{r['cache_block']} seq {r['seq']} lens "
+                           f"{r['lens']} finite {r['cache_finite']}")
+            launches["flash_attention"] += r["launches"]
+            launches["ssd_chunk"] += r["ssd_launches"]
         per_rank = [dict(
             rank=o["rank"], coords=o["coords"],
             prefill_ms=1e3 * r["prefill"]["prefill_s"],
@@ -5940,22 +6218,24 @@ def phase_serve_sharded():
             place_s=r["place_s"], placed_gib=r["placed_gib"],
             peak_gib=r["peak_gib"]) for r, o in zip(runs, out)]
         emit("serve_sharded", run=tag, arch=arch, n_layers=cfg.n_layers,
-             d_model=cfg.d_model, dtype=dtype, ranks=SS_WORLD,
-             mesh=dict(zip(SS_AXES, SS_SHAPE)), transport="gloo",
-             host_staged=out[0]["host_staged"], batch=SS_BATCH,
-             prompt=SS_PROMPT, decode_steps=SS_STEPS, s_max=SS_S_MAX,
-             cache_block=runs[0]["cache_block"], logit_max_abs_err=err,
-             **gate, greedy_tokens_equal=f"{same}/"
-             f"{SS_BATCH * (1 + SS_STEPS)}",
+             d_model=cfg.d_model, dtype=dtype, ranks=SS_WORLD, mesh=mesh,
+             transport="gloo", host_staged=out[0]["host_staged"],
+             batch=SS_BATCH, prompt=SS_PROMPT, decode_steps=SS_STEPS,
+             s_max=SS_S_MAX, cache_block=runs[0]["cache_block"],
+             ssm_block=runs[0]["ssm_block"],
+             conv_block=runs[0]["conv_block"],
+             routing_pinned=tag in pinned, logit_max_abs_err=err, **gate,
+             greedy_tokens_equal=f"{same}/{SS_BATCH * (1 + SS_STEPS)}",
              local_prefill_ms=local_prefill_ms,
              local_decode_ms_per_token=local_decode_ms, per_rank=per_rank,
              launches=[r["launches"] for r in runs],
-             lse_launches=[r["lse_launches"] for r in runs])
+             lse_launches=[r["lse_launches"] for r in runs],
+             ssd_launches=[r["ssd_launches"] for r in runs])
     emit("serve_sharded", card=card(), seconds=time.perf_counter() - t0,
-         ranks_s=ranks_s, bad=bad[:10])
+         local_s=local_s, ranks_s=ranks_s, bad=bad[:10])
     if bad:
         raise AssertionError(f"serve_sharded: {bad}")
-    return {"flash_attention": launches}
+    return launches
 
 
 # ---------------------------------------------------------------------------

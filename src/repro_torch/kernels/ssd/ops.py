@@ -16,7 +16,11 @@ the heads.
 The kernel has no backward, as the reference's `pallas_call` has no VJP:
 `ssd` calls it through an autograd function whose backward raises, and
 training takes `ssd_chunked` (``use_kernel=False``), as the reference
-trains through ``ssd_chunked_jnp``.
+trains through ``ssd_chunked_jnp``.  `ssd_chunked` masks the intra-chunk
+decays before their exponent where the reference masks after it: the same
+values, and a finite gradient where the reference's exponent overflows
+above the diagonal (its gradient is NaN there at chunk 256 with dt near
+0.7, the reference's initial dt).
 """
 
 from __future__ import annotations
@@ -94,7 +98,11 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor, *,
     ls = l[:, :, None, :, :]                                  # (b,c,1,k,h)
     mask = torch.ones((chunk, chunk), dtype=torch.bool,
                       device=x.device).tril()                 # (q,k) s<=t
-    m = torch.where(mask[None, None, :, :, None], torch.exp(lt - ls), 0.0)
+    # masked before the exponent: above the diagonal l_t - l_s > 0 sums up
+    # to a chunk of |dt A| and overflows f32 at long chunks (256 of dt near
+    # 0.7), where exp(...) then 0 would give 0 * inf = NaN in backward
+    m = torch.exp(torch.where(mask[None, None, :, :, None], lt - ls,
+                              float("-inf")))
     scores = torch.einsum("bcqhn,bckhn->bcqkh", Cr, Br)
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", scores * m, xdt)
 

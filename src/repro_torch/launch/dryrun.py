@@ -41,19 +41,21 @@ rules cut computed on the rank's ``"model"`` cut, the other leaves
 gathered whole into the model (whose whole parameters stay placed and
 counted: the step's workspace); the ``partitioned`` override False runs
 the unpartitioned step on the same blocks.
-``sharded_serve``: prefill and decode cells of the GQA self-attention
-configs (`serve_layout`) run `make_sharded_prefill_step` /
-`make_sharded_decode_step` on the recording mesh with the global batch:
-the rank holds only its blocks of the parameters (from the meta model,
-laid out by `params_shardings` under `arch_rules(cfg, mesh, "prefill" |
-"decode")`), places the leaves the rules cut over ``"model"`` as its cut
-and every other leaf whole, and its KV cache blocks by `cache_shardings`
-(the sequence over ``"model"``).  A decode cell's caches are full (each
-attention layer's ``len`` at ``seq_len - 1``), as the reference's jitted
-step attends the whole cache; the rank attends over its segment and
-combines the partials.  ``serve_whole_params``: the other configs'
-prefill and decode cells (the record's ``layout_reason``: MLA's latent
-cache, the Mamba state or cross-attention, each a later slice) run
+``sharded_serve``: prefill and decode cells of the GQA self-attention,
+Mamba-2 and hybrid configs (`serve_layout`) run
+`make_sharded_prefill_step` / `make_sharded_decode_step` on the recording
+mesh with the global batch: the rank holds only its blocks of the
+parameters (from the meta model, laid out by `params_shardings` under
+`arch_rules(cfg, mesh, "prefill" | "decode")`), places the leaves the
+rules cut over ``"model"`` as its cut and every other leaf whole, its KV
+cache blocks by `cache_shardings` (the sequence over ``"model"``) and its
+Mamba layers' state by heads, with the conv window's channels it
+convolves.  A decode cell's caches are full (each attention layer's
+``len`` at ``seq_len - 1``), as the reference's jitted step attends the
+whole cache; the rank attends over its segment and combines the
+partials.  ``serve_whole_params``: the other prefill and decode cells
+(the record's ``layout_reason``: MLA's latent cache, cross-attention or
+a long_500k cell's sequence cut, each a later slice) run
 `make_prefill_step` / `make_decode_step` on the rank's cut of the batch
 (`batch_shardings`) with whole parameters and no mesh: no collective, and
 not a sharded serving path.  ``local``
@@ -150,17 +152,22 @@ def _moment_dtype(cfg: ModelConfig) -> str:
     return "bfloat16" if cfg.param_count() > 2e11 else "float32"
 
 
-def serve_layout(cfg: ModelConfig) -> Tuple[str, Optional[str]]:
+def serve_layout(cfg: ModelConfig, shape: Optional[str] = None
+                 ) -> Tuple[str, Optional[str]]:
     """(layout, the reason where it is not sharded) of a config's prefill
-    and decode cells: ``sharded_serve`` for GQA self-attention (dense or
-    MoE), else ``serve_whole_params``."""
-    if cfg.mla is not None:
-        return "serve_whole_params", "MLA's latent cache (a later slice)"
-    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.n_layers)):
-        return ("serve_whole_params", "the Mamba state, cut by heads "
-                "(a later slice)")
-    if cfg.encoder is not None:
-        return "serve_whole_params", "cross-attention (a later slice)"
+    and decode cells (``shape``: the cell's name): ``sharded_serve``
+    where `launch.shardings.serving_refusal` finds nothing (GQA
+    self-attention, Mamba-2, MoE), else ``serve_whole_params``.  A
+    long_500k cell of a config with attention layers waits for the KV
+    cache's sequence cut over ``("data", "model")``; one without them
+    (mamba2_780m: batch whole, state by heads) is sharded."""
+    refusal = sh.serving_refusal(cfg)
+    if refusal is not None:
+        return "serve_whole_params", refusal
+    if shape == "long_500k" and any(cfg.layer_kind(i) == "attn"
+                                    for i in range(cfg.n_layers)):
+        return ("serve_whole_params", "the KV cache's (\"data\", "
+                "\"model\") sequence cut (a later slice)")
     return "sharded_serve", None
 
 
@@ -388,7 +395,7 @@ def run_cell(arch: str, shape: ShapeCell, multi_pod: bool,
                           for k in ("master", "m", "v")}}
                 with use_mesh(mesh, rules):
                     return step(params, opt, _batch(specs, device))
-        elif serve_layout(cfg)[0] == "sharded_serve":
+        elif serve_layout(cfg, shape.name)[0] == "sharded_serve":
             rec["layout"] = "sharded_serve"
             rec["microbatches"] = 1
             if shape.kind == "prefill":
@@ -414,7 +421,8 @@ def run_cell(arch: str, shape: ShapeCell, multi_pod: bool,
                         layer["len"] = shape.seq_len - 1
                     return step(params, cache, batch)
         else:
-            rec["layout"], rec["layout_reason"] = serve_layout(cfg)
+            rec["layout"], rec["layout_reason"] = serve_layout(cfg,
+                                                               shape.name)
             rec["microbatches"] = 1
             cut = sh.batch_shardings(specs, mesh, rules)
 

@@ -17,11 +17,11 @@ stacked leaf with its leading entry removed (`convert.name_map` relates
 the two names): the names are resolved against the stacked shape, as the
 reference resolves them, and the stacking entry is then dropped.
 
-`model_cuts` says, for each leaf, whether the sharded train step computes
-on its ``"model"`` cut (the reference's partitioned step), holds it whole
-with a partial gradient, or gathers it whole; with ``serving=True``, the
-same for the sharded serving steps, which cut the MoE configs' dense
-leaves too.
+`model_cuts` says, for each leaf, whether the sharded train and serving
+steps compute on its ``"model"`` cut (the reference's partitioned step),
+hold it whole with a partial gradient, or gather it whole.
+`serving_refusal` says which configs the sharded serving steps cannot
+serve yet, and why.
 """
 
 from __future__ import annotations
@@ -162,12 +162,12 @@ def params_shardings(cfg: ModelConfig, params: Mapping[str, Any], mesh,
 
 
 class ModelCut(NamedTuple):
-    """How the sharded train step computes with a leaf along ``"model"``
-    (`model_cuts`): ``mode`` "cut" (its module computes on the rank's
-    ``"model"`` cut, dim ``dim`` of the leaf), "partial" (whole along
-    ``"model"`` inside a module that computes on the cut, so each rank's
-    gradient is a part of the whole) or "whole" (gathered whole, its
-    module computing whole on every rank)."""
+    """How the sharded train and serving steps compute with a leaf along
+    ``"model"`` (`model_cuts`): ``mode`` "cut" (its module computes on
+    the rank's ``"model"`` cut, dim ``dim`` of the leaf), "partial"
+    (whole along ``"model"`` inside a module that computes on the cut, so
+    each rank's gradient is a part of the whole) or "whole" (gathered
+    whole, its module computing whole on every rank)."""
 
     dim: Optional[int]
     mode: str
@@ -179,13 +179,17 @@ _MLP_CUT = {"w1": 1, "w3": 1, "b1": 0, "w2": 0}
 _Q_CUT = {"wq": 1, "bq": 0, "wo": 0}
 _KV_CUT = {"wk": 1, "wv": 1, "bk": 0, "bv": 0}
 _VOCAB_CUT = {"embed": 0, "lm_head": 0}
+_SSM_CUT = {"in_proj": 1, "out_proj": 0}
+#: a Mamba-2 mixer's leaves whose specs keep them whole: each rank
+#: computes on its heads' slice of them (`models.mamba`)
+_SSM_WHOLE = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_w")
 
 
-def model_cuts(cfg: ModelConfig, specs: Mapping[str, Spec], mesh,
-               serving: bool = False) -> Dict[str, ModelCut]:
+def model_cuts(cfg: ModelConfig, specs: Mapping[str, Spec], mesh
+               ) -> Dict[str, ModelCut]:
     """{parameter name: `ModelCut`} for `params_shardings`' ``specs`` on
-    ``mesh``: which leaves the sharded train step computes on their
-    ``"model"`` cut, as the reference's partitioned step does.
+    ``mesh``: which leaves the sharded steps compute on their ``"model"``
+    cut, as the reference's partitioned step does.
 
     A GQA attention layer (``attn``, no MLA) computes on the cut where
     its query heads divide over ``"model"`` and ``wq`` / ``bq`` / ``wo``
@@ -195,17 +199,22 @@ def model_cuts(cfg: ModelConfig, specs: Mapping[str, Spec], mesh,
     always stays whole).  A dense MLP (``mlp``) computes on the cut where
     ``w1`` / ``w3`` / ``b1`` are cut on their columns and ``w2`` on its
     rows; ``b2`` is added after the sum, "whole".  ``embed`` and
-    ``lm_head`` are cut where the vocabulary is.  Everything else is
-    "whole": MLA, Mamba, cross-attention and MoE leaves (the step keeps
-    expert blocks apart), norms, learned positions.  In training every
-    leaf of a config with MoE layers (deepseek_v3, jamba, dbrx) is
-    "whole" too: those keep the unpartitioned step beside their
-    expert-parallel layer (AdamW's conditioning, ROADMAP).  ``serving``
-    (the sharded prefill and decode steps, which update nothing) cuts
-    their dense leaves as any config's."""
+    ``lm_head`` are cut where the vocabulary is.
+
+    A Mamba-2 mixer (``ssm``) computes on the rank's heads where they
+    divide over ``"model"``, ``out_proj`` is cut on its rows (its
+    contiguous row block is the rank's heads) and ``in_proj`` on its
+    columns: both "cut" (the step keeps ``in_proj``'s contiguous block,
+    which does not fall on head boundaries, and the mixer takes its
+    heads' columns from the gathered whole); the leaves whose specs keep
+    them whole (``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``,
+    ``norm_w``) "partial": each rank uses its heads' slice of them.
+
+    Everything else is "whole": MLA, cross-attention and MoE leaves (the
+    steps keep expert blocks apart), norms, learned positions."""
     tp = mesh.shape.get("model", 1)
     out = {n: ModelCut(None, "whole") for n in specs}
-    if tp <= 1 or (cfg.moe is not None and not serving):
+    if tp <= 1:
         return out
     modules: Dict[str, Dict[str, Spec]] = {}
     for name, spec in specs.items():
@@ -233,11 +242,26 @@ def model_cuts(cfg: ModelConfig, specs: Mapping[str, Spec], mesh,
             mark(head, _Q_CUT)
             kv = cfg.n_kv_heads % tp == 0 and cut(leaves, _KV_CUT)
             mark(head, _KV_CUT, "cut" if kv else "partial")
+        elif kind == "ssm" and cfg.ssm.n_heads(cfg.d_model) % tp == 0 \
+                and cut(leaves, _SSM_CUT):
+            mark(head, _SSM_CUT)
+            mark(head, dict.fromkeys(_SSM_WHOLE), "partial")
         elif head == "":
             for key in _VOCAB_CUT:
                 if key in leaves and cut(leaves, {key: _VOCAB_CUT[key]}):
                     mark(head, {key: _VOCAB_CUT[key]})
     return out
+
+
+def serving_refusal(cfg: ModelConfig) -> Optional[str]:
+    """Why the sharded serving steps cannot serve ``cfg`` yet, or None
+    where they can: GQA self-attention, Mamba-2 and MoE layers are
+    served on a mesh; MLA's latent cache and cross-attention are not."""
+    if cfg.mla is not None:
+        return "MLA's latent cache (a later slice)"
+    if cfg.encoder is not None:
+        return "cross-attention (a later slice)"
+    return None
 
 
 def batch_shardings(batch: Mapping[str, Any], mesh, rules: Dict[str, Any]

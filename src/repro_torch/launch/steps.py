@@ -9,16 +9,18 @@ differentiates `LM.loss` with autograd and applies AdamW in place.
 
 `make_sharded_train_step` is the same step on every rank of a mesh, each
 rank holding only its blocks of the parameters and of AdamW's state
-(`launch.shardings`) and computing the GQA attention, dense MLP and
-vocabulary leaves the rules cut on its ``"model"`` cut: the reference's
-jitted step under its shardings, partitioned as XLA partitions it.
+(`launch.shardings`) and computing the GQA attention, dense MLP, Mamba-2
+and vocabulary leaves the rules cut on its ``"model"`` cut, the MoE
+configs' too: the reference's jitted step under its shardings,
+partitioned as XLA partitions it.
 
 `make_sharded_prefill_step` and `make_sharded_decode_step` are the
 reference's jitted serving steps under `params_shardings` and
 `cache_shardings` (`arch_rules(..., "prefill" | "decode")`): each rank
-holds its KV cache blocks, cut by sequence over ``"model"``, and computes
-the same leaves on its ``"model"`` cut; decode combines the ranks'
-attention partials (`launch.mesh.combine_partials`).
+holds its KV cache blocks, cut by sequence over ``"model"``, and its
+Mamba layers' state blocks, cut by heads, and computes the same leaves
+on its ``"model"`` cut; decode combines the ranks' attention partials
+(`launch.mesh.combine_partials`).
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ import torch
 from repro_torch.launch.mesh import gather_full, shard_of, use_mesh
 from repro_torch.launch.shardings import (ModelCut, batch_shardings,
                                          cache_shardings, model_cuts,
-                                         params_shardings)
+                                         params_shardings, serving_refusal)
 from repro_torch.models import moe, tensor_parallel
+from repro_torch.models.mamba import head_columns
 from repro_torch.models.model import LM
 from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
 
@@ -148,24 +151,30 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
     batch's *i*-th cut, split by `batch_shardings`), weighted by its share
     of the microbatch's valid labels (the counts all-reduced) before the
     backward, and, as the reference's partitioned step, on its ``"model"``
-    cut of every GQA attention, dense MLP and vocabulary leaf the rules
-    cut: such a leaf ("cut") is gathered over its other axes only and
-    handed to the model as the rank's block (`models.tensor_parallel.
+    cut of every GQA attention, dense MLP, Mamba-2 and vocabulary leaf the
+    rules cut: such a leaf ("cut") is gathered over its other axes only
+    and handed to the model as the rank's block (`models.tensor_parallel.
     cuts`), which runs the column and row products on it and sums their
-    outputs over ``"model"``.  Every other leaf is gathered whole into
-    ``model`` (`gather_full`).  Ranks along ``"model"`` then hold the
-    same activations between the layers.
+    outputs over ``"model"``.  A Mamba mixer's ``in_proj`` block is the
+    reference's contiguous one, which does not fall on head boundaries:
+    the mixer all-gathers it at use, takes its heads' columns and frees
+    the whole (`models.mamba`), so no whole copy lives across the step.
+    Every other leaf is gathered whole into ``model`` (`gather_full`).
+    Ranks along ``"model"`` then hold the same activations between the
+    layers, the MoE layers' input among them.
 
     After the backward each gradient is summed over the axes the batch is
     split on and cut back to the block.  A "partial" leaf (whole along
     ``"model"`` inside a layer that computes on the cut: gemma_2b's
     ``wk`` / ``wv`` at one kv head, kv heads left whole beside cut query
     heads) holds on each rank the part its query heads use, so it is
-    summed over ``"model"`` too; ``sum_partial=False`` leaves it partial
-    (the control of the tests).  A leaf applied to the replicated
-    activations (norms, ``b2``, attention whose heads do not divide) has
-    equal gradients along ``"model"`` and counts once.  AdamW runs on the
-    blocks, the clipping norm summed over them
+    summed over ``"model"`` too, as is each Mamba leaf whose spec keeps it
+    whole (``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``,
+    ``norm_w``: each rank uses its heads' slice); ``sum_partial=False``
+    leaves it partial (the control of the tests).  A leaf applied to the
+    replicated activations (norms, ``b2``, attention whose heads do not
+    divide) has equal gradients along ``"model"`` and counts once.  AdamW
+    runs on the blocks, the clipping norm summed over them
     (`optim.adamw.global_norm`).
 
     Expert weights differ where the mesh runs expert parallelism
@@ -340,12 +349,10 @@ class _ServeLayout:
 
     def __init__(self, model: LM, mesh, rules: Dict[str, Any]):
         cfg = model.cfg
-        if cfg.mla is not None or cfg.encoder is not None or any(
-                b.kind != "attn" for b in model.blocks):
-            raise NotImplementedError(
-                "sharded serving covers GQA self-attention configs; MLA's "
-                "latent cache, the Mamba state and cross-attention wait "
-                "for a later slice")
+        refusal = serving_refusal(cfg)
+        if refusal is not None:
+            raise NotImplementedError(f"sharded serving of {cfg.name}: "
+                                      f"{refusal}")
         self.model, self.mesh, self.rules = model, mesh, rules
         placed = getattr(model, "_sharded_serve", None)
         #: the parameters' whole shapes (meta), before any placement
@@ -353,25 +360,45 @@ class _ServeLayout:
             n: torch.empty(p.shape, dtype=p.dtype, device="meta")
             for n, p in model.named_parameters()}
         self.specs = params_shardings(cfg, self.full, mesh, rules)
-        self.cuts = model_cuts(cfg, self.specs, mesh, serving=True)
+        self.cuts = model_cuts(cfg, self.specs, mesh)
         self.experts = set(_expert_leaves(model, mesh, self.specs))
         self.rest = tuple(a for a in mesh.axis_names if a != "model")
 
     def cache_specs(self, batch_size: int, s_max: int) -> Dict[str, Any]:
         """`cache_shardings` of the whole cache of ``batch_size`` rows of
-        ``s_max`` (from its shapes: nothing is made)."""
+        ``s_max`` (from its shapes: nothing is made): k and v for each
+        attention layer, the SSM state (B, H, N, P) and conv window (B,
+        K - 1, C) for each Mamba layer, whose state keeps its heads whole
+        where the layer does not compute on its heads' cut."""
         cfg = self.model.cfg
         kv = _Shaped((batch_size, s_max, cfg.n_kv_heads, cfg.head_dim))
-        whole = {"layers": [{"k": kv, "v": kv, "len": 0}
-                            for _ in self.model.blocks], "enc_out": None}
-        return cache_shardings(whole, self.mesh, self.rules)
+        layers = []
+        for block in self.model.blocks:
+            if block.kind == "attn":
+                layers.append({"k": kv, "v": kv, "len": 0})
+                continue
+            s = cfg.ssm
+            di, g, n = s.d_inner(cfg.d_model), s.n_groups, s.d_state
+            layers.append({"ssm": _Shaped((batch_size, s.n_heads(
+                cfg.d_model), n, s.head_dim)), "conv": _Shaped(
+                (batch_size, s.conv_kernel - 1, di + 2 * g * n)), "len": 0})
+        specs = cache_shardings({"layers": layers, "enc_out": None},
+                                self.mesh, self.rules)
+        for i, (block, spec) in enumerate(zip(self.model.blocks,
+                                              specs["layers"])):
+            if block.kind != "attn" and \
+                    self.cuts[f"blocks.{i}.ssm.out_proj"].mode != "cut":
+                spec["ssm"] = spec["ssm"][:1]
+        return specs
 
     def place(self, params: Dict[str, Tensor]) -> float:
         """Put this rank's parameters in the model from its blocks
         ``params``, unless these blocks are placed already: each leaf the
         steps compute on its ``"model"`` cut, and each expert block,
-        gathered over the other axes only; every other leaf whole.  Host
-        seconds it took (0.0 when placed already)."""
+        gathered over the other axes only; a Mamba mixer's ``in_proj``
+        gathered whole and cut to its heads' columns
+        (`models.mamba.head_columns`), once; every other leaf whole.
+        Host seconds it took (0.0 when placed already)."""
         model = self.model
         key = (id(self.mesh), tuple(id(t) for t in params.values()))
         placed = getattr(model, "_sharded_serve", None)
@@ -385,9 +412,15 @@ class _ServeLayout:
         with torch.no_grad():
             for name, blk in params.items():
                 mine = name in self.experts or self.cuts[name].mode == "cut"
-                t = gather_full(blk, self.specs[name], self.mesh,
-                                self.rest if mine else None)
                 head, _, leaf = name.rpartition(".")
+                if leaf == "in_proj" and mine:
+                    t = gather_full(blk, self.specs[name], self.mesh)
+                    t = t.index_select(1, head_columns(
+                        model.cfg, self.mesh.size("model"),
+                        self.mesh.index("model"), t.device))
+                else:
+                    t = gather_full(blk, self.specs[name], self.mesh,
+                                    self.rest if mine else None)
                 module = model.get_submodule(head) if head else model
                 module._parameters[leaf] = p = torch.nn.Parameter(
                     t, requires_grad=False)
@@ -430,19 +463,22 @@ def make_sharded_prefill_step(model: LM, s_max: int, mesh,
     position's logits (B / data, vocab) for the rank's cut of the batch),
     called by every rank of ``mesh``: the reference's prefill step jitted
     under `params_shardings` and `cache_shardings` (``rules``:
-    `arch_rules(cfg, mesh, "prefill")`).  GQA self-attention configs only
-    (with MoE layers too: dbrx).
+    `arch_rules(cfg, mesh, "prefill")`).  GQA self-attention, Mamba-2
+    and MoE layers (`launch.shardings.serving_refusal`: not MLA or
+    cross-attention).
 
     At its first call with a set of blocks the rank places its parameters
     in ``model`` once (serving updates nothing): each leaf the rules cut
-    over ``"model"`` in a module that computes on the cut
-    (`model_cuts(..., serving=True)`: GQA attention, dense MLPs,
-    vocabulary) and each expert block, gathered over the batch's axes
-    only, so no whole copy of such a leaf is placed; every other leaf
-    whole.  ``model`` may be built on meta.  The rank's cache blocks
-    (`LM.init_cache` with the mesh) start empty; the prompt's attention
-    runs on the rank's heads over its own k and v, and each rank writes
-    the rows of its sequence segment (`models.attention`).
+    over ``"model"`` in a module that computes on the cut (`model_cuts`:
+    GQA attention, dense MLPs, Mamba-2, vocabulary) and each expert
+    block, gathered over the batch's axes only, so no whole copy of such
+    a leaf is placed (a Mamba ``in_proj``: its heads' columns); every
+    other leaf whole.  ``model`` may be built on meta.  The rank's cache
+    blocks (`LM.init_cache` with the mesh) start empty; the prompt's
+    attention runs on the rank's heads over its own k and v, and each
+    rank writes the rows of its sequence segment (`models.attention`); a
+    Mamba layer runs the SSD on its heads (`ssd_chunk` on the card) and
+    keeps their state and its channels of the conv window.
 
     ``.specs``, ``.cuts``, ``.cache_specs(batch_size, s_max)``; after a
     call ``.metrics``: host seconds (the card synchronised) of the call

@@ -205,18 +205,26 @@ class LM(nn.Module):
         """One cache per layer: a KV cache of ``s_max`` rows for each
         attention layer, the conv window and SSM state for each SSM layer;
         and ``enc_out``, the encoder's output, which `prefill` fills.
-        With ``mesh``, this rank's blocks of the KV caches of a global
-        batch of ``batch_size`` under ``specs`` (`launch.shardings.
-        cache_shardings`' structure; attention layers only)."""
+        With ``mesh``, this rank's blocks of the caches of a global batch
+        of ``batch_size`` under ``specs`` (`launch.shardings.
+        cache_shardings`' structure): the KV caches cut by theirs, the
+        SSM states and conv windows by `make_ssm_cache`'s rule; configs
+        `launch.shardings.serving_refusal` refuses raise."""
         device = self.device if device is None else device
         if mesh is not None:
-            if any(block.kind != "attn" for block in self.blocks):
-                raise NotImplementedError("the SSM state is not cut on a "
-                                          "mesh yet")
+            from repro_torch.launch.shardings import serving_refusal
+            refusal = serving_refusal(self.cfg)
+            if refusal is not None:
+                raise NotImplementedError(f"a cache of {self.cfg.name} on "
+                                          f"a mesh: {refusal}")
             return {"layers": [
                 make_kv_cache(self.cfg, batch_size, s_max, self.dtype,
                               device, mesh=mesh, spec=spec["k"])
-                for spec in specs["layers"]], "enc_out": None}
+                if block.kind == "attn" else
+                make_ssm_cache(self.cfg, batch_size, self.dtype, device,
+                               mesh=mesh, specs=spec)
+                for block, spec in zip(self.blocks, specs["layers"])],
+                "enc_out": None}
         return {"layers": [
             make_kv_cache(self.cfg, batch_size, s_max, self.dtype,
                           device) if block.kind == "attn" else

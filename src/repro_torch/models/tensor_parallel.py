@@ -16,6 +16,9 @@ read their leaves through `block` and `mesh_of`:
   ``b2`` is added once;
 * `attention.gqa_forward`: the rank's query heads, beside its cut of the
   kv heads or the kv heads those query heads use;
+* `mamba.Mamba2.forward`: the rank's heads, ``in_proj``'s columns of
+  them taken from its block at use (training) or placed (serving), the
+  gated norm's sum of squares all-reduced, ``out_proj`` a row product;
 * `model.LM._embed_in` and `LM.loss`: the vocab-parallel lookup and
   cross-entropy (`layers.embed_lookup`, `layers.chunked_softmax_xent`);
   `LM._logits`, the vocabulary slice's logits all-gathered.
@@ -31,9 +34,9 @@ A column product's input goes through `launch.mesh.sum_grad` (the
 identity, its gradient summed over ``"model"``: Megatron's *f*), a row
 product's output through `launch.mesh.all_reduce_grad` over ``"model"``
 with no gradient axes (summed, its gradient the identity: Megatron's
-*g*).  Outside `cuts` (serving, the local trainer) and for every leaf it
-does not name (MLA, Mamba, cross-attention and MoE leaves, which the step
-gathers whole) a leaf is the module's own.
+*g*).  Outside `cuts` (the local paths) and for every leaf it does not
+name (MLA, cross-attention and MoE leaves, norms, and the "partial"
+leaves the step gathers whole) a leaf is the module's own.
 """
 
 from __future__ import annotations

@@ -65,10 +65,11 @@ def ckpt_dir(tmp, case):
     return os.path.join(tmp, case.replace("/", "-"))
 
 
-def final_state(path, arch):
+def final_state(path, arch, cfg=None):
     """(step, {"params", "master", "m", "v"} of {name: tensor}) of the
-    newest checkpoint under ``path``, on the host."""
-    model = train_mod.build_model(f32(arch), device="cpu")
+    newest checkpoint under ``path``, on the host, in the dtypes of a
+    model of ``cfg`` (default `f32` of ``arch``)."""
+    model = train_mod.build_model(cfg or f32(arch), device="cpu")
     params = dict(model.named_parameters())
     like = {"params": params, "opt": init_state(params, AdamWConfig())}
     step = ckpt_lib.latest_step(path)

@@ -86,9 +86,10 @@ def model_of(cfg, remat):
               attn_impl="chunked", remat_policy=remat, loss_chunk=8)
 
 
-def local_run(arch, remat):
-    """The local trainer's `STEPS` steps: (history, params, m)."""
-    cfg = f32(arch)
+def local_run(arch, remat, cfg=None):
+    """The local trainer's `STEPS` steps on ``cfg`` (default `f32` of
+    ``arch``): (history, params, m)."""
+    cfg = cfg or f32(arch)
     model = model_of(cfg, remat)
     opt = AdamWConfig(**OPT)
     step = make_train_step(model, opt)

@@ -395,3 +395,60 @@ def test_remat_recompute_in_another_thread_sees_the_forwards_mesh(
                      cfg=get_reduced("dbrx_132b"),
                      mesh_shape=((2, 2), ("data", "model")))
     assert "all-to-all" in rec["collectives"]
+
+
+@pytest.mark.parametrize("arch,shape,reason", [
+    ("mamba2_780m", "prefill_32k", None),
+    ("mamba2_780m", "decode_32k", None),
+    ("mamba2_780m", "long_500k", None),
+    ("jamba_1_5_large_398b", "prefill_32k", None),
+    ("jamba_1_5_large_398b", "decode_32k", None),
+    ("jamba_1_5_large_398b", "long_500k", "sequence cut"),
+    ("deepseek_v3_671b", "decode_32k", "MLA"),
+    ("whisper_small", "decode_32k", "cross-attention"),
+])
+def test_serve_layout_of_mamba_hybrid_and_refused_cells(arch, shape,
+                                                        reason):
+    """`serve_layout` per cell: mamba2_780m and jamba served sharded (the
+    state cut by heads), mamba2_780m's long_500k too (batch whole, state
+    by heads); jamba's long_500k waits for the KV cache's sequence cut
+    over ("data", "model"), deepseek_v3 (MLA) and whisper_small
+    (cross-attention) for a later slice, with whole parameters."""
+    layout, why = D.serve_layout(get_config(arch), shape)
+    if reason is None:
+        assert (layout, why) == ("sharded_serve", None)
+    else:
+        assert layout == "serve_whole_params"
+        assert reason in why and "later slice" in why
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "jamba_1_5_large_398b"])
+def test_long_500k_cells_of_reduced_ssm_configs(arch):
+    """A reduced long_500k decode cell on (2, 2): mamba2_780m's runs the
+    sharded decode step under the long-context rules (collectives
+    recorded), jamba's whole parameters and no mesh."""
+    cell = ShapeCell("long_500k", 64, 1, "decode")
+    rec = D.run_cell(arch, cell, False, cfg=get_reduced(arch),
+                     mesh_shape=((2, 2), ("data", "model")))
+    assert rec["rules"]["batch"] == "None"
+    if arch == "mamba2_780m":
+        assert rec["layout"] == "sharded_serve"
+        assert rec["total_wire_bytes"] > 0
+    else:
+        assert rec["layout"] == "serve_whole_params"
+        assert rec["collectives"] == {}
+
+
+@pytest.mark.parametrize("arch", ["dbrx_132b", "jamba_1_5_large_398b"])
+def test_moe_train_cell_partitioned_counts_less(arch):
+    """A reduced MoE config's train cell on (2, 2): partitioned (its
+    attention, dense MLPs, Mamba mixers and vocabulary on the "model"
+    cut), it counts fewer FLOPs, matmul bytes and peak bytes a card than
+    unpartitioned on the same blocks."""
+    cell = ShapeCell("t", 64, 8, "train")
+    part, whole = (D.run_cell(arch, cell, False, {"partitioned": p},
+                              cfg=get_reduced(arch),
+                              mesh_shape=((2, 2), ("data", "model")))
+                   for p in (True, False))
+    for key in ("dot_flops", "dot_bytes", "per_device_peak_bytes"):
+        assert part[key] < whole[key], key

@@ -4,7 +4,10 @@ Each kernel is held against its plain PyTorch version on the same device
 tensors (fp32 MIN/MAX also with ±0 and NaN); BFS on the kernels against BFS
 on the plain sort backend; the SSD kernel in per-head and group form, its
 composition and a full-width two-layer mamba2_780m prefill and decode
-against the plain SSD path; the flash-attention kernel (f32 at rtol = atol
+against the plain SSD path, and at the head counts a rank of the sharded
+serving steps hands it; mamba2_780m's mixer at full width on two ranks
+sharing the card, each on its heads, against the local mixer; the
+flash-attention kernel (f32 at rtol = atol
 = 3e-5, bf16 at 2e-2, as the reference's attention tests, and at one bf16
 ulp at gemma_2b's shapes; decode split across CTAs, prefill on tensor
 cores) and a full-width two-layer gemma_2b prefill and decode against the
@@ -377,6 +380,80 @@ def test_ssd_chunk_group_form_matches_plain_version(cuda_device, bh, hpg, s,
                                    heads_per_group=hpg)
     torch.testing.assert_close(y, y_p, **SSD_TOL)
     torch.testing.assert_close(st, st_p, **SSD_TOL)
+
+
+# (BH, heads per group, S): a rank's cut of the heads at the sharded
+# prefill's 512-token prompts, one group a sequence: mamba2_780m on a
+# 2-way "model" axis (2 sequences of 24 heads) and jamba on 4 (4 of 64)
+SSD_RANK_CUTS = [(48, 24, 512), (256, 64, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,hpg,s", SSD_RANK_CUTS)
+def test_ssd_chunk_at_a_ranks_heads_matches_plain_version(cuda_device, bh,
+                                                          hpg, s):
+    """`ssd_chunk` at the head counts a rank of the sharded serving steps
+    hands it (N 128, chunk 256), one launch, against its plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(bh + hpg)
+    xdt, adt, _, _ = _ssd_chunk_inputs(g, cuda_device, bh, s, 128)
+    B, C = (torch.randn((bh // hpg, s, 128), generator=g, device=cuda_device)
+            for _ in range(2))
+    SK.reset_launches()
+    y, st = SK.ssd_chunk(xdt, adt, B, C, chunk=256, heads_per_group=hpg)
+    assert SK.LAUNCHES == {"ssd_chunk": 1}
+    y_p, st_p = SK.ssd_chunk_plain(xdt, adt, B, C, chunk=256,
+                                   heads_per_group=hpg)
+    torch.testing.assert_close(y, y_p, **SSD_TOL)
+    torch.testing.assert_close(st, st_p, **SSD_TOL)
+
+
+@pytest.mark.gpu
+def test_partitioned_mamba_layer_on_the_card_matches_local(cuda_device):
+    """mamba2_780m's mixer at full width in f32 (TF32 off) on two gloo
+    ranks sharing the card, each on its 24 heads of 48
+    (`tests/_torch_mamba_tp_worker.py`: ``in_proj`` and ``out_proj`` as
+    the rank's contiguous blocks), against the same mixer on the card
+    locally: the output, dx and every leaf's gradient reassembled within
+    relative L2 1e-5."""
+    import _torch_mamba_tp_worker as MW
+    from repro_torch.launch import ranks
+    cfg = get_config("mamba2_780m")
+    s_ = cfg.ssm
+    d, di = cfg.d_model, s_.d_inner(cfg.d_model)
+    gn, h = s_.n_groups * s_.d_state, s_.n_heads(cfg.d_model)
+    rng = np.random.default_rng(31)
+    nrm = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    c = dict(arch="mamba2_780m", full=True,
+             params={"in_proj": nrm(d, 2 * di + 2 * gn + h) * d ** -0.5,
+                     "conv_w": nrm(s_.conv_kernel, di + 2 * gn) * 0.2,
+                     "conv_b": nrm(di + 2 * gn) * 0.3,
+                     "A_log": nrm(h) * 0.3, "D": 1 + nrm(h) * 0.3,
+                     "dt_bias": nrm(h) * 0.3, "norm_w": 1 + nrm(di) * 0.3,
+                     "out_proj": nrm(di, d) * di ** -0.5},
+             x=nrm(2, 512, d), ct=nrm(2, 512, d))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    module = MW.mixer(c, "cuda")
+    x = torch.from_numpy(c["x"]).cuda().requires_grad_()
+    y, _ = module(x, use_kernel=False)
+    want = torch.autograd.grad(y, [x] + [getattr(module, n)
+                                         for n in MW.LEAVES],
+                               torch.from_numpy(c["ct"]).cuda())
+    want = dict(y=y.detach().cpu(), dx=want[0].cpu(),
+                **{n: g.cpu() for n, g in zip(MW.LEAVES, want[1:])})
+    del module, x, y
+    torch.cuda.empty_cache()
+    out = ranks.launch(f"{MW.__file__}:run_card", 2, mesh=((2,), ("model",)),
+                       device="cuda", args=(c,), timeout=600)
+
+    def rel(a, b):
+        a, b = torch.as_tensor(a).double(), b.double()
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.clamp(torch.linalg.vector_norm(b), min=1e-30))
+
+    for o in out:
+        errs = {k: rel(o[k], want[k]) for k in ("y", "dx")}
+        errs.update({n: rel(o["grads"][n], want[n]) for n in MW.LEAVES})
+        assert max(errs.values()) <= 1e-5, errs
 
 
 @pytest.mark.gpu

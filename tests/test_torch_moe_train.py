@@ -15,9 +15,9 @@ k, and a shared expert.  The output, ``dx``, the router's and the shared
 expert's gradients (summed over the data cuts) and each rank's expert
 blocks' gradients within rtol = atol = 1e-5.
 
-The same world then trains deepseek_v3, jamba and dbrx (reduced, f32, the
-no-drop factor) for 3 steps on (2,2,2), and deepseek_v3 on the masked
-batch, against the local trainer run here (the bounds of
+The same world then trains deepseek_v3, jamba and dbrx (reduced, f32 and
+jamba f64, the no-drop factor) for 3 steps on (2,2,2), and deepseek_v3 on
+the masked batch, against the local trainer run here (the bounds of
 `_torch_train_sharded_moe_worker`), and restores deepseek_v3's (2,2,2)
 checkpoint onto 2x2 meshes through `reshard_restore`.
 """

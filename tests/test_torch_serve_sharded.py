@@ -52,7 +52,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(HERE, "_torch_serve_sharded_worker.py")
 LOGIT_TOL, CACHE_TOL, COMBINE_TOL = 1e-5, 1e-6, 1e-6
 SHARDED = ("command_r_plus_104b", "dbrx_132b", "gemma_2b",
-           "phi3_medium_14b", "qwen2_vl_2b", "stablelm_12b")
+           "jamba_1_5_large_398b", "mamba2_780m", "phi3_medium_14b",
+           "qwen2_vl_2b", "stablelm_12b")
 
 
 @pytest.fixture(scope="module")
@@ -301,8 +302,8 @@ def test_recording_mesh_log(arch, shape):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_dry_run_serving_layout_per_config(arch):
     """The dry run's serving layout: sharded for the six GQA
-    self-attention configs, whole parameters with a reason for MLA, the
-    Mamba state and cross-attention."""
+    self-attention configs, mamba2_780m and jamba, whole parameters with
+    a reason for MLA and cross-attention."""
     layout, reason = dryrun.serve_layout(get_config(arch))
     if arch in SHARDED:
         assert (layout, reason) == ("sharded_serve", None)
@@ -315,7 +316,7 @@ def test_dry_run_sharded_serve_cell(kind):
     """A reduced gemma_2b cell on (2, 2) under ``sharded_serve``: its
     record counts the mesh's collectives (decode: a combine's all-gather
     each layer beside q's), and a whole-parameter config's cell
-    (mamba2_780m) none."""
+    (whisper_small, cross-attention) none."""
     cell = dryrun.ShapeCell(f"{kind}_t", 64, 8, kind)
     mesh = ((2, 2), ("data", "model"))
     rec = dryrun.run_cell("gemma_2b", cell, False,
@@ -325,18 +326,18 @@ def test_dry_run_sharded_serve_cell(kind):
     assert rec["collectives"]["all-reduce"]["count"] > 0
     if kind == "decode":
         assert gathers >= 2 * get_reduced("gemma_2b").n_layers
-    other = dryrun.run_cell("mamba2_780m", cell, False,
-                            cfg=get_reduced("mamba2_780m"), mesh_shape=mesh)
+    other = dryrun.run_cell("whisper_small", cell, False,
+                            cfg=get_reduced("whisper_small"),
+                            mesh_shape=mesh)
     assert other["layout"] == "serve_whole_params"
     assert other["collectives"] == {} and "later slice" in \
         other["layout_reason"]
 
 
-@pytest.mark.parametrize("arch", ["mamba2_780m", "whisper_small",
-                                  "deepseek_v3_671b"])
+@pytest.mark.parametrize("arch", ["whisper_small", "deepseek_v3_671b"])
 def test_sharded_steps_refuse_later_slices(arch):
-    """MLA's latent cache, the Mamba state and cross-attention are a later
-    slice's: the steps refuse them at make time."""
+    """MLA's latent cache and cross-attention are a later slice's: the
+    steps refuse them at make time."""
     cfg = get_reduced(arch)
     mesh = RecordingMesh((2, 2), ("data", "model"))
     model = LM(cfg, device="meta")

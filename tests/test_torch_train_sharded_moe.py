@@ -1,6 +1,8 @@
 """Sharded MoE training: `launch.train.train(mesh=...)` on deepseek_v3,
-jamba and dbrx (reduced, f32) on 4 gloo CPU ranks, against the local
-trainer.
+jamba and dbrx (reduced, f32; jamba f64, the worker's `F64`) on 4 gloo
+CPU ranks, against the local trainer.  On 2x2 the step computes their
+GQA attention, dense MLPs, Mamba mixers and vocabulary on the "model"
+cut beside the expert-parallel layer.
 
 One world of 4 ranks (module-scoped), rank side
 `tests/_torch_train_sharded_moe_worker.py` (no JAX), on a 2x2 ``("data",

@@ -345,12 +345,19 @@ def test_model_cuts_on_the_production_mesh():
 @pytest.mark.parametrize("arch", ["deepseek_v3_671b", "dbrx_132b",
                                   "jamba_1_5_large_398b"])
 def test_model_cuts_keep_moe_configs_whole(arch):
-    """A config with MoE layers keeps every leaf whole, though its rules
-    cut attention, MLP and vocabulary leaves over "model"."""
+    """A config with MoE layers keeps its MoE leaves whole (the experts,
+    which the step keeps as blocks apart, and the router), while every
+    leaf its rules cut over "model" outside them (attention, MLP, Mamba,
+    vocabulary) is computed on the cut; deepseek_v3's MLA stays whole."""
     specs, cuts = _modes(arch, (2, 2))
-    assert any("model" in str(s) for n, s in specs.items()
-               if not n.endswith(("moe.w1", "moe.w2", "moe.w3")))
-    assert {c.mode for c in cuts.values()} == {"whole"}
+    dense = {n for n, s in specs.items()
+             if "model" in str(s) and ".moe." not in n}
+    assert dense
+    assert {c.mode for n, c in cuts.items() if ".moe." in n} == {"whole"}
+    cut = {n for n, c in cuts.items() if c.mode == "cut"}
+    mla = {n for n in dense if ".attn." in n} if arch.startswith(
+        "deepseek") else set()
+    assert cut == dense - mla
 
 
 def test_model_cuts_without_a_model_axis_or_with_parent_rules():
