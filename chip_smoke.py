@@ -37,7 +37,7 @@ depth (`prefetcher`), BFS, the backend shoot-out, calibration into
 `build/repro_torch/calibrated_spec.json` and the Table 2/3 fit with its NRMSE), with the one-thread kernels'
 launch counters reset before and read after.  Last, the sharded tier
 (`sharded`): 4 ranks sharing the card on a 2x2 ``("pod", "dev")`` mesh
-over gloo, 2^20 ops a rank over 2^24 int32 slots, every exchange strategy
+over gloo, 2^19 ops a rank over 2^24 int32 slots, every exchange strategy
 and op (per-op CAS, dense, replicas, ``reverse_ranks``; int32 and fp32)
 against the serialized oracle in rank order, `bfs_sharded` at the BFS
 phase's scale against its parents, `execute_until` with every policy
@@ -45,7 +45,7 @@ against the local tier's round history, ms per batch split into the
 exchange and the ranks' kernels, the kernels' launches inside the ranks;
 then a world-size-1 NCCL run, and two NCCL ranks on the one card, whose
 refusal it records.  Last, the elastic tier (`elastic`): on the same 4
-ranks, a 2^24-slot table built by 4 FAA batches of 2^20 ops a rank moves
+ranks, a 2^24-slot table built by 4 FAA batches of 2^19 ops a rank moves
 by the exchange path ((pod, dev)-sharded -> dev-sharded, pod replicas),
 then by device_put onto `survivors_mesh` (2 ranks) and back, each bit for
 bit; after each move three batches (fetched FAA with stats, per-op CAS,
@@ -2177,10 +2177,11 @@ def _host_ms(fn, reps=3):
 
 SH_SHAPE, SH_AXES = (2, 2), ("pod", "dev")
 SH_WORLD = 4
-SH_N, SH_M = 1 << 20, 1 << 24    # ops a rank (what the run's time allows:
+SH_N, SH_M = 1 << 19, 1 << 24    # ops a rank (what the run's time allows:
 #                                  2^21 until the serving phases grew the
-#                                  run); global int32 slots (16 MB a shard
-#                                  of four)
+#                                  run, 2^20 until sharded serving took
+#                                  every config); global int32 slots (16 MB
+#                                  a shard of four)
 SH_STRATEGIES = ("naive", "oneshot", "hierarchical")
 SH_RETRY_N, SH_RETRY_M = 64, 1 << 12
 SH_REPS = 2
@@ -4578,6 +4579,18 @@ MM_FLASH = (("qwen2_vl_prefill", D_PREFILL, 0, G_S_MAX, QW_HQ, QW_HKV, QW_D,
             ("whisper_cross_decode", 1, 0, WH_FRAMES, WH_H, WH_H, WH_D,
              False))
 MM_TRAIN_STEPS = 10
+#: whisper_small's calls on a rank of `serve_sharded` (2x2: 6 of its 12
+#: heads, the rank's 2 prompts): (name, Sq, Skv, causal) — the encoder,
+#: the cross-attention's prefill of the prompt and its decode, and the
+#: decoder's prefill over the prompt's own k and v; then the decoder's
+#: decode body on a rank's cache segment (q gathered to all 12 heads) with
+#: its log-sum-exp, over these valid rows of the segment
+WH_RANK_H = WH_H // 2
+WH_RANK_FLASH = (("encoder", WH_FRAMES, WH_FRAMES, False),
+                 ("cross_prefill", 512, WH_FRAMES, False),
+                 ("cross_decode", 1, WH_FRAMES, False),
+                 ("self_prefill", 512, 512, True))
+WH_RANK_LSE_VALID = (8, 264)
 
 
 def _mm_flash_calls(gen, dtype=torch.bfloat16):
@@ -4600,7 +4613,10 @@ def _mm_flash_calls(gen, dtype=torch.bfloat16):
 
 def phase_flash_mm(gen):
     """flash_attention at every `MM_FLASH` call against its plain version:
-    bf16 within one bf16 ulp (`FA_GEMMA_BF16`), f32 within 3e-5.  Whisper's
+    bf16 within one bf16 ulp (`FA_GEMMA_BF16`), f32 within 3e-5; then at
+    whisper's calls on a rank of the sharded steps (`WH_RANK_FLASH`, one
+    launch each) and its decode body's partial on a rank's cache segment
+    (`_lse_case`).  Whisper's
     calls are the first non-causal ones at these sizes: the encoder's
     1,500 x 1,500 and the cross-attention's prefill on tensor cores, and
     the cross-attention's decode (Sq 1, Skv 1,500, causal 0) through the
@@ -4623,9 +4639,30 @@ def phase_flash_mm(gen):
                     raise AssertionError(f"flash_attention {name}: the "
                                          f"causal call matches the "
                                          f"non-causal plain version")
+        # whisper on a rank of the sharded steps
+        for name, sq, skv, causal in WH_RANK_FLASH:
+            args = tuple(torch.randn((2, n, WH_RANK_H, WH_D), generator=gen,
+                                     device="cuda").to(dtype).transpose(1, 2)
+                         for n in (sq, skv, skv))
+            kw = dict(causal=causal, kv_valid=skv, kv_offset=0)
+            FK.reset_launches()
+            got = FK.flash_attention(*args, **kw)
+            rank_launches = FK.LAUNCHES["flash_attention"]
+            want = FK.flash_attention_plain(*args, **kw)
+            errs[f"whisper_rank_{name}_{str(dtype)[6:]}"] = _check_fa(
+                got, want, f"whisper rank {name} {dtype}", **tol)
+            if rank_launches != 1:
+                raise AssertionError(f"flash_attention whisper rank {name}: "
+                                     f"{rank_launches} launches")
+        for valid in WH_RANK_LSE_VALID:
+            errs[f"whisper_rank_segment_{valid}_{str(dtype)[6:]}"] = \
+                _lse_case(gen, WH_H, WH_H, WH_D, valid, dtype)
     emit("flash_mm", calls=[dict(zip(("name", "sq", "cached", "skv", "hq",
                                       "hkv", "d", "causal"), c))
                             for c in MM_FLASH],
+         whisper_rank=dict(heads=WH_RANK_H, batch=2, calls=[
+             dict(zip(("name", "sq", "skv", "causal"), c))
+             for c in WH_RANK_FLASH], segment_valid=WH_RANK_LSE_VALID),
          max_abs_err=errs)
     return max(errs.values())
 
@@ -5431,6 +5468,10 @@ MT_F64 = ("jamba_1_5_large_398b",)
 # (4.49B at one layer): with AdamW's f32 master and moments and the f32
 # gradients, four ranks sharing one 80 GB card cannot hold either
 MT_FULL_ARCH, MT_FULL_LAYERS, MT_FULL_STEPS = JAMBA, 1, 4
+# (d) the same on deepseek_v3's first layer (dense: MLA over 128 heads, 32
+# a rank, a dense MLP of 18,432, a 129,280-row vocabulary; 2.44B
+# parameters)
+MT_MLA_ARCH = DS
 
 
 def _mt_no_drop(cfg):
@@ -5587,8 +5628,8 @@ def _mt_configs(no_drop):
         train_mod.get_reduced = real
 
 
-def _mt_full(mesh):
-    """(c) on this rank: the partitioned step on `MT_FULL_ARCH` at full
+def _mt_full(mesh, arch=MT_FULL_ARCH):
+    """(c) on this rank: the partitioned step on ``arch`` at full
     width, `MT_FULL_LAYERS` deep, in bf16 on ``mesh``: the rank's blocks
     made leaf by leaf (`_ss_block`), the model on meta but for the leaves
     the step gathers whole into it (and ``embed``, whose device the
@@ -5601,7 +5642,7 @@ def _mt_full(mesh):
     from repro_torch.launch.steps import make_sharded_train_step
     from repro_torch.launch.train import deterministic_algorithms
     from repro_torch.optim.adamw import AdamWConfig, init_state
-    cfg = get_config(MT_FULL_ARCH).replace(n_layers=MT_FULL_LAYERS)
+    cfg = get_config(arch).replace(n_layers=MT_FULL_LAYERS)
     model = LM(cfg, device="meta", use_kernel=False)
     rules = arch_rules(cfg, mesh, "train")
     opt = AdamWConfig()
@@ -5631,7 +5672,7 @@ def _mt_full(mesh):
     modes = {}
     for n, c in step.cuts.items():
         modes.setdefault(c.mode, set()).add(n.rpartition(".")[2])
-    out = dict(arch=MT_FULL_ARCH, layers=MT_FULL_LAYERS,
+    out = dict(arch=arch, layers=MT_FULL_LAYERS,
                kinds=[(b.kind, b.is_moe) for b in model.blocks],
                params_b=sum(p.numel() for p in meta.values()) / 1e9,
                split_ms=split, losses=losses,
@@ -5678,9 +5719,12 @@ def _train_sharded_moe_rank(mesh, tmp):
     out["train"] = train
     seconds["train"] = time.perf_counter() - start - seconds["layer"]
     from repro_torch.launch.mesh import Mesh
-    out["full"] = _mt_full(Mesh((1, 4), MT_AXES))
+    line = Mesh((1, 4), MT_AXES)
+    out["full"] = _mt_full(line)
     seconds["full"] = time.perf_counter() - start - seconds["layer"] \
         - seconds["train"]
+    out["full_mla"] = _mt_full(line, MT_MLA_ARCH)
+    seconds["full_mla"] = time.perf_counter() - start - sum(seconds.values())
     out["seconds"] = seconds
     out["launches"] = {k: v for mod in (K, SK, FK, XK)
                        for k, v in mod.LAUNCHES.items()}
@@ -5705,7 +5749,8 @@ def phase_train_sharded_moe():
     steps, losses finite and falling; one run under `MT_CHAOS`, bit-equal
     to a clean one.  (c) the partitioned step at full width on
     `MT_FULL_ARCH`'s first `MT_FULL_LAYERS` layer(s), bf16, on (1, 4):
-    finite losses, the split of each step, the peak per rank.  Only
+    finite losses, the split of each step, the peak per rank; (d) the same
+    on `MT_MLA_ARCH`'s (MLA on the rank's 32 heads).  Only
     `rmw_table` and `rmw_table_fetched` may launch (the counts and the
     arrival ranks' sharded FAA).  Returns their
     launches inside the ranks, summed."""
@@ -5808,18 +5853,30 @@ def phase_train_sharded_moe():
             or sa != sb or clean["final_loss"] != chaos["final_loss"]:
         bad.append(f"chaos not bit-equal to clean: {clean['failures']} "
                    f"{chaos['failures']} leaves {differ}")
-    # (c) the full-width partitioned step: finite losses, the Mamba mixer,
-    # MLP and vocabulary on the cut, every rank through every step
-    full = [o["full"] for o in out]
-    for o, f in zip(out, full):
-        if len(f["losses"]) != MT_FULL_STEPS \
-                or not all(map(math.isfinite, f["losses"])) \
-                or not {"in_proj", "out_proj", "w1", "w2", "w3", "embed",
-                        "lm_head"} <= set(f["modes"].get("cut", ())):
-            bad.append(f"full-width {f['arch']} rank {o['rank']}: losses "
-                       f"{f['losses']}, modes {f['modes']}")
-    split = {k: [[s[k] for s in f["split_ms"]] for f in full]
-             for k in ("gather", "compute", "reduce")}
+    # (c), (d) the full-width partitioned steps: finite losses, the Mamba
+    # mixer (MLA), MLP and vocabulary on the cut, every rank through every
+    # step
+    fulls = {}
+    for key, mixer in (("full", {"in_proj", "out_proj"}),
+                       ("full_mla", {"wq_b", "wkv_b", "wo"})):
+        full = [o[key] for o in out]
+        for o, f in zip(out, full):
+            if len(f["losses"]) != MT_FULL_STEPS \
+                    or not all(map(math.isfinite, f["losses"])) \
+                    or not mixer | {"w1", "w2", "w3", "embed", "lm_head"} \
+                    <= set(f["modes"].get("cut", ())):
+                bad.append(f"full-width {f['arch']} rank {o['rank']}: "
+                           f"losses {f['losses']}, modes {f['modes']}")
+        fulls[key] = dict(
+            arch=full[0]["arch"], layers=full[0]["layers"],
+            kinds=full[0]["kinds"], params_b=full[0]["params_b"],
+            mesh={"data": 1, "model": MT_WORLD}, dtype="bfloat16",
+            tokens=[T_BATCH, T_SEQ], steps_timed=MT_FULL_STEPS - 1,
+            split_ms_per_rank={k: [[s[k] for s in f["split_ms"]]
+                                   for f in full]
+                               for k in ("gather", "compute", "reduce")},
+            losses=[f["losses"] for f in full][0], modes=full[0]["modes"],
+            peak_gib=[f["peak_gib"] for f in full])
     launches = {k: sum(o["launches"][k] for o in out)
                 for k in out[0]["launches"]}
     for k in ("rmw_table", "rmw_table_fetched"):
@@ -5862,14 +5919,7 @@ def phase_train_sharded_moe():
                                chaos=chaos["failures"],
                                leaves=len(ca), differ=differ),
                     f64=MT_F64),
-         full=dict(arch=full[0]["arch"], layers=full[0]["layers"],
-                   kinds=full[0]["kinds"], params_b=full[0]["params_b"],
-                   mesh={"data": 1, "model": MT_WORLD}, dtype="bfloat16",
-                   tokens=[T_BATCH, T_SEQ], steps_timed=MT_FULL_STEPS - 1,
-                   split_ms_per_rank=split,
-                   losses=[f["losses"] for f in full][0],
-                   modes=full[0]["modes"],
-                   peak_gib=[f["peak_gib"] for f in full]),
+         **fulls,
          launches=launches, local_s=local_s, ranks_s=ranks_s,
          rank_seconds=[o["seconds"] for o in out],
          seconds=time.perf_counter() - t0, bad=bad[:10])
@@ -5885,8 +5935,9 @@ def phase_train_sharded_moe():
 
 SS_WORLD, SS_SHAPE, SS_AXES = 4, (2, 2), ("data", "model")
 #: 4 prompts of 512 tokens (2 a rank along "data"), then 8 decode steps,
-#: in caches of 528 rows: segments of 264, the prompt over both, the
-#: decoded rows in the second
+#: in caches of 528 rows: on 2x2 segments of 264, the prompt over both,
+#: the decoded rows in the second; on (1, 4) segments of 132, the prompt
+#: over all four, the decoded rows in the last
 SS_BATCH, SS_PROMPT, SS_STEPS, SS_S_MAX = 4, 512, 8, 528
 #: (tag, arch, layers (None: full depth), dtype, mesh (None: 2x2; (1, 4)
 #: over the same ranks), weights made leaf by leaf on each rank
@@ -5895,12 +5946,18 @@ SS_BATCH, SS_PROMPT, SS_STEPS, SS_S_MAX = 4, 512, 8, 528
 #: jamba at `JAMBA_LAYERS` (SSD with a dense MLP and with MoE, attention)
 #: on (1, 4): on 2x2 each rank would place half of the 48 GB (rows
 #: gathered over "data") beside its blocks, past the card for four; on
-#: (1, 4) a rank's blocks are what it places, 12 GB
+#: (1, 4) a rank's blocks are what it places, 12 GB.  whisper_small at
+#: full depth on 2x2: its encoder on the rank's 2 prompts and 6 of 12
+#: heads, cross-attention on those heads.  deepseek_v3 at `DS_LAYERS` (3
+#: dense, 1 MoE; MLA in each) on (1, 4), for jamba's reason: 35 GB of
+#: weights, 32 of 128 heads and 64 of 256 experts a rank
 SS_RUNS = (("gemma_2b", "gemma_2b", None, "bfloat16", None, False),
            ("gemma_2b_f32_2_layers", "gemma_2b", 2, "float32", None, False),
            ("qwen2_vl_2b", "qwen2_vl_2b", None, "bfloat16", None, False),
            ("mamba2_780m", "mamba2_780m", None, "bfloat16", None, False),
-           ("jamba", JAMBA, JAMBA_LAYERS, "bfloat16", (1, 4), True))
+           ("jamba", JAMBA, JAMBA_LAYERS, "bfloat16", (1, 4), True),
+           ("whisper_small", WH, None, "bfloat16", None, False),
+           ("deepseek_v3", DS, DS_LAYERS, "bfloat16", (1, 4), True))
 
 
 def _ss_config(arch, layers, dtype):
@@ -5969,10 +6026,11 @@ def _ss_model(cfg, leaves):
 def _ss_batches(cfg):
     """The seeded prompts (`SS_BATCH` x `SS_PROMPT`), then the `SS_STEPS`
     tokens fed one at a time, on the card; M-RoPE's three position axes,
-    distinct, where the config takes them."""
+    distinct, where the config takes them; the prompts' audio frames
+    (`_wh_frames`) where the config has an encoder."""
     gen = torch.Generator().manual_seed(11)
-    toks = torch.randint(0, cfg.vocab_size, (SS_BATCH, SS_PROMPT + SS_STEPS),
-                         generator=gen).cuda()
+    toks = torch.randint(0, cfg.vocab_size,
+                         (SS_BATCH, SS_PROMPT + SS_STEPS), generator=gen).cuda()
     spans = [(0, SS_PROMPT)] + [(i, i + 1) for i in
                                 range(SS_PROMPT, SS_PROMPT + SS_STEPS)]
     out = []
@@ -5984,7 +6042,51 @@ def _ss_batches(cfg):
             bt["positions3"] = torch.stack([t, t // 2, t // 3]).to(
                 torch.int32)
         out.append(bt)
+    if cfg.encoder is not None:
+        out[0]["frames"] = _wh_frames(SS_BATCH, 11, cfg.d_model)
     return out
+
+
+def _ss_flash_want(cfg):
+    """(flash launches, of them with the lse) a rank makes in a prefill
+    and `SS_STEPS` decode steps: one a GQA self-attention layer a step
+    (with the lse in decode), one a cross-attention layer a step, one an
+    encoder layer in the prefill; MLA none (its plain math)."""
+    n_gqa = 0 if cfg.mla is not None else sum(
+        cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    n_cross = cfg.n_layers if cfg.encoder is not None else 0
+    n_enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    return (n_gqa + n_cross) * (1 + SS_STEPS) + n_enc, n_gqa * SS_STEPS
+
+
+@contextlib.contextmanager
+def _mla_p_in_f32():
+    """MLA's local attention as the flash kernel's function
+    (`FK.flash_attention_plain`: p kept in f32 before p·v; v padded with
+    zero columns to the key width the kernel's function takes, and cut
+    back) in place of `_sdpa`'s plain math, which rounds p to v's dtype
+    as the reference does: the GQA configs' floor is the same pair of
+    functions (kernel path against plain math), and MLA, whose attention
+    launches no kernel, gets it here."""
+    from repro_torch.models import attention as attn_mod
+    real = attn_mod._sdpa
+
+    def sdpa(q, k, v, *, causal, kv_len, q_offset, scale, **kw):
+        if kw.get("return_lse"):
+            return real(q, k, v, causal=causal, kv_len=kv_len,
+                        q_offset=q_offset, scale=scale, **kw)
+        dv = v.shape[-1]
+        vp = F.pad(v, (0, q.shape[-1] - dv))
+        out = FK.flash_attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), vp.transpose(1, 2),
+            causal=causal, scale=scale, kv_valid=kv_len, kv_offset=q_offset)
+        return out.transpose(1, 2)[..., :dv]
+
+    attn_mod._sdpa = sdpa
+    try:
+        yield
+    finally:
+        attn_mod._sdpa = real
 
 
 @contextlib.contextmanager
@@ -6058,6 +6160,7 @@ def _serve_sharded_rank(mesh, runs, pinned):
         del cache
         FK.reset_launches()              # the sharded path starts here
         SK.reset_launches()
+        K.reset_launches()
         with shaped(0):
             cache, lg = prefill(blocks, batches[0])
         logits, pre, dec = [lg.float().cpu()], dict(prefill.metrics), []
@@ -6069,24 +6172,29 @@ def _serve_sharded_rank(mesh, runs, pinned):
         launches = FK.LAUNCHES["flash_attention"]        # ... and ends here
         lse = FK.LSE_LAUNCHES["flash_attention"]
         ssd = SK.LAUNCHES["ssd_chunk"]
+        rmw = K.LAUNCHES["rmw_table"]
         layers_ = cache["layers"]
-        attn = [layer for layer in layers_ if "k" in layer]
+        key = "ckv" if cfg.mla is not None else "k"
+        attn = [layer for layer in layers_ if key in layer]
         ssm = [layer for layer in layers_ if "ssm" in layer]
+        enc = cache["enc_out"]
         out["runs"][tag] = dict(
             logits=logits if m.index("model") == 0 else None,
             data_index=m.index("data"), n_layers=cfg.n_layers,
             n_attn=len(attn), n_ssm=len(ssm), launches=launches,
-            lse_launches=lse, ssd_launches=ssd, prefill=pre, decode=dec,
-            place_s=place_s,
-            cache_block=list(attn[0]["k"].shape) if attn else None,
+            lse_launches=lse, ssd_launches=ssd, rmw_launches=rmw,
+            prefill=pre, decode=dec, place_s=place_s,
+            cache_block=list(attn[0][key].shape) if attn else None,
             seq=list(attn[0]["seq"]) if attn else None,
             ssm_block=list(ssm[0]["ssm"].shape) if ssm else None,
             conv_block=list(ssm[0]["conv"].shape) if ssm else None,
+            enc_block=None if enc is None else list(enc.shape),
             lens=sorted({layer["len"] for layer in layers_}),
             cache_finite=all(bool(torch.isfinite(layer[k]).all())
                              for layer in layers_
-                             for k in ("k", "v", "ssm", "conv")
-                             if k in layer),
+                             for k in ("k", "v", "ckv", "krope", "ssm",
+                                       "conv") if k in layer)
+            and (enc is None or bool(torch.isfinite(enc).all())),
             placed_gib=sum(p.numel() * p.element_size()
                            for p in model.parameters()) / 2 ** 30,
             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -6125,22 +6233,28 @@ def _ss_local(model, batches, reps=2, pinned=None, record=False):
 
 def phase_serve_sharded():
     """Sharded serving on 4 ranks sharing the card (gloo), on 2x2 ``("data",
-    "model")`` (jamba on (1, 4)): `launch.steps.make_sharded_prefill_step`
-    and `make_sharded_decode_step` (the KV cache cut by sequence over
-    "model", the Mamba state by heads; GQA attention, Mamba mixers, MLP
-    and vocabulary computed on the rank's "model" cut, MoE expert-parallel)
-    for each run of `SS_RUNS`, held to the local serving path on the same
-    card, weights and tokens, run first: bf16 within `GEMMA_FLOOR_FACTOR`
-    x the floor measured here (the local path's kernels against its plain
-    paths; an MoE run's plain path, and every sharded step, routed to the
-    local kernel path's choices, `_ss_pinned`), f32 within
+    "model")`` (jamba and deepseek_v3 on (1, 4)):
+    `launch.steps.make_sharded_prefill_step` and
+    `make_sharded_decode_step` (the KV and MLA's latent caches cut by
+    sequence over "model", the Mamba state by heads; GQA, MLA and
+    cross-attention, the encoder, Mamba mixers, MLP and vocabulary
+    computed on the rank's "model" cut, MoE expert-parallel) for each run
+    of `SS_RUNS`, held to the local serving path on the same card,
+    weights and tokens, run first: bf16 within `GEMMA_FLOOR_FACTOR` x the
+    floor measured here (the local path against its other attention
+    function: the kernels' paths against the plain ones, or for MLA, which
+    launches no attention kernel, its plain math against the kernel's
+    function, `_mla_p_in_f32`; an MoE run's floor, and every sharded step, routed
+    to the local run's choices, `_ss_pinned`), f32 within
     `SERVE_F32_LOGIT_ATOL`.  Raises unless every rank launched the flash
-    kernel once an attention layer a step and its decode body with the
-    log-sum-exp on every decode layer (`FK.LSE_LAUNCHES`), `ssd_chunk`
-    once a Mamba layer in the prefill (on the rank's heads), and its
-    caches are finite with ``len`` global.  Prefill ms, decode ms a token
-    and the exchange's share on each rank; the card's name and power
-    limit.  Returns the kernels' launches inside the ranks."""
+    kernel as `_ss_flash_want` counts (its decode body with the
+    log-sum-exp on every GQA decode layer, `FK.LSE_LAUNCHES`),
+    `ssd_chunk` once a Mamba layer in the prefill (on the rank's heads),
+    `rmw_table` in an MoE run (the expert counts' FAA), and its caches
+    (the encoder's output, the rank's prompts) are finite with ``len``
+    global.  Prefill ms, decode ms a token and the exchange's share on
+    each rank; the card's name and power limit.  Returns the kernels'
+    launches inside the ranks."""
     from repro_torch.launch import ranks
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6153,8 +6267,13 @@ def phase_serve_sharded():
             model, batches, record=cfg.moe is not None)
         gate = {}
         if dtype == "bfloat16":
-            model.use_kernel = False
-            plain = _ss_local(model, batches, reps=1, pinned=chosen)[0]
+            # the floor: the local path against its other attention
+            # function (the plain math; for MLA, which launches no
+            # attention kernel, the kernel's function), routed alike
+            with _mla_p_in_f32() if cfg.mla is not None \
+                    else contextlib.nullcontext():
+                model.use_kernel = False
+                plain = _ss_local(model, batches, reps=1, pinned=chosen)[0]
             gate = dict(floor=max(_max_err(a, b)
                                   for a, b in zip(logits, plain)))
         local[tag] = (logits, pre_ms, dec_ms, gate)
@@ -6168,7 +6287,8 @@ def phase_serve_sharded():
                        SS_WORLD, mesh=(SS_SHAPE, SS_AXES), device="cuda",
                        args=(SS_RUNS, pinned), timeout=900)
     ranks_s = time.perf_counter() - t0 - local_s
-    bad, launches = [], {"flash_attention": 0, "ssd_chunk": 0}
+    bad = []
+    launches = {"flash_attention": 0, "ssd_chunk": 0, "rmw_table": 0}
     for tag, arch, layers, dtype, shape, _ in SS_RUNS:
         cfg = _ss_config(arch, layers, dtype)
         mesh = dict(zip(SS_AXES, shape or SS_SHAPE))
@@ -6191,21 +6311,27 @@ def phase_serve_sharded():
                 bad.append(f"{tag}: logits off the local path by {err} > "
                            f"{GEMMA_FLOOR_FACTOR} x floor {gate['floor']}")
         for r, o in zip(runs, out):
-            want_l = (r["n_attn"] * (1 + SS_STEPS), r["n_attn"] * SS_STEPS,
-                      r["n_ssm"])
+            want_l = (*_ss_flash_want(cfg), r["n_ssm"])
             if (r["launches"], r["lse_launches"], r["ssd_launches"]) \
-                    != want_l or (r["n_attn"], r["n_ssm"]) == (0, 0):
+                    != want_l or (r["n_attn"], r["n_ssm"]) == (0, 0) \
+                    or cfg.moe is not None and not r["rmw_launches"]:
                 bad.append(f"{tag} rank {o['rank']}: flash launched "
                            f"{r['launches']} times, {r['lse_launches']} with "
                            f"the lse, ssd_chunk {r['ssd_launches']}; want "
-                           f"{want_l}")
+                           f"{want_l}; rmw_table {r['rmw_launches']}")
             if not r["cache_finite"] or r["lens"] != [SS_PROMPT + SS_STEPS] \
                     or r["n_attn"] and r["seq"] != ["model"]:
                 bad.append(f"{tag} rank {o['rank']}: cache block "
                            f"{r['cache_block']} seq {r['seq']} lens "
                            f"{r['lens']} finite {r['cache_finite']}")
+            if cfg.encoder is not None and r["enc_block"] != [
+                    SS_BATCH // mesh["data"], cfg.encoder.n_frames,
+                    cfg.d_model]:
+                bad.append(f"{tag} rank {o['rank']}: encoder output block "
+                           f"{r['enc_block']}")
             launches["flash_attention"] += r["launches"]
             launches["ssd_chunk"] += r["ssd_launches"]
+            launches["rmw_table"] += r["rmw_launches"]
         per_rank = [dict(
             rank=o["rank"], coords=o["coords"],
             prefill_ms=1e3 * r["prefill"]["prefill_s"],
@@ -6220,17 +6346,20 @@ def phase_serve_sharded():
         emit("serve_sharded", run=tag, arch=arch, n_layers=cfg.n_layers,
              d_model=cfg.d_model, dtype=dtype, ranks=SS_WORLD, mesh=mesh,
              transport="gloo", host_staged=out[0]["host_staged"],
-             batch=SS_BATCH, prompt=SS_PROMPT, decode_steps=SS_STEPS,
+             batch=SS_BATCH, prompt=SS_PROMPT,
+             decode_steps=SS_STEPS,
              s_max=SS_S_MAX, cache_block=runs[0]["cache_block"],
              ssm_block=runs[0]["ssm_block"],
              conv_block=runs[0]["conv_block"],
+             enc_block=runs[0]["enc_block"],
              routing_pinned=tag in pinned, logit_max_abs_err=err, **gate,
              greedy_tokens_equal=f"{same}/{SS_BATCH * (1 + SS_STEPS)}",
              local_prefill_ms=local_prefill_ms,
              local_decode_ms_per_token=local_decode_ms, per_rank=per_rank,
              launches=[r["launches"] for r in runs],
              lse_launches=[r["lse_launches"] for r in runs],
-             ssd_launches=[r["ssd_launches"] for r in runs])
+             ssd_launches=[r["ssd_launches"] for r in runs],
+             rmw_launches=[r["rmw_launches"] for r in runs])
     emit("serve_sharded", card=card(), seconds=time.perf_counter() - t0,
          local_s=local_s, ranks_s=ranks_s, bad=bad[:10])
     if bad:

@@ -41,21 +41,22 @@ rules cut computed on the rank's ``"model"`` cut, the other leaves
 gathered whole into the model (whose whole parameters stay placed and
 counted: the step's workspace); the ``partitioned`` override False runs
 the unpartitioned step on the same blocks.
-``sharded_serve``: prefill and decode cells of the GQA self-attention,
-Mamba-2 and hybrid configs (`serve_layout`) run
+``sharded_serve``: prefill and decode cells (`serve_layout`) run
 `make_sharded_prefill_step` / `make_sharded_decode_step` on the recording
 mesh with the global batch: the rank holds only its blocks of the
 parameters (from the meta model, laid out by `params_shardings` under
 `arch_rules(cfg, mesh, "prefill" | "decode")`), places the leaves the
 rules cut over ``"model"`` as its cut and every other leaf whole, its KV
-cache blocks by `cache_shardings` (the sequence over ``"model"``) and its
-Mamba layers' state by heads, with the conv window's channels it
-convolves.  A decode cell's caches are full (each attention layer's
-``len`` at ``seq_len - 1``), as the reference's jitted step attends the
-whole cache; the rank attends over its segment and combines the
-partials.  ``serve_whole_params``: the other prefill and decode cells
-(the record's ``layout_reason``: MLA's latent cache, cross-attention or
-a long_500k cell's sequence cut, each a later slice) run
+cache blocks by `cache_shardings` (the sequence over ``"model"``; MLA's
+latent cache too) and its Mamba layers' state by heads, with the conv
+window's channels it convolves.  A decode cell's caches are full (each
+attention layer's ``len`` at ``seq_len - 1``), as the reference's jitted
+step attends the whole cache, and an encoder-decoder's cache holds the
+encoder's output for the rank's batch rows; the rank attends over its
+segment and combines the partials.  ``serve_whole_params``: a long_500k
+cell of a config with attention layers (the record's
+``layout_reason``: the KV cache's ``("data", "model")`` sequence cut, a
+later slice) runs
 `make_prefill_step` / `make_decode_step` on the rank's cut of the batch
 (`batch_shardings`) with whole parameters and no mesh: no collective, and
 not a sharded serving path.  ``local``
@@ -155,15 +156,11 @@ def _moment_dtype(cfg: ModelConfig) -> str:
 def serve_layout(cfg: ModelConfig, shape: Optional[str] = None
                  ) -> Tuple[str, Optional[str]]:
     """(layout, the reason where it is not sharded) of a config's prefill
-    and decode cells (``shape``: the cell's name): ``sharded_serve``
-    where `launch.shardings.serving_refusal` finds nothing (GQA
-    self-attention, Mamba-2, MoE), else ``serve_whole_params``.  A
-    long_500k cell of a config with attention layers waits for the KV
-    cache's sequence cut over ``("data", "model")``; one without them
-    (mamba2_780m: batch whole, state by heads) is sharded."""
-    refusal = sh.serving_refusal(cfg)
-    if refusal is not None:
-        return "serve_whole_params", refusal
+    and decode cells (``shape``: the cell's name): ``sharded_serve``, but
+    ``serve_whole_params`` for a long_500k cell of a config with
+    attention layers, which waits for the KV cache's sequence cut over
+    ``("data", "model")``; one without them (mamba2_780m: batch whole,
+    state by heads) is sharded."""
     if shape == "long_500k" and any(cfg.layer_kind(i) == "attn"
                                     for i in range(cfg.n_layers)):
         return ("serve_whole_params", "the KV cache's (\"data\", "
@@ -414,11 +411,16 @@ def run_cell(arch: str, shape: ShapeCell, multi_pod: bool,
                 with use_mesh(mesh, rules):
                     if shape.kind == "prefill":
                         return step(params, batch)
+                    cspecs = step.cache_specs(b, shape.seq_len)
                     cache = model.init_cache(
                         b, shape.seq_len, device=device, mesh=mesh,
-                        specs=step.cache_specs(b, shape.seq_len))
+                        specs=cspecs)
                     for layer in cache["layers"]:
                         layer["len"] = shape.seq_len - 1
+                    if cfg.encoder is not None:
+                        cache["enc_out"] = _empty(block_shape(
+                            (b, cfg.encoder.n_frames, cfg.d_model),
+                            cspecs["enc_out"], mesh), model.dtype, device)
                     return step(params, cache, batch)
         else:
             rec["layout"], rec["layout_reason"] = serve_layout(cfg,

@@ -20,8 +20,6 @@ reference resolves them, and the stacking entry is then dropped.
 `model_cuts` says, for each leaf, whether the sharded train and serving
 steps compute on its ``"model"`` cut (the reference's partitioned step),
 hold it whole with a partial gradient, or gather it whole.
-`serving_refusal` says which configs the sharded serving steps cannot
-serve yet, and why.
 """
 
 from __future__ import annotations
@@ -178,6 +176,7 @@ class ModelCut(NamedTuple):
 _MLP_CUT = {"w1": 1, "w3": 1, "b1": 0, "w2": 0}
 _Q_CUT = {"wq": 1, "bq": 0, "wo": 0}
 _KV_CUT = {"wk": 1, "wv": 1, "bk": 0, "bv": 0}
+_MLA_CUT = {"wq_b": 1, "wkv_b": 1, "wo": 0}
 _VOCAB_CUT = {"embed": 0, "lm_head": 0}
 _SSM_CUT = {"in_proj": 1, "out_proj": 0}
 #: a Mamba-2 mixer's leaves whose specs keep them whole: each rank
@@ -191,15 +190,21 @@ def model_cuts(cfg: ModelConfig, specs: Mapping[str, Spec], mesh
     ``mesh``: which leaves the sharded steps compute on their ``"model"``
     cut, as the reference's partitioned step does.
 
-    A GQA attention layer (``attn``, no MLA) computes on the cut where
-    its query heads divide over ``"model"`` and ``wq`` / ``bq`` / ``wo``
-    are cut on their head dims (the reference's divisibility rule:
-    gemma_2b's 8 heads stay whole on a 16-way axis); its kv leaves are
-    then cut where the kv heads divide too, else "partial" (one kv head
-    always stays whole).  A dense MLP (``mlp``) computes on the cut where
-    ``w1`` / ``w3`` / ``b1`` are cut on their columns and ``w2`` on its
-    rows; ``b2`` is added after the sum, "whole".  ``embed`` and
-    ``lm_head`` are cut where the vocabulary is.
+    A GQA attention layer (``attn``, no MLA) and a decoder block's
+    cross-attention (``cross``) compute on the cut where the query heads
+    divide over ``"model"`` and ``wq`` / ``bq`` / ``wo`` are cut on their
+    head dims (the reference's divisibility rule: gemma_2b's 8 heads stay
+    whole on a 16-way axis); the kv leaves are then cut where the kv heads
+    divide too, else "partial" (one kv head always stays whole).  An MLA
+    layer computes on the cut where its heads divide and ``wq_b`` /
+    ``wkv_b`` are cut on their columns (whole heads) and ``wo`` on its
+    rows; its down-projections ``wq_a`` / ``wkv_a`` and norms stay
+    "whole": their outputs reach the cut products through
+    `launch.mesh.sum_grad`, so their gradients are whole on every rank.
+    A dense MLP (``mlp``) computes on the cut where ``w1`` / ``w3`` /
+    ``b1`` are cut on their columns and ``w2`` on its rows; ``b2`` is
+    added after the sum, "whole".  ``embed`` and ``lm_head`` are cut where
+    the vocabulary is.
 
     A Mamba-2 mixer (``ssm``) computes on the rank's heads where they
     divide over ``"model"``, ``out_proj`` is cut on its rows (its
@@ -210,8 +215,9 @@ def model_cuts(cfg: ModelConfig, specs: Mapping[str, Spec], mesh
     them whole (``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``,
     ``norm_w``) "partial": each rank uses its heads' slice of them.
 
-    Everything else is "whole": MLA, cross-attention and MoE leaves (the
-    steps keep expert blocks apart), norms, learned positions."""
+    Everything else is "whole": MoE leaves (the steps keep expert blocks
+    apart), norms, learned positions, attention whose heads do not
+    divide."""
     tp = mesh.shape.get("model", 1)
     out = {n: ModelCut(None, "whole") for n in specs}
     if tp <= 1:
@@ -237,7 +243,10 @@ def model_cuts(cfg: ModelConfig, specs: Mapping[str, Spec], mesh
         kind = head.rpartition(".")[2]
         if kind == "mlp" and cut(leaves, _MLP_CUT):
             mark(head, _MLP_CUT)
-        elif kind == "attn" and cfg.mla is None \
+        elif kind == "attn" and cfg.mla is not None \
+                and cfg.n_heads % tp == 0 and cut(leaves, _MLA_CUT):
+            mark(head, _MLA_CUT)
+        elif (kind == "cross" or kind == "attn" and cfg.mla is None) \
                 and cfg.n_heads % tp == 0 and cut(leaves, _Q_CUT):
             mark(head, _Q_CUT)
             kv = cfg.n_kv_heads % tp == 0 and cut(leaves, _KV_CUT)
@@ -251,17 +260,6 @@ def model_cuts(cfg: ModelConfig, specs: Mapping[str, Spec], mesh
                 if key in leaves and cut(leaves, {key: _VOCAB_CUT[key]}):
                     mark(head, {key: _VOCAB_CUT[key]})
     return out
-
-
-def serving_refusal(cfg: ModelConfig) -> Optional[str]:
-    """Why the sharded serving steps cannot serve ``cfg`` yet, or None
-    where they can: GQA self-attention, Mamba-2 and MoE layers are
-    served on a mesh; MLA's latent cache and cross-attention are not."""
-    if cfg.mla is not None:
-        return "MLA's latent cache (a later slice)"
-    if cfg.encoder is not None:
-        return "cross-attention (a later slice)"
-    return None
 
 
 def batch_shardings(batch: Mapping[str, Any], mesh, rules: Dict[str, Any]

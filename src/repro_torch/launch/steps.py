@@ -9,18 +9,18 @@ differentiates `LM.loss` with autograd and applies AdamW in place.
 
 `make_sharded_train_step` is the same step on every rank of a mesh, each
 rank holding only its blocks of the parameters and of AdamW's state
-(`launch.shardings`) and computing the GQA attention, dense MLP, Mamba-2
-and vocabulary leaves the rules cut on its ``"model"`` cut, the MoE
-configs' too: the reference's jitted step under its shardings,
-partitioned as XLA partitions it.
+(`launch.shardings`) and computing the GQA, MLA and cross-attention,
+dense MLP, Mamba-2 and vocabulary leaves the rules cut on its
+``"model"`` cut, the MoE configs' too: the reference's jitted step under
+its shardings, partitioned as XLA partitions it.
 
 `make_sharded_prefill_step` and `make_sharded_decode_step` are the
 reference's jitted serving steps under `params_shardings` and
 `cache_shardings` (`arch_rules(..., "prefill" | "decode")`): each rank
-holds its KV cache blocks, cut by sequence over ``"model"``, and its
-Mamba layers' state blocks, cut by heads, and computes the same leaves
-on its ``"model"`` cut; decode combines the ranks' attention partials
-(`launch.mesh.combine_partials`).
+holds its KV (or MLA's latent) cache blocks, cut by sequence over
+``"model"``, and its Mamba layers' state blocks, cut by heads, and
+computes the same leaves on its ``"model"`` cut; decode combines the
+ranks' attention partials (`launch.mesh.combine_partials`).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import torch
 from repro_torch.launch.mesh import gather_full, shard_of, use_mesh
 from repro_torch.launch.shardings import (ModelCut, batch_shardings,
                                          cache_shardings, model_cuts,
-                                         params_shardings, serving_refusal)
+                                         params_shardings)
 from repro_torch.models import moe, tensor_parallel
 from repro_torch.models.mamba import head_columns
 from repro_torch.models.model import LM
@@ -151,8 +151,9 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
     batch's *i*-th cut, split by `batch_shardings`), weighted by its share
     of the microbatch's valid labels (the counts all-reduced) before the
     backward, and, as the reference's partitioned step, on its ``"model"``
-    cut of every GQA attention, dense MLP, Mamba-2 and vocabulary leaf the
-    rules cut: such a leaf ("cut") is gathered over its other axes only
+    cut of every GQA, MLA and cross-attention, dense MLP, Mamba-2 and
+    vocabulary leaf the rules cut: such a leaf ("cut") is gathered over
+    its other axes only
     and handed to the model as the rank's block (`models.tensor_parallel.
     cuts`), which runs the column and row products on it and sums their
     outputs over ``"model"``.  A Mamba mixer's ``in_proj`` block is the
@@ -173,7 +174,9 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
     ``norm_w``: each rank uses its heads' slice); ``sum_partial=False``
     leaves it partial (the control of the tests).  A leaf applied to the
     replicated activations (norms, ``b2``, attention whose heads do not
-    divide) has equal gradients along ``"model"`` and counts once.  AdamW
+    divide, MLA's down-projections, whose outputs reach the cut products
+    through `launch.mesh.sum_grad`) has equal gradients along ``"model"``
+    and counts once.  AdamW
     runs on the blocks, the clipping norm summed over them
     (`optim.adamw.global_norm`).
 
@@ -277,7 +280,6 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
         del local_leaves
         t2 = _clock(model.device)
         loss = mesh.all_reduce(loss, red)
-        partial = red + ("model",) if sum_partial else red
         out = {}
         for name in list(grads):
             g = grads.pop(name)
@@ -285,7 +287,7 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
                 out[name] = g
                 continue
             mode = cuts[name].mode
-            full = mesh.all_reduce(g, partial if mode == "partial" else red)
+            full = mesh.all_reduce(g, grad_axes(mode, red, sum_partial))
             out[name] = shard_of(full, specs[name], mesh,
                                  rest if mode == "cut" else None)
             del full, g
@@ -300,6 +302,16 @@ def make_sharded_train_step(model: LM, opt_cfg: AdamWConfig, mesh,
     step.specs = specs
     step.cuts = cuts
     return step
+
+
+def grad_axes(mode: str, batch_axes: Tuple[str, ...],
+              sum_partial: bool = True) -> Tuple[str, ...]:
+    """The axes `make_sharded_train_step` sums a gradient over for a leaf
+    of `ModelCut` ``mode``: the batch's, and ``"model"`` too for a
+    "partial" leaf (unless ``sum_partial`` is off, the tests' control)."""
+    if mode == "partial" and sum_partial:
+        return tuple(batch_axes) + ("model",)
+    return tuple(batch_axes)
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -349,10 +361,6 @@ class _ServeLayout:
 
     def __init__(self, model: LM, mesh, rules: Dict[str, Any]):
         cfg = model.cfg
-        refusal = serving_refusal(cfg)
-        if refusal is not None:
-            raise NotImplementedError(f"sharded serving of {cfg.name}: "
-                                      f"{refusal}")
         self.model, self.mesh, self.rules = model, mesh, rules
         placed = getattr(model, "_sharded_serve", None)
         #: the parameters' whole shapes (meta), before any placement
@@ -367,22 +375,32 @@ class _ServeLayout:
     def cache_specs(self, batch_size: int, s_max: int) -> Dict[str, Any]:
         """`cache_shardings` of the whole cache of ``batch_size`` rows of
         ``s_max`` (from its shapes: nothing is made): k and v for each
-        attention layer, the SSM state (B, H, N, P) and conv window (B,
-        K - 1, C) for each Mamba layer, whose state keeps its heads whole
-        where the layer does not compute on its heads' cut."""
+        attention layer (MLA: its latent ckv and krope), the SSM state (B,
+        H, N, P) and conv window (B, K - 1, C) for each Mamba layer, whose
+        state keeps its heads whole where the layer does not compute on
+        its heads' cut; the encoder's output (B, frames, d) where the
+        model has one."""
         cfg = self.model.cfg
-        kv = _Shaped((batch_size, s_max, cfg.n_kv_heads, cfg.head_dim))
+        if cfg.mla is not None:
+            m = cfg.mla
+            kv = {"ckv": _Shaped((batch_size, s_max, m.kv_lora_rank)),
+                  "krope": _Shaped((batch_size, s_max, m.qk_rope_head_dim))}
+        else:
+            k = _Shaped((batch_size, s_max, cfg.n_kv_heads, cfg.head_dim))
+            kv = {"k": k, "v": k}
         layers = []
         for block in self.model.blocks:
             if block.kind == "attn":
-                layers.append({"k": kv, "v": kv, "len": 0})
+                layers.append({**kv, "len": 0})
                 continue
             s = cfg.ssm
             di, g, n = s.d_inner(cfg.d_model), s.n_groups, s.d_state
             layers.append({"ssm": _Shaped((batch_size, s.n_heads(
                 cfg.d_model), n, s.head_dim)), "conv": _Shaped(
                 (batch_size, s.conv_kernel - 1, di + 2 * g * n)), "len": 0})
-        specs = cache_shardings({"layers": layers, "enc_out": None},
+        enc = None if cfg.encoder is None else _Shaped(
+            (batch_size, cfg.encoder.n_frames, cfg.d_model))
+        specs = cache_shardings({"layers": layers, "enc_out": enc},
                                 self.mesh, self.rules)
         for i, (block, spec) in enumerate(zip(self.model.blocks,
                                               specs["layers"])):
@@ -397,8 +415,10 @@ class _ServeLayout:
         steps compute on its ``"model"`` cut, and each expert block,
         gathered over the other axes only; a Mamba mixer's ``in_proj``
         gathered whole and cut to its heads' columns
-        (`models.mamba.head_columns`), once; every other leaf whole.
-        Host seconds it took (0.0 when placed already)."""
+        (`models.mamba.head_columns`), once; MLA's ``wkv_b`` whole (a
+        decode step expands the rank's segment of the latent cache for
+        every head; its prefill takes its heads' columns); every other
+        leaf whole.  Host seconds it took (0.0 when placed already)."""
         model = self.model
         key = (id(self.mesh), tuple(id(t) for t in params.values()))
         placed = getattr(model, "_sharded_serve", None)
@@ -418,6 +438,8 @@ class _ServeLayout:
                     t = t.index_select(1, head_columns(
                         model.cfg, self.mesh.size("model"),
                         self.mesh.index("model"), t.device))
+                elif leaf == "wkv_b" and mine:
+                    t = gather_full(blk, self.specs[name], self.mesh)
                 else:
                     t = gather_full(blk, self.specs[name], self.mesh,
                                     self.rest if mine else None)
@@ -463,22 +485,26 @@ def make_sharded_prefill_step(model: LM, s_max: int, mesh,
     position's logits (B / data, vocab) for the rank's cut of the batch),
     called by every rank of ``mesh``: the reference's prefill step jitted
     under `params_shardings` and `cache_shardings` (``rules``:
-    `arch_rules(cfg, mesh, "prefill")`).  GQA self-attention, Mamba-2
-    and MoE layers (`launch.shardings.serving_refusal`: not MLA or
-    cross-attention).
+    `arch_rules(cfg, mesh, "prefill")`): every config, its GQA, MLA and
+    cross-attention, Mamba-2 and MoE layers.
 
     At its first call with a set of blocks the rank places its parameters
     in ``model`` once (serving updates nothing): each leaf the rules cut
     over ``"model"`` in a module that computes on the cut (`model_cuts`:
-    GQA attention, dense MLPs, Mamba-2, vocabulary) and each expert
-    block, gathered over the batch's axes only, so no whole copy of such
-    a leaf is placed (a Mamba ``in_proj``: its heads' columns); every
-    other leaf whole.  ``model`` may be built on meta.  The rank's cache
-    blocks (`LM.init_cache` with the mesh) start empty; the prompt's
-    attention runs on the rank's heads over its own k and v, and each
-    rank writes the rows of its sequence segment (`models.attention`); a
-    Mamba layer runs the SSD on its heads (`ssd_chunk` on the card) and
-    keeps their state and its channels of the conv window.
+    GQA, MLA and cross-attention, dense MLPs, Mamba-2, vocabulary) and
+    each expert block, gathered over the batch's axes only, so no whole
+    copy of such a leaf is placed (a Mamba ``in_proj``: its heads'
+    columns; MLA's ``wkv_b`` is placed whole, `_ServeLayout.place`);
+    every other leaf whole.  ``model`` may be built on meta.  The rank's
+    cache blocks (`LM.init_cache` with the mesh) start empty; the
+    prompt's attention runs on the rank's heads over its own k and v (or
+    latent), and each rank writes the rows of its sequence segment
+    (`models.attention`); a Mamba layer runs the SSD on its heads
+    (`ssd_chunk` on the card) and keeps their state and its channels of
+    the conv window.  An encoder runs on the rank's cut of the batch, its
+    attention on the rank's heads, and its output is kept in the cache
+    as the rank's batch rows, whole along ``"model"``; the decoder's
+    cross-attention reads it on the rank's heads.
 
     ``.specs``, ``.cuts``, ``.cache_specs(batch_size, s_max)``; after a
     call ``.metrics``: host seconds (the card synchronised) of the call
@@ -520,7 +546,9 @@ def make_sharded_decode_step(model: LM, mesh, rules: Dict[str, Any]
     over the rank's segment of the cache through the flash kernel's
     decode body with each row's log-sum-exp, and combines the ranks'
     partials (`launch.mesh.combine_partials`, one a layer); the rank that
-    owns row ``len`` writes the token's k and v.  ``len`` stays global.
+    owns row ``len`` writes the token's k and v.  An MLA layer expands
+    its segment of the latent for every head with the whole ``wkv_b`` and
+    takes the partial from the plain math.  ``len`` stays global.
     ``.specs``, ``.cuts``, ``.cache_specs``; ``.metrics`` as the prefill
     step's, with ``decode_s``."""
     layout = _ServeLayout(model, mesh, rules)

@@ -35,7 +35,13 @@ combines the ranks' partials by their log-sum-exps
 
 MLA expands the latent cache per head as the reference's baseline does (no
 absorbed matmul) and always runs `_sdpa`'s plain math, as the reference
-runs MLA on its jnp math: the kernel takes Dv = D only.
+runs MLA on its jnp math: the kernel takes Dv = D only.  A sharded serving
+step's latent cache is cut by sequence too (ckv (B / data, S_max / n,
+kv_lora), krope (B / data, S_max / n, dr)); `_mla_cut_cache` writes the
+rank's rows, a prefill attends over the prompt's own latent on the rank's
+heads, and a later step gathers q to every head, expands the rank's
+segment for every head with the whole ``wkv_b`` (which the steps place
+whole) and combines the ranks' partials as GQA's decode does.
 
 M-RoPE (qwen2-vl) rotates q and k by ``positions3`` (3, B, S); without
 them the three axes take the 1-D positions.  Cross-attention (the whisper
@@ -64,6 +70,12 @@ Tensor = torch.Tensor
 
 DEFAULT_Q_CHUNK = 256
 _NEG = -1e30
+#: private test hooks that break the products on a "model" cut (the
+#: controls of the tests): "krope_unsummed" (MLA's shared key without
+#: its gradient's sum), "mla_own_wkv_b" (MLA's decode expanding the
+#: rank's segment for its own heads only), "cross_unsummed_wo"
+#: (cross-attention without its row product's sum)
+_CONTROLS: frozenset = frozenset()
 
 
 # ---------------------------------------------------------------------------
@@ -116,19 +128,23 @@ def make_kv_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
                   device="cuda", *, mesh=None, spec=()) -> dict:
     """An empty cache of ``batch`` rows of ``s_max``; with ``mesh``, this
     rank's block of it under ``spec`` (the k leaf's partition spec:
-    batch, sequence, kv heads), and the sequence's axes (module
-    docstring)."""
+    batch, sequence, kv heads; MLA's ckv leaf's: batch, sequence), and
+    the sequence's axes (module docstring)."""
     if mesh is not None:
+        seq = spec[1] if len(spec) > 1 and spec[1] else ()
+        seq = (seq,) if isinstance(seq, str) else tuple(seq)
         if cfg.mla is not None:
-            raise NotImplementedError("MLA's latent cache is not cut by "
-                                      "sequence yet")
+            m = cfg.mla
+            out = {k: torch.zeros(mesh_lib.block_shape(
+                (batch, s_max, width), spec, mesh), dtype=dtype,
+                device=device) for k, width in (
+                    ("ckv", m.kv_lora_rank), ("krope", m.qk_rope_head_dim))}
+            return {**out, "len": 0, "mesh": mesh, "seq": seq}
         shape = mesh_lib.block_shape(
             (batch, s_max, cfg.n_kv_heads, cfg.head_dim), spec, mesh)
-        seq = spec[1] if len(spec) > 1 and spec[1] else ()
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device),
-                "len": 0, "mesh": mesh,
-                "seq": (seq,) if isinstance(seq, str) else tuple(seq)}
+                "len": 0, "mesh": mesh, "seq": seq}
     if cfg.mla is not None:
         m = cfg.mla
         return {"ckv": torch.zeros((batch, s_max, m.kv_lora_rank),
@@ -418,14 +434,7 @@ def _attend_cut_cache(q: Tensor, k: Tensor, v: Tensor, cache: dict,
     segment order (`launch.mesh.combine_partials`), of which the rank
     keeps its query heads."""
     b, s, h, hd = q.shape
-    cmesh, seq = cache["mesh"], cache["seq"]
     kc, vc, length = cache["k"], cache["v"], cache["len"]
-    n = cmesh.size(seq)
-    r = cmesh.index(seq) if seq else 0
-    s_loc = kc.shape[1]
-    if length + s > n * s_loc:
-        raise ValueError(f"KV cache overflow: {length} cached + {s} new "
-                         f"rows > s_max {n * s_loc}")
     first = h * mesh.index("model") if h < cfg.n_heads else 0
     kw, vw = k, v
     if kc.shape[2] != k.shape[2]:
@@ -434,11 +443,8 @@ def _attend_cut_cache(q: Tensor, k: Tensor, v: Tensor, cache: dict,
                 f"a cache block of {kc.shape[2]} kv heads beside "
                 f"{k.shape[2]} computed")
         kw, vw = (_heads_over_model(t, mesh) for t in (k, v))
-    lo, hi = max(length, r * s_loc), min(length + s, (r + 1) * s_loc)
-    if lo < hi:
-        kc[:, lo - r * s_loc:hi - r * s_loc] = kw[:, lo - length:hi - length]
-        vc[:, lo - r * s_loc:hi - r * s_loc] = vw[:, lo - length:hi - length]
-    new_cache = {**cache, "len": length + s}
+    cmesh, seq, n, r, s_loc, new_cache = _write_segment(
+        cache, {"k": kw, "v": vw})
 
     def own(kk, vv):
         if h < cfg.n_heads and kk.shape[2] == cfg.n_kv_heads:
@@ -460,6 +466,30 @@ def _attend_cut_cache(q: Tensor, k: Tensor, v: Tensor, cache: dict,
                       q_offset=length - r * s_loc, return_lse=True, **kw_)
     out = mesh_lib.combine_partials(part, lse, cmesh, seq).to(q.dtype)
     return out[:, :, first:first + h], new_cache
+
+
+def _write_segment(cache: dict, rows: dict):
+    """Write a step's ``rows`` ({cache key: (B, s, ...)}, the step's rows
+    [len, len + s)) that fall in this rank's segment of a cache cut by
+    sequence: (the cache's mesh, its sequence's axes, their size n, the
+    rank's index r along them, the segment's rows S_loc, the cache with
+    ``len`` advanced).  Rank r holds rows [r S_loc, (r + 1) S_loc); a
+    cache without a mesh is one segment (n 1, r 0)."""
+    cmesh, seq, length = cache.get("mesh"), cache.get("seq", ()), \
+        cache["len"]
+    n = cmesh.size(seq) if cmesh is not None else 1
+    r = cmesh.index(seq) if seq else 0
+    s = next(iter(rows.values())).shape[1]
+    s_loc = cache[next(iter(rows))].shape[1]
+    if length + s > n * s_loc:
+        raise ValueError(f"cache overflow: {length} cached + {s} new rows "
+                         f"> s_max {n * s_loc}")
+    lo, hi = max(length, r * s_loc), min(length + s, (r + 1) * s_loc)
+    if lo < hi:
+        for key, new in rows.items():
+            cache[key][:, lo - r * s_loc:hi - r * s_loc] = \
+                new[:, lo - length:hi - length]
+    return cmesh, seq, n, r, s_loc, {**cache, "len": length + s}
 
 
 def _own_kv(k: Tensor, v: Tensor, cfg: ModelConfig, first: int, count: int
@@ -488,57 +518,129 @@ def mla_forward(params: MLA, x: Tensor, cfg: ModelConfig, *,
     """x (B, S, d) -> (out (B, S, d), cache').  The step's normed latent
     ``ckv`` and its rotated shared key ``krope`` go into the latent cache's
     rows [len, len + s) in place; the valid prefix is expanded per head by
-    ``wkv_b`` and attended by `_sdpa`'s plain math with Dv != D.
+    ``wkv_b`` and attended by `_sdpa`'s plain math with Dv != D
+    (`_mla_cut_cache`, with or without a mesh).
     ``use_kernel`` is taken for the mixers' common signature and unused:
-    MLA never runs the kernel."""
+    MLA never runs the kernel.
+
+    Where the sharded steps cut the layer over ``"model"``
+    (`tensor_parallel.cuts`), ``wq_b`` and ``wkv_b`` are the rank's heads'
+    columns (or ``wkv_b`` whole, as the serving steps place it: the rank
+    takes its heads' columns) and ``wo`` their rows, its output summed
+    over ``"model"``; the normed latents ``ql`` and ``ckv`` (the column
+    products' inputs) and ``krope`` (read by every head) go through
+    `launch.mesh.sum_grad`."""
     del use_kernel
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    mesh = tp.mesh_of(params["wq_b"])
+    wq_b, wkv_b, wo = (tp.block(params[k]) for k in ("wq_b", "wkv_b", "wo"))
 
     ql = norm(x @ params["wq_a"], params["q_norm"], "rmsnorm", cfg.norm_eps)
-    q = (ql @ params["wq_b"]).reshape(b, s, h, dn + dr)
-    q_nope, q_rope = q[..., :dn], q[..., dn:]
-
     kv_a = x @ params["wkv_a"]
     ckv_new = norm(kv_a[..., :m.kv_lora_rank], params["kv_norm"], "rmsnorm",
                    cfg.norm_eps)
     krope_new = kv_a[..., m.kv_lora_rank:]                # (B,S,dr) shared
+    if mesh is not None:             # the rank reads them for its heads
+        ql = mesh_lib.sum_grad(ql, mesh, "model")
+        ckv_new = mesh_lib.sum_grad(ckv_new, mesh, "model")
+        if "krope_unsummed" not in _CONTROLS:
+            krope_new = mesh_lib.sum_grad(krope_new, mesh, "model")
+    q = ql @ wq_b
+    h = q.shape[-1] // (dn + dr)
+    q = q.reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    own_kv_b = wkv_b
+    if wkv_b.shape[1] > h * (dn + dv):  # placed whole: the rank's columns
+        first = h * (dn + dv) * mesh.index("model")
+        own_kv_b = wkv_b[:, first:first + h * (dn + dv)]
 
-    cache_len = cache["len"] if cache is not None else 0
-    pos = _positions(cache_len, b, s, x.device)
+    pos = _positions(cache["len"] if cache is not None else 0, b, s,
+                     x.device)
     q_rope = rope_apply(q_rope, pos, cfg.rope_theta)
     krope_new = rope_apply(krope_new[:, :, None, :], pos,
                            cfg.rope_theta)[:, :, 0, :]
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
 
     if cache is not None:
-        ckv_c, krope_c = cache["ckv"], cache["krope"]
-        if cache_len + s > ckv_c.shape[1]:
-            raise ValueError(f"latent cache overflow: {cache_len} cached + "
-                             f"{s} new rows > s_max {ckv_c.shape[1]}")
-        ckv_c[:, cache_len:cache_len + s] = ckv_new
-        krope_c[:, cache_len:cache_len + s] = krope_new
-        new_cache = {"ckv": ckv_c, "krope": krope_c, "len": cache_len + s}
-        # the rows past len + s are masked in the reference; they are left
-        # out here, which saves their expansion
-        ckv = ckv_c[:, :cache_len + s]
-        krope = krope_c[:, :cache_len + s]
+        out, new_cache = _mla_cut_cache(q_full, ckv_new, krope_new, cache,
+                                        cfg, mesh, own_kv_b, wkv_b,
+                                        causal=causal, impl=impl)
     else:
-        ckv, krope = ckv_new, krope_new
+        k_full, vv = _mla_expand(ckv_new, krope_new, own_kv_b, m)
+        out = _sdpa(q_full, k_full, vv, causal=causal, kv_len=s, q_offset=0,
+                    scale=(dn + dr) ** -0.5, impl=impl, use_kernel=False)
         new_cache = None
-    kv_len = cache_len + s
+    out = out.reshape(b, s, h * dv) @ wo
+    if mesh is not None:                             # the row product's sum
+        out = mesh_lib.all_reduce_grad(out, mesh, "model", ())
+    return out, new_cache
 
-    # expand the latent kv per head (the reference's baseline)
-    kv = (ckv @ params["wkv_b"]).reshape(b, kv_len, h, dn + dv)
+
+def _mla_expand(ckv: Tensor, krope: Tensor, wkv_b: Tensor, m
+                ) -> Tuple[Tensor, Tensor]:
+    """The latent (B, T, kv_lora) and shared key (B, T, dr) expanded per
+    head of ``wkv_b``'s columns (the reference's baseline): (k (B, T, h,
+    dn + dr), v (B, T, h, dv))."""
+    b, t, _ = ckv.shape
+    dn, dv = m.qk_nope_head_dim, m.v_head_dim
+    h = wkv_b.shape[1] // (dn + dv)
+    kv = (ckv @ wkv_b).reshape(b, t, h, dn + dv)
     k_nope, vv = kv[..., :dn], kv[..., dn:]
-    k_full = torch.cat([k_nope, krope[:, :, None, :].expand(
-        b, kv_len, h, dr)], dim=-1)
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
-    out = _sdpa(q_full, k_full, vv, causal=causal, kv_len=kv_len,
-                q_offset=cache_len, scale=(dn + dr) ** -0.5, impl=impl,
-                use_kernel=False)
-    return out.reshape(b, s, h * dv) @ params["wo"], new_cache
+    return torch.cat([k_nope, krope[:, :, None, :].expand(
+        b, t, h, m.qk_rope_head_dim)], dim=-1), vv
+
+
+def _mla_cut_cache(q: Tensor, ckv: Tensor, krope: Tensor, cache: dict,
+                   cfg: ModelConfig, mesh, own_kv_b: Tensor, wkv_b: Tensor,
+                   *, causal: bool, impl: str) -> Tuple[Tensor, dict]:
+    """MLA's `_attend_cut_cache`: q (B, s, h, dn + dr) the rank's query
+    heads, ckv (B, s, kv_lora) and krope (B, s, dr) the step's latent
+    rows (whole along ``"model"``), rotated at their global positions;
+    ``own_kv_b`` the rank's heads' columns of ``wkv_b``, ``wkv_b`` as
+    placed (whole in serving).  Returns (out (B, s, h, dv), the cache with
+    ``len`` advanced).  The local cache (no mesh) is one whole segment.
+
+    The rank writes the rows of [len, len + s) that fall in its segment.
+    A cache whole along the sequence attends over its valid rows (the
+    reference masks the rows past len + s; leaving them out saves their
+    expansion), on the rank's heads; a prefill (``len`` 0) attends over
+    the prompt's own latent on them.  A later step gathers q to every
+    head, expands the rank's valid rows for every head, takes the partial
+    and its log-sum-exp (`_sdpa_lse`), combines the segments'
+    (`launch.mesh.combine_partials`) and keeps the rank's heads."""
+    m = cfg.mla
+    b, s, h, _ = q.shape
+    ckv_c, krope_c, length = cache["ckv"], cache["krope"], cache["len"]
+    cmesh, seq, n, r, s_loc, new_cache = _write_segment(
+        cache, {"ckv": ckv, "krope": krope})
+    kw = dict(causal=causal, scale=(m.qk_nope_head_dim
+                                    + m.qk_rope_head_dim) ** -0.5)
+    if n == 1 or length == 0:
+        if n == 1:
+            ckv, krope = ckv_c[:, :length + s], krope_c[:, :length + s]
+        k, v = _mla_expand(ckv, krope, own_kv_b, m)
+        return _sdpa(q, k, v, kv_len=k.shape[1], q_offset=k.shape[1] - s,
+                     impl=impl, use_kernel=False, **kw), new_cache
+    own = "mla_own_wkv_b" in _CONTROLS
+    qa = q if own or h == cfg.n_heads else _heads_over_model(q, mesh)
+    valid = min(max(length + s - r * s_loc, 0), s_loc)
+    if valid == 0:                   # an empty segment weighs nothing
+        part = q.new_zeros((b, s, qa.shape[2], m.v_head_dim),
+                           dtype=torch.float32)
+        lse = torch.full((b, s, qa.shape[2]), float("-inf"),
+                         device=q.device)
+    else:
+        k, v = _mla_expand(ckv_c[:, :valid], krope_c[:, :valid],
+                           own_kv_b if own else wkv_b, m)
+        part, lse = _sdpa_lse(qa, k, v, kv_len=valid,
+                              q_offset=length - r * s_loc, **kw)
+    out = mesh_lib.combine_partials(part, lse, cmesh, seq).to(q.dtype)
+    if own or h == cfg.n_heads:
+        return out, new_cache
+    first = h * mesh.index("model")
+    return out[:, :, first:first + h], new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -561,16 +663,38 @@ def cross_attn_forward(params: nn.ParameterDict, x: Tensor, enc_out: Tensor,
     """x (B, S, d) over the encoder's output (B, Se, d) -> (B, S, d):
     every query row sees all Se rows (``kv_len = Se``, not causal).  K and
     V are recomputed from ``enc_out`` at every call, as the reference
-    does."""
+    does.
+
+    Where the sharded steps cut the layer over ``"model"``
+    (`tensor_parallel.cuts`), ``wq`` is the rank's heads' columns and
+    ``wo`` their rows, its output summed over ``"model"``; ``wk`` / ``wv``
+    are the rank's heads' columns, or whole, and then the rank takes its
+    heads' columns of them.  ``x`` and ``enc_out`` (the column products'
+    inputs, ``enc_out`` once for both of its) go through
+    `launch.mesh.sum_grad`."""
     b, s, _ = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
     se = enc_out.shape[1]
-    q = (x @ params["wq"]).reshape(b, s, h, hd)
-    k = (enc_out @ params["wk"]).reshape(b, se, h, hd)
-    v = (enc_out @ params["wv"]).reshape(b, se, h, hd)
+    mesh = tp.mesh_of(params["wq"])
+    p = {k: tp.block(w) for k, w in params.items()}
+    if mesh is not None:
+        x = mesh_lib.sum_grad(x, mesh, "model")
+        enc_out = mesh_lib.sum_grad(enc_out, mesh, "model")
+    q = x @ p["wq"]
+    h = q.shape[-1] // hd
+    wk, wv = p["wk"], p["wv"]
+    if wk.shape[1] > h * hd:         # kv leaves whole beside cut q heads
+        first = h * hd * mesh.index("model")
+        wk, wv = (w[:, first:first + h * hd] for w in (wk, wv))
+    q = q.reshape(b, s, h, hd)
+    k = (enc_out @ wk).reshape(b, se, h, hd)
+    v = (enc_out @ wv).reshape(b, se, h, hd)
     out = _sdpa(q, k, v, causal=False, kv_len=se, q_offset=0,
                 scale=hd ** -0.5, impl=impl, use_kernel=use_kernel)
-    return out.reshape(b, s, h * hd) @ params["wo"]
+    out = out.reshape(b, s, h * hd) @ p["wo"]
+    if mesh is not None and "cross_unsummed_wo" not in _CONTROLS:
+        out = mesh_lib.all_reduce_grad(out, mesh, "model", ())
+    return out
 
 
 def attn_forward(params: nn.ParameterDict, x: Tensor, cfg: ModelConfig,

@@ -207,19 +207,15 @@ class LM(nn.Module):
         and ``enc_out``, the encoder's output, which `prefill` fills.
         With ``mesh``, this rank's blocks of the caches of a global batch
         of ``batch_size`` under ``specs`` (`launch.shardings.
-        cache_shardings`' structure): the KV caches cut by theirs, the
-        SSM states and conv windows by `make_ssm_cache`'s rule; configs
-        `launch.shardings.serving_refusal` refuses raise."""
+        cache_shardings`' structure): the KV and latent caches cut by
+        theirs, the SSM states and conv windows by `make_ssm_cache`'s
+        rule."""
         device = self.device if device is None else device
         if mesh is not None:
-            from repro_torch.launch.shardings import serving_refusal
-            refusal = serving_refusal(self.cfg)
-            if refusal is not None:
-                raise NotImplementedError(f"a cache of {self.cfg.name} on "
-                                          f"a mesh: {refusal}")
             return {"layers": [
                 make_kv_cache(self.cfg, batch_size, s_max, self.dtype,
-                              device, mesh=mesh, spec=spec["k"])
+                              device, mesh=mesh,
+                              spec=spec["ckv" if "ckv" in spec else "k"])
                 if block.kind == "attn" else
                 make_ssm_cache(self.cfg, batch_size, self.dtype, device,
                                mesh=mesh, specs=spec)

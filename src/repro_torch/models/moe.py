@@ -261,10 +261,14 @@ def _dispatch_compute(x2d: Tensor, params_local, cfg: ModelConfig,
             u = torch.einsum("secd,edf->secf", h_in, w3)
             hidden = (F.silu(g) if act == "swiglu"
                       else F.gelu(g, approximate="tanh")) * u
+            del g, u
         else:
             hidden = F.gelu(torch.einsum("secd,edf->secf", h_in, w1),
                             approximate="tanh")
         out = torch.einsum("secf,efd->secd", hidden, w2).to(wire_dt)
+        # the dispatch's buffers are dead from here: freed before the
+        # return exchange allocates its own (each n_shards x E_loc x C x d)
+        del send, recv, h_in, hidden
 
     if axis is not None:
         with record_function("moe.exchange"):
@@ -272,6 +276,7 @@ def _dispatch_compute(x2d: Tensor, params_local, cfg: ModelConfig,
                             axis)
     else:
         back = out.reshape(1, e_loc * capacity, d)
+    del out
 
     with record_function("moe.combine"):
         back = torch.cat([back.reshape(buf_rows, d),

@@ -16,6 +16,11 @@ read their leaves through `block` and `mesh_of`:
   ``b2`` is added once;
 * `attention.gqa_forward`: the rank's query heads, beside its cut of the
   kv heads or the kv heads those query heads use;
+* `attention.mla_forward`: the rank's heads' columns of ``wq_b`` and
+  ``wkv_b`` (each head's latent expansion) and rows of ``wo``, the
+  down-projections and norms whole on every rank;
+* `attention.cross_attn_forward`: the rank's heads of ``wq`` / ``wk`` /
+  ``wv`` over the encoder's output, ``wo`` a row product;
 * `mamba.Mamba2.forward`: the rank's heads, ``in_proj``'s columns of
   them taken from its block at use (training) or placed (serving), the
   gated norm's sum of squares all-reduced, ``out_proj`` a row product;
@@ -34,9 +39,12 @@ A column product's input goes through `launch.mesh.sum_grad` (the
 identity, its gradient summed over ``"model"``: Megatron's *f*), a row
 product's output through `launch.mesh.all_reduce_grad` over ``"model"``
 with no gradient axes (summed, its gradient the identity: Megatron's
-*g*).  Outside `cuts` (the local paths) and for every leaf it does not
-name (MLA, cross-attention and MoE leaves, norms, and the "partial"
-leaves the step gathers whole) a leaf is the module's own.
+*g*).  So does every other activation each rank reads for its heads
+only: MLA's rotated shared key ``krope``; cross-attention's encoder
+output, once for both its products.  Outside `cuts` (the local paths)
+and for every leaf it does not name (MoE leaves, MLA's
+down-projections, norms, and the "partial" leaves the step gathers
+whole) a leaf is the module's own.
 """
 
 from __future__ import annotations

@@ -291,8 +291,9 @@ def test_fake_tensor_call_of_every_wrapper_launches_nothing():
 def test_reduced_cells_of_every_family_run():
     """Train (sharded, on a 2 x 2 recording mesh, remat ``full``),
     prefill and decode cells of reduced configs of every family: each
-    counts FLOPs and a peak, train cells and the sharded serving cells of
-    GQA configs (`serve_layout`) exchange and the whole-parameter serving
+    counts FLOPs and a peak, train cells and the sharded serving cells
+    (`serve_layout`: every config's here, whisper_small's encoder and
+    cross-attention included) exchange and the whole-parameter serving
     cells do not, and a train cell's MoE layers recompute their training
     variant in backward."""
     mesh = ((2, 2), ("data", "model"))
@@ -404,16 +405,20 @@ def test_remat_recompute_in_another_thread_sees_the_forwards_mesh(
     ("jamba_1_5_large_398b", "prefill_32k", None),
     ("jamba_1_5_large_398b", "decode_32k", None),
     ("jamba_1_5_large_398b", "long_500k", "sequence cut"),
-    ("deepseek_v3_671b", "decode_32k", "MLA"),
-    ("whisper_small", "decode_32k", "cross-attention"),
+    # refused before MLA's latent cache and cross-attention were cut
+    pytest.param("deepseek_v3_671b", "decode_32k", None,
+                 id="deepseek_v3_671b-decode_32k-MLA"),
+    pytest.param("whisper_small", "decode_32k", None,
+                 id="whisper_small-decode_32k-cross-attention"),
 ])
 def test_serve_layout_of_mamba_hybrid_and_refused_cells(arch, shape,
                                                         reason):
     """`serve_layout` per cell: mamba2_780m and jamba served sharded (the
     state cut by heads), mamba2_780m's long_500k too (batch whole, state
-    by heads); jamba's long_500k waits for the KV cache's sequence cut
-    over ("data", "model"), deepseek_v3 (MLA) and whisper_small
-    (cross-attention) for a later slice, with whole parameters."""
+    by heads), deepseek_v3 (MLA's latent cache cut by sequence) and
+    whisper_small (cross-attention on the rank's heads) too; only jamba's
+    long_500k waits for the KV cache's sequence cut over ("data",
+    "model"), with whole parameters."""
     layout, why = D.serve_layout(get_config(arch), shape)
     if reason is None:
         assert (layout, why) == ("sharded_serve", None)

@@ -18,7 +18,9 @@ two-layer gemma_2b train step in f32 against f64, deepseek_v3's MLA layer
 at full width in f32 against f64, a backward through the flash and SSD
 kernels' wrappers raising, and deterministic backward passes bit-equal;
 the flash kernel at qwen2_vl_2b's and whisper_small's shapes (non-causal
-encoder, cross-attention prefill and split-KV decode), telemetry's
+encoder, cross-attention prefill and split-KV decode; at a sharded
+rank's 6 heads and on its cache segment), one sharded MLA decode on two
+ranks against the local path, telemetry's
 measured time of a ``cuda``-backend `execute` against the kernel's; and
 tuning: tuned int32 runs under a live controller bit-equal to untuned ones
 that took other backends, the estimator fed from the ``slot_counts``
@@ -1296,12 +1298,13 @@ def test_deterministic_backward_is_bit_equal(cuda_device):
 # qwen2_vl and whisper: the flash kernel at their shapes; telemetry's clock
 # ---------------------------------------------------------------------------
 
-def _whisper_call(dev, sq, skv, dtype, b=1, seed=0):
-    """whisper_small's attention: 12 heads of 64 over 12 KV heads, q
-    (B, sq, 12, 64) against (B, skv, 12, 64) keys as the model hands them
-    over (transposed views of contiguous projections), not causal."""
+def _whisper_call(dev, sq, skv, dtype, b=1, seed=0, h=12):
+    """whisper_small's attention: ``h`` heads of 64 (12; a rank of the
+    sharded steps on 2x2 holds 6) over as many KV heads, q (B, sq, h, 64)
+    against (B, skv, h, 64) keys as the model hands them over (transposed
+    views of contiguous projections), not causal."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = (torch.randn((b, s, 12, 64), generator=g, device=dev)
+    q, k, v = (torch.randn((b, s, h, 64), generator=g, device=dev)
                .to(dtype).transpose(1, 2) for s in (sq, skv, skv))
     return (q, k, v), dict(causal=False, kv_valid=skv, kv_offset=0)
 
@@ -1330,6 +1333,77 @@ def test_flash_attention_whisper_shapes_match_plain_version(
     causal = FK.flash_attention(*args, **dict(kw, causal=True))
     assert not torch.allclose(causal.float(), want.float(),
                               **_gemma_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("what,sq,skv,causal", [
+    ("encoder", 1500, 1500, False), ("cross_prefill", 512, 1500, False),
+    ("cross_decode", 1, 1500, False), ("self_prefill", 512, 512, True)])
+def test_flash_attention_whisper_rank_heads_match_plain_version(
+        cuda_device, what, sq, skv, causal, dtype):
+    """whisper_small's calls on a rank of the sharded steps on 2x2: 6 of
+    its 12 heads, 2 sequences (the rank's cut of the batch) — the
+    encoder, the cross-attention's prefill of a 512-token prompt and its
+    decode, and the decoder's prefill over the prompt's own k and v
+    (causal): within 3e-5 in f32 and one bf16 ulp in bf16 of the plain
+    version, one launch each."""
+    args, kw = _whisper_call(cuda_device, sq, skv, dtype, b=2,
+                             seed=sq + skv, h=6)
+    kw["causal"] = causal
+    FK.reset_launches()
+    got = FK.flash_attention(*args, **kw)
+    assert FK.LAUNCHES == {"flash_attention": 1}
+    want = FK.flash_attention_plain(*args, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **_gemma_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_valid", [8, 264])
+def test_flash_attention_whisper_segment_partial(cuda_device, kv_valid,
+                                                 dtype):
+    """The decoder's decode body on a rank's segment of a sequence-cut
+    cache (q gathered to all 12 heads over the cache's 12 KV heads, a
+    segment of 264 rows: 8 valid, or all): its f32 output and
+    log-sum-exp against `flash_attention_split_plain` at the kernel's own
+    splits, within 3e-5 and 1e-5."""
+    args, kw = _gemma_call(cuda_device, 1, kv_valid - 1, dtype,
+                           seed=kv_valid, b=2, hq=12, hkv=12, d=64,
+                           s_max=264)
+    FK.reset_launches()
+    out, lse = FK.flash_attention(*args, **kw, return_lse=True)
+    assert FK.LAUNCHES == FK.LSE_LAUNCHES == {"flash_attention": 1}
+    splits = FK.decode_splits(kv_valid, 2 * 12, FK._sm_count(out.device),
+                              FK.decode_limits()[1])
+    want, want_lse = FK.flash_attention_split_plain(
+        *args, **kw, splits=splits, return_lse=True)
+    torch.testing.assert_close(out, want, rtol=3e-5, atol=3e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_sharded_mla_decode_on_the_card_matches_local(cuda_device):
+    """Two gloo ranks sharing the card serve reduced deepseek_v3 in f32 on
+    a (1, 2) ``("data", "model")`` mesh: MLA on 2 of its 4 heads a rank,
+    the latent cache cut by sequence into segments of 8 rows, a prompt of
+    5 and 4 decode steps across the boundary (each expanding the rank's
+    segment for every head with the whole ``wkv_b``), against the local
+    path on the card: logits within relative L2 1e-5 at every step, the
+    greedy tokens equal, the cache blocks within 1e-6
+    (`tests/_torch_mla_cross_sharded_worker.py`)."""
+    import _torch_mla_cross_sharded_worker as W
+    from repro_torch.launch import ranks
+    torch.cuda.empty_cache()
+    out = ranks.launch(f"{W.__file__}:run_card", 2,
+                       mesh=((1, 2), ("data", "model")), device="cuda",
+                       timeout=600)
+    for o in out:
+        assert o["seq"] == ("model",)
+        assert o["block_shapes"]["ckv"] == (2, 8, 16)
+        assert max(o["logit_rel"]) <= 1e-5, o["logit_rel"]
+        assert all(o["tokens_equal"]) and o["cache_rel"] <= 1e-6
 
 
 @pytest.mark.gpu

@@ -51,9 +51,6 @@ from repro_torch.models.model import LM
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(HERE, "_torch_serve_sharded_worker.py")
 LOGIT_TOL, CACHE_TOL, COMBINE_TOL = 1e-5, 1e-6, 1e-6
-SHARDED = ("command_r_plus_104b", "dbrx_132b", "gemma_2b",
-           "jamba_1_5_large_398b", "mamba2_780m", "phi3_medium_14b",
-           "qwen2_vl_2b", "stablelm_12b")
 
 
 @pytest.fixture(scope="module")
@@ -301,22 +298,29 @@ def test_recording_mesh_log(arch, shape):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_dry_run_serving_layout_per_config(arch):
-    """The dry run's serving layout: sharded for the six GQA
-    self-attention configs, mamba2_780m and jamba, whole parameters with
-    a reason for MLA and cross-attention."""
-    layout, reason = dryrun.serve_layout(get_config(arch))
-    if arch in SHARDED:
-        assert (layout, reason) == ("sharded_serve", None)
-    else:
+    """The dry run's serving layout of a prefill or decode cell: sharded
+    for every config, deepseek_v3 (MLA) and whisper_small
+    (cross-attention) among them; a long_500k cell whole where the config
+    has attention layers (jamba: the ("data", "model") sequence cut waits
+    for a later slice)."""
+    cfg = get_config(arch)
+    assert dryrun.serve_layout(cfg) == ("sharded_serve", None)
+    layout, reason = dryrun.serve_layout(cfg, "long_500k")
+    if cfg.n_layers and any(cfg.layer_kind(i) == "attn"
+                            for i in range(cfg.n_layers)):
         assert layout == "serve_whole_params" and "later slice" in reason
+    else:
+        assert (layout, reason) == ("sharded_serve", None)
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 def test_dry_run_sharded_serve_cell(kind):
     """A reduced gemma_2b cell on (2, 2) under ``sharded_serve``: its
     record counts the mesh's collectives (decode: a combine's all-gather
-    each layer beside q's), and a whole-parameter config's cell
-    (whisper_small, cross-attention) none."""
+    each layer beside q's); so does whisper_small's (its encoder and
+    cross-attention on the rank's heads: the row products' all-reduces of
+    both stacks, and a combine each decoder layer in decode), which ran
+    with whole parameters and no collective before."""
     cell = dryrun.ShapeCell(f"{kind}_t", 64, 8, kind)
     mesh = ((2, 2), ("data", "model"))
     rec = dryrun.run_cell("gemma_2b", cell, False,
@@ -329,18 +333,35 @@ def test_dry_run_sharded_serve_cell(kind):
     other = dryrun.run_cell("whisper_small", cell, False,
                             cfg=get_reduced("whisper_small"),
                             mesh_shape=mesh)
-    assert other["layout"] == "serve_whole_params"
-    assert other["collectives"] == {} and "later slice" in \
-        other["layout_reason"]
+    assert other["layout"] == "sharded_serve"
+    assert "layout_reason" not in other
+    wcfg = get_reduced("whisper_small")
+    reduces = other["collectives"]["all-reduce"]["count"]
+    if kind == "prefill":                 # encoder: attn and mlp; decoder:
+        assert reduces >= 2 * wcfg.encoder.n_layers + 3 * wcfg.n_layers
+    else:                                 # decoder: self, cross and mlp
+        assert reduces >= 3 * wcfg.n_layers
+        assert other["collectives"]["all-gather"]["count"] >= \
+            2 * wcfg.n_layers
 
 
 @pytest.mark.parametrize("arch", ["whisper_small", "deepseek_v3_671b"])
 def test_sharded_steps_refuse_later_slices(arch):
-    """MLA's latent cache and cross-attention are a later slice's: the
-    steps refuse them at make time."""
+    """The configs these steps refused at make time (MLA's latent cache,
+    cross-attention) are served now: the steps make, and their cache
+    specs cut MLA's ckv and krope by batch and sequence
+    (``("data", "model")``, the reference's `_CACHE_AXES`) and keep the
+    encoder's output by batch alone (``("data", None, None)``)."""
     cfg = get_reduced(arch)
     mesh = RecordingMesh((2, 2), ("data", "model"))
     model = LM(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_sharded_prefill_step(model, 16, mesh,
-                                  arch_rules(cfg, mesh, "prefill"))
+    step = make_sharded_prefill_step(model, 16, mesh,
+                                     arch_rules(cfg, mesh, "prefill"))
+    specs = step.cache_specs(4, 16)
+    layer = specs["layers"][0]
+    if cfg.mla is not None:
+        assert layer["ckv"] == layer["krope"] == ("data", "model")
+        assert specs["enc_out"] == ()
+    else:
+        assert layer["k"] == ("data", "model") and "ckv" not in layer
+        assert specs["enc_out"] == ("data",)

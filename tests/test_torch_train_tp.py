@@ -297,8 +297,8 @@ def test_no_all_gather_over_model_of_a_cut_leaf(arch):
     """From `RecordingMesh`'s log of one step on 2x2: every leaf the step
     computes on its "model" cut is all-gathered over "data" alone, and
     the all-gathers over "model" are exactly those of the leaves gathered
-    whole whose spec names it (whisper's cross-attention: none for
-    gemma_2b and stablelm_12b)."""
+    whole whose spec names it: none for any of the three (whisper's
+    cross-attention, gathered whole before, is cut now)."""
     step, params, log = _recorded(arch, (2, 2))
     gathers = [(axes, shape) for kind, axes, shape in log
                if kind == "all-gather"]
@@ -310,12 +310,11 @@ def test_no_all_gather_over_model_of_a_cut_leaf(arch):
     whole = named - cut
     assert cut
     assert over_model == Counter((1, *params[n].shape) for n in whole)
-    assert not any(step.cuts[n].mode == "cut"
-                   for n in whole) and all(".cross." in n for n in whole)
     want = Counter((1, *params[n].shape) for n in cut
                    if "data" in str(step.specs[n]))
     assert not want - over_data
-    assert (arch == "whisper_small") == bool(whole)
+    assert not whole
+    assert (arch == "whisper_small") == any(".cross." in n for n in cut)
 
 
 def _modes(arch, shape, names=("data", "model")):
@@ -348,16 +347,18 @@ def test_model_cuts_keep_moe_configs_whole(arch):
     """A config with MoE layers keeps its MoE leaves whole (the experts,
     which the step keeps as blocks apart, and the router), while every
     leaf its rules cut over "model" outside them (attention, MLP, Mamba,
-    vocabulary) is computed on the cut; deepseek_v3's MLA stays whole."""
+    vocabulary) is computed on the cut; deepseek_v3's MLA too (its
+    ``wq_b``, ``wkv_b`` and ``wo``; ``wq_a`` and ``wkv_a`` stay whole)."""
     specs, cuts = _modes(arch, (2, 2))
     dense = {n for n, s in specs.items()
              if "model" in str(s) and ".moe." not in n}
     assert dense
     assert {c.mode for n, c in cuts.items() if ".moe." in n} == {"whole"}
     cut = {n for n, c in cuts.items() if c.mode == "cut"}
-    mla = {n for n in dense if ".attn." in n} if arch.startswith(
-        "deepseek") else set()
-    assert cut == dense - mla
+    assert cut == dense
+    mla = {n.rpartition(".")[2] for n in cut if ".attn." in n}
+    assert mla == ({"wq_b", "wkv_b", "wo"} if arch.startswith("deepseek")
+                   else {"wq", "wk", "wv", "wo"})
 
 
 def test_model_cuts_without_a_model_axis_or_with_parent_rules():
